@@ -6,16 +6,27 @@ Run from the repository root, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from tpu_lbfgs_torch/csrc, holds each
-against its plain PyTorch version on the card, drives bench.py's solve
-(chained Rosenbrock, d = 2^20, float32, m = 10, compact_incremental
-direction, Armijo backtracking on the directional polynomial) through
-tpu_lbfgs_torch.minimize, checks that the solve went through the kernels
-and that one iteration never waits on the device, and times the solve.
+against its plain PyTorch version on the card, and drives bench.py's two
+solves, each with the kernels' launch counts set to 0 just before it and
+read just after:
+
+- the single instance (chained Rosenbrock, d = 2^20, float32, m = 10,
+  compact_incremental direction, Armijo backtracking on the directional
+  polynomial) through tpu_lbfgs_torch.minimize, over the Rosenbrock value
+  and gradient and fused tail kernels;
+- the batch (4096 instances of d = 1024 in bounded lockstep, the same
+  solver with fidelity="fixed" and the pair skip) through
+  tpu_lbfgs_torch.vmap_minimize, over the batched compact chain kernel.
+
+It checks that each solve went through its kernels, that its output is
+sound and equals the plain versions' over the first iterations, and that
+one iteration of each never waits on the device; then it times both.
 Every check raises on failure, so the exit code is 0 only when all pass.
 The last line of output is a JSON record of the device; the line before
 it records each kernel.  Without a CUDA device it exits with an error and
 prints no record.
 """
+import itertools
 import json
 import subprocess
 import sys
@@ -30,6 +41,10 @@ SEED = 42                   # bench.py's seed
 MAIN_ITERS = 200
 TRACE_ITERS = 20
 BENCH_ITERS = 1000
+BATCH, BATCH_D = 4096, 1024  # bench.py's batch cell
+RAGGED_BATCH = BATCH + 37
+BATCH_ITERS = 200
+CHAIN_M = (5, 10, 20)
 
 # Kernel against plain version, float32 on the card.  Output vectors: the
 # kernels are built with -fmad=false and round where the plain version does,
@@ -43,6 +58,14 @@ SUM_RTOL = 1e-5
 # the first TRACE_ITERS iterations, f within 1e-4 relative (the float32 sums
 # differ in order and the trajectory amplifies that slowly).
 TRACE_F_RTOL = 1e-4
+# The batched chain kernel against its plain version, in float32 and in
+# float64: both run the same operations in the same order (-fmad=false), so
+# every output is expected equal bit for bit (NaN where the plain version
+# has NaN), and
+# the batch solve's first TRACE_ITERS iterations with the kernel and with
+# the plain chain equal too: alpha equal, f within 0 relative.
+CHAIN_ABS_TOL = 0.0
+BATCH_TRACE_F_RTOL = 0.0
 
 
 def say(*parts):
@@ -191,6 +214,67 @@ def phase_kernels(dev):
     return rec
 
 
+def _chain_inputs(rng, B, m):
+    """Ring states with empty, partial and wrapped histories, pairs below
+    the skip threshold, zero pivots, a negative newest s.y and NaN entries
+    (the cases of tests/test_chain.py), float64 numpy."""
+    SY = rng.uniform(0.1, 2.0, (B, m, m))
+    SY[:, np.arange(m), np.arange(m)] += 2.0
+    YY = rng.uniform(0.1, 2.0, (B, m, m))
+    Sg, Yg = rng.uniform(-1, 1, (B, m)), rng.uniform(-1, 1, (B, m))
+    syh, yyh = rng.uniform(0.1, 2.0, (B, m)), rng.uniform(0.1, 2.0, (B, m))
+    n_pairs = rng.integers(0, 4 * m, (B,))
+    gn = rng.uniform(0.1, 10.0, (B,))
+    for i in range(0, B, 7):
+        SY[i, i % m, i % m] = 0.0                          # zero pivots
+    syh[3::11] = -1.0                                      # bad gamma
+    SY[5::13, 0, 1] = np.nan                               # NaN entries
+    SY[9::17, 1, 1] = 1e-12                                # skipped pairs
+    return SY, YY, Sg, Yg, syh, yyh, n_pairs, gn
+
+
+def phase_chain(dev):
+    from tpu_lbfgs_torch.kernels import chain
+
+    rec = {}
+    for m, B, dt in itertools.product(CHAIN_M, (BATCH, RAGGED_BATCH),
+                                      (torch.float32, torch.float64)):
+        arrays = _chain_inputs(np.random.default_rng(SEED), B, m)
+        args = [torch.from_numpy(a).to(dev, dt) for a in arrays[:6]]
+        args += [torch.from_numpy(arrays[6]).to(dev, torch.int32),
+                 torch.from_numpy(arrays[7]).to(dev, dt)]
+        for thr in (None, 1e-10):
+            k = chain.compact_chain_batched(*args, m=m, skip_thr=thr)
+            p = chain.chain_batched_plain(*args, m=m, skip_thr=thr)
+            torch.cuda.synchronize()
+            where = f"m={m} B={B} {dt} skip={thr}"
+            check(torch.equal(k[4], p[4]),
+                  f"compact_chain fallback flags differ ({where})")
+            err, same_nan = 0.0, True
+            for a, b in zip(k[:4], p[:4]):
+                check(a.dtype == dt, f"compact_chain returned {a.dtype}")
+                same_nan &= torch.equal(a.isnan(), b.isnan())
+                ok = ~b.isnan()
+                err = max(err, (a[ok] - b[ok]).abs().max().item())
+            n_fb = int(k[4].sum())
+            say(f"[kernel] compact_chain {where}: fallback equal ({n_fb} "
+                f"lanes), NaN equal {same_nan}, max abs err {err:.3e} (tol "
+                f"{CHAIN_ABS_TOL})")
+            check(same_nan and err <= CHAIN_ABS_TOL and 0 < n_fb < B,
+                  f"compact_chain disagrees with its plain version ({where})")
+            rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+        if m == 10 and B == BATCH:
+            ms = device_ms(lambda: chain.compact_chain_batched(
+                *args, m=m, skip_thr=1e-10))
+            plain_ms = device_ms(lambda: chain.chain_batched_plain(
+                *args, m=m, skip_thr=1e-10))
+            say(f"[kernel] compact_chain m={m} B={B} {dt}: {ms * 1e3:.2f} us "
+                f"on the card, plain version {plain_ms * 1e3:.2f} us")
+            if dt == torch.float32:     # the batch solve's dtype
+                rec["ms"], rec["plain_ms"] = ms, plain_ms
+    return rec
+
+
 def _bench_cfg(tt, iters):
     return tt.LBFGSConfig(line_search="backtracking",
                           direction="compact_incremental", m=10,
@@ -201,7 +285,7 @@ def _bench_cfg(tt, iters):
 def phase_main_path(dev):
     import tpu_lbfgs_torch as tt
     from tpu_lbfgs_torch.bench.harness import _x0
-    from tpu_lbfgs_torch.kernels import fused_ops
+    from tpu_lbfgs_torch.kernels import chain, fused_ops
 
     p = tt.get_problem("rosenbrock")
     x0 = _x0(D, SEED, torch.float32, dev)
@@ -212,6 +296,7 @@ def phase_main_path(dev):
     torch.cuda.synchronize()
 
     fused_ops.reset_launches()
+    chain.reset_launches()
     t0 = time.perf_counter()
     r = tt.minimize(p.f, x0, cfg, value_and_grad=vg, dir_poly=p.dir_poly,
                     fused_tail=tail)
@@ -287,6 +372,117 @@ def phase_bench(card):
         f"{card}")
 
 
+def _batch_cfg(tt, iters):
+    # tpu_lbfgs/bench/harness.py::bench_batch's configuration.
+    return tt.LBFGSConfig(line_search="backtracking",
+                          direction="compact_incremental", m=10,
+                          ls_eval="polynomial", fidelity="fixed",
+                          pair_skip_threshold=1e-10, max_iters=iters,
+                          tol=0.0)
+
+
+def _batch_x0(dev):
+    # bench_batch's draw: U(-2, 2) of shape (B, d) from seed 42.
+    rng = np.random.default_rng(SEED)
+    return torch.from_numpy(rng.uniform(-2.0, 2.0, (BATCH, BATCH_D))).to(
+        device=dev, dtype=torch.float32)
+
+
+def phase_batch(dev):
+    import tpu_lbfgs_torch as tt
+    from tpu_lbfgs_torch.core import direction
+    from tpu_lbfgs_torch.kernels import chain, fused_ops
+
+    p = tt.get_problem("rosenbrock")
+    x0 = _batch_x0(dev)
+    f0 = p.f(x0)
+    cfg = _batch_cfg(tt, BATCH_ITERS)
+    torch.cuda.synchronize()
+
+    chain.reset_launches()
+    fused_ops.reset_launches()
+    t0 = time.perf_counter()
+    r = tt.vmap_minimize(p.f, x0, cfg, grad=p.grad, dir_poly=p.dir_poly,
+                         lockstep="bounded")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**chain.launches, **fused_ops.launches}
+
+    counts = torch.bincount(r.status.long(), minlength=4).tolist()
+    status = {tt.Status.NAMES[i]: n for i, n in enumerate(counts) if n}
+    ok = r.status != tt.Status.LINE_SEARCH_FAILED
+    mean0, mean1 = f0.mean().item(), r.f.mean().item()
+    say(f"[batch] vmap_minimize B={BATCH} d={BATCH_D} float32 bounded, "
+        f"{BATCH_ITERS} iterations in {wall:.3f} s: mean f {mean0:.6e} -> "
+        f"{mean1:.6e}, max |g| {r.g_norm.max().item():.4e}, status {status}, "
+        f"guards {r.guards.sum(0).tolist()}, launches {launches}")
+    check(bool((r.iterations == BATCH_ITERS).all()),
+          "every lane must run its 200 iterations")
+    check(launches["compact_chain"] == BATCH_ITERS,
+          "the chain kernel must launch once per iteration")
+    check(r.x.shape == (BATCH, BATCH_D) and r.f.shape == (BATCH,)
+          and bool(torch.isfinite(r.f[ok]).all())
+          and bool(torch.isfinite(r.x[ok]).all()) and mean1 < mean0,
+          "mean f must fall and f stay finite on every lane that ran")
+
+    # The first iterations with the chain kernel and with the plain chain,
+    # both on the card, from the same state.
+    vg = tt.make_value_and_grad(p.f, p.grad)
+    traces = {}
+    for label in ("kernel", "plain"):
+        s = tt.init_state(vg, x0, cfg.m)
+        alphas, fs = [], []
+        if label == "plain":
+            direction.compact_chain_batched = chain.chain_batched_plain
+        try:
+            for _ in range(TRACE_ITERS):
+                s = tt.iterate(cfg, p.f, vg, s, p.dir_poly)
+                alphas.append(s.alpha)
+                fs.append(s.f)
+        finally:
+            direction.compact_chain_batched = chain.compact_chain_batched
+        traces[label] = (torch.stack(alphas), torch.stack(fs), s)
+    (a_k, f_k, state), (a_p, f_p, _) = traces["kernel"], traces["plain"]
+    f_rel = ((f_k - f_p).abs() / f_p.abs()).max().item()
+    same_alpha = torch.equal(a_k, a_p)
+    say(f"[batch] first {TRACE_ITERS} iterations, chain kernel vs plain on "
+        f"the card: alpha equal on every lane {same_alpha}, f max rel err "
+        f"{f_rel:.3e} (tol {BATCH_TRACE_F_RTOL})")
+    check(same_alpha, "alpha differs between the chain kernel and plain")
+    check(f_rel <= BATCH_TRACE_F_RTOL, "f differs between kernel and plain")
+    return launches, state, cfg
+
+
+def phase_batch_no_sync(state, cfg):
+    import tpu_lbfgs_torch as tt
+
+    p = tt.get_problem("rosenbrock")
+    vg = tt.make_value_and_grad(p.f, p.grad)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = tt.iterate(cfg, p.f, vg, state, p.dir_poly)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(state.f.shape == (BATCH,), "a batched state must stay batched")
+    say("[sync] one batched iterate (B=4096) under "
+        "torch.cuda.set_sync_debug_mode('error'): no host synchronisation")
+
+
+def phase_bench_batch(card):
+    from tpu_lbfgs_torch.bench.harness import bench_batch
+
+    r = bench_batch(problem="rosenbrock", batch=BATCH, d=BATCH_D,
+                    iters=BATCH_ITERS, repeats=3)
+    check(np.isfinite(r.final_f) and r.iterations == BATCH_ITERS,
+          "bench_batch must finish its iterations with a finite f")
+    say(f"[bench] {r.name}: {r.iters_per_s:.2f} instance-iterations/s "
+        f"({BATCH_ITERS} iterations of {BATCH} lanes, best of 3 runs "
+        f"{r.wall_s:.4f} s, runs "
+        f"{[round(w, 4) for w in r.details['repeat_walls_s']]}, status "
+        f"counts {r.details['status_counts']}) on {card}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -298,9 +494,14 @@ def main():
     card = phase_card()
     phase_build()
     rec = phase_kernels(dev)
+    rec["compact_chain"] = phase_chain(dev)
     launches, state, cfg = phase_main_path(dev)
     phase_no_sync(state, cfg)
+    batch_launches, state, cfg = phase_batch(dev)
+    phase_batch_no_sync(state, cfg)
+    launches["compact_chain"] = batch_launches["compact_chain"]
     phase_bench(card)
+    phase_bench_batch(card)
 
     sources = {
         "rosenbrock_vg": ("tpu_lbfgs_torch/csrc/rosenbrock_vg.cu",
@@ -308,6 +509,8 @@ def main():
         "rosenbrock_fused_tail": (
             "tpu_lbfgs_torch/csrc/rosenbrock_fused_tail.cu",
             "tpu_lbfgs/kernels/pallas_ops.py:653"),
+        "compact_chain": ("tpu_lbfgs_torch/csrc/compact_chain.cu",
+                          "tpu_lbfgs/kernels/chain.py:122"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],

@@ -3,14 +3,16 @@
 It mirrors the JAX package's module names and public functions, and runs
 them as eager PyTorch on one device, with hand-written CUDA kernels (built
 at first use, ``kernels/_build.py``) where the JAX package has Pallas
-kernels.  The port so far covers the solve that ``bench.py`` times: chained
-Rosenbrock, Armijo backtracking on the directional polynomial and the
-incremental compact direction.  Options outside it raise
+kernels.  The port so far covers the two solves that ``bench.py`` times:
+chained Rosenbrock, Armijo backtracking on the directional polynomial and
+the incremental compact direction, for one large instance (``minimize``)
+and for a batch of small ones in lockstep (``vmap_minimize``).  Options outside it raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 
 This package imports torch and never jax.
 """
 
+from .batch import vmap_minimize
 from .config import LBFGSConfig
 from .core.solver import (
     init_state,
@@ -45,4 +47,5 @@ __all__ = [
     "make_value_and_grad",
     "solve_bounded",
     "solve_from_state",
+    "vmap_minimize",
 ]

@@ -1,7 +1,9 @@
-"""Fixed-iteration throughput of the port on the GPU, with the protocol of
-``tpu_lbfgs.bench.harness.bench_tpu``: the same starting points (_x0), tol=0
-so that every run does the same iterations, one warm-up run, best of
-``repeats`` timed runs per seed, mean over seeds.
+"""Fixed-iteration throughput of the port on the GPU, with the protocols of
+``tpu_lbfgs.bench.harness``: ``bench_gpu`` as ``bench_tpu`` (the same
+starting points (_x0), tol=0 so that every run does the same iterations,
+one warm-up run, best of ``repeats`` timed runs per seed, mean over seeds),
+and ``bench_batch`` as its namesake (a batch of instances in bounded
+lockstep, instance-iterations/s).
 """
 from __future__ import annotations
 
@@ -13,7 +15,12 @@ import numpy as np
 import torch
 
 from ..config import LBFGSConfig
-from ..core.solver import init_state, solve_from_state
+from ..core.solver import (
+    init_state,
+    make_value_and_grad,
+    solve_bounded,
+    solve_from_state,
+)
 from ..problems.suite import fused_tail_for, fused_value_and_grad, get_problem
 
 REFERENCE_SEEDS = (42, 365, 12345, 777777, 10000)
@@ -38,6 +45,12 @@ def _x0(d: int, seed: int, dtype, device="cpu") -> torch.Tensor:
     return torch.from_numpy(base).to(device=device, dtype=dtype)
 
 
+def _cuda_device(what: str) -> torch.device:
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{what} needs a CUDA device")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def bench_gpu(problem: str = "rosenbrock", d: int = 1_000_000,
               iters: int = 200, cfg: Optional[LBFGSConfig] = None,
               dtype=torch.float32, seeds=REFERENCE_SEEDS[:1],
@@ -45,9 +58,7 @@ def bench_gpu(problem: str = "rosenbrock", d: int = 1_000_000,
     """Fixed-iteration throughput of the solver on the current CUDA
     device, fenced by ``torch.cuda.synchronize()``.  Raises when no CUDA
     device is present: a CPU number is not a GPU measurement."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("bench_gpu needs a CUDA device")
-    device = torch.device("cuda", torch.cuda.current_device())
+    device = _cuda_device("bench_gpu")
     cfg = cfg or LBFGSConfig(line_search="backtracking",
                              direction="compact_incremental",
                              ls_eval="polynomial", use_pallas=True)
@@ -86,4 +97,55 @@ def bench_gpu(problem: str = "rosenbrock", d: int = 1_000_000,
         details={"per_seed_s": per_seed, "repeat_walls_s": all_walls,
                  "warmup_s": warmup_s, "n_fev": int(out.n_fev),
                  "n_gev": int(out.n_gev),
+                 "device": torch.cuda.get_device_name(device)})
+
+
+def bench_batch(problem: str = "rosenbrock", batch: int = 4096,
+                d: int = 1024, iters: int = 200,
+                cfg: Optional[LBFGSConfig] = None, dtype=torch.float32,
+                seed: int = 42, repeats: int = 3) -> BenchResult:
+    """Thousands of independent instances in bounded lockstep on the
+    current CUDA device (``solve_bounded`` over a (batch, d) state, as the
+    reference's jitted vmap of it).  Reports instance-iterations/s = batch *
+    iters / wall, best of ``repeats`` runs after one warm-up, each fenced by
+    ``torch.cuda.synchronize()``.  Raises when no CUDA device is present."""
+    device = _cuda_device("bench_batch")
+    # fidelity="fixed" (a search that never satisfies Armijo fails instead
+    # of stepping untested) and the pair skip keep every float32 lane
+    # finite, as in the reference's bench_batch.
+    cfg = cfg or LBFGSConfig(line_search="backtracking",
+                             direction="compact_incremental",
+                             ls_eval="polynomial", fidelity="fixed",
+                             pair_skip_threshold=1e-10)
+    cfg = cfg.replace(max_iters=iters, tol=0.0)
+    p = get_problem(problem)
+    vg = make_value_and_grad(p.f, p.grad)
+    dir_poly = p.dir_poly if cfg.ls_eval == "polynomial" else None
+    # The reference's draw: U(-2, 2) of shape (batch, d) in float64, rounded
+    # to dtype.
+    rng = np.random.default_rng(seed)
+    x0s = torch.from_numpy(rng.uniform(-2.0, 2.0, (batch, d))).to(
+        device=device, dtype=dtype)
+
+    def run():
+        state = init_state(vg, x0s, cfg.m, cfg.history_dtype)
+        return solve_bounded(cfg, p.f, vg, state, dir_poly)
+
+    out = run()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    best = min(walls)
+    return BenchResult(
+        name=f"gpu-batch/{problem}/B={batch}/d={d}/{cfg.line_search}",
+        iters_per_s=batch * iters / best, wall_s=best, iterations=iters,
+        final_f=float(out.f.mean()), final_g_norm=float(out.g_norm.max()),
+        details={"batch": batch, "per_instance_iters_per_s": iters / best,
+                 "repeat_walls_s": walls,
+                 "status_counts": torch.bincount(out.status.long(), minlength=4)
+                 .tolist(),
                  "device": torch.cuda.get_device_name(device)})

@@ -3,7 +3,9 @@
 A state crosses as a dict ``{field: numpy array}`` of the reference's
 ``LBFGSState`` fields (``{k: np.asarray(v) for k, v in s._asdict().items()}``
 on the JAX side), with the history ring in the reference's ``(m, R, L)``
-layout.  Both directions copy, so the two solvers never share a buffer.
+layout.  A batched state (``jax.vmap(init_state)`` on the JAX side) has a
+leading lane axis on every field, and its ring is ``(B, m, R, L)``.  Both
+directions copy, so the two solvers never share a buffer.
 """
 from __future__ import annotations
 
@@ -27,23 +29,23 @@ def hist_block(d: int) -> tuple[int, int]:
 
 def state_from_numpy(arrays: dict, device="cpu") -> LBFGSState:
     """The port's state on ``device`` from a reference state's arrays; the
-    (m, R, L) ring becomes a flat (m, d) ring."""
+    (..., m, R, L) ring becomes a flat (..., m, d) ring."""
     fields = {}
     for f in dataclasses.fields(LBFGSState):
         t = torch.from_numpy(np.array(arrays[f.name], copy=True)).to(device)
         if f.name in ("s_hist", "y_hist"):
-            t = t.reshape(t.shape[0], -1)
+            t = t.flatten(-2)
         fields[f.name] = t
     return LBFGSState(**fields)
 
 
 def state_to_numpy(state: LBFGSState) -> dict:
     """A reference state's arrays from the port's state (ring as
-    (m, R, L))."""
+    (..., m, R, L))."""
     out = {}
     for f in dataclasses.fields(LBFGSState):
         a = getattr(state, f.name).detach().cpu().numpy().copy()
         if f.name in ("s_hist", "y_hist"):
-            a = a.reshape((a.shape[0],) + hist_block(a.shape[1]))
+            a = a.reshape(a.shape[:-1] + hist_block(a.shape[-1]))
         out[f.name] = a
     return out

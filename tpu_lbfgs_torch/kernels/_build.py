@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``tpu_lbfgs_torch/csrc`` have a plain C interface.  At
-first use they are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library, which is loaded with ``ctypes``.  The library lands in
+first use each is compiled with ``nvcc`` for Hopper (``sm_90a``), all at
+once in parallel, and the objects are linked into one shared library, which
+is loaded with ``ctypes``.  The library lands in
 ``tpu_lbfgs_torch/_build/<hash>/``, keyed by a hash of the sources and
 flags, so an edit rebuilds and an unchanged tree reuses the last build.
 Building takes seconds: no source includes PyTorch's headers.
@@ -27,8 +28,7 @@ LIB_NAME = "libtpu_lbfgs_torch.so"
 # multiply-add, so each kernel rounds exactly where its plain PyTorch
 # version does and their output vectors agree bit for bit.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -38,6 +38,10 @@ _SIGNATURES = {
                              ctypes.c_int),
     "tl_rosenbrock_fused_tail_f32": ([_P] * 10 + [ctypes.c_longlong, _P],
                                      ctypes.c_int),
+    **{f"tl_compact_chain_{t}": ([_P] * 8 + [c_thr, ctypes.c_int] + [_P] * 5
+                                 + [ctypes.c_longlong, ctypes.c_int, _P],
+                                 ctypes.c_int)
+       for t, c_thr in (("f32", ctypes.c_float), ("f64", ctypes.c_double))},
 }
 
 
@@ -72,16 +76,34 @@ def build() -> tuple[Path, float, str]:
     if lib.is_file():
         return lib, 0.0, log.read_text() if log.is_file() else ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    nvcc, pid = find_nvcc(), os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{pid}.o"   # nvcc goes by the suffix
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = [proc.communicate()[0] for proc in procs]
+    report = "".join(outs)
+    failed = [(obj, proc.returncode) for obj, proc in zip(objs, procs)
+              if proc.returncode != 0]
+    tmp = out_dir / f"{LIB_NAME}.{pid}.tmp"
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True, check=False)
+        report += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed = [(tmp, link.returncode)]
     seconds = time.perf_counter() - t0
-    report = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{report}")
+        raise RuntimeError(f"nvcc failed ({failed}):\n{report}")
     log.write_text(report)
     os.replace(tmp, lib)    # atomic: a concurrent build sees all or nothing
     return lib, seconds, report

@@ -12,6 +12,11 @@ Both a kernel and its plain version form each sum from the same float32
 terms, accumulate in float64 and round once to the working dtype, so the
 two differ only by the order of float64 additions.
 
+The plain versions take an optional leading batch axis, ``(..., d)`` with
+every sum over the last axis, for the batch solve (which, like the
+reference's, runs them and never the kernels).  The kernels take one
+contiguous ``(d,)`` vector.
+
 A wrapper takes its plain version only for tensors on the CPU, where the
 tests run.  A CUDA tensor launches the kernel (float32 only), and anything
 else raises.  ``launches`` counts each wrapper's kernel launches, so a run
@@ -22,6 +27,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from ..types import per_lane
 from . import _build
 
 #: Kernel launches per wrapper since the last ``reset_launches()``.
@@ -45,26 +51,38 @@ def _check_vec(name: str, t: Tensor, n: int) -> None:
 
 
 def _sum(t: Tensor) -> Tensor:
-    return torch.sum(t, dtype=torch.float64).to(t.dtype)
+    return torch.sum(t, dim=-1, dtype=torch.float64).to(t.dtype)
+
+
+def _vdot(a: Tensor, b: Tensor) -> Tensor:
+    """a . b over the last axis, in the working dtype."""
+    return torch.dot(a, b) if a.dim() == 1 else torch.linalg.vecdot(a, b)
 
 
 def _dot(a: Tensor, b: Tensor) -> Tensor:
-    return torch.dot(a.double(), b.double()).to(a.dtype)
+    """a . b over the last axis, accumulated in float64."""
+    return _vdot(a.double(), b.double()).to(a.dtype)
 
 
 # --- value and gradient -----------------------------------------------------
 
+def rosenbrock_grad_plain(x: Tensor) -> Tensor:
+    """The analytic gradient of chained Rosenbrock over the last axis."""
+    xi, xn = x[..., :-1], x[..., 1:]
+    t1 = xn - xi * xi
+    g = torch.zeros_like(x)
+    g[..., :-1] += 2.0 * (xi - 1.0) - 400.0 * xi * t1
+    g[..., 1:] += 200.0 * t1
+    return g
+
+
 def rosenbrock_vg_plain(x: Tensor) -> tuple[Tensor, Tensor]:
     """Chained Rosenbrock f and gradient from plain tensor ops (the
     reference's jnp fallback of fused_vg_rosenbrock)."""
-    xi, xn = x[:-1], x[1:]
+    xi, xn = x[..., :-1], x[..., 1:]
     t1 = xn - xi * xi
     t2 = 1.0 - xi
-    f = _sum(100.0 * t1 * t1 + t2 * t2)
-    g = torch.zeros_like(x)
-    g[:-1] += 2.0 * (xi - 1.0) - 400.0 * xi * t1
-    g[1:] += 200.0 * t1
-    return f, g
+    return _sum(100.0 * t1 * t1 + t2 * t2), rosenbrock_grad_plain(x)
 
 
 def fused_vg_rosenbrock(x: Tensor) -> tuple[Tensor, Tensor]:
@@ -95,8 +113,9 @@ def fused_tail_plain(vg_fn, x: Tensor, d: Tensor, alpha: Tensor, g: Tensor,
     """The tail from plain tensor ops and any value-and-gradient function
     (the reference's fused_tail_jnp with with_matvec=False).  Returns
     (x_new, f_new, g_new, s_row, y_row, s.y, y.y, g_new.g_new, d.g_new,
-    g.g_new, y.g_new, None, None); the history is not read."""
-    s = alpha * d
+    g.g_new, y.g_new, None, None); the history is not read.  Batched,
+    ``alpha`` holds one step per lane."""
+    s = per_lane(alpha) * d
     x_new = x + s
     f_new, g_new = vg_fn(x_new)
     y = g_new - g

@@ -11,6 +11,9 @@ picks the first accepted trial.  The ladder is built by the loop's own
 repeated multiplication in the working dtype, and each trial runs the
 loop's own comparison, so the accepted alpha is bit-identical to the
 loop's.
+
+Batched, ``f_x`` and ``g_dot_d`` carry one value per lane, ``(B,)``, and
+``phi`` returns ``(B, K)``: each lane picks its own first accepted trial.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import torch
 from torch import Tensor
 
 from ..config import LBFGSConfig
-from ..types import LineSearchResult
+from ..types import LineSearchResult, per_lane
 
 _LADDER_CAP = 100_000
 
@@ -31,7 +34,7 @@ def _apply_rescue(cfg: LBFGSConfig, alpha: Tensor) -> tuple[Tensor, Tensor]:
     """Parallel-fidelity floor rescue: alpha < floor -> rescue value.
     Returns (alpha, fired) for the Guard.LS_RESCUE counter."""
     if cfg.alpha_rescue_floor is None:
-        return alpha, torch.zeros((), dtype=torch.int32, device=alpha.device)
+        return alpha, torch.zeros_like(alpha, dtype=torch.int32)
     hit = alpha < cfg.alpha_rescue_floor
     return (torch.where(hit, cfg.alpha_rescue_value, alpha),
             hit.to(torch.int32))
@@ -68,16 +71,19 @@ def _ladder(initial_step: float, shrink: float, tol: float,
 def backtracking(cfg: LBFGSConfig, phi: Callable[[Tensor], Tensor],
                  phi_dphi, f_x: Tensor, g_dot_d: Tensor) -> LineSearchResult:
     """Armijo backtracking over the whole ladder at once; ``phi`` must take
-    a (K,) batch of step sizes."""
+    a (K,) ladder of step sizes and return (..., K), one row per lane."""
     del phi_dphi
     alphas, underflowed = _ladder(cfg.initial_step, cfg.shrink,
                                   cfg.backtracking_tol, f_x.dtype, f_x.device)
-    accept = _armijo_accept(cfg, f_x, phi(alphas), alphas, g_dot_d)
-    accepted = torch.any(accept)
-    first = torch.argmax(accept.to(torch.int32)).reshape(1)
-    alpha = torch.where(accepted, alphas.index_select(0, first)[0],
-                        underflowed)
-    n_fev = torch.where(accepted, first[0].to(torch.int32) + 1,
+    accept = _armijo_accept(cfg, per_lane(f_x), phi(alphas), alphas,
+                            per_lane(g_dot_d))
+    accepted = torch.any(accept, dim=-1)
+    first = torch.argmax(accept.to(torch.int32), dim=-1)
+    # index_select on the flattened index: indexing with a 0-d tensor would
+    # read it on the host.
+    alpha = torch.where(accepted, alphas.index_select(0, first.reshape(-1))
+                        .reshape(first.shape), underflowed)
+    n_fev = torch.where(accepted, first.to(torch.int32) + 1,
                         alphas.shape[0])
     if cfg.fidelity == "fixed" and cfg.alpha_rescue_floor is None:
         # Textbook semantics: a search that never satisfied Armijo fails.

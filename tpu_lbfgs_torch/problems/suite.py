@@ -2,6 +2,10 @@
 Rosenbrock, the quadratic and the sphere, with the same formulas in the same
 order of operations.  The coupled quadratic is still to be ported.
 
+Every function takes an optional leading batch axis: x is ``(..., d)``, f
+is ``(...)``, and ``dir_poly`` returns its coefficients on the last axis,
+``(..., 5)`` (``(..., 3)`` for the quadratic and the sphere).
+
 ``fused_value_and_grad`` and ``fused_tail_for`` hand out the CUDA kernels of
 ``kernels.fused_ops`` (Rosenbrock only so far), or with
 ``use_pallas=False`` the plain PyTorch composition, as the reference hands
@@ -17,9 +21,11 @@ import torch
 from torch import Tensor
 
 from ..kernels.fused_ops import (
+    _vdot,
     fused_tail_plain,
     fused_tail_rosenbrock,
     fused_vg_rosenbrock,
+    rosenbrock_grad_plain,
     rosenbrock_vg_plain,
 )
 
@@ -42,7 +48,7 @@ class Problem:
 
 def quadratic_f(x: Tensor) -> Tensor:
     r = x - 1.0
-    return torch.sum(r * r)
+    return torch.sum(r * r, dim=-1)
 
 
 def quadratic_grad(x: Tensor) -> Tensor:
@@ -51,45 +57,44 @@ def quadratic_grad(x: Tensor) -> Tensor:
 
 def quadratic_dir_poly(x: Tensor, d: Tensor) -> Tensor:
     r = x - 1.0
-    return torch.stack([torch.dot(r, r), 2.0 * torch.dot(r, d),
-                        torch.dot(d, d)])
+    return torch.stack([_vdot(r, r), 2.0 * _vdot(r, d), _vdot(d, d)], dim=-1)
 
 
 # --- chained Rosenbrock ------------------------------------------------------
 
 def rosenbrock_f(x: Tensor) -> Tensor:
-    xi = x[:-1]
-    xn = x[1:]
+    xi = x[..., :-1]
+    xn = x[..., 1:]
     t1 = xn - xi * xi
     t2 = 1.0 - xi
-    return torch.sum(100.0 * t1 * t1 + t2 * t2)
+    return torch.sum(100.0 * t1 * t1 + t2 * t2, dim=-1)
 
 
 def rosenbrock_grad(x: Tensor) -> Tensor:
-    return rosenbrock_vg_plain(x)[1]
+    return rosenbrock_grad_plain(x)
 
 
 def rosenbrock_dir_poly(x: Tensor, d: Tensor) -> Tensor:
     # Per term i with A = x' - x^2, B = d' - 2 x d, C = -d^2, e = 1 - x
     # (primes at index i+1): 100 (A + B a + C a^2)^2 + (e - a d)^2.
-    xi, xn = x[:-1], x[1:]
-    di, dn = d[:-1], d[1:]
+    xi, xn = x[..., :-1], x[..., 1:]
+    di, dn = d[..., :-1], d[..., 1:]
     A = xn - xi * xi
     B = dn - 2.0 * xi * di
     C = -di * di
     e = 1.0 - xi
-    c0 = torch.sum(100.0 * A * A + e * e)
-    c1 = torch.sum(200.0 * A * B - 2.0 * e * di)
-    c2 = torch.sum(100.0 * (B * B + 2.0 * A * C) + di * di)
-    c3 = torch.sum(200.0 * B * C)
-    c4 = torch.sum(100.0 * C * C)
-    return torch.stack([c0, c1, c2, c3, c4])
+    c0 = torch.sum(100.0 * A * A + e * e, dim=-1)
+    c1 = torch.sum(200.0 * A * B - 2.0 * e * di, dim=-1)
+    c2 = torch.sum(100.0 * (B * B + 2.0 * A * C) + di * di, dim=-1)
+    c3 = torch.sum(200.0 * B * C, dim=-1)
+    c4 = torch.sum(100.0 * C * C, dim=-1)
+    return torch.stack([c0, c1, c2, c3, c4], dim=-1)
 
 
 # --- sphere ------------------------------------------------------------------
 
 def sphere_f(x: Tensor) -> Tensor:
-    return torch.sum(x * x)
+    return torch.sum(x * x, dim=-1)
 
 
 def sphere_grad(x: Tensor) -> Tensor:
@@ -97,8 +102,7 @@ def sphere_grad(x: Tensor) -> Tensor:
 
 
 def sphere_dir_poly(x: Tensor, d: Tensor) -> Tensor:
-    return torch.stack([torch.dot(x, x), 2.0 * torch.dot(x, d),
-                        torch.dot(d, d)])
+    return torch.stack([_vdot(x, x), 2.0 * _vdot(x, d), _vdot(d, d)], dim=-1)
 
 
 _PROBLEMS = {
@@ -124,7 +128,7 @@ def get_problem(name: str) -> Problem:
 def _unported_kernel(name: str) -> NotImplementedError:
     return NotImplementedError(
         f"the {name} body of the fused kernels is not ported to "
-        "tpu_lbfgs_torch yet (ROADMAP.md Queue 2 items 1-2); pass "
+        "tpu_lbfgs_torch yet (ROADMAP.md Queue 2 item 4); pass "
         "use_pallas=False for the plain PyTorch version")
 
 
@@ -148,11 +152,11 @@ def fused_tail_for(name: str, with_matvec: bool = False,
     if with_matvec:
         raise NotImplementedError(
             "the fused tail's in-kernel history matvec (with_matvec) is not "
-            "ported yet (ROADMAP.md Queue 2 item 1)")
+            "ported yet (ROADMAP.md Queue 2 item 4)")
     if accurate_dots:
         raise NotImplementedError(
             "the compensated fused tail (accurate_dots) is not ported yet "
-            "(ROADMAP.md Queue 2 item 1)")
+            "(ROADMAP.md Queue 2 item 4)")
     if use_pallas and name == "rosenbrock":
         return fused_tail_rosenbrock
     if use_pallas and name in _UNPORTED_KERNELS:

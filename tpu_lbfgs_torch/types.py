@@ -6,6 +6,10 @@ is a flat, contiguous ``(m, d)`` ring: the reference's ``(m, R, 128)``
 row tiling (``tpu_lbfgs.types.hist_block``) only works around the TPU's
 sublane padding and has no purpose on a GPU.  ``interop`` converts between
 the two layouts.
+
+A batch of B instances solved in lockstep is one state whose every field
+has a leading lane axis: x (B, d), the ring (B, m, d), SY (B, m, m),
+per-lane scalars (B,) and guards (B, Guard.N).
 """
 from __future__ import annotations
 
@@ -72,10 +76,20 @@ class LBFGSState:
 
     @property
     def hist_len(self) -> Tensor:
-        return torch.clamp(self.n_pairs, max=self.s_hist.shape[0])
+        return torch.clamp(self.n_pairs, max=self.s_hist.shape[-2])
 
     def replace(self, **kw) -> "LBFGSState":
         return dataclasses.replace(self, **kw)
+
+
+def per_lane(t: Tensor, n: int = 1) -> Tensor:
+    """A per-lane value made to broadcast over ``n`` trailing axes: a
+    batch's (B,) becomes (B, 1, ...).  A single instance's 0-d value
+    broadcasts as it is and is returned with no op, which keeps the
+    host-bound single-instance iteration from paying for the batch."""
+    if t.dim() == 0:
+        return t
+    return t[..., None] if n == 1 else t[(...,) + (None,) * n]
 
 
 class LineSearchResult(NamedTuple):
