@@ -6,8 +6,8 @@ Run from the repository root, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from tpu_lbfgs_torch/csrc, holds each
-against its plain PyTorch version on the card, and drives bench.py's two
-solves, each with the kernels' launch counts set to 0 just before it and
+against its plain PyTorch version on the card, and drives three paths,
+each solve with the kernels' launch counts set to 0 just before it and
 read just after:
 
 - the single instance (chained Rosenbrock, d = 2^20, float32, m = 10,
@@ -16,11 +16,18 @@ read just after:
   and gradient and fused tail kernels;
 - the batch (4096 instances of d = 1024 in bounded lockstep, the same
   solver with fidelity="fixed" and the pair skip) through
-  tpu_lbfgs_torch.vmap_minimize, over the batched compact chain kernel.
+  tpu_lbfgs_torch.vmap_minimize, over the batched compact chain kernel;
+- direct evaluation (the reference protocol's f32 stack: REFERENCE_PARALLEL,
+  compact_incremental, ls_eval="direct", no alpha rescue) under each of the
+  8 line searches at d = 2^20 from U(-10, 10), over the value and gradient
+  and fused tail kernels and, for the speculative twins, the K-trial
+  multi_phi and multi_phi_dphi kernels.
 
 It checks that each solve went through its kernels, that its output is
 sound and equals the plain versions' over the first iterations, and that
-one iteration of each never waits on the device; then it times both.
+one iteration of each polynomial path never waits on the device; then it
+times the two polynomial solves, and prints each line search's time,
+trials and host reads per iteration.
 Every check raises on failure, so the exit code is 0 only when all pass.
 The last line of output is a JSON record of the device; the line before
 it records each kernel.  Without a CUDA device it exits with an error and
@@ -66,6 +73,26 @@ TRACE_F_RTOL = 1e-4
 # the plain chain equal too: alpha equal, f within 0 relative.
 CHAIN_ABS_TOL = 0.0
 BATCH_TRACE_F_RTOL = 0.0
+# The K-trial kernels' trial counts: spec_width (8), and the Wolfe tree's
+# (R+1)(R+2)/2 = 36 at R = spec_width - 1, at the main path's sizes and at
+# one of 293 (a full block of 256 threads and a ragged one), where every
+# term is a large share of its sum.
+TRIALS = (8, 36)
+TRIAL_D = (D, RAGGED, 293)
+# These kernels return sums and no vector, so the sums are held tight: both
+# sides add the same float32 terms in float64, in orders that differ by at
+# most about n * 2^-53 of sum|terms| (1.2e-10 at n = 2^20), and round once
+# to float32, which may differ by one ulp more.  So |kernel - plain| <=
+# 1e-9 * sum|terms| + 1 float32 ulp of plain: a term dropped or formed
+# wrong (about 1e-6 of sum|terms| at n = 2^20) fails.
+TRIAL_SUM_RTOL = 1e-9
+# The direct-evaluation phase: iterations per line search, and the box of
+# x0 (scripts/convergence_profiles.py: from the published U(-1000, 1000)
+# the interpolating searches fail at iteration 1 in float32).  A twin's
+# first TRACE_ITERS iterations with its K-trial kernel and with the plain
+# version take equal alphas and f within TRACE_F_RTOL.
+DIRECT_ITERS = 100
+DIRECT_BOX = 10.0
 
 
 def say(*parts):
@@ -275,6 +302,87 @@ def phase_chain(dev):
     return rec
 
 
+def _trial_abs_terms(x, d, alphas):
+    """Per trial, sum |f terms| and sum |g_i d_i| in float64 at the float32
+    trial points: the scale of each sum's rounding error."""
+    from tpu_lbfgs_torch.kernels.fused_ops import rosenbrock_grad_plain
+
+    f_abs, g_abs = [], []
+    for a in alphas.unbind(0):
+        u = (x + a * d).double()
+        t = u[1:] - u[:-1] * u[:-1]
+        f_abs.append((100.0 * t * t + (1.0 - u[:-1]) ** 2).abs().sum())
+        g_abs.append((rosenbrock_grad_plain(u) * d.double()).abs().sum())
+    return torch.stack(f_abs), torch.stack(g_abs)
+
+
+def _beyond_ulp(a, b, scale):
+    """Largest |a - b| beyond one float32 ulp of b, in units of scale (NaN
+    where either side is NaN)."""
+    b_abs = b.abs()
+    ulp = torch.nextafter(b_abs, torch.full_like(b_abs, float("inf"))) - b_abs
+    over = ((a.double() - b.double()).abs() - ulp.double()).clamp(min=0.0)
+    return (over / scale).max().item()
+
+
+def phase_trial_kernels(dev):
+    from tpu_lbfgs_torch.kernels import fused_ops
+    from tpu_lbfgs_torch.kernels import line_search_ops as ops
+
+    names = ("rosenbrock_multi_phi", "rosenbrock_multi_phi_dphi")
+    rec = {name: {"max_abs_err": 0.0} for name in names}
+    rng = np.random.default_rng(SEED)
+    for n, k in itertools.product(TRIAL_D, TRIALS):
+        x, d, _ = _kernel_inputs(n, dev)
+        alphas = torch.from_numpy(2.0 ** rng.integers(-6, 3, k)
+                                  * rng.uniform(0.5, 1.0, k)).to(
+            device=dev, dtype=torch.float32)
+        phi_k = ops.multi_phi_rosenbrock(x, d, alphas)
+        phi_p = ops.multi_phi_plain(fused_ops.rosenbrock_f_plain, x, d, alphas)
+        f_k, g_k = ops.multi_phi_dphi_rosenbrock(x, d, alphas)
+        f_p, g_p = ops.multi_phi_dphi_plain(fused_ops.rosenbrock_vg_plain, x,
+                                            d, alphas)
+        torch.cuda.synchronize()
+        f_abs, g_abs = _trial_abs_terms(x, d, alphas)
+        for name, pairs in ((names[0], ((phi_k, phi_p, f_abs),)),
+                            (names[1], ((f_k, f_p, f_abs),
+                                        (g_k, g_p, g_abs)))):
+            check(all(a.shape == (k,) and a.dtype == torch.float32
+                      for a, _, _ in pairs),
+                  f"{name} must return ({k},) float32 sums")
+            errs = [((a.double() - b.double()).abs() / s).max().item()
+                    for a, b, s in pairs]
+            overs = [_beyond_ulp(a, b, s) for a, b, s in pairs]
+            abs_err = max((a - b).abs().max().item() for a, b, _ in pairs)
+            say(f"[kernel] {name} d={n} K={k}: max abs err {abs_err:.3e}, "
+                f"max err {max(errs):.3e} of sum|terms|, {max(overs):.3e} "
+                f"beyond 1 ulp (tol {TRIAL_SUM_RTOL} of sum|terms| + 1 ulp)")
+            check(all(v <= TRIAL_SUM_RTOL for v in overs),
+                  f"{name} disagrees with its plain version at d={n} K={k}")
+            if n == D:
+                rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"],
+                                               abs_err)
+        if n != D:
+            continue
+        times = {
+            names[0]: (lambda: ops.multi_phi_rosenbrock(x, d, alphas),
+                       lambda: ops.multi_phi_plain(
+                           fused_ops.rosenbrock_f_plain, x, d, alphas)),
+            names[1]: (lambda: ops.multi_phi_dphi_rosenbrock(x, d, alphas),
+                       lambda: ops.multi_phi_dphi_plain(
+                           fused_ops.rosenbrock_vg_plain, x, d, alphas)),
+        }
+        for name, (kernel, plain) in times.items():
+            ms, plain_ms = device_ms(kernel), device_ms(plain)
+            say(f"[kernel] {name} d={n} K={k}: {ms * 1e3:.2f} us on the "
+                f"card, plain version {plain_ms * 1e3:.2f} us")
+            # The record keeps the K the direct path gives each kernel most:
+            # 8 for multi_phi, the 36-node tree for multi_phi_dphi.
+            if k == (8 if name == names[0] else 36):
+                rec[name]["ms"], rec[name]["plain_ms"] = ms, plain_ms
+    return rec
+
+
 def _bench_cfg(tt, iters):
     return tt.LBFGSConfig(line_search="backtracking",
                           direction="compact_incremental", m=10,
@@ -284,8 +392,8 @@ def _bench_cfg(tt, iters):
 
 def phase_main_path(dev):
     import tpu_lbfgs_torch as tt
+    from tpu_lbfgs_torch import kernels
     from tpu_lbfgs_torch.bench.harness import _x0
-    from tpu_lbfgs_torch.kernels import chain, fused_ops
 
     p = tt.get_problem("rosenbrock")
     x0 = _x0(D, SEED, torch.float32, dev)
@@ -295,14 +403,13 @@ def phase_main_path(dev):
     cfg = _bench_cfg(tt, MAIN_ITERS)
     torch.cuda.synchronize()
 
-    fused_ops.reset_launches()
-    chain.reset_launches()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     r = tt.minimize(p.f, x0, cfg, value_and_grad=vg, dir_poly=p.dir_poly,
                     fused_tail=tail)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(fused_ops.launches)
+    launches = kernels.launch_counts()
 
     f, k = r.f.item(), r.iterations.item()
     say(f"[main] minimize d={D} float32, {k} iterations in {wall:.3f} s: "
@@ -390,8 +497,9 @@ def _batch_x0(dev):
 
 def phase_batch(dev):
     import tpu_lbfgs_torch as tt
+    from tpu_lbfgs_torch import kernels
     from tpu_lbfgs_torch.core import direction
-    from tpu_lbfgs_torch.kernels import chain, fused_ops
+    from tpu_lbfgs_torch.kernels import chain
 
     p = tt.get_problem("rosenbrock")
     x0 = _batch_x0(dev)
@@ -399,14 +507,13 @@ def phase_batch(dev):
     cfg = _batch_cfg(tt, BATCH_ITERS)
     torch.cuda.synchronize()
 
-    chain.reset_launches()
-    fused_ops.reset_launches()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     r = tt.vmap_minimize(p.f, x0, cfg, grad=p.grad, dir_poly=p.dir_poly,
                          lockstep="bounded")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**chain.launches, **fused_ops.launches}
+    launches = kernels.launch_counts()
 
     counts = torch.bincount(r.status.long(), minlength=4).tolist()
     status = {tt.Status.NAMES[i]: n for i, n in enumerate(counts) if n}
@@ -469,6 +576,113 @@ def phase_batch_no_sync(state, cfg):
         "torch.cuda.set_sync_debug_mode('error'): no host synchronisation")
 
 
+def _direct_cfg(tt, strategy, iters):
+    # bench/reference_protocol.py::run_tpu_cell's float32 stack, no rescue.
+    return tt.REFERENCE_PARALLEL.replace(
+        line_search=strategy, direction="compact_incremental",
+        ls_eval="direct", use_pallas=True, alpha_rescue_floor=None,
+        max_iters=iters, tol=0.0)
+
+
+def _direct_solver(tt, use_kernels=True):
+    return dict(
+        value_and_grad=tt.fused_value_and_grad("rosenbrock"),
+        fused_tail=tt.fused_tail_for("rosenbrock"),
+        phi_batch=tt.multi_phi_for("rosenbrock", use_pallas=use_kernels),
+        phi_dphi_batch=tt.multi_phi_dphi_for("rosenbrock",
+                                             use_pallas=use_kernels))
+
+
+def phase_direct(dev):
+    import tpu_lbfgs_torch as tt
+    from tpu_lbfgs_torch import kernels
+    from tpu_lbfgs_torch.kernels import line_search_ops
+    from tpu_lbfgs_torch.linesearch import strategies
+
+    p = tt.get_problem("rosenbrock")
+    rng = np.random.default_rng(SEED)
+    x0 = torch.from_numpy(rng.uniform(-DIRECT_BOX, DIRECT_BOX, D)).to(
+        device=dev, dtype=torch.float32)
+    f0 = p.f(x0).item()
+    solver = _direct_solver(tt)
+    trial_kernels = tuple(line_search_ops.launches)
+    launches = dict.fromkeys(trial_kernels, 0)
+    for strategy in tt.config.LINE_SEARCH_METHODS:
+        cfg = _direct_cfg(tt, strategy, DIRECT_ITERS)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        strategies.reset_host_reads()
+        t0 = time.perf_counter()
+        r = tt.minimize(p.f, x0, cfg, **solver)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = kernels.launch_counts()
+        reads = strategies.host_reads["line_search"]
+        k, n_fev, f = r.iterations.item(), r.n_fev.item(), r.f.item()
+        # init_state charges one evaluation, each iteration its tail's one.
+        trials = n_fev - 1 - k
+        say(f"[direct] {strategy}: {k} iterations in {wall:.3f} s, "
+            f"{wall / k * 1e3:.3f} ms/iteration, {trials / k:.2f} trials/"
+            f"iteration, {reads / k:.2f} line-search host reads/iteration "
+            f"(+1 for the loop condition); f {f0:.6e} -> {f:.6e}, |g| "
+            f"{r.g_norm.item():.4e}, status "
+            f"{tt.Status.NAMES[r.status.item()]}, guards "
+            f"{r.guards.tolist()}, launches {got}")
+        check(r.status.item() == tt.Status.MAX_ITERS and k == DIRECT_ITERS,
+              f"{strategy}: the solve must run its {DIRECT_ITERS} iterations")
+        check(r.x.shape == (D,) and bool(torch.isfinite(r.x).all())
+              and np.isfinite(f) and f < f0,
+              f"{strategy}: f must be finite and decrease")
+        check(got["rosenbrock_fused_tail"] == k and got["rosenbrock_vg"] >= 1,
+              f"{strategy}: the tail kernel must launch once per iteration "
+              "and the vg kernel at least once")
+        # A twin reads one condition per pass over (x, d): per K-wide round,
+        # and per scalar zoom turn of wolfe_interpolation_speculative's
+        # phase B (one vg launch each, past init_state's).  So its rounds
+        # are its reads less those turns, and its K-trial kernel launches
+        # once per round.
+        batched = sum(got[name] for name in trial_kernels)
+        if strategy.endswith("_speculative"):
+            own = ("rosenbrock_multi_phi"
+                   if strategy == "backtracking_speculative"
+                   else "rosenbrock_multi_phi_dphi")
+            rounds = reads - (got["rosenbrock_vg"] - 1)
+            check(rounds > 0 and got[own] == batched == rounds,
+                  f"{strategy}: {own} must launch once per round ({rounds} "
+                  f"rounds, launches {got})")
+        else:
+            check(batched == 0, f"{strategy} must not launch a K-trial kernel")
+        for name in trial_kernels:
+            launches[name] += got[name]
+
+    # Each twin's first iterations with its K-trial kernel and with the
+    # plain version, both on the card, from the same state.
+    plain = _direct_solver(tt, use_kernels=False)
+    for twin in ("backtracking_speculative", "wolfe_interpolation_speculative",
+                 "backtracking_wolfe_speculative"):
+        cfg = _direct_cfg(tt, twin, DIRECT_ITERS)
+        traces = {}
+        for label, s in (("kernel", solver), ("plain", plain)):
+            st = tt.init_state(s["value_and_grad"], x0, cfg.m)
+            alphas, fs = [], []
+            for _ in range(TRACE_ITERS):
+                st = tt.iterate(cfg, p.f, s["value_and_grad"], st, None,
+                                s["fused_tail"], s["phi_batch"],
+                                s["phi_dphi_batch"])
+                alphas.append(st.alpha.item())
+                fs.append(st.f.item())
+            traces[label] = (alphas, fs)
+        (a_k, f_k), (a_p, f_p) = traces["kernel"], traces["plain"]
+        f_rel = max(abs(a - b) / abs(b) for a, b in zip(f_k, f_p))
+        say(f"[direct] {twin}, first {TRACE_ITERS} iterations, K-trial "
+            f"kernel vs plain on the card: alpha equal {a_k == a_p}, f max "
+            f"rel err {f_rel:.3e} (tol {TRACE_F_RTOL}); alphas {a_k}")
+        check(a_k == a_p, f"{twin}: alpha differs between kernel and plain")
+        check(f_rel <= TRACE_F_RTOL, f"{twin}: f differs between kernel and "
+              "plain")
+    return launches
+
+
 def phase_bench_batch(card):
     from tpu_lbfgs_torch.bench.harness import bench_batch
 
@@ -495,11 +709,13 @@ def main():
     phase_build()
     rec = phase_kernels(dev)
     rec["compact_chain"] = phase_chain(dev)
+    rec.update(phase_trial_kernels(dev))
     launches, state, cfg = phase_main_path(dev)
     phase_no_sync(state, cfg)
     batch_launches, state, cfg = phase_batch(dev)
     phase_batch_no_sync(state, cfg)
     launches["compact_chain"] = batch_launches["compact_chain"]
+    launches.update(phase_direct(dev))
     phase_bench(card)
     phase_bench_batch(card)
 
@@ -511,6 +727,12 @@ def main():
             "tpu_lbfgs/kernels/pallas_ops.py:653"),
         "compact_chain": ("tpu_lbfgs_torch/csrc/compact_chain.cu",
                           "tpu_lbfgs/kernels/chain.py:122"),
+        "rosenbrock_multi_phi": (
+            "tpu_lbfgs_torch/csrc/rosenbrock_multi_phi.cu",
+            "tpu_lbfgs/kernels/pallas_ops.py:895"),
+        "rosenbrock_multi_phi_dphi": (
+            "tpu_lbfgs_torch/csrc/rosenbrock_multi_phi_dphi.cu",
+            "tpu_lbfgs/kernels/pallas_ops.py:1010"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],

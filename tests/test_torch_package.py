@@ -72,9 +72,11 @@ def test_status_and_guard_codes_mirror_reference():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(line_search="wolfe_interpolation"),
-    dict(line_search="backtracking_speculative"),
-    dict(ls_eval="direct"),
+    # Every line search and ls_eval="direct" are ported; an option outside
+    # the slice still raises beside them.
+    dict(line_search="wolfe_interpolation", direction="two_loop"),
+    dict(line_search="backtracking_speculative", damping=0.2),
+    dict(ls_eval="direct", history_dtype="bfloat16"),
     dict(direction="two_loop"),
     dict(direction="compact"),
     dict(damping=0.2),

@@ -3,17 +3,20 @@
 It mirrors the JAX package's module names and public functions, and runs
 them as eager PyTorch on one device, with hand-written CUDA kernels (built
 at first use, ``kernels/_build.py``) where the JAX package has Pallas
-kernels.  The port so far covers the two solves that ``bench.py`` times:
-chained Rosenbrock, Armijo backtracking on the directional polynomial and
-the incremental compact direction, for one large instance (``minimize``)
-and for a batch of small ones in lockstep (``vmap_minimize``).  Options outside it raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+kernels.  The port so far covers the two solves that ``bench.py`` times
+(chained Rosenbrock, Armijo backtracking on the directional polynomial and
+the incremental compact direction, for one large instance with
+``minimize`` and for a batch of small ones in lockstep with
+``vmap_minimize``), and every line search with direct evaluation of its
+trials for one instance, as the reference's own protocol runs them.
+Options outside it raise ``NotImplementedError`` naming the ROADMAP item
+that brings them.
 
 This package imports torch and never jax.
 """
 
 from .batch import vmap_minimize
-from .config import LBFGSConfig
+from .config import REFERENCE_PARALLEL, REFERENCE_SEQUENTIAL, LBFGSConfig
 from .core.solver import (
     init_state,
     iterate,
@@ -27,11 +30,15 @@ from .problems.suite import (
     fused_tail_for,
     fused_value_and_grad,
     get_problem,
+    multi_phi_dphi_for,
+    multi_phi_for,
 )
 from .types import Guard, LBFGSState, LineSearchResult, SolveResult, Status
 
 __all__ = [
     "LBFGSConfig",
+    "REFERENCE_PARALLEL",
+    "REFERENCE_SEQUENTIAL",
     "LBFGSState",
     "LineSearchResult",
     "SolveResult",
@@ -41,6 +48,8 @@ __all__ = [
     "fused_tail_for",
     "fused_value_and_grad",
     "get_problem",
+    "multi_phi_dphi_for",
+    "multi_phi_for",
     "init_state",
     "iterate",
     "minimize",

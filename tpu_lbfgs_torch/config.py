@@ -2,11 +2,12 @@
 ``tpu_lbfgs.config.LBFGSConfig``, so one configuration means the same solve
 in both packages.
 
-The port runs one slice of the reference so far: Armijo backtracking on the
-closed-form directional polynomial, the incremental compact direction, f32
-or f64 history.  ``check_supported`` turns every other option into a
-``NotImplementedError`` at solve time, naming the ROADMAP item that brings
-it.
+The port runs these slices of the reference so far: the incremental compact
+direction with an f32 or f64 history, under every line search, with the
+trials evaluated directly (``ls_eval="direct"``) or on the closed-form
+directional polynomial; batches run Armijo backtracking on the polynomial.
+``check_supported`` turns every other option into a ``NotImplementedError``
+at solve time, naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Optional
 
 C1_DEFAULT = 1e-4
 C2_SEQUENTIAL = 0.9
+C2_PARALLEL = 0.7
 INITIAL_STEP_SIZE = 1.0
 BACKTRACKING_SHRINK = 0.5
 BACKTRACKING_TOL = 1e-8
@@ -129,10 +131,6 @@ def _unported(what: str, item: str) -> NotImplementedError:
 
 def check_supported(cfg: LBFGSConfig) -> None:
     """Raise NotImplementedError for an option outside the ported slice."""
-    if cfg.line_search != "backtracking":
-        raise _unported(f"line_search={cfg.line_search!r}", "Queue 1 item 7")
-    if cfg.ls_eval != "polynomial":
-        raise _unported(f"ls_eval={cfg.ls_eval!r}", "Queue 1 item 7")
     if cfg.direction != "compact_incremental":
         raise _unported(f"direction={cfg.direction!r}", "Queue 1 item 8")
     if cfg.damping is not None:
@@ -145,3 +143,17 @@ def check_supported(cfg: LBFGSConfig) -> None:
         raise _unported("refresh_interval", "Queue 1 item 8")
     if cfg.history_dtype == "bfloat16":
         raise _unported("bfloat16 history", "Queue 1 item 8")
+
+
+# The reference's sequential driver (main.cpp:24-58).
+REFERENCE_SEQUENTIAL = LBFGSConfig(
+    m=10, max_iters=15000, tol=1e-8, line_search="backtracking", c2=C2_SEQUENTIAL,
+)
+
+# The reference's GPU drivers (e.g. L-BFGS-Backtracking.cu:429-457): loose
+# tol, the per-pair curvature skip (L-BFGS.cu:222-223), C2 = 0.7 and the
+# alpha floor rescue.
+REFERENCE_PARALLEL = LBFGSConfig(
+    m=10, max_iters=50000, tol=1e-1, line_search="backtracking", c2=C2_PARALLEL,
+    alpha_rescue_floor=1e-4, pair_skip_threshold=1e-10,
+)

@@ -2,10 +2,13 @@
 
 One ``iterate`` is the reference's iteration, step for step: direction with
 descent safeguard, line search, fused tail, masked ring write, incremental
-history products, guard counters, state advance.  It reads nothing back to
-the host: every decision is a tensor select on the device, so the host only
-enqueues work.  ``solve_from_state`` reads one scalar per iteration, the
-loop condition; ``solve_bounded`` reads none.
+history products, guard counters, state advance.  Every decision is a
+tensor select on the device.  Under ``ls_eval="polynomial"`` with
+``backtracking`` (bench.py's path) it reads nothing back to the host, so
+the host only enqueues work; every other line search reads its loop
+condition once per turn (``linesearch.strategies``).
+``solve_from_state`` reads one scalar per iteration, the loop condition;
+``solve_bounded`` reads none of its own.
 
 The history ring is updated in place: ``iterate`` writes the new pair's
 rows into ``state.s_hist`` / ``state.y_hist`` and hands the same tensors to
@@ -29,7 +32,7 @@ from torch import Tensor
 
 from ..config import LBFGSConfig, check_supported
 from ..kernels.fused_ops import _vdot, fused_tail_plain
-from ..linesearch.strategies import backtracking
+from ..linesearch.strategies import get_line_search
 from ..types import Guard, LBFGSState, SolveResult, Status, per_lane
 from .direction import compute_direction_with_aux
 
@@ -100,25 +103,55 @@ def _polyder(coeffs: Tensor) -> Tensor:
                                           device=coeffs.device)
 
 
-def make_phi(x: Tensor, d: Tensor, dir_poly):
-    """phi / phi_dphi of the line search from the closed-form directional
-    polynomial (``ls_eval="polynomial"``): one pass over (x, d) for the
-    coefficients, then every trial is scalar Horner work.  (The port has
-    no other mode yet: ``check_supported`` rejects ``ls_eval="direct"``.)
-    The coefficients carry one row per lane, (..., n); phi of a (K,) batch
-    of steps is (..., K)."""
-    if dir_poly is None:
-        raise ValueError("ls_eval='polynomial' requires dir_poly "
-                         "(see Problem.dir_poly)")
-    coeffs = dir_poly(x, d)
-    if coeffs.dim() > 1:
-        coeffs = coeffs.unsqueeze(-2)
+def make_phi(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, x: Tensor,
+             d: Tensor, dir_poly=None, phi_batch=None, phi_dphi_batch=None):
+    """phi / phi_dphi of the line search.
+
+    ``ls_eval="polynomial"``: from the closed-form directional polynomial,
+    one pass over (x, d) for the coefficients, then every trial is scalar
+    Horner work.  The coefficients carry one row per lane, (..., n); phi of
+    a (K,) batch of steps is (..., K).
+
+    ``ls_eval="direct"`` (one instance): a trial is f(x + a d), a Wolfe
+    trial vg(x + a d) and g_new . d, each a full pass.  A (K,) batch of
+    trials, which the speculative searches ask for, goes through
+    ``phi_batch`` / ``phi_dphi_batch`` (``problems.suite.multi_phi_for`` /
+    ``multi_phi_dphi_for``: one pass for all K) when given, else trial by
+    trial, as the reference's vmap does."""
+    if cfg.ls_eval == "polynomial":
+        if dir_poly is None:
+            raise ValueError("ls_eval='polynomial' requires dir_poly "
+                             "(see Problem.dir_poly)")
+        coeffs = dir_poly(x, d)
+        if coeffs.dim() > 1:
+            coeffs = coeffs.unsqueeze(-2)
+
+        def phi(a):
+            return _polyval(coeffs, a)
+
+        def phi_dphi(a):
+            return _polyval(coeffs, a), _polyval(_polyder(coeffs), a)
+
+        return phi, phi_dphi
+
+    def one_dphi(a):
+        f_new, g_new = vg(x + a * d)
+        return f_new, _vdot(g_new, d)
 
     def phi(a):
-        return _polyval(coeffs, a)
+        if a.dim() == 0:
+            return f(x + a * d)
+        if phi_batch is not None:
+            return phi_batch(x, d, a)
+        return torch.stack([f(x + aa * d) for aa in a.unbind(0)])
 
     def phi_dphi(a):
-        return _polyval(coeffs, a), _polyval(_polyder(coeffs), a)
+        if a.dim() == 0:
+            return one_dphi(a)
+        if phi_dphi_batch is not None:
+            return phi_dphi_batch(x, d, a)
+        fs, dphis = zip(*(one_dphi(aa) for aa in a.unbind(0)))
+        return torch.stack(fs), torch.stack(dphis)
 
     return phi, phi_dphi
 
@@ -143,18 +176,27 @@ def _keep_lanes(lanes: Tensor, new: LBFGSState,
 
 
 def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
-            dir_poly=None, fused_tail=None, lanes=None) -> LBFGSState:
-    """One unconditional L-BFGS iteration (assumes status == RUNNING), with
-    no host read.  ``fused_tail``: the post-line-search tail
+            dir_poly=None, fused_tail=None, phi_batch=None,
+            phi_dphi_batch=None, lanes=None) -> LBFGSState:
+    """One unconditional L-BFGS iteration (assumes status == RUNNING).
+    ``fused_tail``: the post-line-search tail
     (problems.suite.fused_tail_for); without one the plain composition of
-    ``vg`` runs.  Updates the history ring in place (module docstring).
+    ``vg`` runs.  ``phi_batch`` / ``phi_dphi_batch``: the K-trial
+    evaluators of the speculative searches under ``ls_eval="direct"``
+    (``make_phi``).  Updates the history ring in place (module docstring).
 
     ``lanes``: for a batched state, an optional (B,) bool mask.  A lane
     where it is False keeps every field, its ring rows included: the freeze
     that the reference's vmapped ``while_loop`` applies to a lane whose
     loop condition has failed."""
-    del f   # polynomial line search: the objective is reached through vg
     check_supported(cfg)
+    if state.x.dim() > 1 and (cfg.ls_eval == "direct"
+                              or cfg.line_search != "backtracking"):
+        raise NotImplementedError(
+            f"a batched solve with ls_eval={cfg.ls_eval!r} and line_search="
+            f"{cfg.line_search!r} is not ported to tpu_lbfgs_torch yet "
+            "(ROADMAP.md Queue 1 item 7); batches run backtracking under "
+            "ls_eval='polynomial'")
     if fused_tail is None:
         if cfg.use_pallas:
             raise NotImplementedError(
@@ -173,8 +215,10 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
     g_dot_d = torch.where(not_descent, -state.g_norm * state.g_norm, g_dot_d)
 
     # --- line search -------------------------------------------------------
-    phi, phi_dphi = make_phi(x, d, dir_poly)
-    ls = backtracking(cfg, phi, phi_dphi, state.f, g_dot_d)
+    phi, phi_dphi = make_phi(cfg, f, vg, x, d, dir_poly, phi_batch,
+                             phi_dphi_batch)
+    ls = get_line_search(cfg.line_search)(cfg, phi, phi_dphi, state.f,
+                                          g_dot_d)
     alpha = ls.alpha
 
     # --- trial point, f/g there, pair and scalars, in one pass --------------
@@ -250,6 +294,7 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
     guards = state.guards + counts.to(i32)
 
     active_i = active.to(i32)
+    direct = cfg.ls_eval == "direct"
     new = LBFGSState(
         x=torch.where(failed_vec, x, x_new),
         f=torch.where(failed, state.f, f_new),
@@ -270,10 +315,13 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
             torch.where(failed, Status.LINE_SEARCH_FAILED, Status.RUNNING),
             state.status).to(i32),
         alpha=torch.where(active, alpha, state.alpha),
-        # Polynomial mode: the search's trials are scalar work; one f pass
-        # (the coefficients) plus the tail's f and gradient are charged.
-        n_fev=state.n_fev + 2 * active_i,
-        n_gev=state.n_gev + active_i,
+        # The tail's f and gradient, plus, in direct mode, the search's own
+        # evaluations; in polynomial mode the trials are scalar work and one
+        # f pass (the coefficients) is charged.
+        n_fev=state.n_fev + (active_i * (1 + ls.n_fev) if direct
+                             else 2 * active_i),
+        n_gev=state.n_gev + (active_i * (1 + ls.n_gev) if direct
+                             else active_i),
         guards=guards,
     )
     return new if lanes is None else _keep_lanes(lanes, new, state)
@@ -294,8 +342,8 @@ def _running(cfg: LBFGSConfig, state: LBFGSState) -> Tensor:
 
 
 def solve_from_state(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
-                     state: LBFGSState, dir_poly=None,
-                     fused_tail=None) -> LBFGSState:
+                     state: LBFGSState, dir_poly=None, fused_tail=None,
+                     phi_batch=None, phi_dphi_batch=None) -> LBFGSState:
     """Iterate while running; returns the final state with its status
     finalized.  Reads one scalar per iteration, the loop condition (for a
     batch: whether any lane still runs).  A lane stops the moment its own
@@ -307,20 +355,22 @@ def solve_from_state(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
         batched = running.dim() > 0
         if not bool(running.any() if batched else running):
             break
-        state = iterate(cfg, f, vg, state, dir_poly, fused_tail,
-                        lanes=running if batched else None)
+        state = iterate(cfg, f, vg, state, dir_poly, fused_tail, phi_batch,
+                        phi_dphi_batch, lanes=running if batched else None)
     return state.replace(status=_finalize_status(cfg, state))
 
 
 def solve_bounded(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
-                  state: LBFGSState, dir_poly=None,
-                  fused_tail=None) -> LBFGSState:
-    """Exactly ``cfg.max_iters`` more iterations with no host read: safe
-    because iterate is idempotent on finished states (lanes).  A state that
-    would have converged early keeps iterating to the budget."""
+                  state: LBFGSState, dir_poly=None, fused_tail=None,
+                  phi_batch=None, phi_dphi_batch=None) -> LBFGSState:
+    """Exactly ``cfg.max_iters`` more iterations with no read of the loop
+    condition: safe because iterate is idempotent on finished states
+    (lanes).  A state that would have converged early keeps iterating to
+    the budget."""
     check_supported(cfg)
     for _ in range(cfg.max_iters):
-        state = iterate(cfg, f, vg, state, dir_poly, fused_tail)
+        state = iterate(cfg, f, vg, state, dir_poly, fused_tail, phi_batch,
+                        phi_dphi_batch)
     return state.replace(status=_finalize_status(cfg, state))
 
 
@@ -344,10 +394,12 @@ def make_value_and_grad(f: ObjFn, grad=None, value_and_grad=None) -> ValGradFn:
 
 def minimize(f: ObjFn, x0: Tensor, cfg: LBFGSConfig = LBFGSConfig(),
              grad=None, value_and_grad=None, dir_poly=None,
-             fused_tail=None) -> SolveResult:
+             fused_tail=None, phi_batch=None,
+             phi_dphi_batch=None) -> SolveResult:
     """Solve from x0 on x0's device.  The entry point of the reference's
     ``tpu_lbfgs.minimize``, without its JAX-only arguments."""
     vg = make_value_and_grad(f, grad, value_and_grad)
     state = init_state(vg, x0, cfg.m, cfg.history_dtype)
-    out = solve_from_state(cfg, f, vg, state, dir_poly, fused_tail)
+    out = solve_from_state(cfg, f, vg, state, dir_poly, fused_tail,
+                           phi_batch, phi_dphi_batch)
     return _state_to_result(out)

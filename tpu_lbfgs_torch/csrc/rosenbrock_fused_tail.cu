@@ -19,7 +19,7 @@
 // The Rosenbrock terms need the trial point's neighbours x_new[i+-1].  A
 // thread rebuilds them from x and d (the loads hit lines its warp already
 // holds), with the same correctly rounded expression as the thread that
-// owns that element (trial_point below), so a neighbour equals its owner's
+// owns that element (trial_point.cuh), so a neighbour equals its owner's
 // x_new bit for bit.  The TPU kernel shifted the formed x_new through an
 // SMEM carry and an 8-row halo DMA instead.  The edge is masked by index,
 // so any n works.
@@ -29,14 +29,9 @@
 // the library is built with -fmad=false, so every output vector matches it
 // bit for bit; only the sums differ, by their order.
 #include "reduce.cuh"
+#include "trial_point.cuh"
 
 namespace {
-
-__device__ __forceinline__ float trial_point(const float* __restrict__ x,
-                                             const float* __restrict__ d,
-                                             float a, int64_t i) {
-  return __fadd_rn(x[i], __fmul_rn(a, d[i]));
-}
 
 __global__ void __launch_bounds__(tl::kThreads)
     rosenbrock_tail_kernel(const float* __restrict__ x,
@@ -53,17 +48,17 @@ __global__ void __launch_bounds__(tl::kThreads)
        i < n; i += stride) {
     const float di = d[i];
     const float s = __fmul_rn(a, di);
-    const float xn = __fadd_rn(x[i], s);
+    const float xn = __fadd_rn(x[i], s);  // = trial_point(x[i], di, a)
     float gn = 0.0f;
     if (i < n - 1) {
-      const float xf = trial_point(x, d, a, i + 1);
+      const float xf = tl::trial_point(x[i + 1], d[i + 1], a);
       const float t = xf - xn * xn;
       const float e = 1.0f - xn;
       acc[0] += static_cast<double>(100.0f * t * t + e * e);
       gn = 2.0f * (xn - 1.0f) - 400.0f * xn * t;
     }
     if (i >= 1) {
-      const float xp = trial_point(x, d, a, i - 1);
+      const float xp = tl::trial_point(x[i - 1], d[i - 1], a);
       gn += 200.0f * (xn - xp * xp);
     }
     const float gi = g[i];
@@ -97,6 +92,6 @@ extern "C" int tl_rosenbrock_fused_tail_f32(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   rosenbrock_tail_kernel<<<blocks, tl::kThreads, 0, s>>>(
       x, d, g, alpha, x_new, g_new, s_row, y_row, partials, n);
-  tl::finish_sums<7><<<1, tl::kThreads, 0, s>>>(partials, blocks, sums);
+  tl::finish_sums<<<7, tl::kThreads, 0, s>>>(partials, blocks, sums);
   return static_cast<int>(cudaGetLastError());
 }

@@ -55,6 +55,6 @@ extern "C" int tl_rosenbrock_vg_f32(const float* x, float* g, double* partials,
   const int blocks = tl::blocks_for(n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   rosenbrock_vg_kernel<<<blocks, tl::kThreads, 0, s>>>(x, g, partials, n);
-  tl::finish_sums<1><<<1, tl::kThreads, 0, s>>>(partials, blocks, f);
+  tl::finish_sums<<<1, tl::kThreads, 0, s>>>(partials, blocks, f);
   return static_cast<int>(cudaGetLastError());
 }

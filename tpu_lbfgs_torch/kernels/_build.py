@@ -38,6 +38,10 @@ _SIGNATURES = {
                              ctypes.c_int),
     "tl_rosenbrock_fused_tail_f32": ([_P] * 10 + [ctypes.c_longlong, _P],
                                      ctypes.c_int),
+    **{f"tl_rosenbrock_{k}_f32": ([_P] * 3 + [ctypes.c_int, _P, _P,
+                                              ctypes.c_longlong, _P],
+                                  ctypes.c_int)
+       for k in ("multi_phi", "multi_phi_dphi")},
     **{f"tl_compact_chain_{t}": ([_P] * 8 + [c_thr, ctypes.c_int] + [_P] * 5
                                  + [ctypes.c_longlong, ctypes.c_int, _P],
                                  ctypes.c_int)

@@ -76,13 +76,19 @@ def rosenbrock_grad_plain(x: Tensor) -> Tensor:
     return g
 
 
-def rosenbrock_vg_plain(x: Tensor) -> tuple[Tensor, Tensor]:
-    """Chained Rosenbrock f and gradient from plain tensor ops (the
-    reference's jnp fallback of fused_vg_rosenbrock)."""
+def rosenbrock_f_plain(x: Tensor) -> Tensor:
+    """Chained Rosenbrock f over the last axis, its float32 terms summed in
+    float64 (the kernels' convention)."""
     xi, xn = x[..., :-1], x[..., 1:]
     t1 = xn - xi * xi
     t2 = 1.0 - xi
-    return _sum(100.0 * t1 * t1 + t2 * t2), rosenbrock_grad_plain(x)
+    return _sum(100.0 * t1 * t1 + t2 * t2)
+
+
+def rosenbrock_vg_plain(x: Tensor) -> tuple[Tensor, Tensor]:
+    """Chained Rosenbrock f and gradient from plain tensor ops (the
+    reference's jnp fallback of fused_vg_rosenbrock)."""
+    return rosenbrock_f_plain(x), rosenbrock_grad_plain(x)
 
 
 def fused_vg_rosenbrock(x: Tensor) -> tuple[Tensor, Tensor]:

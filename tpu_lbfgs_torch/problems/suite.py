@@ -6,8 +6,9 @@ Every function takes an optional leading batch axis: x is ``(..., d)``, f
 is ``(...)``, and ``dir_poly`` returns its coefficients on the last axis,
 ``(..., 5)`` (``(..., 3)`` for the quadratic and the sphere).
 
-``fused_value_and_grad`` and ``fused_tail_for`` hand out the CUDA kernels of
-``kernels.fused_ops`` (Rosenbrock only so far), or with
+``fused_value_and_grad``, ``fused_tail_for``, ``multi_phi_for`` and
+``multi_phi_dphi_for`` hand out the CUDA kernels of ``kernels.fused_ops``
+and ``kernels.line_search_ops`` (Rosenbrock only so far), or with
 ``use_pallas=False`` the plain PyTorch composition, as the reference hands
 out its Pallas kernels or their jnp fallbacks.
 """
@@ -25,8 +26,15 @@ from ..kernels.fused_ops import (
     fused_tail_plain,
     fused_tail_rosenbrock,
     fused_vg_rosenbrock,
+    rosenbrock_f_plain,
     rosenbrock_grad_plain,
     rosenbrock_vg_plain,
+)
+from ..kernels.line_search_ops import (
+    multi_phi_dphi_plain,
+    multi_phi_dphi_rosenbrock,
+    multi_phi_plain,
+    multi_phi_rosenbrock,
 )
 
 
@@ -128,7 +136,7 @@ def get_problem(name: str) -> Problem:
 def _unported_kernel(name: str) -> NotImplementedError:
     return NotImplementedError(
         f"the {name} body of the fused kernels is not ported to "
-        "tpu_lbfgs_torch yet (ROADMAP.md Queue 2 item 4); pass "
+        "tpu_lbfgs_torch yet (ROADMAP.md Queue 2 item 2); pass "
         "use_pallas=False for the plain PyTorch version")
 
 
@@ -152,13 +160,41 @@ def fused_tail_for(name: str, with_matvec: bool = False,
     if with_matvec:
         raise NotImplementedError(
             "the fused tail's in-kernel history matvec (with_matvec) is not "
-            "ported yet (ROADMAP.md Queue 2 item 4)")
+            "ported yet (ROADMAP.md Queue 2 item 2)")
     if accurate_dots:
         raise NotImplementedError(
             "the compensated fused tail (accurate_dots) is not ported yet "
-            "(ROADMAP.md Queue 2 item 4)")
+            "(ROADMAP.md Queue 2 item 2)")
     if use_pallas and name == "rosenbrock":
         return fused_tail_rosenbrock
     if use_pallas and name in _UNPORTED_KERNELS:
         raise _unported_kernel(name)
     return partial(fused_tail_plain, fused_value_and_grad(name, False))
+
+
+def multi_phi_for(name: str, use_pallas: bool = True):
+    """The K-trial evaluator ``phi_batch(x, d, alphas) -> (K,)``, f at
+    every x + alphas[k] d in one pass; pass as ``phi_batch=`` to minimize /
+    iterate for ``backtracking_speculative`` under ``ls_eval="direct"``.
+    ``use_pallas=True`` gives the CUDA kernel (Rosenbrock), False or a
+    problem the reference has no kernel for the plain version."""
+    if use_pallas and name == "rosenbrock":
+        return multi_phi_rosenbrock
+    if use_pallas and name in _UNPORTED_KERNELS:
+        raise _unported_kernel(name)
+    f = rosenbrock_f_plain if name == "rosenbrock" else get_problem(name).f
+    return partial(multi_phi_plain, f)
+
+
+def multi_phi_dphi_for(name: str, use_pallas: bool = True):
+    """The K-trial evaluator ``phi_dphi_batch(x, d, alphas) -> ((K,), (K,))``,
+    f and grad f . d at every x + alphas[k] d in one pass; pass as
+    ``phi_dphi_batch=`` for ``wolfe_interpolation_speculative`` and
+    ``backtracking_wolfe_speculative`` under ``ls_eval="direct"``.
+    ``use_pallas=True`` gives the CUDA kernel (Rosenbrock), False or a
+    problem the reference has no kernel for the plain version."""
+    if use_pallas and name == "rosenbrock":
+        return multi_phi_dphi_rosenbrock
+    if use_pallas and name in _UNPORTED_KERNELS:
+        raise _unported_kernel(name)
+    return partial(multi_phi_dphi_plain, fused_value_and_grad(name, False))
