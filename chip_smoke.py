@@ -6,7 +6,7 @@ Run from the repository root, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from tpu_lbfgs_torch/csrc, holds each
-against its plain PyTorch version on the card, and drives three paths,
+against its plain PyTorch version on the card, and drives four paths,
 each solve with the kernels' launch counts set to 0 just before it and
 read just after:
 
@@ -21,7 +21,14 @@ read just after:
   compact_incremental, ls_eval="direct", no alpha rescue) under each of the
   8 line searches at d = 2^20 from U(-10, 10), over the value and gradient
   and fused tail kernels and, for the speculative twins, the K-trial
-  multi_phi and multi_phi_dphi kernels.
+  multi_phi and multi_phi_dphi kernels;
+- the general path, a caller's own objective at d = 2^20 in float32 with
+  use_pallas=True and no fused tail, over the iteration_tail kernel every
+  iteration: chained Rosenbrock under each of the three directions, the
+  coupled quadratic from its plain f and grad, an objective differentiated
+  by autograd under the default configuration, and one solve with damping,
+  compensated dots, a trace and the periodic product refresh; then the
+  public combine_direction kernel entry on the states those solves leave.
 
 It checks that each solve went through its kernels, that its output is
 sound and equals the plain versions' over the first iterations, and that
@@ -30,7 +37,10 @@ times the two polynomial solves, and prints each line search's time,
 trials and host reads per iteration.
 Every check raises on failure, so the exit code is 0 only when all pass.
 The last line of output is a JSON record of the device; the line before
-it records each kernel.  Without a CUDA device it exits with an error and
+it records each kernel: its launches on its path, its largest deviation
+from the plain version, its time, the plain version's, the least time the
+card could take for the same bytes and operations, and, where one PyTorch
+call computes the same function, that call's time.  Without a CUDA device it exits with an error and
 prints no record.
 """
 import itertools
@@ -93,6 +103,24 @@ TRIAL_SUM_RTOL = 1e-9
 # version take equal alphas and f within TRACE_F_RTOL.
 DIRECT_ITERS = 100
 DIRECT_BOX = 10.0
+# The general path.  iteration_tail against its plain version: the three
+# vectors bit for bit, each sum within TRIAL_SUM_RTOL of sum|terms| plus
+# one ulp of the working dtype (float64 partials in another order; the
+# compensated float32 plain version sums float32 chunks, whose own rounding
+# stays below one ulp of a sum this size).  combine_direction runs its plain
+# version's operations in its order: bit for bit, tolerance 0.
+TAIL_D = (D, RAGGED, 293)
+COMBINE_D = (D, RAGGED)
+COMBINE_ABS_TOL = 0.0
+GENERAL_ITERS = 60
+GENERAL_WARMUP = 5
+OPTIONS_ITERS = 120
+OPTIONS_REFRESH = 50
+# The roofline's peaks for one H100 SXM (NVIDIA's data sheet): device memory
+# and float32 outside the tensor cores.  Every arithmetic operation is
+# counted at the float32 rate, the float64 additions of the sums too.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def say(*parts):
@@ -136,6 +164,16 @@ def device_ms(fn):
             return start.elapsed_time(end) / reps
     raise AssertionError("the host never queued the timed calls ahead of "
                          "the card")
+
+
+def bound_ms(n_bytes, n_ops):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate (each input read once, each output written once) and the
+    operations over the float32 peak; and which of the two it is."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / F32_OPS_PER_S * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
 
 
 def phase_card():
@@ -235,9 +273,15 @@ def phase_kernels(dev):
             rec["rosenbrock_fused_tail"]["plain_ms"] = device_ms(
                 lambda: ops.fused_tail_plain(ops.rosenbrock_vg_plain, x, d,
                                              alpha, g))
+            # Per element: x in and g out, about 18 operations; the tail
+            # x, d, g in and x_new, g_new, s, y out, about 40.
+            rec["rosenbrock_vg"]["bound"] = bound_ms(8 * n + 4, 18 * n)
+            rec["rosenbrock_fused_tail"]["bound"] = bound_ms(
+                28 * n + 4 + 28, 40 * n)
             for name, r in rec.items():
                 say(f"[kernel] {name} d={n}: {r['ms'] * 1e3:.2f} us on the "
-                    f"card, plain version {r['plain_ms'] * 1e3:.2f} us")
+                    f"card, plain version {r['plain_ms'] * 1e3:.2f} us, "
+                    f"bound {r['bound'][0] * 1e3:.2f} us by {r['bound'][1]}")
     return rec
 
 
@@ -299,6 +343,13 @@ def phase_chain(dev):
                 f"on the card, plain version {plain_ms * 1e3:.2f} us")
             if dt == torch.float32:     # the batch solve's dtype
                 rec["ms"], rec["plain_ms"] = ms, plain_ms
+                # Per instance: SY, YY, four (m,) vectors, n_pairs and
+                # g_norm in; v, u, gamma, g.d and the flag out; two
+                # triangular solves, the YY product and the dots, about
+                # 6 m^2 + 10 m operations.
+                rec["bound"] = bound_ms(
+                    B * (4 * (2 * m * m + 6 * m + 4) + 1),
+                    B * (6 * m * m + 10 * m))
     return rec
 
 
@@ -317,8 +368,8 @@ def _trial_abs_terms(x, d, alphas):
 
 
 def _beyond_ulp(a, b, scale):
-    """Largest |a - b| beyond one float32 ulp of b, in units of scale (NaN
-    where either side is NaN)."""
+    """Largest |a - b| beyond one ulp of b in its dtype, in units of scale
+    (NaN where either side is NaN)."""
     b_abs = b.abs()
     ulp = torch.nextafter(b_abs, torch.full_like(b_abs, float("inf"))) - b_abs
     over = ((a.double() - b.double()).abs() - ulp.double()).clamp(min=0.0)
@@ -380,6 +431,121 @@ def phase_trial_kernels(dev):
             # 8 for multi_phi, the 36-node tree for multi_phi_dphi.
             if k == (8 if name == names[0] else 36):
                 rec[name]["ms"], rec[name]["plain_ms"] = ms, plain_ms
+                # x, d and K alphas in, K (or 2 K) sums out; per element
+                # and trial about 13 operations for phi (two trial points,
+                # the term, its float64 add), 28 with phi' as well.
+                outs = 1 if name == names[0] else 2
+                rec[name]["bound"] = bound_ms(
+                    8 * n + 4 * k + 4 * outs * k,
+                    (13 if name == names[0] else 28) * n * k)
+    return rec
+
+
+def phase_general_kernels(dev):
+    """iteration_tail and combine_direction against their plain versions."""
+    from tpu_lbfgs_torch.kernels import fused_ops as ops
+
+    rec = {"iteration_tail": {"max_abs_err": 0.0},
+           "combine_direction": {"max_abs_err": 0.0}}
+    rng = np.random.default_rng(SEED)
+    for n, dt in itertools.product(TAIL_D, (torch.float32, torch.float64)):
+        x, d, g, gn = (torch.from_numpy(rng.uniform(-1.0, 1.0, n)).to(dev, dt)
+                       for _ in range(4))
+        x = 2.0 * x
+        alpha = torch.full((), 0.125, dtype=dt, device=dev)
+        for accurate in (False, True):
+            out_k = ops.iteration_tail(x, d, alpha, g, gn, accurate=accurate)
+            out_p = ops.iteration_tail_plain(x, d, alpha, g, gn, accurate)
+            torch.cuda.synchronize()
+            where = f"d={n} {dt} accurate={accurate}"
+            same = all(torch.equal(a, b) and a.dtype == dt
+                       for a, b in zip(out_k[:3], out_p[:3]))
+            s, y = out_p[1].double(), out_p[2].double()
+            dd, gg, gnn = d.double(), g.double(), gn.double()
+            scales = [(s * y).abs().sum(), (y * y).sum(), (gnn * gnn).sum(),
+                      (dd * gnn).abs().sum(), (gg * gnn).abs().sum()]
+            check(all(a.dtype == dt and a.dim() == 0 for a in out_k[3:]),
+                  f"iteration_tail must return 0-d {dt} sums")
+            errs = [((a.double() - b.double()).abs() / sc).item()
+                    for a, b, sc in zip(out_k[3:], out_p[3:], scales)]
+            overs = [_beyond_ulp(a, b, sc)
+                     for a, b, sc in zip(out_k[3:], out_p[3:], scales)]
+            abs_err = max((a - b).abs().max().item()
+                          for a, b in zip(out_k, out_p))
+            say(f"[kernel] iteration_tail {where}: x_new, s, y bit-equal "
+                f"{same}; 5 sums max abs err {abs_err:.3e}, max err "
+                f"{max(errs):.3e} of sum|terms|, {max(overs):.3e} beyond 1 "
+                f"ulp (tol {TRIAL_SUM_RTOL} of sum|terms| + 1 ulp)")
+            check(same and all(v <= TRIAL_SUM_RTOL for v in overs),
+                  f"iteration_tail disagrees with its plain version ({where})")
+            if n == D and dt == torch.float32:
+                r = rec["iteration_tail"]
+                r["max_abs_err"] = max(r["max_abs_err"], abs_err)
+            if n == D:
+                ms = device_ms(lambda: ops.iteration_tail(
+                    x, d, alpha, g, gn, accurate=accurate))
+                plain_ms = device_ms(lambda: ops.iteration_tail_plain(
+                    x, d, alpha, g, gn, accurate))
+                # x, d, g, g_new and alpha in; x_new, s, y and 5 sums out;
+                # 13 operations per element.
+                size = x.element_size()
+                bound = bound_ms(size * (7 * n + 6), 13 * n)
+                say(f"[kernel] iteration_tail {where}: {ms * 1e3:.2f} us on "
+                    f"the card, plain version {plain_ms * 1e3:.2f} us, bound "
+                    f"{bound[0] * 1e3:.2f} us by {bound[1]}")
+                if dt == torch.float32 and not accurate:
+                    rec["iteration_tail"].update(ms=ms, plain_ms=plain_ms,
+                                                 bound=bound)
+
+    for n, m, dt in itertools.product(COMBINE_D, CHAIN_M,
+                                      (torch.float32, torch.float64)):
+        if dt == torch.float64 and m != 10:
+            continue
+        g = torch.from_numpy(rng.uniform(-1.0, 1.0, n)).to(dev, dt)
+        S, Y = (torch.from_numpy(rng.uniform(-1.0, 1.0, (m, n))).to(dev, dt)
+                for _ in range(2))
+        v, u = (torch.from_numpy(rng.uniform(-1.0, 1.0, m)).to(dev, dt)
+                for _ in range(2))
+        gamma = torch.full((), 0.8, dtype=dt, device=dev)
+        r_k = ops.combine_direction(g, S, Y, v, u, gamma)
+        r_p = ops.combine_direction_plain(g, S, Y, v, u, gamma)
+        r_l = ops.combine_direction_matmul(g, S, Y, v, u, gamma)
+        torch.cuda.synchronize()
+        where = f"d={n} m={m} {dt}"
+        abs_err = (r_k - r_p).abs().max().item()
+        lib_err = (r_k - r_l).abs().max().item()
+        say(f"[kernel] combine_direction {where}: max abs err {abs_err:.3e} "
+            f"against plain (tol {COMBINE_ABS_TOL}: the same operations in "
+            f"the same order), {lib_err:.3e} against the torch.mv route "
+            f"(another order; max |r| {r_p.abs().max().item():.3e})")
+        check(r_k.dtype == dt and r_k.shape == (n,)
+              and abs_err <= COMBINE_ABS_TOL,
+              f"combine_direction disagrees with its plain version ({where})")
+        check(lib_err <= 1e-4 * r_p.abs().max().item(),
+              f"combine_direction is far from the torch.mv route ({where})")
+        if dt == torch.float32:
+            r = rec["combine_direction"]
+            r["max_abs_err"] = max(r["max_abs_err"], abs_err)
+        if n == D:
+            ms = device_ms(lambda: ops.combine_direction(g, S, Y, v, u,
+                                                         gamma))
+            plain_ms = device_ms(lambda: ops.combine_direction_plain(
+                g, S, Y, v, u, gamma))
+            library_ms = device_ms(lambda: ops.combine_direction_matmul(
+                g, S, Y, v, u, gamma))
+            # g, S, Y, v, u and gamma in, r out; 4 m + 1 operations per
+            # element.
+            size = g.element_size()
+            bound = bound_ms(size * ((2 * m + 2) * n + 2 * m + 1),
+                             (4 * m + 1) * n)
+            say(f"[kernel] combine_direction {where}: {ms * 1e3:.2f} us on "
+                f"the card, plain version {plain_ms * 1e3:.2f} us, the "
+                f"torch.mv route {library_ms * 1e3:.2f} us, bound "
+                f"{bound[0] * 1e3:.2f} us by {bound[1]}")
+            if dt == torch.float32 and m == 10:
+                rec["combine_direction"].update(
+                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                    bound=bound)
     return rec
 
 
@@ -683,6 +849,221 @@ def phase_direct(dev):
     return launches
 
 
+def _launches_per_iteration(step, state, iters=5):
+    """Device kernels (and copies) launched per call of ``step``, counted
+    by torch.profiler over ``iters`` calls; None where the profiler sees no
+    device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            state = step(state)
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA)
+    return n / iters if n else None
+
+
+def beale_like(x):
+    """examples/02_custom_problem.py's objective, a smooth non-convex
+    function over pairs of coordinates, with no gradient given."""
+    a, b = x[..., ::2], x[..., 1::2]
+    return torch.sum((1.5 - a + a * b) ** 2 + (2.25 - a + a * b**2) ** 2,
+                     dim=-1)
+
+
+def _general_solve(label, tt, f, x0, cfg, jobs, expect_status=None,
+                   **solver):
+    """One solve of the general path through tt.minimize: launches read
+    around it, f must fall, iteration_tail must launch once per iteration
+    and no fused tail kernel at all.  Appends to ``jobs`` what
+    phase_launch_counts needs to count this solve's device launches per
+    iteration later: the profiler is kept away from every timed phase."""
+    from tpu_lbfgs_torch import kernels
+    from tpu_lbfgs_torch.linesearch import strategies
+
+    f0 = f(x0).item()
+    # A few iterations first, outside the clock and the counts: the first
+    # launch of every kernel of the path loads it.
+    tt.minimize(f, x0, cfg.replace(max_iters=GENERAL_WARMUP), **solver)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    strategies.reset_host_reads()
+    t0 = time.perf_counter()
+    r = tt.minimize(f, x0, cfg, **solver)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = kernels.launch_counts()
+    reads = strategies.host_reads["line_search"]
+    k, fk = r.iterations.item(), r.f.item()
+    status = tt.Status.NAMES[r.status.item()]
+
+    vg = tt.make_value_and_grad(f, solver.get("grad"),
+                                solver.get("value_and_grad"))
+    jobs.append((label, x0, vg, cfg.m, lambda s: tt.iterate(
+        cfg, f, vg, s, solver.get("dir_poly"))))
+    say(f"[general] {label}: {k} iterations in {wall:.3f} s, "
+        f"{wall / max(k, 1) * 1e3:.3f} ms/iteration, "
+        f"{reads / max(k, 1):.2f} line-search host reads/iteration (+1 for "
+        f"the loop condition); f {f0:.6e} -> {fk:.6e}, |g| "
+        f"{r.g_norm.item():.4e}, status {status}, guards "
+        f"{r.guards.tolist()}, launches {got}")
+    check(k > 0 and r.x.shape == x0.shape and bool(torch.isfinite(r.x).all())
+          and np.isfinite(fk) and fk < f0,
+          f"{label}: f must be finite and decrease")
+    check(got["iteration_tail"] == k and got["rosenbrock_fused_tail"] == 0,
+          f"{label}: iteration_tail must launch once per iteration")
+    if expect_status is not None:
+        check(r.status.item() == expect_status,
+              f"{label}: status {status}")
+    return r, got
+
+
+def phase_launch_counts(jobs):
+    """Device launches per iteration of each general-path solve, after
+    every timed phase: a profiler session can leave its tracing hooks on
+    the launches that follow."""
+    import tpu_lbfgs_torch as tt
+
+    for label, x0, vg, m, step in jobs:
+        state = tt.init_state(vg, x0, m)
+        for _ in range(3):
+            state = step(state)
+        per_it = _launches_per_iteration(step, state)
+        say(f"[general] {label}: "
+            + ("device launches/iteration not measured (the profiler saw "
+               "no device activity)" if per_it is None
+               else f"{per_it:.0f} device launches/iteration"))
+
+
+def phase_general(dev):
+    import tpu_lbfgs_torch as tt
+    from tpu_lbfgs_torch import kernels
+    from tpu_lbfgs_torch.bench.harness import _x0
+    from tpu_lbfgs_torch.core.direction import compute_direction_with_aux
+    from tpu_lbfgs_torch.kernels import chain
+    from tpu_lbfgs_torch.kernels import fused_ops as ops
+
+    rose = tt.get_problem("rosenbrock")
+    x0 = _x0(D, SEED, torch.float32, dev)
+    vg = tt.fused_value_and_grad("rosenbrock")
+    launches = launches_combine = 0
+    jobs = []
+
+    # (a) chained Rosenbrock through the value-and-gradient kernel, each
+    # direction, Armijo backtracking on the directional polynomial.
+    for direction in tt.config.DIRECTION_METHODS:
+        cfg = tt.LBFGSConfig(line_search="backtracking", direction=direction,
+                             m=10, use_pallas=True, ls_eval="polynomial",
+                             max_iters=GENERAL_ITERS, tol=0.0)
+        r, got = _general_solve(f"rosenbrock {direction}", tt, rose.f, x0,
+                                cfg, jobs, tt.Status.MAX_ITERS,
+                                value_and_grad=vg, dir_poly=rose.dir_poly)
+        check(got["rosenbrock_vg"] == r.iterations.item() + 1,
+              "the vg kernel must launch once per iteration and at the start")
+        launches += got["iteration_tail"]
+
+        # The first iterations with the tail kernel and with its plain
+        # version, both on the card, from the same state.
+        traces = {}
+        for label, use_kernel in (("kernel", True), ("plain", False)):
+            c = cfg.replace(use_pallas=use_kernel)
+            st = tt.init_state(vg, x0, cfg.m)
+            alphas, fs = [], []
+            for _ in range(TRACE_ITERS):
+                st = tt.iterate(c, rose.f, vg, st, rose.dir_poly)
+                alphas.append(st.alpha.item())
+                fs.append(st.f.item())
+            traces[label] = (alphas, fs, st)
+        (a_k, f_k, state), (a_p, f_p, _) = traces["kernel"], traces["plain"]
+        f_rel = max(abs(a - b) / abs(b) for a, b in zip(f_k, f_p))
+        say(f"[general] rosenbrock {direction}, first {TRACE_ITERS} "
+            f"iterations, tail kernel vs plain on the card: alpha equal "
+            f"{a_k == a_p}, f max rel err {f_rel:.3e} (tol {TRACE_F_RTOL})")
+        check(a_k == a_p and f_rel <= TRACE_F_RTOL,
+              f"{direction}: the tail kernel and its plain version part")
+
+        # One iterate of this path never waits on the device.
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state = tt.iterate(cfg, rose.f, vg, state, rose.dir_poly)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(bool(torch.isfinite(state.f)), "f must stay finite")
+        say(f"[sync] one {direction} iterate of the general path under "
+            "torch.cuda.set_sync_debug_mode('error'): no host "
+            "synchronisation")
+
+        # The public kernel entry of the compact direction's combine, as a
+        # caller would use it: from this state's small-matrix head, against
+        # the direction the solver takes (which keeps the torch.mv route).
+        if direction != "two_loop":
+            c = cfg.replace(direction="compact")
+            d_ref, aux, fb = compute_direction_with_aux(c, state)
+            kernels.reset_launches()
+            r_vec = ops.combine_direction(state.g, state.s_hist, state.y_hist,
+                                          aux.v_phys, aux.u_phys, aux.gamma)
+            n_comb = kernels.launch_counts()["combine_direction"]
+            scale = d_ref.abs().max().item()
+            err = (r_vec + d_ref).abs().max().item() / scale
+            say(f"[general] combine_direction(use_pallas=True) on the "
+                f"{direction} state against the solver's direction: max err "
+                f"{err:.3e} of max |d| (tol 1e-4), fallback {bool(fb)}, "
+                f"launches {n_comb}")
+            check(n_comb == 1 and not bool(fb) and err <= 1e-4,
+                  "the combine kernel and the solver's direction part")
+            launches_combine += n_comb
+
+    # (b) the coupled quadratic from its plain f and gradient, two-loop,
+    # every trial a direct evaluation: converges.
+    cq = tt.get_problem("coupled_quadratic")
+    xq = torch.from_numpy(np.random.default_rng(SEED).uniform(
+        -1.0, 1.0, D)).to(dev, torch.float32)
+    cfg = tt.LBFGSConfig(direction="two_loop", ls_eval="direct",
+                         use_pallas=True, max_iters=100, tol=1e-2)
+    r, got = _general_solve("coupled_quadratic two_loop direct", tt, cq.f, xq,
+                            cfg, jobs, tt.Status.CONVERGED, grad=cq.grad)
+    launches += got["iteration_tail"]
+
+    # (c) an objective with no gradient: autograd's, under the default
+    # configuration apart from use_pallas (and the iteration budget).
+    xb = torch.from_numpy(np.random.default_rng(SEED).uniform(
+        -0.5, 0.5, D)).to(dev, torch.float32)
+    cfg = tt.LBFGSConfig(use_pallas=True, max_iters=GENERAL_ITERS)
+    r, got = _general_solve("beale_like autograd default config", tt,
+                            beale_like, xb, cfg, jobs)
+    check(not r.x.requires_grad, "the result must carry no graph")
+    launches += got["iteration_tail"]
+
+    # (d) damping, compensated dots (the kernel's Neumaier stage 2), a
+    # trace and the periodic product refresh in one solve.
+    cfg = tt.LBFGSConfig(direction="compact_incremental", damping=0.2,
+                         accurate_dots=True, record_trace=True,
+                         refresh_interval=OPTIONS_REFRESH, use_pallas=True,
+                         max_iters=OPTIONS_ITERS, tol=0.0)
+    r, got = _general_solve("rosenbrock damping accurate_dots trace refresh",
+                            tt, rose.f, x0, cfg, jobs, tt.Status.MAX_ITERS,
+                            grad=rose.grad)
+    tr = r.trace
+    check(tr is not None and tr.f.shape == (OPTIONS_ITERS,)
+          and tr.guards.shape == (OPTIONS_ITERS, tt.Guard.N)
+          and bool(torch.isfinite(tr.f).all())
+          and torch.equal(tr.f[-1], r.f)
+          and torch.equal(tr.guards[-1], r.guards)
+          and tr.n_fev[-1].item() == r.n_fev.item(),
+          "the trace must hold max_iters rows ending at the result")
+    say(f"[general] trace: {OPTIONS_ITERS} rows; f[0] {tr.f[0].item():.6e}, "
+        f"f[-1] {tr.f[-1].item():.6e}; damped "
+        f"{r.guards[tt.Guard.DAMPED].item()} iterations")
+    launches += got["iteration_tail"]
+    return {"iteration_tail": launches,
+            "combine_direction": launches_combine}, jobs
+
+
 def phase_bench_batch(card):
     from tpu_lbfgs_torch.bench.harness import bench_batch
 
@@ -710,14 +1091,18 @@ def main():
     rec = phase_kernels(dev)
     rec["compact_chain"] = phase_chain(dev)
     rec.update(phase_trial_kernels(dev))
+    rec.update(phase_general_kernels(dev))
     launches, state, cfg = phase_main_path(dev)
     phase_no_sync(state, cfg)
     batch_launches, state, cfg = phase_batch(dev)
     phase_batch_no_sync(state, cfg)
     launches["compact_chain"] = batch_launches["compact_chain"]
     launches.update(phase_direct(dev))
+    general_launches, jobs = phase_general(dev)
+    launches.update(general_launches)
     phase_bench(card)
     phase_bench_batch(card)
+    phase_launch_counts(jobs)
 
     sources = {
         "rosenbrock_vg": ("tpu_lbfgs_torch/csrc/rosenbrock_vg.cu",
@@ -733,11 +1118,20 @@ def main():
         "rosenbrock_multi_phi_dphi": (
             "tpu_lbfgs_torch/csrc/rosenbrock_multi_phi_dphi.cu",
             "tpu_lbfgs/kernels/pallas_ops.py:1010"),
+        "iteration_tail": ("tpu_lbfgs_torch/csrc/iteration_tail.cu",
+                           "tpu_lbfgs/kernels/pallas_ops.py:113"),
+        "combine_direction": ("tpu_lbfgs_torch/csrc/combine_direction.cu",
+                              "tpu_lbfgs/kernels/pallas_ops.py:224"),
     }
+    for name in sources:
+        check(launches[name] > 0, f"{name} was never launched on its path")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],
                 "max_abs_err": rec[name]["max_abs_err"],
-                "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"]}
+                "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"],
+                "bound_ms": rec[name]["bound"][0],
+                "bound_by": rec[name]["bound"][1],
+                "library_ms": rec[name].get("library_ms")}
                for name, (src, rep) in sources.items()]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -336,9 +336,12 @@ def test_vmap_minimize_errors():
                          grad=p.grad, lockstep="bounded")
     with pytest.raises(ValueError, match=r"\(B, d\)"):
         tt.vmap_minimize(p.f, x0[0], tt.LBFGSConfig(), grad=p.grad)
-    with pytest.raises(ValueError, match="gradient"):
-        tt.vmap_minimize(p.f, x0, tt.LBFGSConfig(**BATCH),
-                         dir_poly=p.dir_poly)
+    # Without grad= autograd supplies each lane's gradient (it used to be a
+    # ValueError): the solve equals the one with the analytic gradient.
+    cfg = tt.LBFGSConfig(**BATCH, max_iters=3)
+    auto = tt.vmap_minimize(p.f, x0, cfg, dir_poly=p.dir_poly)
+    ref = tt.vmap_minimize(p.f, x0, cfg, grad=p.grad, dir_poly=p.dir_poly)
+    assert torch.equal(auto.x, ref.x)
 
 
 def test_bench_batch_refuses_cpu():

@@ -72,19 +72,16 @@ def test_status_and_guard_codes_mirror_reference():
 
 
 @pytest.mark.parametrize("kw", [
-    # Every line search and ls_eval="direct" are ported; an option outside
-    # the slice still raises beside them.
-    dict(line_search="wolfe_interpolation", direction="two_loop"),
-    dict(line_search="backtracking_speculative", damping=0.2),
-    dict(ls_eval="direct", history_dtype="bfloat16"),
-    dict(direction="two_loop"),
-    dict(direction="compact"),
-    dict(damping=0.2),
-    dict(accurate_dots=True),
-    dict(record_trace=True),
-    dict(refresh_interval=50),
+    # The directions, damping, accurate_dots, record_trace and
+    # refresh_interval are ported (tests/test_torch_general.py holds each to
+    # tpu_lbfgs); a history in another dtype than the iterate's still raises,
+    # alone and beside them.
     dict(history_dtype="bfloat16"),
     dict(history_dtype="float32"),     # on float64 iterates
+    dict(ls_eval="direct", history_dtype="bfloat16"),
+    dict(direction="two_loop", history_dtype="bfloat16"),
+    dict(direction="compact", damping=0.2, history_dtype="bfloat16"),
+    dict(record_trace=True, refresh_interval=50, history_dtype="bfloat16"),
 ])
 def test_out_of_slice_options_raise(kw):
     cfg = tt.LBFGSConfig(**{**BENCH, **kw, "max_iters": 3})
@@ -107,11 +104,20 @@ def test_unported_kernel_variants_raise(call):
 
 
 def test_use_pallas_without_fused_tail_raises():
+    """use_pallas without a fused tail selects the iteration_tail kernel.
+    On the CPU the solve runs on its plain version; off the CPU the kernel
+    path never gives way to the plain version: a tensor the kernel cannot
+    take raises."""
     p = tt.get_problem("rosenbrock")
-    cfg = tt.LBFGSConfig(**BENCH, max_iters=2)
-    with pytest.raises(NotImplementedError, match="iteration_tail"):
-        tt.minimize(p.f, torch.zeros(8, dtype=torch.float64), cfg,
+    cfg = tt.LBFGSConfig(**BENCH, max_iters=2, tol=0.0)
+    r = tt.minimize(p.f, torch.zeros(8, dtype=torch.float64), cfg,
                     grad=p.grad, dir_poly=p.dir_poly)
+    assert r.iterations.item() == 2
+    x = torch.zeros(16, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_ops.iteration_tail(x, x, torch.zeros((), device="meta"), x, x)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        fused_ops.iteration_tail(x.half(), x, x, x, x)
 
 
 @pytest.mark.parametrize("d", [300, 1024])
@@ -163,7 +169,9 @@ def test_cpu_run_launches_no_kernel():
         dir_poly=p.dir_poly, fused_tail=tt.fused_tail_for("rosenbrock"))
     assert r.iterations.item() == 5
     assert fused_ops.launches == {"rosenbrock_vg": 0,
-                                  "rosenbrock_fused_tail": 0}
+                                  "rosenbrock_fused_tail": 0,
+                                  "iteration_tail": 0,
+                                  "combine_direction": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -176,10 +184,16 @@ def test_wrappers_refuse_other_devices():
 
 
 def test_minimize_needs_a_gradient():
+    """minimize needs a gradient and, handed none, takes autograd's (it
+    used to raise): the solve equals the one with the analytic gradient
+    to rounding."""
     p = tt.get_problem("rosenbrock")
-    with pytest.raises(ValueError, match="gradient"):
-        tt.minimize(p.f, torch.zeros(4), tt.LBFGSConfig(**BENCH),
-                    dir_poly=p.dir_poly)
+    cfg = tt.LBFGSConfig(**BENCH, max_iters=10, tol=0.0)
+    x0 = torch.full((16,), -1.2, dtype=torch.float64)
+    auto = tt.minimize(p.f, x0, cfg, dir_poly=p.dir_poly)
+    ref = tt.minimize(p.f, x0, cfg, grad=p.grad, dir_poly=p.dir_poly)
+    np.testing.assert_allclose(auto.x.numpy(), ref.x.numpy(), rtol=1e-9)
+    assert not auto.x.requires_grad
 
 
 def test_solve_bounded_matches_solve_from_state():
@@ -203,3 +217,17 @@ def test_bench_gpu_refuses_cpu():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         bench_gpu(d=64, iters=2)
+
+
+@pytest.mark.parametrize("path", ["bench.py single", "bench.py batch",
+                                  "general two_loop"])
+def test_op_count_counts_operations(path):
+    """bench/op_count.py counts aten operations per iteration on the CPU;
+    the count does not depend on d, which is what lets a small size stand
+    for the full one."""
+    from tpu_lbfgs_torch.bench import op_count
+
+    args = op_count.paths()[path]
+    small, f = op_count.count(*args, d=512, warmup=12, iters=2)
+    large, _ = op_count.count(*args, d=2048, warmup=12, iters=2)
+    assert small == large > 100 and np.isfinite(f)

@@ -7,10 +7,20 @@ kernels.  The port so far covers the two solves that ``bench.py`` times
 (chained Rosenbrock, Armijo backtracking on the directional polynomial and
 the incremental compact direction, for one large instance with
 ``minimize`` and for a batch of small ones in lockstep with
-``vmap_minimize``), and every line search with direct evaluation of its
-trials for one instance, as the reference's own protocol runs them.
-Options outside it raise ``NotImplementedError`` naming the ROADMAP item
-that brings them.
+``vmap_minimize``), every line search with direct evaluation of its
+trials for one instance, as the reference's own protocol runs them, and
+the solve of a caller's own objective: ``minimize(f, x0)`` with the
+default configuration and autograd's gradient, the three directions,
+damping, compensated dots, traces, the periodic product refresh, segmented
+solves and the SciPy-shaped front end.  Options outside it raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
+
+Where it runs: ``minimize`` and ``vmap_minimize`` solve on the device of
+the tensor they are given, so a CPU tensor is the caller asking for the
+CPU.  An entry point that is handed no tensor (``scipy_compat.minimize``
+with a numpy or list ``x0``, ``problems.fixtures``, ``Problem.minimizer``)
+runs on the current CUDA device, raises ``RuntimeError`` when there is
+none, and takes ``device="cpu"``.
 
 This package imports torch and never jax.
 """
@@ -18,10 +28,13 @@ This package imports torch and never jax.
 from .batch import vmap_minimize
 from .config import REFERENCE_PARALLEL, REFERENCE_SEQUENTIAL, LBFGSConfig
 from .core.solver import (
+    finalize_result,
     init_state,
     iterate,
+    make_solve_segment,
     make_value_and_grad,
     minimize,
+    refresh_products,
     solve_bounded,
     solve_from_state,
 )
@@ -32,8 +45,17 @@ from .problems.suite import (
     get_problem,
     multi_phi_dphi_for,
     multi_phi_for,
+    problem_names,
+    register_problem,
 )
-from .types import Guard, LBFGSState, LineSearchResult, SolveResult, Status
+from .types import (
+    Guard,
+    LBFGSState,
+    LineSearchResult,
+    SolveResult,
+    Status,
+    Trace,
+)
 
 __all__ = [
     "LBFGSConfig",
@@ -44,16 +66,22 @@ __all__ = [
     "SolveResult",
     "Status",
     "Guard",
+    "Trace",
     "Problem",
     "fused_tail_for",
     "fused_value_and_grad",
     "get_problem",
     "multi_phi_dphi_for",
     "multi_phi_for",
+    "problem_names",
+    "register_problem",
     "init_state",
     "iterate",
     "minimize",
     "make_value_and_grad",
+    "finalize_result",
+    "make_solve_segment",
+    "refresh_products",
     "solve_bounded",
     "solve_from_state",
     "vmap_minimize",

@@ -14,13 +14,7 @@ from typing import Callable, Optional
 from torch import Tensor
 
 from ..config import LBFGSConfig
-from ..core.solver import (
-    _state_to_result,
-    init_state,
-    make_value_and_grad,
-    solve_bounded,
-    solve_from_state,
-)
+from ..core.solver import init_state, make_value_and_grad, solve_to_result
 from ..types import SolveResult
 
 
@@ -47,7 +41,8 @@ def vmap_minimize(f: Callable, x0_batch: Tensor,
          lanes end the same, lanes that converge early keep polishing past
          tol and still report CONVERGED.
 
-    Returns a SolveResult whose fields carry the leading batch axis.
+    Returns a SolveResult whose fields carry the leading batch axis, a
+    per-lane trace (B, max_iters, ...) under ``cfg.record_trace`` included.
     """
     if lockstep not in ("while", "bounded"):
         raise ValueError(f"lockstep must be 'while' or 'bounded', "
@@ -71,5 +66,5 @@ def vmap_minimize(f: Callable, x0_batch: Tensor,
             bind, (f, grad, value_and_grad, dir_poly))
     vg = make_value_and_grad(f, grad, value_and_grad)
     state = init_state(vg, x0_batch, cfg.m, cfg.history_dtype)
-    solve = solve_bounded if lockstep == "bounded" else solve_from_state
-    return _state_to_result(solve(cfg, f, vg, state, dir_poly))
+    return solve_to_result(cfg, f, vg, state, dir_poly,
+                           bounded=lockstep == "bounded")

@@ -2,12 +2,15 @@
 ``tpu_lbfgs.config.LBFGSConfig``, so one configuration means the same solve
 in both packages.
 
-The port runs these slices of the reference so far: the incremental compact
-direction with an f32 or f64 history, under every line search, with the
-trials evaluated directly (``ls_eval="direct"``) or on the closed-form
-directional polynomial; batches run Armijo backtracking on the polynomial.
-``check_supported`` turns every other option into a ``NotImplementedError``
-at solve time, naming the ROADMAP item that brings it.
+The port runs every option of the reference for one instance with an f32 or
+f64 history in the iterate's dtype: the three directions, every line
+search, trials evaluated directly (``ls_eval="direct"``) or on the
+closed-form directional polynomial, damping, compensated dots, traces and
+the periodic refresh of the incremental products.  Batches run Armijo
+backtracking on the polynomial.  ``check_supported`` turns what is left
+(a bfloat16 history) into a ``NotImplementedError`` at solve time, naming
+the ROADMAP item that brings it; the kernels' own unported variants raise
+where they are asked for (``problems.suite.fused_tail_for``).
 """
 from __future__ import annotations
 
@@ -75,10 +78,10 @@ class LBFGSConfig:
 
     ls_eval: str = "direct"
 
-    # The port's kernels come from the callables the caller passes
+    # The port's fused kernels come from the callables the caller passes
     # (fused_value_and_grad, fused_tail_for).  Without a fused tail, True
-    # would select the unfused iteration_tail kernel, which is not ported
-    # yet, so iterate raises.
+    # selects the iteration_tail CUDA kernel (kernels.fused_ops) on the
+    # card; on the CPU it runs that kernel's plain version.
     use_pallas: bool = False
     # None | "float32" | "auto" run; "auto" resolves to the input dtype
     # (the reference's rule is a TPU VMEM-residency rule).  "bfloat16" is
@@ -131,16 +134,6 @@ def _unported(what: str, item: str) -> NotImplementedError:
 
 def check_supported(cfg: LBFGSConfig) -> None:
     """Raise NotImplementedError for an option outside the ported slice."""
-    if cfg.direction != "compact_incremental":
-        raise _unported(f"direction={cfg.direction!r}", "Queue 1 item 8")
-    if cfg.damping is not None:
-        raise _unported("damping", "Queue 1 item 8")
-    if cfg.accurate_dots:
-        raise _unported("accurate_dots", "Queue 1 item 8")
-    if cfg.record_trace:
-        raise _unported("record_trace", "Queue 1 item 8")
-    if cfg.refresh_interval is not None:
-        raise _unported("refresh_interval", "Queue 1 item 8")
     if cfg.history_dtype == "bfloat16":
         raise _unported("bfloat16 history", "Queue 1 item 8")
 

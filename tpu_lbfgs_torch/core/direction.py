@@ -1,12 +1,24 @@
-"""Search direction d = -H g by the incremental compact representation
-(``tpu_lbfgs.core.direction``, ``direction="compact_incremental"``).
+"""Search direction d = -H g from the limited-memory history
+(``tpu_lbfgs.core.direction``), in the reference's three formulations.
 
-    H g = gamma g + [S, gamma Y] W [S'g; gamma Y'g]
+``two_loop``
+    The classic two-loop recursion over the ring: 2m sequential
+    dot-and-axpy passes.  The reference's guards are selects on the device:
+    a non-finite rho or a non-positive or non-finite gamma falls back to
+    steepest descent; with ``cfg.pair_skip_threshold`` set, low-curvature
+    pairs are skipped one by one instead.  Nothing is read on the host.
 
-The history products S'Y, Y'Y, S'g and Y'g are kept up to date in the state
-by ``solver.iterate``, so the direction's only (m, d)-sized work is the
-combine r = gamma g + v S - gamma u Y, two matrix-vector products, as the
-reference leaves it to an XLA matmul (tpu_lbfgs/core/direction.py:215).
+``compact`` and ``compact_incremental``
+    The Byrd-Nocedal-Schnabel compact representation,
+
+        H g = gamma g + [S, gamma Y] W [S'g; gamma Y'g]
+
+    ``compact`` contracts the history products S'Y, Y'Y, S'g and Y'g anew
+    every iteration (``history_products``); ``compact_incremental`` reads
+    them from the state, where ``solver.iterate`` keeps them up to date, so
+    its only (m, d)-sized work is the combine r = gamma g + v S - gamma u Y,
+    two matrix-vector products, as the reference leaves it to an XLA matmul
+    (tpu_lbfgs/core/direction.py:215).
 
 A batched state (leading axis B) runs the same code over (B, m, d) rings,
 with the small-matrix head in the batched chain (kernels.chain
@@ -22,6 +34,7 @@ from torch import Tensor
 
 from ..config import LBFGSConfig
 from ..kernels.chain import chain_torch, compact_chain_batched
+from ..kernels.fused_ops import _vdot, combine_direction
 from ..types import LBFGSState, per_lane
 
 
@@ -59,21 +72,6 @@ class DirAux(NamedTuple):
     g_dot_d: Tensor
 
 
-def combine_direction(g: Tensor, s_hist: Tensor, y_hist: Tensor, v: Tensor,
-                      u: Tensor, gamma: Tensor) -> Tensor:
-    """r = gamma g + v S - gamma u Y over the (m, d) ring, or per lane over
-    a (B, m, d) ring."""
-    if s_hist.dim() == 2:
-        return gamma * g + torch.mv(s_hist.T, v) - gamma * torch.mv(
-            y_hist.T, u)
-
-    def rows(coef, hist):
-        return torch.bmm(coef.unsqueeze(1), hist).squeeze(1)
-
-    gamma = gamma.unsqueeze(-1)
-    return gamma * g + rows(v, s_hist) - gamma * rows(u, y_hist)
-
-
 def _compact_core(cfg: LBFGSConfig, state: LBFGSState, SY_p: Tensor,
                   YY_p: Tensor, Sg_p: Tensor, Yg_p: Tensor):
     m = state.s_hist.shape[-2]
@@ -82,8 +80,10 @@ def _compact_core(cfg: LBFGSConfig, state: LBFGSState, SY_p: Tensor,
     v_phys, u_phys, gamma, g_dot_d, fb_pre = chain(
         SY_p, YY_p, Sg_p, Yg_p, state.sy_hist, state.yy_hist,
         state.n_pairs, state.g_norm, m, cfg.pair_skip_threshold)
+    # The reference pins the combine to its matmul route inside the solver
+    # (tpu_lbfgs/core/direction.py:215); so does the port.
     r_vec = combine_direction(g, state.s_hist, state.y_hist, v_phys, u_phys,
-                              gamma)
+                              gamma, use_pallas=False)
     fallback = fb_pre | ~torch.all(torch.isfinite(r_vec), dim=-1)
 
     gg = state.g_norm * state.g_norm
@@ -95,6 +95,93 @@ def _compact_core(cfg: LBFGSConfig, state: LBFGSState, SY_p: Tensor,
     return torch.where(fb_vec, -g, -r_vec), aux, fallback
 
 
+def _ring_row(hist: Tensor, slot: Tensor) -> Tensor:
+    """Row ``slot`` of an (m, d) ring, or each lane's own row of a
+    (B, m, d) ring; ``slot`` is (1,) or (B, 1) int64.  An index tensor
+    with a dimension: a 0-d index would be read on the host."""
+    if hist.dim() == 2:
+        return hist.index_select(0, slot)[0]
+    idx = slot[..., None].expand(-1, 1, hist.shape[-1])
+    return hist.gather(-2, idx)[..., 0, :]
+
+
+def _two_loop_core(cfg: LBFGSConfig, state: LBFGSState):
+    """(direction, fallback_fired) by the two-loop recursion; the bool
+    feeds the Guard.DIR_FALLBACK counter."""
+    m = state.s_hist.shape[-2]
+    g = state.g
+    slots, valid = _ring_logical_slots(state.n_pairs, m)
+    slots = slots.long()
+    sy = state.sy_hist.gather(-1, slots)           # logical order
+    rho = 1.0 / sy
+
+    if cfg.pair_skip_threshold is not None:
+        # GPU semantics: skip low-curvature pairs one by one, never fall
+        # back on rho.
+        use = valid & (sy > cfg.pair_skip_threshold)
+        bad_rho = torch.zeros_like(valid[..., 0])
+    else:
+        # CPU semantics: any non-finite rho among the stored pairs falls
+        # back to steepest descent.
+        use = valid
+        bad_rho = torch.any(valid & ~torch.isfinite(rho), dim=-1)
+
+    # First loop: newest -> oldest.
+    q = g
+    alphas = [None] * m
+    for j in reversed(range(m)):
+        slot = slots[..., j:j + 1]
+        a = torch.where(use[..., j],
+                        rho[..., j] * _vdot(_ring_row(state.s_hist, slot), q),
+                        0.0)
+        q = q - per_lane(a) * _ring_row(state.y_hist, slot)
+        alphas[j] = a
+
+    gamma = _gamma(state, m)
+    bad_gamma = (gamma <= 0) | ~torch.isfinite(gamma)
+    r_vec = per_lane(gamma) * q
+
+    # Second loop: oldest -> newest.
+    for j in range(m):
+        slot = slots[..., j:j + 1]
+        b = torch.where(use[..., j],
+                        rho[..., j] * _vdot(_ring_row(state.y_hist, slot),
+                                            r_vec),
+                        0.0)
+        coeff = torch.where(use[..., j], alphas[j] - b, 0.0)
+        r_vec = r_vec + per_lane(coeff) * _ring_row(state.s_hist, slot)
+
+    fallback = bad_rho | bad_gamma | (state.hist_len == 0)
+    return torch.where(per_lane(fallback), -g, -r_vec), fallback
+
+
+def two_loop_direction(cfg: LBFGSConfig, state: LBFGSState) -> Tensor:
+    """d = -H g by the two-loop recursion over the ring."""
+    return _two_loop_core(cfg, state)[0]
+
+
+def history_products(state: LBFGSState):
+    """The four history contractions (SY, YY, Sg, Yg) from the ring and the
+    current gradient: what ``compact`` computes every iteration and
+    ``solver.refresh_products`` between segments."""
+    S, Y, g = state.s_hist, state.y_hist, state.g
+    Yt = Y.transpose(-1, -2)
+    gcol = g.unsqueeze(-1)
+    return (torch.matmul(S, Yt), torch.matmul(Y, Yt),
+            torch.matmul(S, gcol).squeeze(-1),
+            torch.matmul(Y, gcol).squeeze(-1))
+
+
+def compact_direction_with_aux(cfg: LBFGSConfig, state: LBFGSState):
+    """(d, DirAux, fallback) with the products recomputed from the ring."""
+    return _compact_core(cfg, state, *history_products(state))
+
+
+def compact_direction(cfg: LBFGSConfig, state: LBFGSState) -> Tensor:
+    """d = -H g by the compact representation."""
+    return compact_direction_with_aux(cfg, state)[0]
+
+
 def compact_incremental_direction_with_aux(cfg: LBFGSConfig,
                                            state: LBFGSState):
     """(d, DirAux, fallback) from the incrementally maintained products."""
@@ -102,7 +189,14 @@ def compact_incremental_direction_with_aux(cfg: LBFGSConfig,
 
 
 def compute_direction_with_aux(cfg: LBFGSConfig, state: LBFGSState):
-    """(direction, DirAux, fallback_fired).  The port has only the
-    incremental compact direction so far; ``check_supported`` rejects the
-    others."""
-    return compact_incremental_direction_with_aux(cfg, state)
+    """(direction, DirAux or None, fallback_fired)."""
+    if cfg.direction == "compact":
+        return compact_direction_with_aux(cfg, state)
+    if cfg.direction == "compact_incremental":
+        return compact_incremental_direction_with_aux(cfg, state)
+    d, fallback = _two_loop_core(cfg, state)
+    return d, None, fallback
+
+
+def compute_direction(cfg: LBFGSConfig, state: LBFGSState) -> Tensor:
+    return compute_direction_with_aux(cfg, state)[0]

@@ -15,6 +15,12 @@ rows into ``state.s_hist`` / ``state.y_hist`` and hands the same tensors to
 the returned state, which saves a copy of the (2, m, d) ring per iteration.
 Keep no reference to an older state's ring.
 
+The solver's own tensor work runs under ``torch.no_grad()``: the ring's
+in-place writes never enter an autograd graph, and a direct-mode trial
+f(x + a d) builds none.  Only ``make_value_and_grad``'s autograd gradient
+(an objective passed without ``grad``) records one, for the length of one
+evaluation.
+
 Every function takes a state with an optional leading batch axis: x of
 shape (B, d) gives a batched state (types.LBFGSState), which iterates all
 B instances in lockstep, as ``jax.vmap`` of the reference's functions does.
@@ -24,22 +30,23 @@ is (``iterate`` is idempotent on finished lanes).
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import Tensor
 
 from ..config import LBFGSConfig, check_supported
-from ..kernels.fused_ops import _vdot, fused_tail_plain
+from ..kernels.fused_ops import _dot, _vdot, iteration_tail
 from ..linesearch.strategies import get_line_search
-from ..types import Guard, LBFGSState, SolveResult, Status, per_lane
-from .direction import compute_direction_with_aux
+from ..types import Guard, LBFGSState, SolveResult, Status, Trace, per_lane
+from ..utils.accurate import compensated_dot
+from .direction import _gamma, compute_direction_with_aux, history_products
 
 ObjFn = Callable[[Tensor], Tensor]
 ValGradFn = Callable[[Tensor], Tuple[Tensor, Tensor]]
 
 
+@torch.no_grad()
 def init_state(vg: ValGradFn, x0: Tensor, m: int,
                history_dtype=None) -> LBFGSState:
     """The initial state; evaluates f and the gradient once at x0, which is
@@ -175,17 +182,23 @@ def _keep_lanes(lanes: Tensor, new: LBFGSState,
     return new.replace(**kept)
 
 
+@torch.no_grad()
 def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
             dir_poly=None, fused_tail=None, phi_batch=None,
             phi_dphi_batch=None, lanes=None) -> LBFGSState:
     """One unconditional L-BFGS iteration (assumes status == RUNNING).
     ``fused_tail``: the post-line-search tail
-    (problems.suite.fused_tail_for); without one the plain composition of
-    ``vg`` runs.  ``phi_batch`` / ``phi_dphi_batch``: the K-trial
-    evaluators of the speculative searches under ``ls_eval="direct"``
-    (``make_phi``).  Updates the history ring in place (module docstring).
+    (problems.suite.fused_tail_for), which replaces the x_new, ``vg`` and
+    ``iteration_tail`` chain with one kernel; under ``cfg.accurate_dots`` it
+    must carry ``accurate_dots = True`` (a plain tail would drop the
+    compensation that was asked for, so it is rejected).  Without one,
+    ``kernels.fused_ops.iteration_tail`` runs after ``vg``: the CUDA kernel
+    under ``cfg.use_pallas`` on the card.  ``phi_batch`` /
+    ``phi_dphi_batch``: the K-trial evaluators of the speculative searches
+    under ``ls_eval="direct"`` (``make_phi``).  Updates the history ring in
+    place (module docstring).
 
-    ``lanes``: for a batched state, an optional (B,) bool mask.  A lane
+    ``lanes``: an optional bool mask, (B,) for a batched state.  A lane
     where it is False keeps every field, its ring rows included: the freeze
     that the reference's vmapped ``while_loop`` applies to a lane whose
     loop condition has failed."""
@@ -197,19 +210,20 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
             f"{cfg.line_search!r} is not ported to tpu_lbfgs_torch yet "
             "(ROADMAP.md Queue 1 item 7); batches run backtracking under "
             "ls_eval='polynomial'")
-    if fused_tail is None:
-        if cfg.use_pallas:
-            raise NotImplementedError(
-                "use_pallas without a fused tail selects the iteration_tail "
-                "kernel, which is not ported yet (ROADMAP.md Queue 2 item "
-                "1); pass fused_tail=fused_tail_for(...)")
-        fused_tail = partial(fused_tail_plain, vg)
+    if cfg.accurate_dots and fused_tail is not None \
+            and not getattr(fused_tail, "accurate_dots", False):
+        raise ValueError(
+            "cfg.accurate_dots requires a fused tail built with "
+            "accurate_dots=True (fused_tail_for(..., accurate_dots=True))")
     m, dim = state.s_hist.shape[-2:]
     x, g = state.x, state.g
+    incremental = cfg.direction == "compact_incremental"
 
     # --- search direction with descent safeguard (lbfgs.cpp:147-153) --------
+    # The compact paths give phi'(0) = g.d from the direction's coefficients
+    # in O(m); the two-loop takes a full dot.
     d, aux, dir_fallback = compute_direction_with_aux(cfg, state)
-    g_dot_d = aux.g_dot_d
+    g_dot_d = _vdot(g, d) if aux is None else aux.g_dot_d
     not_descent = g_dot_d >= 0
     d = torch.where(per_lane(not_descent), -g, d)
     g_dot_d = torch.where(not_descent, -state.g_norm * state.g_norm, g_dot_d)
@@ -221,10 +235,57 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
                                           g_dot_d)
     alpha = ls.alpha
 
-    # --- trial point, f/g there, pair and scalars, in one pass --------------
+    # --- trial point, f/g there, pair and scalars ---------------------------
     step_failed = alpha < cfg.step_fail_tol
-    (x_new, f_new, g_new, s_h, y_h, sy, yy, gg_new, dgn, _ggn, ygn,
-     _t1, _t2) = fused_tail(x, d, alpha, g, state.s_hist, state.y_hist)
+    damped = cfg.damping is not None
+    if fused_tail is not None:
+        # One pass: the kernel forms y = g_new - g itself, so damping blends
+        # its rows below.  s.s = alpha^2 d.d costs one more pass over d.
+        (x_new, f_new, g_new, s_h, y_raw, sy, yy, gg_new, dgn, _ggn, ygn,
+         _t1, _t2) = fused_tail(x, d, alpha, g, state.s_hist, state.y_hist)
+        ss = alpha * alpha * _vdot(d, d) if damped else None
+    else:
+        x_new = x + per_lane(alpha) * d
+        f_new, g_new = vg(x_new)
+        # Under accurate_dots the kernel compensates its cross-block
+        # accumulation itself and the two sums beside it stay plain; without
+        # the kernel every sum goes through compensated_dot.
+        x_new, s_h, y_raw, sy, yy, gg_new, dgn, _ggn = iteration_tail(
+            x, d, alpha, g, g_new, use_pallas=cfg.use_pallas,
+            accurate=cfg.accurate_dots)
+        dot = compensated_dot if cfg.accurate_dots and not cfg.use_pallas \
+            else _dot
+        ygn = dot(y_raw, g_new)
+        ss = dot(s_h, s_h) if damped else None
+    y_h = y_raw
+
+    damp_fired = None
+    if damped:
+        # Powell damping with B0 = I / gamma: y_bar = theta y + (1 - theta)
+        # s / gamma when s.y < mu s.s / gamma.  It runs after either tail,
+        # and the blended scalars follow from the raw sums:
+        #   s.y_bar     = theta sy + (1 - theta) ss / gamma
+        #   y_bar.y_bar = theta^2 yy + 2 theta (1 - theta) sy / gamma
+        #                 + ((1 - theta) / gamma)^2 ss
+        #   y_bar.g_new = theta ygn + (1 - theta) (s.g_new) / gamma,
+        #   s.g_new = alpha dgn.
+        # The raw y stays for the incremental Sg / Yg advance below, whose
+        # invariant is over the raw gradient difference g_new = g + y_raw.
+        gamma_p = _gamma(state, m)         # 1.0 before the first pair
+        sBs = ss / gamma_p
+        mu = cfg.damping
+        damp_fired = sy < mu * sBs
+        denom = sBs - sy
+        theta = torch.where(
+            damp_fired & (denom > 0) & torch.isfinite(denom),
+            (1.0 - mu) * sBs / torch.where(denom > 0, denom, 1.0), 1.0)
+        one_m = (1.0 - theta) / gamma_p
+        y_h = per_lane(theta) * y_raw + per_lane(one_m) * s_h
+        ygn = theta * ygn + one_m * (alpha * dgn)
+        yy = theta * theta * yy + 2.0 * theta * one_m * sy \
+            + one_m * one_m * ss
+        sy = theta * sy + one_m * ss
+        damp_fired = damp_fired & (theta < 1.0)
 
     failed = (step_failed | ~torch.isfinite(f_new) | ~torch.isfinite(gg_new)
               | (state.status != Status.RUNNING))
@@ -232,9 +293,15 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
     if lanes is not None:
         store = store & lanes
 
-    # u1 = S y_new, u2 = Y y_new over the rows before the write below.
-    u1 = _matvec(state.s_hist, y_h)
-    u2 = _matvec(state.y_hist, y_h)
+    if incremental:
+        # u1 = S y_raw, u2 = Y y_raw over the rows before the write below:
+        # the one fresh contraction per iteration, against the RAW y (the
+        # damped row would corrupt every off-slot Sg / Yg entry).
+        u1 = _matvec(state.s_hist, y_raw)
+        u2 = _matvec(state.y_hist, y_raw)
+        if damped:
+            us1 = _matvec(state.s_hist, s_h)
+            us2 = _matvec(state.y_hist, s_h)
 
     # --- masked ring write: only each lane's slot row moves, only when
     # storing.  The ring's rows, (B*m, d), picked by integer index: a
@@ -257,27 +324,40 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
     sy_hist = torch.where(sel, sy_l, state.sy_hist)
     yy_hist = torch.where(sel, yy_l, state.yy_hist)
 
-    # --- incremental history products (direction="compact_incremental") ---
-    # s_i.g_new = s_i.g + s_i.y (y = g_new - g); the slot's entries come
-    # from the tail's exact sums.
-    Sg_next = torch.where(sel, per_lane(alpha * dgn), state.Sg + u1)
-    Yg_next = torch.where(sel, per_lane(ygn), state.Yg + u2)
-    sy_col = torch.where(is_slot, sy_l, u1)
-    yy_col = torch.where(is_slot, yy_l, u2)
-    SY_next = torch.where(is_slot[..., None, :], sy_col[..., :, None],
-                          state.SY)
-    YY_next = torch.where(is_slot[..., None, :], yy_col[..., :, None],
-                          state.YY)
-    YY_next = torch.where(is_slot[..., :, None], yy_col[..., None, :],
-                          YY_next)
-    store_mat, failed_mat = per_lane(store, 2), per_lane(failed, 2)
-    SY_next = torch.where(store_mat, SY_next, state.SY)
-    YY_next = torch.where(store_mat, YY_next, state.YY)
-    SY_next = torch.where(failed_mat, state.SY, SY_next)
-    YY_next = torch.where(failed_mat, state.YY, YY_next)
+    # --- incremental history products (direction="compact_incremental");
+    # the other directions carry them unchanged ----------------------------
+    SY_next, YY_next = state.SY, state.YY
+    Sg_next, Yg_next = state.Sg, state.Yg
     failed_vec = per_lane(failed)
-    Sg_next = torch.where(failed_vec, state.Sg, Sg_next)
-    Yg_next = torch.where(failed_vec, state.Yg, Yg_next)
+    if incremental:
+        # s_i.g_new = s_i.g + s_i.y_raw; the slot's entries come from the
+        # tail's exact sums (Yg[slot] is the stored row's dot, the damped
+        # y_bar.g_new when damping fired).
+        Sg_next = torch.where(sel, per_lane(alpha * dgn), state.Sg + u1)
+        Yg_next = torch.where(sel, per_lane(ygn), state.Yg + u2)
+        # The new column of SY / YY is over the STORED y row: u1 / u2, or
+        # under damping their blend with S s_new / Y s_new.
+        if damped:
+            theta_l, one_m_l = per_lane(theta), per_lane(one_m)
+            col1 = theta_l * u1 + one_m_l * us1
+            col2 = theta_l * u2 + one_m_l * us2
+        else:
+            col1, col2 = u1, u2
+        sy_col = torch.where(is_slot, sy_l, col1)
+        yy_col = torch.where(is_slot, yy_l, col2)
+        SY_next = torch.where(is_slot[..., None, :], sy_col[..., :, None],
+                              state.SY)
+        YY_next = torch.where(is_slot[..., None, :], yy_col[..., :, None],
+                              state.YY)
+        YY_next = torch.where(is_slot[..., :, None], yy_col[..., None, :],
+                              YY_next)
+        store_mat, failed_mat = per_lane(store, 2), per_lane(failed, 2)
+        SY_next = torch.where(store_mat, SY_next, state.SY)
+        YY_next = torch.where(store_mat, YY_next, state.YY)
+        SY_next = torch.where(failed_mat, state.SY, SY_next)
+        YY_next = torch.where(failed_mat, state.YY, YY_next)
+        Sg_next = torch.where(failed_vec, state.Sg, Sg_next)
+        Yg_next = torch.where(failed_vec, state.Yg, Yg_next)
 
     # --- safeguard counters (types.Guard), gated on RUNNING so that iterate
     # is idempotent on finished states -------------------------------------
@@ -289,7 +369,7 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
         ~failed & (sy <= cfg.curvature_threshold),
         ls.rescued.to(torch.bool),
         failed,
-        torch.zeros_like(failed),      # Guard.DAMPED: damping is not ported
+        damp_fired & ~failed if damped else torch.zeros_like(failed),
     ], dim=-1) & per_lane(active)
     guards = state.guards + counts.to(i32)
 
@@ -341,6 +421,58 @@ def _running(cfg: LBFGSConfig, state: LBFGSState) -> Tensor:
             & (state.k < cfg.max_iters))
 
 
+def _any(cond: Tensor) -> bool:
+    """Whether the condition holds (on any lane): one host read."""
+    return bool(cond.any() if cond.dim() else cond)
+
+
+def _refresh_interval(cfg: LBFGSConfig) -> Optional[int]:
+    """cfg.refresh_interval where it applies (compact_incremental)."""
+    if cfg.direction == "compact_incremental":
+        return cfg.refresh_interval
+    return None
+
+
+@torch.no_grad()
+def refresh_products(state: LBFGSState) -> LBFGSState:
+    """Recompute the incremental products SY / YY / Sg / Yg from the stored
+    rows and the current gradient (the ``compact`` path's contractions),
+    which zeroes the rounding drift that ``compact_incremental`` adds up in
+    the off-diagonal entries.  The diagonals come from the per-slot exact
+    tail sums (sy_hist / yy_hist).  Called between solve segments
+    (``cfg.refresh_interval``), never inside an iteration."""
+    SY, YY, Sg, Yg = history_products(state)
+    eye = torch.eye(SY.shape[-1], dtype=torch.bool, device=SY.device)
+    SY = torch.where(eye, state.sy_hist[..., None, :], SY)
+    YY = torch.where(eye, state.yy_hist[..., None, :], YY)
+    return state.replace(SY=SY, YY=YY, Sg=Sg, Yg=Yg)
+
+
+def _stepper(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, *callables):
+    """``step(state, lanes=None)``: one ``iterate`` of this solve."""
+    def step(state, lanes=None):
+        return iterate(cfg, f, vg, state, *callables, lanes=lanes)
+    return step
+
+
+def _run_segment(cfg: LBFGSConfig, step, state: LBFGSState,
+                 iters: Optional[int], emit=None) -> LBFGSState:
+    """Iterate while running, for at most ``iters`` more iterations of each
+    lane when given (counted on the device from each lane's k); one host
+    read per iteration.  ``emit(state)`` is called after every iteration."""
+    k_cap = None if iters is None else torch.clamp(state.k + iters,
+                                                   max=cfg.max_iters)
+    while True:
+        running = _running(cfg, state)
+        if k_cap is not None:
+            running = running & (state.k < k_cap)
+        if not _any(running):
+            return state
+        state = step(state, lanes=running if running.dim() else None)
+        if emit is not None:
+            emit(state)
+
+
 def solve_from_state(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
                      state: LBFGSState, dir_poly=None, fused_tail=None,
                      phi_batch=None, phi_dphi_batch=None) -> LBFGSState:
@@ -348,15 +480,28 @@ def solve_from_state(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
     finalized.  Reads one scalar per iteration, the loop condition (for a
     batch: whether any lane still runs).  A lane stops the moment its own
     condition fails and keeps its state from then on, as under the
-    reference's vmapped ``while_loop``."""
+    reference's vmapped ``while_loop``.
+
+    With ``cfg.refresh_interval`` set (compact_incremental only) the run is
+    split into segments of up to that many iterations, counted from the k
+    each segment starts at, and the history products are recomputed after
+    every segment (``refresh_products``), for the lanes that entered it."""
     check_supported(cfg)
-    while True:
-        running = _running(cfg, state)
-        batched = running.dim() > 0
-        if not bool(running.any() if batched else running):
-            break
-        state = iterate(cfg, f, vg, state, dir_poly, fused_tail, phi_batch,
-                        phi_dphi_batch, lanes=running if batched else None)
+    if cfg.record_trace:
+        return _solve_traced(cfg, f, vg, state, dir_poly, fused_tail,
+                             phi_batch, phi_dphi_batch)[0]
+    step = _stepper(cfg, f, vg, dir_poly, fused_tail, phi_batch,
+                    phi_dphi_batch)
+    interval = _refresh_interval(cfg)
+    if interval is None:
+        state = _run_segment(cfg, step, state, None)
+    else:
+        while True:
+            entered = _running(cfg, state)
+            if not _any(entered):
+                break
+            out = refresh_products(_run_segment(cfg, step, state, interval))
+            state = _keep_lanes(entered, out, state) if entered.dim() else out
     return state.replace(status=_finalize_status(cfg, state))
 
 
@@ -366,30 +511,149 @@ def solve_bounded(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
     """Exactly ``cfg.max_iters`` more iterations with no read of the loop
     condition: safe because iterate is idempotent on finished states
     (lanes).  A state that would have converged early keeps iterating to
-    the budget."""
+    the budget.  The budget and, with ``cfg.refresh_interval``
+    (compact_incremental), the refresh points are relative to the state
+    given: a refresh after every full ``refresh_interval`` iterations, none
+    after the remainder."""
     check_supported(cfg)
-    for _ in range(cfg.max_iters):
-        state = iterate(cfg, f, vg, state, dir_poly, fused_tail, phi_batch,
-                        phi_dphi_batch)
+    interval = _refresh_interval(cfg)
+    if interval is not None and interval >= cfg.max_iters:
+        interval = None
+    step = _stepper(cfg, f, vg, dir_poly, fused_tail, phi_batch,
+                    phi_dphi_batch)
+    for i in range(1, cfg.max_iters + 1):
+        state = step(state)
+        if interval and i % interval == 0:
+            state = refresh_products(state)
     return state.replace(status=_finalize_status(cfg, state))
 
 
-def _state_to_result(state: LBFGSState) -> SolveResult:
+def make_solve_segment(cfg: LBFGSConfig, f: ObjFn, grad=None,
+                       value_and_grad=None, iters: Optional[int] = None,
+                       dir_poly=None, fused_tail=None, phi_batch=None,
+                       phi_dphi_batch=None, donate: bool = True):
+    """A ``state -> state`` function that runs up to ``iters`` iterations
+    (default ``cfg.refresh_interval``, else ``cfg.max_iters``) or to
+    convergence, for solves driven in segments from the host: periodic
+    checkpoints, monitoring, very long runs.
+
+    Segments do not finalize the status (one that ends at its cap is still
+    RUNNING); call ``finalize_result`` after the last.  With
+    ``cfg.refresh_interval`` set (compact_incremental) the history products
+    are refreshed at the end of every segment.
+
+    ``donate`` is the reference's buffer donation and has no counterpart
+    here: the port's ring is updated in place whatever it says, so the
+    state passed in must not be used again either way."""
+    check_supported(cfg)
+    vg = make_value_and_grad(f, grad, value_and_grad)
+    seg_iters = iters if iters is not None \
+        else (cfg.refresh_interval if cfg.refresh_interval is not None
+              else cfg.max_iters)
+    step = _stepper(cfg, f, vg, dir_poly, fused_tail, phi_batch,
+                    phi_dphi_batch)
+
+    def segment(state: LBFGSState) -> LBFGSState:
+        out = _run_segment(cfg, step, state, seg_iters)
+        if _refresh_interval(cfg) is not None:
+            out = refresh_products(out)
+        return out
+
+    return segment
+
+
+def finalize_result(cfg: LBFGSConfig, state: LBFGSState) -> SolveResult:
+    """Resolve a RUNNING status to CONVERGED / MAX_ITERS and package a
+    SolveResult: the closing step of a ``make_solve_segment`` loop."""
+    return _state_to_result(
+        state.replace(status=_finalize_status(cfg, state)))
+
+
+def _solve_traced(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
+                  state: LBFGSState, dir_poly=None, fused_tail=None,
+                  phi_batch=None, phi_dphi_batch=None
+                  ) -> Tuple[LBFGSState, Trace]:
+    """The solve with per-iteration metrics: f, g_norm, alpha, n_fev, n_gev
+    and the guard counters after each of ``cfg.max_iters`` iterations, kept
+    on the device and stacked once at the end.  Once no lane runs the state
+    is frozen, so the remaining rows are copies of the last one and are
+    filled in without iterating.
+
+    ``cfg.refresh_interval`` (compact_incremental) is honoured at the
+    reference's points: after every ``refresh_interval`` iterations counted
+    from the state given, and after the last, partial segment.  Reads one
+    scalar per iteration, the loop condition."""
+    step = _stepper(cfg, f, vg, dir_poly, fused_tail, phi_batch,
+                    phi_dphi_batch)
+    fields = ("f", "g_norm", "alpha", "n_fev", "n_gev", "guards")
+    rows = []
+
+    def emit(s):
+        rows.append(tuple(getattr(s, name) for name in fields))
+
+    interval = _refresh_interval(cfg)
+    if interval is not None and interval >= cfg.max_iters:
+        interval = None
+    while len(rows) < cfg.max_iters:
+        before = len(rows)
+        want = min(interval or cfg.max_iters, cfg.max_iters - before)
+        state = _run_segment(cfg, step, state, want, emit)
+        if interval is not None:
+            state = refresh_products(state)
+        if len(rows) - before < want:
+            break       # stopped early: every later row is a frozen copy
+    if not rows:
+        emit(state)
+        rows = rows * cfg.max_iters
+    rows += [rows[-1]] * (cfg.max_iters - len(rows))
+    # One row per iteration after each lane's own axis: (max_iters, ...) or,
+    # for a batch, (B, max_iters, ...), as the reference's vmapped scan.
+    axis = state.x.dim() - 1
+    trace = Trace(*(torch.stack(col, dim=axis) for col in zip(*rows)))
+    return state.replace(status=_finalize_status(cfg, state)), trace
+
+
+def _state_to_result(state: LBFGSState,
+                     trace: Optional[Trace] = None) -> SolveResult:
     return SolveResult(
         x=state.x, f=state.f, g_norm=state.g_norm, iterations=state.k,
         status=state.status, n_fev=state.n_fev, n_gev=state.n_gev,
-        trace=None, guards=state.guards)
+        trace=trace, guards=state.guards)
+
+
+def solve_to_result(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
+                    state: LBFGSState, dir_poly=None, fused_tail=None,
+                    phi_batch=None, phi_dphi_batch=None,
+                    bounded: bool = False) -> SolveResult:
+    """Solve from ``state`` and package the result, with its trace under
+    ``cfg.record_trace``: what ``minimize`` and ``vmap_minimize`` run."""
+    args = (cfg, f, vg, state, dir_poly, fused_tail, phi_batch,
+            phi_dphi_batch)
+    if bounded:
+        return _state_to_result(solve_bounded(*args))
+    if cfg.record_trace:
+        return _state_to_result(*_solve_traced(*args))
+    return _state_to_result(solve_from_state(*args))
 
 
 def make_value_and_grad(f: ObjFn, grad=None, value_and_grad=None) -> ValGradFn:
     """The objective interface: ``value_and_grad`` if given, else f with
-    its analytic ``grad``."""
+    its analytic ``grad``, else f with its exact gradient from autograd
+    (where the reference takes ``jax.value_and_grad``).  For a batch, f
+    returns one value per lane and each lane's gradient is its own row."""
     if value_and_grad is not None:
         return value_and_grad
     if grad is not None:
         return lambda x: (f(x), grad(x))
-    raise ValueError("tpu_lbfgs_torch needs an analytic gradient: pass "
-                     "grad= or value_and_grad=")
+
+    def autograd_vg(x):
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_(True)
+            fx = f(xr)
+            (g,) = torch.autograd.grad(fx.sum(), xr)
+        return fx.detach(), g
+
+    return autograd_vg
 
 
 def minimize(f: ObjFn, x0: Tensor, cfg: LBFGSConfig = LBFGSConfig(),
@@ -397,9 +661,9 @@ def minimize(f: ObjFn, x0: Tensor, cfg: LBFGSConfig = LBFGSConfig(),
              fused_tail=None, phi_batch=None,
              phi_dphi_batch=None) -> SolveResult:
     """Solve from x0 on x0's device.  The entry point of the reference's
-    ``tpu_lbfgs.minimize``, without its JAX-only arguments."""
+    ``tpu_lbfgs.minimize``, without its JAX-only arguments.  With f alone,
+    autograd supplies the gradient."""
     vg = make_value_and_grad(f, grad, value_and_grad)
     state = init_state(vg, x0, cfg.m, cfg.history_dtype)
-    out = solve_from_state(cfg, f, vg, state, dir_poly, fused_tail,
+    return solve_to_result(cfg, f, vg, state, dir_poly, fused_tail,
                            phi_batch, phi_dphi_batch)
-    return _state_to_result(out)

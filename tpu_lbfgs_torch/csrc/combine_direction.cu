@@ -1,0 +1,78 @@
+// The compact direction's second pass over the history in one stream:
+//   r = gamma g + sum_k v_k s_k - gamma sum_k u_k y_k.
+//
+// Replaces the Pallas kernel tpu_lbfgs/kernels/pallas_ops.py _combine_kernel
+// (run by _combine_pallas), the public entry
+// combine_direction(use_pallas=True).
+//
+// Bound by device-memory bytes: (2m + 1) values are read and one written
+// per element for 4m + 1 operations.  So every row of S and Y is read
+// exactly once: a thread owns one element of r and walks the m rows at
+// that column, which makes each warp's loads of a row contiguous, and its
+// 2m loads are independent, so many are in flight at once.  There is no
+// reduction across threads and nothing is kept between blocks.  m is a
+// run-time argument; v, u and gamma are read from device memory (they come
+// out of the small-matrix head), one broadcast load per row.  The edge is
+// masked by index, so any n works.
+//
+// The accumulation follows the TPU kernel's and the plain PyTorch
+// version's order (tpu_lbfgs_torch/kernels/fused_ops.py::
+// combine_direction_plain), acc = gamma g, then for k = 0 .. m-1
+// acc = (acc + v_k s_k) - (gamma u_k) y_k in the working type, and the
+// library is built with -fmad=false, so r matches the plain version bit
+// for bit.  The kernel is a template on the scalar type, float or double.
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    combine_direction_kernel(const T* __restrict__ g,
+                             const T* __restrict__ s_hist,
+                             const T* __restrict__ y_hist,
+                             const T* __restrict__ v, const T* __restrict__ u,
+                             const T* __restrict__ gamma, T* __restrict__ r,
+                             int m, int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const T gam = *gamma;
+  T acc = gam * g[i];
+#pragma unroll 5
+  for (int k = 0; k < m; ++k) {
+    const int64_t at = static_cast<int64_t>(k) * n + i;
+    acc = (acc + v[k] * s_hist[at]) - (gam * u[k]) * y_hist[at];
+  }
+  r[i] = acc;
+}
+
+template <typename T>
+int launch(const T* g, const T* s_hist, const T* y_hist, const T* v,
+           const T* u, const T* gamma, T* r, int m, long long n,
+           void* stream) {
+  if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  combine_direction_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      g, s_hist, y_hist, v, u, gamma, r, m, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// g, r: n values; s_hist, y_hist: m * n values, row-major (m, n); v, u: m
+// values; gamma: one value; all on the device, float (_f32) or double
+// (_f64).  Returns the cudaError_t of the launch.
+#define TL_COMBINE_ENTRY(NAME, T)                                            \
+  extern "C" int NAME(const T* g, const T* s_hist, const T* y_hist,          \
+                      const T* v, const T* u, const T* gamma, T* r, int m,   \
+                      long long n, void* stream) {                           \
+    return launch<T>(g, s_hist, y_hist, v, u, gamma, r, m, n, stream);       \
+  }
+
+TL_COMBINE_ENTRY(tl_combine_direction_f32, float)
+TL_COMBINE_ENTRY(tl_combine_direction_f64, double)

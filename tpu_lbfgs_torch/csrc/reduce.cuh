@@ -56,10 +56,12 @@ __device__ __forceinline__ void block_sum_to(const double (&acc)[K],
 }
 
 // Stage 2, launched with one block of kThreads per scalar: out[k] = sum of
-// the nblocks partials of scalar k = blockIdx.x, rounded once to float.
+// the nblocks partials of scalar k = blockIdx.x, rounded once to T (float
+// or double, deduced from out).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     finish_sums(const double* __restrict__ partials, int nblocks,
-                float* __restrict__ out) {
+                T* __restrict__ out) {
   __shared__ double sh[kThreads];
   const int t = threadIdx.x;
   const double* __restrict__ row =
@@ -72,7 +74,7 @@ __global__ void __launch_bounds__(kThreads)
     if (t < w) sh[t] += sh[t + w];
     __syncthreads();
   }
-  if (t == 0) out[blockIdx.x] = static_cast<float>(sh[0]);
+  if (t == 0) out[blockIdx.x] = static_cast<T>(sh[0]);
 }
 
 }  // namespace

@@ -5,7 +5,8 @@ A state crosses as a dict ``{field: numpy array}`` of the reference's
 on the JAX side), with the history ring in the reference's ``(m, R, L)``
 layout.  A batched state (``jax.vmap(init_state)`` on the JAX side) has a
 leading lane axis on every field, and its ring is ``(B, m, R, L)``.  Both
-directions copy, so the two solvers never share a buffer.
+directions copy, so the two solvers never share a buffer.  A ``Trace``
+crosses the same way, field by field.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .types import LBFGSState
+from .types import LBFGSState, Trace
 
 _LANES = 128
 
@@ -49,3 +50,17 @@ def state_to_numpy(state: LBFGSState) -> dict:
             a = a.reshape(a.shape[:-1] + hist_block(a.shape[-1]))
         out[f.name] = a
     return out
+
+
+def trace_from_numpy(arrays: dict, device="cpu") -> Trace:
+    """The port's Trace on ``device`` from a reference trace's arrays
+    (``trace._asdict()`` on the JAX side)."""
+    return Trace(**{name: torch.from_numpy(
+        np.array(arrays[name], copy=True)).to(device)
+        for name in Trace._fields})
+
+
+def trace_to_numpy(trace: Trace) -> dict:
+    """A reference trace's arrays from the port's Trace."""
+    return {name: getattr(trace, name).detach().cpu().numpy().copy()
+            for name in Trace._fields}

@@ -5,6 +5,7 @@ Each wrapper counts its kernel's launches in its module's ``launches``;
 ``launch_counts()`` reads and ``reset_launches()`` zeroes every count of
 the package at once."""
 from . import chain, fused_ops, line_search_ops
+from .fused_ops import combine_direction, iteration_tail
 
 _COUNTED = (fused_ops, chain, line_search_ops)
 

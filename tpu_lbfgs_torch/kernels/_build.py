@@ -42,6 +42,14 @@ _SIGNATURES = {
                                               ctypes.c_longlong, _P],
                                   ctypes.c_int)
        for k in ("multi_phi", "multi_phi_dphi")},
+    **{f"tl_iteration_tail_{t}": ([_P] * 10 + [ctypes.c_longlong,
+                                              ctypes.c_int, _P],
+                                  ctypes.c_int)
+       for t in ("f32", "f64")},
+    **{f"tl_combine_direction_{t}": ([_P] * 7 + [ctypes.c_int,
+                                                 ctypes.c_longlong, _P],
+                                     ctypes.c_int)
+       for t in ("f32", "f64")},
     **{f"tl_compact_chain_{t}": ([_P] * 8 + [c_thr, ctypes.c_int] + [_P] * 5
                                  + [ctypes.c_longlong, ctypes.c_int, _P],
                                  ctypes.c_int)

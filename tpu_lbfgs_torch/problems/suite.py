@@ -1,6 +1,6 @@
-"""Objective suite of the port: ``tpu_lbfgs.problems.suite`` for chained
-Rosenbrock, the quadratic and the sphere, with the same formulas in the same
-order of operations.  The coupled quadratic is still to be ported.
+"""Objective suite of the port: ``tpu_lbfgs.problems.suite`` (chained
+Rosenbrock, the quadratic, the coupled quadratic and the sphere), with the
+same formulas in the same order of operations.
 
 Every function takes an optional leading batch axis: x is ``(..., d)``, f
 is ``(...)``, and ``dir_poly`` returns its coefficients on the last axis,
@@ -36,6 +36,7 @@ from ..kernels.line_search_ops import (
     multi_phi_plain,
     multi_phi_rosenbrock,
 )
+from ..types import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +45,9 @@ class Problem:
     f: Callable[[Tensor], Tensor]
     grad: Callable[[Tensor], Tensor]
     minimum_value: Optional[float] = None
+    # minimizer(d, dtype, device=None): the known minimizer as a (d,)
+    # tensor, on the current CUDA device unless ``device`` says otherwise.
+    minimizer: Optional[Callable[..., Tensor]] = None
     # Coefficients c (ascending) with f(x + a d) = sum_k c[k] a^k, for
     # cfg.ls_eval="polynomial".
     dir_poly: Optional[Callable[[Tensor, Tensor], Tensor]] = None
@@ -99,6 +103,39 @@ def rosenbrock_dir_poly(x: Tensor, d: Tensor) -> Tensor:
     return torch.stack([c0, c1, c2, c3, c4], dim=-1)
 
 
+# --- coupled quadratic (tridiagonal), COEFFICIENT = 1000 ---------------------
+
+COUPLED_COEFFICIENT = 1000.0
+
+
+def coupled_quadratic_f(x: Tensor,
+                        coeff: float = COUPLED_COEFFICIENT) -> Tensor:
+    # coeff * sum x_i^2 + (coeff / 10) * sum x_i x_{i+1}
+    return coeff * torch.sum(x * x, dim=-1) + (coeff / 10.0) * torch.sum(
+        x[..., :-1] * x[..., 1:], dim=-1)
+
+
+def coupled_quadratic_grad(x: Tensor,
+                           coeff: float = COUPLED_COEFFICIENT) -> Tensor:
+    g = 2.0 * coeff * x
+    g[..., :-1] += (coeff / 10.0) * x[..., 1:]
+    g[..., 1:] += (coeff / 10.0) * x[..., :-1]
+    return g
+
+
+def coupled_quadratic_dir_poly(x: Tensor, d: Tensor,
+                               coeff: float = COUPLED_COEFFICIENT) -> Tensor:
+    # K sum (x + a d)^2 + (K / 10) sum (x + a d)(x' + a d'):
+    # c0 = f(x), c1 = 2K x.d + (K/10)(x.d' + x'.d), c2 = K d.d + (K/10) d.d'
+    k10 = coeff / 10.0
+    xi, xn, di, dn = x[..., :-1], x[..., 1:], d[..., :-1], d[..., 1:]
+    c0 = coeff * _vdot(x, x) + k10 * torch.sum(xi * xn, dim=-1)
+    c1 = (2.0 * coeff * _vdot(x, d)
+          + k10 * (torch.sum(xi * dn, dim=-1) + torch.sum(xn * di, dim=-1)))
+    c2 = coeff * _vdot(d, d) + k10 * torch.sum(di * dn, dim=-1)
+    return torch.stack([c0, c1, c2], dim=-1)
+
+
 # --- sphere ------------------------------------------------------------------
 
 def sphere_f(x: Tensor) -> Tensor:
@@ -113,12 +150,23 @@ def sphere_dir_poly(x: Tensor, d: Tensor) -> Tensor:
     return torch.stack([_vdot(x, x), 2.0 * _vdot(x, d), _vdot(d, d)], dim=-1)
 
 
+def _constant_minimizer(value: float):
+    def minimizer(d: int, dtype, device=None) -> Tensor:
+        return torch.full((d,), value, dtype=dtype,
+                          device=resolve_device(device))
+    return minimizer
+
+
 _PROBLEMS = {
     "quadratic": Problem("quadratic", quadratic_f, quadratic_grad, 0.0,
-                         quadratic_dir_poly),
+                         _constant_minimizer(1.0), quadratic_dir_poly),
     "rosenbrock": Problem("rosenbrock", rosenbrock_f, rosenbrock_grad, 0.0,
-                          rosenbrock_dir_poly),
-    "sphere": Problem("sphere", sphere_f, sphere_grad, 0.0, sphere_dir_poly),
+                          _constant_minimizer(1.0), rosenbrock_dir_poly),
+    "coupled_quadratic": Problem(
+        "coupled_quadratic", coupled_quadratic_f, coupled_quadratic_grad,
+        0.0, _constant_minimizer(0.0), coupled_quadratic_dir_poly),
+    "sphere": Problem("sphere", sphere_f, sphere_grad, 0.0,
+                      _constant_minimizer(0.0), sphere_dir_poly),
 }
 
 # Problems whose value-and-gradient kernel is still a Pallas kernel only.
@@ -131,6 +179,14 @@ def get_problem(name: str) -> Problem:
     except KeyError:
         raise KeyError(f"unknown problem {name!r}; available: "
                        f"{sorted(_PROBLEMS)}") from None
+
+
+def problem_names() -> list[str]:
+    return sorted(_PROBLEMS)
+
+
+def register_problem(problem: Problem) -> None:
+    _PROBLEMS[problem.name] = problem
 
 
 def _unported_kernel(name: str) -> NotImplementedError:

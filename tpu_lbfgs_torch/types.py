@@ -99,6 +99,20 @@ class LineSearchResult(NamedTuple):
     rescued: Tensor
 
 
+class Trace(NamedTuple):
+    """Per-iteration metrics of a traced solve (``cfg.record_trace``),
+    collected on the device and stacked once at the end: ``max_iters`` rows
+    each.  Rows at and beyond the final ``k`` are copies of the last state;
+    the counters are cumulative."""
+
+    f: Tensor          # (max_iters,)
+    g_norm: Tensor     # (max_iters,)
+    alpha: Tensor      # (max_iters,)
+    n_fev: Tensor      # (max_iters,) int32
+    n_gev: Tensor      # (max_iters,) int32
+    guards: Optional[Tensor] = None   # (max_iters, Guard.N) int32
+
+
 class SolveResult(NamedTuple):
     x: Tensor
     f: Tensor
@@ -107,7 +121,19 @@ class SolveResult(NamedTuple):
     status: Tensor
     n_fev: Tensor
     n_gev: Tensor
-    # Per-iteration traces (cfg.record_trace) are not ported yet; the field
-    # keeps the reference's result layout.
-    trace: Optional[object] = None
+    trace: Optional[Trace] = None
     guards: Optional[Tensor] = None
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device of an entry point that is handed no tensor: ``device`` if
+    given (the tests pass "cpu"), else the current CUDA device.  Raises
+    ``RuntimeError`` when there is none: the port runs on the card unless
+    the caller asks for the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "tpu_lbfgs_torch runs on a CUDA device and found none; pass "
+            "device='cpu' to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
