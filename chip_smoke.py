@@ -6,7 +6,7 @@ Run from the repository root, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from tpu_lbfgs_torch/csrc, holds each
-against its plain PyTorch version on the card, and drives four paths,
+against its plain PyTorch version on the card, and drives five paths,
 each solve with the kernels' launch counts set to 0 just before it and
 read just after:
 
@@ -28,7 +28,17 @@ read just after:
   coupled quadratic from its plain f and grad, an objective differentiated
   by autograd under the default configuration, and one solve with damping,
   compensated dots, a trace and the periodic product refresh; then the
-  public combine_direction kernel entry on the states those solves leave.
+  public combine_direction kernel entry on the states those solves leave;
+- the command line, tpu_lbfgs_torch.cli.main in process with --dim 1048576
+  --dtype float32 --pallas: each of rosenbrock, quadratic and
+  coupled_quadratic on the polynomial, the two quadratics under the
+  speculative Armijo and Wolfe searches in direct mode, and Rosenbrock with
+  a bfloat16 history (whose products "auto" puts into the tail); then,
+  through minimize (the command line has no flag for them), the fused tail
+  with and without its in-kernel history products on a float32 and on a
+  bfloat16 ring and the compensated tail; over the
+  quadratic and coupled bodies of the four fused kernel families, every
+  form of the fused tail and the combine kernel on a bfloat16 ring.
 
 It checks that each solve went through its kernels, that its output is
 sound and equals the plain versions' over the first iterations, and that
@@ -40,8 +50,8 @@ The last line of output is a JSON record of the device; the line before
 it records each kernel: its launches on its path, its largest deviation
 from the plain version, its time, the plain version's, the least time the
 card could take for the same bytes and operations, and, where one PyTorch
-call computes the same function, that call's time.  Without a CUDA device it exits with an error and
-prints no record.
+call computes the same function, that call's time.  Without a CUDA device
+it exits with an error and prints no record.
 """
 import itertools
 import json
@@ -116,6 +126,17 @@ GENERAL_ITERS = 60
 GENERAL_WARMUP = 5
 OPTIONS_ITERS = 120
 OPTIONS_REFRESH = 50
+# The command line.  Full width, depth cut: the Rosenbrock solves run
+# CLI_ITERS iterations at tol = 0; the quadratics converge at the default
+# tol = 1e-5 in a few.  The fused tail with its history products (t1, t2)
+# against its plain version: each of the 2 m sums within TRIAL_SUM_RTOL of
+# sum|terms| plus one float32 ulp, as the K-trial sums are held.  GIANT is
+# the second size at which the tail's forms are timed for the with_matvec
+# rule.
+CLI_ITERS = 100
+CLI_ARGS = ["--dim", str(D), "--dtype", "float32", "--pallas", "--json"]
+TAIL_M = (5, 10, 20)
+GIANT = 1 << 24
 # The roofline's peaks for one H100 SXM (NVIDIA's data sheet): device memory
 # and float32 outside the tensor cores.  Every arithmetic operation is
 # counted at the float32 rate, the float64 additions of the sums too.
@@ -130,6 +151,11 @@ def say(*parts):
 def check(ok, what):
     if not ok:
         raise AssertionError(what)
+
+
+def ran(launches):
+    """The kernels of a launch count that ran, for a printed line."""
+    return {name: n for name, n in launches.items() if n}
 
 
 def ulps(a, b):
@@ -216,72 +242,241 @@ def _kernel_inputs(n, dev):
     return x, d, g
 
 
+def _f_abs_terms(problem, u):
+    """sum |terms of f| at u (float64): the scale of f's rounding error.
+    Only the coupled quadratic has terms of either sign."""
+    import tpu_lbfgs_torch as tt
+
+    if problem == "coupled_quadratic":
+        return (1000.0 * u * u).sum(-1) + (100.0 * u[..., :-1]
+                                           * u[..., 1:]).abs().sum(-1)
+    return tt.get_problem(problem).f(u)
+
+
+def _tail_sums_check(problem, out_k, out_p, d, g):
+    """Largest error of the tail's seven sums, kernel against plain, in
+    units of each sum's sum|terms|; and beyond one ulp of the plain sum."""
+    xn, gn, s, y = (out_p[i].double() for i in (0, 2, 3, 4))
+    dd, gg = d.double(), g.double()
+    scales = [_f_abs_terms(problem, xn), (s * y).abs().sum(), (y * y).sum(),
+              (gn * gn).sum(), (dd * gn).abs().sum(), (gg * gn).abs().sum(),
+              (y * gn).abs().sum()]
+    sums_k = [out_k[1]] + list(out_k[5:11])
+    sums_p = [out_p[1]] + list(out_p[5:11])
+    err = max(((a.double() - b.double()).abs() / sc).item()
+              for a, b, sc in zip(sums_k, sums_p, scales))
+    over = max(_beyond_ulp(a, b, sc)
+               for a, b, sc in zip(sums_k, sums_p, scales))
+    return err, over
+
+
 def phase_kernels(dev):
+    """The value-and-gradient kernel and the fused tail (no matvec, float32
+    rows, plain sums) of every body against their plain versions."""
     from tpu_lbfgs_torch.kernels import fused_ops as ops
 
     rec = {}
     alpha = torch.full((), 0.125, dtype=torch.float32, device=dev)
-    for n in (D, RAGGED):
+    for problem, n in itertools.product(ops.BODY_IDS, TAIL_D):
         x, d, g = _kernel_inputs(n, dev)
+        vg_name, tail_name = f"{problem}_vg", f"{problem}_fused_tail"
+        vg_plain = ops.VG_PLAIN[problem]
+        tail = ops.make_fused_tail(problem, vg_plain, with_matvec=False)
         # value and gradient
-        f_k, g_k = ops.fused_vg_rosenbrock(x)
-        f_p, g_p = ops.rosenbrock_vg_plain(x)
+        f_k, g_k = ops.fused_vg(problem, x)
+        f_p, g_p = vg_plain(x)
         torch.cuda.synchronize()
         vg_ulp = ulps(g_k, g_p)
         vg_abs = (g_k - g_p).abs().max().item()
-        f_rel = abs(f_k.item() - f_p.item()) / f_p.item()   # all terms >= 0
-        say(f"[kernel] rosenbrock_vg d={n}: g max abs err {vg_abs:.3e}, "
-            f"{vg_ulp:.2f} ulp (tol {VEC_ULPS}); f rel err {f_rel:.3e} "
+        f_rel = abs(f_k.item() - f_p.item()) / _f_abs_terms(
+            problem, x.double()).item()
+        say(f"[kernel] {vg_name} d={n}: g max abs err {vg_abs:.3e}, "
+            f"{vg_ulp:.2f} ulp (tol {VEC_ULPS}), bit-equal "
+            f"{torch.equal(g_k, g_p)}; f err {f_rel:.3e} of sum|terms| "
             f"(tol {SUM_RTOL})")
         check(vg_ulp <= VEC_ULPS and f_rel <= SUM_RTOL,
-              f"rosenbrock_vg disagrees with its plain version at d={n}")
+              f"{vg_name} disagrees with its plain version at d={n}")
         # fused tail
-        out_k = ops.fused_tail_rosenbrock(x, d, alpha, g)
-        out_p = ops.fused_tail_plain(ops.rosenbrock_vg_plain, x, d, alpha, g)
+        out_k = tail(x, d, alpha, g)
+        out_p = ops.fused_tail_plain(vg_plain, x, d, alpha, g)
         torch.cuda.synchronize()
-        tail_abs, tail_ulp = 0.0, 0.0
-        for i, name in ((0, "x_new"), (2, "g_new"), (3, "s"), (4, "y")):
+        tail_abs, tail_ulp, same = 0.0, 0.0, True
+        for i in (0, 2, 3, 4):
             tail_abs = max(tail_abs, (out_k[i] - out_p[i]).abs().max().item())
             tail_ulp = max(tail_ulp, ulps(out_k[i], out_p[i]))
-        xn, gn, s, y = (t.double() for t in (out_p[0], out_p[2], out_p[3],
-                                             out_p[4]))
-        dd, gg = d.double(), g.double()
-        scale = [out_p[1].double().abs().item(),
-                 (s * y).abs().sum().item(), (y * y).sum().item(),
-                 (gn * gn).sum().item(), (dd * gn).abs().sum().item(),
-                 (gg * gn).abs().sum().item(), (y * gn).abs().sum().item()]
-        sums_k = [out_k[1]] + list(out_k[5:11])
-        sums_p = [out_p[1]] + list(out_p[5:11])
-        sum_err = max(abs(a.item() - b.item()) / sc
-                      for a, b, sc in zip(sums_k, sums_p, scale))
+            same &= torch.equal(out_k[i], out_p[i])
+        sum_err, _ = _tail_sums_check(problem, out_k, out_p, d, g)
         check(out_k[11] is None and out_k[12] is None, "t1/t2 must be None")
-        say(f"[kernel] rosenbrock_fused_tail d={n}: vectors max abs err "
-            f"{tail_abs:.3e}, {tail_ulp:.2f} ulp (tol {VEC_ULPS}); 7 sums "
-            f"max err {sum_err:.3e} of sum|terms| (tol {SUM_RTOL})")
+        say(f"[kernel] {tail_name} d={n}: vectors max abs err "
+            f"{tail_abs:.3e}, {tail_ulp:.2f} ulp (tol {VEC_ULPS}), bit-equal "
+            f"{same}; 7 sums max err {sum_err:.3e} of sum|terms| (tol "
+            f"{SUM_RTOL})")
         check(tail_ulp <= VEC_ULPS and sum_err <= SUM_RTOL,
-              f"rosenbrock_fused_tail disagrees with its plain version at "
-              f"d={n}")
+              f"{tail_name} disagrees with its plain version at d={n}")
+        if problem != "rosenbrock":     # the new bodies: bit for bit
+            check(torch.equal(g_k, g_p) and same,
+                  f"{problem}: kernel vectors must equal the plain "
+                  f"version's bit for bit at d={n}")
+        if n != D:
+            continue
+        # Per element: x in and g out, 3 (quadratic) to 18 (Rosenbrock)
+        # operations; the tail x, d, g in and x_new, g_new, s, y out and
+        # about 22 more.
+        body_ops = {"quadratic": 4, "rosenbrock": 18,
+                    "coupled_quadratic": 9}[problem]
+        rec[vg_name] = {
+            "max_abs_err": vg_abs,
+            "ms": device_ms(lambda: ops.fused_vg(problem, x)),
+            "plain_ms": device_ms(lambda: vg_plain(x)),
+            "bound": bound_ms(8 * n + 4, body_ops * n)}
+        rec[tail_name] = {
+            "max_abs_err": tail_abs,
+            "ms": device_ms(lambda: tail(x, d, alpha, g)),
+            "plain_ms": device_ms(lambda: ops.fused_tail_plain(
+                vg_plain, x, d, alpha, g)),
+            "bound": bound_ms(28 * n + 4 + 28, (body_ops + 22) * n)}
+        for name in (vg_name, tail_name):
+            r = rec[name]
+            say(f"[kernel] {name} d={n}: {r['ms'] * 1e3:.2f} us on the "
+                f"card, plain version {r['plain_ms'] * 1e3:.2f} us, bound "
+                f"{r['bound'][0] * 1e3:.2f} us by {r['bound'][1]}")
+    return rec
+
+
+def _ring(rng_gen, m, n, dev, hdtype):
+    """An (m, n) ring of U(-1, 1) values made on the card."""
+    return (2.0 * torch.rand((m, n), generator=rng_gen, device=dev,
+                             dtype=torch.float32) - 1.0).to(hdtype)
+
+
+def phase_tail_forms(dev):
+    """The fused tail's other forms against the plain version: the
+    in-kernel history products at m = 5, 10, 20 on a float32 and a bfloat16
+    ring (bfloat16 rows without the matvec too), and the compensated sums;
+    then their times beside the route they replace, at d = 2^20 and 2^24,
+    for the with_matvec rule."""
+    from tpu_lbfgs_torch.core.solver import _matvec
+    from tpu_lbfgs_torch.kernels import fused_ops as ops
+
+    rec, errs = {}, {}
+    alpha = torch.full((), 0.125, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    hist = {"f32": torch.float32, "bf16": torch.bfloat16}
+    for problem, n in itertools.product(ops.BODY_IDS, TAIL_D):
+        x, d, g = _kernel_inputs(n, dev)
+        vg_plain = ops.VG_PLAIN[problem]
+        forms = [(h, m, False) for h in hist for m in (0,) + TAIL_M
+                 if (h, m) != ("f32", 0)]
+        forms += [("f32", 0, True), ("bf16", 10, True)]
+        worst = {"sum": 0.0, "t": 0.0}
+        for h, m, accurate in forms:
+            S, Y = (_ring(gen, max(m, 1), n, dev, hist[h]) for _ in range(2))
+            tail = ops.make_fused_tail(problem, vg_plain, with_matvec=m > 0,
+                                       accurate_dots=accurate)
+            out_k = tail(x, d, alpha, g, S, Y)
+            out_p = ops.fused_tail_plain(vg_plain, x, d, alpha, g, S, Y,
+                                         m > 0, accurate)
+            torch.cuda.synchronize()
+            where = (f"{problem} d={n} ring {h} matvec m={m} "
+                     f"compensated={accurate}")
+            same = all(torch.equal(out_k[i], out_p[i])
+                       and out_k[i].dtype == out_p[i].dtype
+                       for i in (0, 2, 3, 4))
+            check(same and out_k[3].dtype == hist[h],
+                  f"fused tail vectors differ from plain ({where})")
+            _, over = _tail_sums_check(problem, out_k, out_p, d, g)
+            t_over = 0.0
+            if m:
+                y = (out_p[2] - g).double()
+                for i, ring in ((11, S), (12, Y)):
+                    check(out_k[i].shape == (m,)
+                          and out_k[i].dtype == torch.float32,
+                          f"t1/t2 must be ({m},) float32 ({where})")
+                    scale = ring.double().abs() @ y.abs()
+                    t_over = max(t_over, _beyond_ulp(out_k[i], out_p[i],
+                                                     scale))
+            else:
+                check(out_k[11] is None and out_k[12] is None,
+                      f"t1/t2 must be None ({where})")
+            check(over <= TRIAL_SUM_RTOL and t_over <= TRIAL_SUM_RTOL,
+                  f"fused tail sums differ from plain ({where}): 7 sums "
+                  f"{over:.3e}, t1/t2 {t_over:.3e} beyond 1 ulp")
+            worst["sum"] = max(worst["sum"], over)
+            worst["t"] = max(worst["t"], t_over)
+            errs[problem, n, h, m, accurate] = max(
+                (a.float() - b.float()).abs().max().item()
+                for a, b in zip(out_k, out_p) if a is not None)
+        say(f"[kernel] {problem}_fused_tail forms d={n}: {len(forms)} forms "
+            f"(ring f32/bf16, matvec m=0,5,10,20, compensated): vectors "
+            f"bit-equal, 7 sums {worst['sum']:.3e} and t1/t2 "
+            f"{worst['t']:.3e} of sum|terms| beyond 1 ulp (tol "
+            f"{TRIAL_SUM_RTOL})")
+
+    # Times, Rosenbrock body (the other bodies do less arithmetic on the
+    # same bytes).  Beside each form: the plain version, and for the matvec
+    # the route it replaces in the solver, the tail without it followed by
+    # core.solver._matvec twice (two torch.mv; a bfloat16 ring is widened
+    # first).  library_ms is two torch.mv on the ring as it is stored.
+    problem, vg_plain = "rosenbrock", ops.VG_PLAIN["rosenbrock"]
+    for n in (D, GIANT):
+        x = 4.0 * torch.rand(n, generator=gen, device=dev) - 2.0
+        d, g = (2.0 * torch.rand(n, generator=gen, device=dev) - 1.0
+                for _ in range(2))
+        base = ops.make_fused_tail(problem, vg_plain, with_matvec=False)
+        for h, m in (("f32", 10), ("bf16", 10), ("f32", 5), ("f32", 20),
+                     ("bf16", 5), ("bf16", 20), ("bf16", 0)):
+            if n == GIANT and m not in (0, 10):
+                continue
+            S, Y = (_ring(gen, max(m, 1), n, dev, hist[h]) for _ in range(2))
+            tail = ops.make_fused_tail(problem, vg_plain, with_matvec=m > 0)
+            ms = device_ms(lambda: tail(x, d, alpha, g, S, Y))
+            size = S.element_size()
+            # x, d, g and the ring in; x_new, g_new and the two rows out;
+            # 40 operations per element and 4 per ring value.
+            bound = bound_ms(n * (20 + 2 * size + 2 * m * size) + 32 + 8 * m,
+                             n * (40 + 8 * m))
+            line = (f"[kernel] rosenbrock_fused_tail d={n} ring {h} "
+                    f"matvec m={m}: {ms * 1e3:.2f} us, bound "
+                    f"{bound[0] * 1e3:.2f} us by {bound[1]}")
+            r = {"ms": ms, "bound": bound,
+                 "max_abs_err": errs[problem, D, h, m, False]}
+            if n == D:
+                r["plain_ms"] = device_ms(lambda: ops.fused_tail_plain(
+                    vg_plain, x, d, alpha, g, S, Y, m > 0))
+                line += f", plain version {r['plain_ms'] * 1e3:.2f} us"
+            if m:
+                y_row = base(x, d, alpha, g, S, Y)[4]
+                base_ms = device_ms(lambda: base(x, d, alpha, g, S, Y))
+                route_ms = device_ms(lambda: (
+                    _matvec(S, y_row, torch.float32),
+                    _matvec(Y, y_row, torch.float32)))
+                line += (f"; without the matvec {base_ms * 1e3:.2f} us + the "
+                         f"solver's two products {route_ms * 1e3:.2f} us = "
+                         f"{(base_ms + route_ms) * 1e3:.2f} us")
+                r["route_ms"] = base_ms + route_ms
+                if h == "f32":
+                    r["library_ms"] = device_ms(lambda: (
+                        torch.mv(S, y_row), torch.mv(Y, y_row)))
+                    line += (f"; two torch.mv alone "
+                             f"{r['library_ms'] * 1e3:.2f} us")
+            say(line)
+            if n == D:
+                rec[f"rosenbrock_fused_tail[ring {h}, matvec m={m}]"] = r
+            del S, Y
         if n == D:
-            rec["rosenbrock_vg"] = {"max_abs_err": vg_abs}
-            rec["rosenbrock_fused_tail"] = {"max_abs_err": tail_abs}
-            rec["rosenbrock_vg"]["ms"] = device_ms(
-                lambda: ops.fused_vg_rosenbrock(x))
-            rec["rosenbrock_vg"]["plain_ms"] = device_ms(
-                lambda: ops.rosenbrock_vg_plain(x))
-            rec["rosenbrock_fused_tail"]["ms"] = device_ms(
-                lambda: ops.fused_tail_rosenbrock(x, d, alpha, g))
-            rec["rosenbrock_fused_tail"]["plain_ms"] = device_ms(
-                lambda: ops.fused_tail_plain(ops.rosenbrock_vg_plain, x, d,
-                                             alpha, g))
-            # Per element: x in and g out, about 18 operations; the tail
-            # x, d, g in and x_new, g_new, s, y out, about 40.
-            rec["rosenbrock_vg"]["bound"] = bound_ms(8 * n + 4, 18 * n)
-            rec["rosenbrock_fused_tail"]["bound"] = bound_ms(
-                28 * n + 4 + 28, 40 * n)
-            for name, r in rec.items():
-                say(f"[kernel] {name} d={n}: {r['ms'] * 1e3:.2f} us on the "
-                    f"card, plain version {r['plain_ms'] * 1e3:.2f} us, "
-                    f"bound {r['bound'][0] * 1e3:.2f} us by {r['bound'][1]}")
+            comp = ops.make_fused_tail(problem, vg_plain, with_matvec=False,
+                                       accurate_dots=True)
+            r = {"ms": device_ms(lambda: comp(x, d, alpha, g)),
+                 "plain_ms": device_ms(lambda: ops.fused_tail_plain(
+                     vg_plain, x, d, alpha, g, accurate=True)),
+                 "bound": bound_ms(28 * n + 32, 40 * n),
+                 "max_abs_err": errs[problem, D, "f32", 0, True]}
+            say(f"[kernel] rosenbrock_fused_tail d={n} compensated: "
+                f"{r['ms'] * 1e3:.2f} us, plain version "
+                f"{r['plain_ms'] * 1e3:.2f} us, bound "
+                f"{r['bound'][0] * 1e3:.2f} us by {r['bound'][1]}")
+            rec["rosenbrock_fused_tail[compensated]"] = r
     return rec
 
 
@@ -353,17 +548,16 @@ def phase_chain(dev):
     return rec
 
 
-def _trial_abs_terms(x, d, alphas):
+def _trial_abs_terms(problem, x, d, alphas):
     """Per trial, sum |f terms| and sum |g_i d_i| in float64 at the float32
     trial points: the scale of each sum's rounding error."""
-    from tpu_lbfgs_torch.kernels.fused_ops import rosenbrock_grad_plain
+    from tpu_lbfgs_torch.kernels.fused_ops import VG_PLAIN
 
     f_abs, g_abs = [], []
     for a in alphas.unbind(0):
         u = (x + a * d).double()
-        t = u[1:] - u[:-1] * u[:-1]
-        f_abs.append((100.0 * t * t + (1.0 - u[:-1]) ** 2).abs().sum())
-        g_abs.append((rosenbrock_grad_plain(u) * d.double()).abs().sum())
+        f_abs.append(_f_abs_terms(problem, u))
+        g_abs.append((VG_PLAIN[problem](u)[1] * d.double()).abs().sum())
     return torch.stack(f_abs), torch.stack(g_abs)
 
 
@@ -377,24 +571,32 @@ def _beyond_ulp(a, b, scale):
 
 
 def phase_trial_kernels(dev):
+    """multi_phi and multi_phi_dphi of every body against their plain
+    versions."""
     from tpu_lbfgs_torch.kernels import fused_ops
     from tpu_lbfgs_torch.kernels import line_search_ops as ops
 
-    names = ("rosenbrock_multi_phi", "rosenbrock_multi_phi_dphi")
-    rec = {name: {"max_abs_err": 0.0} for name in names}
+    rec = {}
     rng = np.random.default_rng(SEED)
-    for n, k in itertools.product(TRIAL_D, TRIALS):
+    for problem, n, k in itertools.product(fused_ops.BODY_IDS, TRIAL_D,
+                                           TRIALS):
+        names = (f"{problem}_multi_phi", f"{problem}_multi_phi_dphi")
+        for name in names:
+            rec.setdefault(name, {"max_abs_err": 0.0})
+        f_plain = fused_ops.F_PLAIN[problem]
+        vg_plain = fused_ops.VG_PLAIN[problem]
+        phi_kernel = ops.make_multi_phi(problem, None)
+        dphi_kernel = ops.make_multi_phi_dphi(problem, None)
         x, d, _ = _kernel_inputs(n, dev)
         alphas = torch.from_numpy(2.0 ** rng.integers(-6, 3, k)
                                   * rng.uniform(0.5, 1.0, k)).to(
             device=dev, dtype=torch.float32)
-        phi_k = ops.multi_phi_rosenbrock(x, d, alphas)
-        phi_p = ops.multi_phi_plain(fused_ops.rosenbrock_f_plain, x, d, alphas)
-        f_k, g_k = ops.multi_phi_dphi_rosenbrock(x, d, alphas)
-        f_p, g_p = ops.multi_phi_dphi_plain(fused_ops.rosenbrock_vg_plain, x,
-                                            d, alphas)
+        phi_k = phi_kernel(x, d, alphas)
+        phi_p = ops.multi_phi_plain(f_plain, x, d, alphas)
+        f_k, g_k = dphi_kernel(x, d, alphas)
+        f_p, g_p = ops.multi_phi_dphi_plain(vg_plain, x, d, alphas)
         torch.cuda.synchronize()
-        f_abs, g_abs = _trial_abs_terms(x, d, alphas)
+        f_abs, g_abs = _trial_abs_terms(problem, x, d, alphas)
         for name, pairs in ((names[0], ((phi_k, phi_p, f_abs),)),
                             (names[1], ((f_k, f_p, f_abs),
                                         (g_k, g_p, g_abs)))):
@@ -416,28 +618,33 @@ def phase_trial_kernels(dev):
         if n != D:
             continue
         times = {
-            names[0]: (lambda: ops.multi_phi_rosenbrock(x, d, alphas),
-                       lambda: ops.multi_phi_plain(
-                           fused_ops.rosenbrock_f_plain, x, d, alphas)),
-            names[1]: (lambda: ops.multi_phi_dphi_rosenbrock(x, d, alphas),
-                       lambda: ops.multi_phi_dphi_plain(
-                           fused_ops.rosenbrock_vg_plain, x, d, alphas)),
+            names[0]: (lambda: phi_kernel(x, d, alphas),
+                       lambda: ops.multi_phi_plain(f_plain, x, d, alphas)),
+            names[1]: (lambda: dphi_kernel(x, d, alphas),
+                       lambda: ops.multi_phi_dphi_plain(vg_plain, x, d,
+                                                        alphas)),
         }
         for name, (kernel, plain) in times.items():
+            # The record keeps the K the direct path gives each kernel most:
+            # 8 for multi_phi, the 36-node tree for multi_phi_dphi; the
+            # other K is timed for the Rosenbrock body only.
+            kept = k == (8 if name == names[0] else 36)
+            if not kept and problem != "rosenbrock":
+                continue
             ms, plain_ms = device_ms(kernel), device_ms(plain)
             say(f"[kernel] {name} d={n} K={k}: {ms * 1e3:.2f} us on the "
                 f"card, plain version {plain_ms * 1e3:.2f} us")
-            # The record keeps the K the direct path gives each kernel most:
-            # 8 for multi_phi, the 36-node tree for multi_phi_dphi.
-            if k == (8 if name == names[0] else 36):
+            if kept:
                 rec[name]["ms"], rec[name]["plain_ms"] = ms, plain_ms
                 # x, d and K alphas in, K (or 2 K) sums out; per element
-                # and trial about 13 operations for phi (two trial points,
-                # the term, its float64 add), 28 with phi' as well.
+                # and trial two trial points (one for the quadratic), the
+                # body's term and its float64 add, with phi' the gradient
+                # and g_i d_i as well.
                 outs = 1 if name == names[0] else 2
+                per_trial = {"quadratic": (6, 9), "rosenbrock": (13, 28),
+                             "coupled_quadratic": (10, 19)}[problem][outs - 1]
                 rec[name]["bound"] = bound_ms(
-                    8 * n + 4 * k + 4 * outs * k,
-                    (13 if name == names[0] else 28) * n * k)
+                    8 * n + 4 * k + 4 * outs * k, per_trial * n * k)
     return rec
 
 
@@ -546,6 +753,52 @@ def phase_general_kernels(dev):
                 rec["combine_direction"].update(
                     ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                     bound=bound)
+
+    # The same over a bfloat16 ring under float32 (each ring value widened
+    # as it is read, the coefficients float32): bit for bit against the
+    # plain version.  The matrix-vector route casts the coefficients down
+    # to bfloat16 first, as the reference's does, so it is another function
+    # of v and u: held to 2^-8 of sum |coefficient| max |ring|.
+    form = "combine_direction[ring bf16]"
+    rec[form] = {"max_abs_err": 0.0}
+    for n, m in itertools.product(TAIL_D, CHAIN_M):
+        g = torch.from_numpy(rng.uniform(-1.0, 1.0, n)).to(dev, torch.float32)
+        S, Y = (torch.from_numpy(rng.uniform(-1.0, 1.0, (m, n))).to(
+            dev, torch.bfloat16) for _ in range(2))
+        v, u = (torch.from_numpy(rng.uniform(-1.0, 1.0, m)).to(
+            dev, torch.float32) for _ in range(2))
+        gamma = torch.full((), 0.8, dtype=torch.float32, device=dev)
+        r_k = ops.combine_direction(g, S, Y, v, u, gamma)
+        r_p = ops.combine_direction_plain(g, S, Y, v, u, gamma)
+        r_l = ops.combine_direction_matmul(g, S, Y, v, u, gamma)
+        torch.cuda.synchronize()
+        abs_err = (r_k - r_p).abs().max().item()
+        lib_err = (r_k - r_l).abs().max().item()
+        lib_tol = 2.0 ** -8 * (v.abs().sum() + u.abs().sum()).item()
+        say(f"[kernel] combine_direction d={n} m={m} bfloat16 ring: max abs "
+            f"err {abs_err:.3e} against plain (tol {COMBINE_ABS_TOL}), "
+            f"{lib_err:.3e} against the matrix-vector route with bfloat16 "
+            f"coefficients (tol {lib_tol:.3e})")
+        check(r_k.dtype == torch.float32 and r_k.shape == (n,)
+              and abs_err <= COMBINE_ABS_TOL and lib_err <= lib_tol,
+              f"combine_direction on a bfloat16 ring disagrees (d={n} m={m})")
+        rec[form]["max_abs_err"] = max(rec[form]["max_abs_err"], abs_err)
+        if n == D and m == 10:
+            ms = device_ms(lambda: ops.combine_direction(g, S, Y, v, u,
+                                                         gamma))
+            plain_ms = device_ms(lambda: ops.combine_direction_plain(
+                g, S, Y, v, u, gamma))
+            route_ms = device_ms(lambda: ops.combine_direction_matmul(
+                g, S, Y, v, u, gamma))
+            # g and the bfloat16 ring in, r out; 4 m + 1 operations.
+            bound = bound_ms(4 * (2 * n + 2 * m + 1) + 2 * 2 * m * n,
+                             (4 * m + 1) * n)
+            say(f"[kernel] combine_direction d={n} m={m} bfloat16 ring: "
+                f"{ms * 1e3:.2f} us on the card, plain version "
+                f"{plain_ms * 1e3:.2f} us, the solver's matrix-vector route "
+                f"(widens the ring) {route_ms * 1e3:.2f} us, bound "
+                f"{bound[0] * 1e3:.2f} us by {bound[1]}")
+            rec[form].update(ms=ms, plain_ms=plain_ms, bound=bound)
     return rec
 
 
@@ -581,7 +834,7 @@ def phase_main_path(dev):
     say(f"[main] minimize d={D} float32, {k} iterations in {wall:.3f} s: "
         f"f {f0:.6e} -> {f:.6e}, |g| {r.g_norm.item():.4e}, status "
         f"{tt.Status.NAMES[r.status.item()]}, guards {r.guards.tolist()}, "
-        f"launches {launches}")
+        f"launches {ran(launches)}")
     check(r.status.item() == tt.Status.MAX_ITERS and k == MAIN_ITERS,
           "the solve must run its 200 iterations to max_iters")
     check(r.x.shape == (D,) and bool(torch.isfinite(r.x).all())
@@ -688,7 +941,7 @@ def phase_batch(dev):
     say(f"[batch] vmap_minimize B={BATCH} d={BATCH_D} float32 bounded, "
         f"{BATCH_ITERS} iterations in {wall:.3f} s: mean f {mean0:.6e} -> "
         f"{mean1:.6e}, max |g| {r.g_norm.max().item():.4e}, status {status}, "
-        f"guards {r.guards.sum(0).tolist()}, launches {launches}")
+        f"guards {r.guards.sum(0).tolist()}, launches {ran(launches)}")
     check(bool((r.iterations == BATCH_ITERS).all()),
           "every lane must run its 200 iterations")
     check(launches["compact_chain"] == BATCH_ITERS,
@@ -793,7 +1046,7 @@ def phase_direct(dev):
             f"(+1 for the loop condition); f {f0:.6e} -> {f:.6e}, |g| "
             f"{r.g_norm.item():.4e}, status "
             f"{tt.Status.NAMES[r.status.item()]}, guards "
-            f"{r.guards.tolist()}, launches {got}")
+            f"{r.guards.tolist()}, launches {ran(got)}")
         check(r.status.item() == tt.Status.MAX_ITERS and k == DIRECT_ITERS,
               f"{strategy}: the solve must run its {DIRECT_ITERS} iterations")
         check(r.x.shape == (D,) and bool(torch.isfinite(r.x).all())
@@ -815,7 +1068,7 @@ def phase_direct(dev):
             rounds = reads - (got["rosenbrock_vg"] - 1)
             check(rounds > 0 and got[own] == batched == rounds,
                   f"{strategy}: {own} must launch once per round ({rounds} "
-                  f"rounds, launches {got})")
+                  f"rounds, launches {ran(got)})")
         else:
             check(batched == 0, f"{strategy} must not launch a K-trial kernel")
         for name in trial_kernels:
@@ -910,7 +1163,7 @@ def _general_solve(label, tt, f, x0, cfg, jobs, expect_status=None,
         f"{reads / max(k, 1):.2f} line-search host reads/iteration (+1 for "
         f"the loop condition); f {f0:.6e} -> {fk:.6e}, |g| "
         f"{r.g_norm.item():.4e}, status {status}, guards "
-        f"{r.guards.tolist()}, launches {got}")
+        f"{r.guards.tolist()}, launches {ran(got)}")
     check(k > 0 and r.x.shape == x0.shape and bool(torch.isfinite(r.x).all())
           and np.isfinite(fk) and fk < f0,
           f"{label}: f must be finite and decrease")
@@ -1064,6 +1317,272 @@ def phase_general(dev):
             "combine_direction": launches_combine}, jobs
 
 
+def _cli_main(argv):
+    """tpu_lbfgs_torch.cli.main(argv) in process; its --json document."""
+    import contextlib
+    import io
+
+    from tpu_lbfgs_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = cli.main(argv)
+    check(code == 0, f"the command line exited with {code} on {argv}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def _first_alphas(tt, p, cfg, x0, solver, iters):
+    """alpha and f of the first ``iters`` iterations from x0."""
+    st = tt.init_state(solver["value_and_grad"], x0, cfg.m,
+                       cfg.history_dtype)
+    alphas, fs = [], []
+    for _ in range(iters):
+        st = tt.iterate(cfg, p.f, solver["value_and_grad"], st,
+                        solver.get("dir_poly"), solver["fused_tail"],
+                        solver.get("phi_batch"), solver.get("phi_dphi_batch"))
+        alphas.append(st.alpha.item())
+        fs.append(st.f.item())
+    return alphas, fs, st
+
+
+def _suite_solver(tt, problem, cfg, use_kernels, **tail_kw):
+    """What the command line hands to minimize under --pallas, with the
+    kernels or with their plain versions."""
+    poly = cfg.ls_eval == "polynomial"
+    tail_kw = {**dict(with_matvec="auto", m=cfg.m, d=D,
+                      history_dtype=cfg.history_dtype,
+                      accurate_dots=cfg.accurate_dots), **tail_kw}
+    return dict(
+        value_and_grad=tt.fused_value_and_grad(problem,
+                                               use_pallas=use_kernels),
+        fused_tail=tt.fused_tail_for(problem, use_pallas=use_kernels,
+                                     **tail_kw),
+        dir_poly=tt.get_problem(problem).dir_poly if poly else None,
+        phi_batch=None if poly else tt.multi_phi_for(
+            problem, use_pallas=use_kernels),
+        phi_dphi_batch=None if poly else tt.multi_phi_dphi_for(
+            problem, use_pallas=use_kernels))
+
+
+def _check_suite_launches(label, problem, cfg, k, got, reads):
+    """The kernels a --pallas solve of ``k`` iterations must have gone
+    through: the fused tail once per iteration, the value and gradient once
+    at the start (and once per scalar zoom turn of the direct Wolfe twin),
+    a twin's K-trial kernel once per round."""
+    vg, tail = got[f"{problem}_vg"], got[f"{problem}_fused_tail"]
+    check(tail == k, f"{label}: {problem}_fused_tail must launch once per "
+          f"iteration ({k}), launches {ran(got)}")
+    check(vg >= 1 and (vg == 1 or cfg.ls_eval == "direct"),
+          f"{label}: {problem}_vg must launch once per solve, launches "
+          f"{ran(got)}")
+    check(got["iteration_tail"] == 0,
+          f"{label}: the fused tail replaces iteration_tail")
+    if cfg.ls_eval == "direct" and cfg.line_search.endswith("_speculative"):
+        own = (f"{problem}_multi_phi"
+               if cfg.line_search == "backtracking_speculative"
+               else f"{problem}_multi_phi_dphi")
+        rounds = reads - (vg - 1)
+        check(rounds > 0 and got[own] == rounds,
+              f"{label}: {own} must launch once per round ({rounds} rounds, "
+              f"launches {ran(got)})")
+
+
+def _kernels_vs_plain(label, tt, problem, cfg, x0, iters, **tail_kw):
+    """The first iterations with the kernels and with their plain versions,
+    both on the card, from the same start: equal alphas, f within
+    TRACE_F_RTOL of itself or of 1e-9 of the starting f (the residue a
+    quadratic falls to), whichever is larger.  Returns the state the
+    kernels reach."""
+    p = tt.get_problem(problem)
+    a_k, f_k, state = _first_alphas(
+        tt, p, cfg, x0, _suite_solver(tt, problem, cfg, True, **tail_kw),
+        iters)
+    a_p, f_p, _ = _first_alphas(
+        tt, p, cfg, x0, _suite_solver(tt, problem, cfg, False, **tail_kw),
+        iters)
+    floor = 1e-9 * abs(p.f(x0).item())
+    f_err = max(abs(a - b) / max(abs(b), floor) for a, b in zip(f_k, f_p))
+    say(f"[cli] {label}, first {iters} iterations, kernels vs plain on the "
+        f"card: alpha equal {a_k == a_p}, f max rel err {f_err:.3e} (tol "
+        f"{TRACE_F_RTOL})")
+    check(a_k == a_p and f_err <= TRACE_F_RTOL,
+          f"{label}: the kernels and their plain versions part (alphas "
+          f"{a_k} vs {a_p})")
+    return state
+
+
+def phase_cli(dev):
+    """The command line at full width, then the fused tail's forms that it
+    has no flag for through minimize.  Returns the launches of each kernel
+    form on these solves."""
+    import tpu_lbfgs_torch as tt
+    from tpu_lbfgs_torch import kernels
+    from tpu_lbfgs_torch.core.direction import compute_direction_with_aux
+    from tpu_lbfgs_torch.kernels import fused_ops as ops
+    from tpu_lbfgs_torch.linesearch import strategies
+
+    # The command line's own start: U(-2, 2) from numpy's default_rng(42).
+    x0 = torch.from_numpy(np.random.default_rng(SEED).uniform(
+        -2.0, 2.0, D)).to(dev, torch.float32)
+    launches = {}
+
+    def count(got, form=None):
+        for name, n in got.items():
+            if n:
+                key = name if form is None or not name.endswith(
+                    "_fused_tail") else f"{name}[{form}]"
+                launches[key] = launches.get(key, 0) + n
+
+    poly = ["--poly-ls", "--direction", "compact_incremental"]
+    fixed = ["--max-iters", str(CLI_ITERS), "--tol", "0"]
+    runs = [("rosenbrock", poly + fixed, None)]
+    runs += [(q, poly, None) for q in ("quadratic", "coupled_quadratic")]
+    runs += [(q, ["--line-search", ls], None)
+             for ls in ("backtracking_speculative",
+                        "wolfe_interpolation_speculative")
+             for q in ("coupled_quadratic", "quadratic")]
+    # "auto" puts the history products of a bfloat16 ring into the tail.
+    runs += [("rosenbrock", poly + fixed + ["--history-dtype", "bfloat16"],
+              "ring bf16, matvec m=10")]
+    bf16_state = bf16_cfg = None
+    for problem, flags, form in runs:
+        argv = CLI_ARGS + ["--problem", problem] + flags
+        label = " ".join(["--problem", problem] + flags)
+        p = tt.get_problem(problem)
+        f0 = p.f(x0).item()
+        # A few iterations first, outside the clock and the counts.
+        _cli_main(argv + ["--max-iters", str(GENERAL_WARMUP)])
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        strategies.reset_host_reads()
+        doc = _cli_main(argv)
+        got = kernels.launch_counts()
+        reads = strategies.host_reads["line_search"]
+        rec, args = doc["results"][0], doc["config"]
+        k, f = rec["iterations"], rec["f"]
+        say(f"[cli] {label}: status {rec['status']}, {k} iterations in "
+            f"{rec['wall_s']:.3f} s (x0 drawn inside), "
+            f"{rec['wall_s'] / max(k, 1) * 1e3:.3f} ms/iteration, n_fev "
+            f"{rec['n_fev']}, {reads} line-search host reads; f {f0:.6e} -> "
+            f"{f:.6e}, |g| {rec['g_norm']:.4e}, guards {rec['guards']}, "
+            f"launches {ran(got)}")
+        check(k > 0 and np.isfinite(f) and f < f0
+              and rec["status"] in ("converged", "max_iters"),
+              f"{label}: f must be finite and decrease, status "
+              f"{rec['status']}")
+        if "--tol" in flags:
+            check(k == CLI_ITERS and rec["status"] == "max_iters",
+                  f"{label}: the solve must run its {CLI_ITERS} iterations")
+        cfg = tt.LBFGSConfig(
+            m=args["history"], max_iters=args["max_iters"], tol=args["tol"],
+            line_search=args["line_search"], direction=args["direction"],
+            fidelity=args["fidelity"], c1=args["c1"], c2=args["c2"],
+            use_pallas=True,
+            ls_eval="polynomial" if args["poly_ls"] else "direct",
+            history_dtype=args["history_dtype"])
+        _check_suite_launches(label, problem, cfg, k, got, reads)
+        count(got, form)
+        state = _kernels_vs_plain(label, tt, problem, cfg, x0,
+                                  min(TRACE_ITERS, k))
+        if args["history_dtype"] == "bfloat16":
+            check(state.s_hist.dtype == torch.bfloat16,
+                  "--history-dtype bfloat16 must store a bfloat16 ring")
+            bf16_state, bf16_cfg = state, cfg
+
+    # The combine kernel's public entry on the bfloat16 ring that solve
+    # left, against the direction the solver takes from it.  The solver's
+    # matrix-vector route rounds the coefficients to bfloat16, the kernel
+    # keeps them float32: they may differ by 2^-8 of sum |coefficient| max
+    # |row|.
+    d_ref, aux, fb = compute_direction_with_aux(
+        bf16_cfg.replace(direction="compact"), bf16_state)
+    kernels.reset_launches()
+    r_vec = ops.combine_direction(bf16_state.g, bf16_state.s_hist,
+                                  bf16_state.y_hist, aux.v_phys, aux.u_phys,
+                                  aux.gamma)
+    n_comb = kernels.launch_counts()["combine_direction"]
+    S_max = bf16_state.s_hist.float().abs().amax(-1)
+    Y_max = bf16_state.y_hist.float().abs().amax(-1)
+    tol = 2.0 ** -8 * ((aux.v_phys.abs() * S_max).sum()
+                       + aux.gamma.abs() * (aux.u_phys.abs() * Y_max).sum()
+                       ).item()
+    err = (r_vec + d_ref).abs().max().item()
+    say(f"[cli] combine_direction(use_pallas=True) on the bfloat16 ring "
+        f"against the solver's direction: max abs err {err:.3e} (tol "
+        f"{tol:.3e}, max |d| {d_ref.abs().max().item():.3e}), fallback "
+        f"{bool(fb)}, launches {n_comb}")
+    check(n_comb == 1 and not bool(fb) and err <= tol,
+          "the combine kernel on a bfloat16 ring and the solver's direction "
+          "part")
+    launches["combine_direction[ring bf16]"] = n_comb
+
+    # Through minimize: the tail with its in-kernel history products, and
+    # the compensated tail (cfg.accurate_dots).
+    rose = tt.get_problem("rosenbrock")
+    f0 = rose.f(x0).item()
+    forms = [(f"ring {h}, matvec m={m}",
+              dict(m=m, history_dtype=None if h == "f32" else "bfloat16"),
+              dict(with_matvec=True), CLI_ITERS if m == 10 else 40)
+             for h, m in (("f32", 10), ("bf16", 10), ("f32", 5), ("f32", 20),
+                          ("bf16", 5), ("bf16", 20))]
+    forms.append(("ring bf16, matvec m=0", dict(history_dtype="bfloat16"),
+                  dict(with_matvec=False), 40))
+    forms.append(("compensated", dict(accurate_dots=True),
+                  dict(with_matvec=False), CLI_ITERS))
+    for form, cfg_kw, tail_kw, iters in forms:
+        cfg = tt.LBFGSConfig(**{**dict(
+            line_search="backtracking", direction="compact_incremental",
+            m=10, use_pallas=True, ls_eval="polynomial", max_iters=iters,
+            tol=0.0), **cfg_kw})
+        solver = _suite_solver(tt, "rosenbrock", cfg, True, **tail_kw)
+        label = f"minimize rosenbrock fused tail [{form}]"
+        tt.minimize(rose.f, x0, cfg.replace(max_iters=GENERAL_WARMUP),
+                    **solver)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        r = tt.minimize(rose.f, x0, cfg, **solver)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = kernels.launch_counts()
+        k, f = r.iterations.item(), r.f.item()
+        say(f"[cli] {label}: {k} iterations in {wall:.3f} s, "
+            f"{wall / k * 1e3:.3f} ms/iteration; f {f0:.6e} -> {f:.6e}, |g| "
+            f"{r.g_norm.item():.4e}, status "
+            f"{tt.Status.NAMES[r.status.item()]}, guards {r.guards.tolist()}, "
+            f"launches {ran(got)}")
+        check(k == iters and np.isfinite(f) and f < f0,
+              f"{label}: the solve must run its {iters} iterations and f "
+              "fall")
+        _check_suite_launches(label, "rosenbrock", cfg, k, got, 0)
+        count(got, form)
+        _kernels_vs_plain(label, tt, "rosenbrock", cfg, x0, TRACE_ITERS,
+                          **tail_kw)
+
+    # The with_matvec rule end to end: the same solve with the history
+    # products in the tail and in the solver, in turns, on each ring.
+    for h in ("f32", "bf16"):
+        cfg = tt.LBFGSConfig(
+            line_search="backtracking", direction="compact_incremental",
+            m=10, use_pallas=True, ls_eval="polynomial", max_iters=CLI_ITERS,
+            tol=0.0, history_dtype=None if h == "f32" else "bfloat16")
+        walls = {False: [], True: []}
+        for turn in (False, True, True, False, False, True):
+            solver = _suite_solver(tt, "rosenbrock", cfg, True,
+                                   with_matvec=turn)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = tt.minimize(rose.f, x0, cfg, **solver)
+            torch.cuda.synchronize()
+            walls[turn].append((time.perf_counter() - t0) / CLI_ITERS * 1e3)
+            check(r.iterations.item() == CLI_ITERS, "the solve must run on")
+        say(f"[cli] with_matvec end to end, ring {h}, m=10, {CLI_ITERS} "
+            f"iterations each, ms/iteration in turns: in the solver "
+            f"{[round(w, 3) for w in walls[False]]}, in the tail "
+            f"{[round(w, 3) for w in walls[True]]}")
+    return launches
+
+
 def phase_bench_batch(card):
     from tpu_lbfgs_torch.bench.harness import bench_batch
 
@@ -1089,6 +1608,7 @@ def main():
     card = phase_card()
     phase_build()
     rec = phase_kernels(dev)
+    rec.update(phase_tail_forms(dev))
     rec["compact_chain"] = phase_chain(dev)
     rec.update(phase_trial_kernels(dev))
     rec.update(phase_general_kernels(dev))
@@ -1100,31 +1620,40 @@ def main():
     launches.update(phase_direct(dev))
     general_launches, jobs = phase_general(dev)
     launches.update(general_launches)
+    for name, n in phase_cli(dev).items():
+        if not launches.get(name):      # a form no earlier path ran
+            launches[name] = n
     phase_bench(card)
     phase_bench_batch(card)
     phase_launch_counts(jobs)
 
-    sources = {
-        "rosenbrock_vg": ("tpu_lbfgs_torch/csrc/rosenbrock_vg.cu",
-                          "tpu_lbfgs/kernels/pallas_ops.py:461"),
-        "rosenbrock_fused_tail": (
-            "tpu_lbfgs_torch/csrc/rosenbrock_fused_tail.cu",
-            "tpu_lbfgs/kernels/pallas_ops.py:653"),
-        "compact_chain": ("tpu_lbfgs_torch/csrc/compact_chain.cu",
+    csrc, pallas = "tpu_lbfgs_torch/csrc/", "tpu_lbfgs/kernels/pallas_ops.py:"
+    vg_line = {"quadratic": 443, "rosenbrock": 461, "coupled_quadratic": 489}
+    sources = {}
+    for body, line in vg_line.items():
+        sources[f"{body}_vg"] = (csrc + "fused_vg.cu", f"{pallas}{line}")
+        sources[f"{body}_fused_tail"] = (csrc + "fused_tail.cu",
+                                         pallas + "653")
+        sources[f"{body}_multi_phi"] = (csrc + "multi_phi.cu", pallas + "895")
+        sources[f"{body}_multi_phi_dphi"] = (csrc + "multi_phi_dphi.cu",
+                                             pallas + "1010")
+    for name in rec:
+        if name.startswith("rosenbrock_fused_tail["):
+            sources[name] = sources["rosenbrock_fused_tail"]
+    sources.update({
+        "compact_chain": (csrc + "compact_chain.cu",
                           "tpu_lbfgs/kernels/chain.py:122"),
-        "rosenbrock_multi_phi": (
-            "tpu_lbfgs_torch/csrc/rosenbrock_multi_phi.cu",
-            "tpu_lbfgs/kernels/pallas_ops.py:895"),
-        "rosenbrock_multi_phi_dphi": (
-            "tpu_lbfgs_torch/csrc/rosenbrock_multi_phi_dphi.cu",
-            "tpu_lbfgs/kernels/pallas_ops.py:1010"),
-        "iteration_tail": ("tpu_lbfgs_torch/csrc/iteration_tail.cu",
-                           "tpu_lbfgs/kernels/pallas_ops.py:113"),
-        "combine_direction": ("tpu_lbfgs_torch/csrc/combine_direction.cu",
-                              "tpu_lbfgs/kernels/pallas_ops.py:224"),
-    }
+        "iteration_tail": (csrc + "iteration_tail.cu", pallas + "113"),
+        "combine_direction": (csrc + "combine_direction.cu", pallas + "224"),
+        "combine_direction[ring bf16]": (csrc + "combine_direction.cu",
+                                         pallas + "224"),
+    })
+    check(set(rec) == set(sources),
+          f"kernel forms measured and listed differ: "
+          f"{sorted(set(rec) ^ set(sources))}")
     for name in sources:
-        check(launches[name] > 0, f"{name} was never launched on its path")
+        check(launches.get(name, 0) > 0,
+              f"{name} was never launched on its path")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],
                 "max_abs_err": rec[name]["max_abs_err"],

@@ -211,8 +211,9 @@ def test_cpu_direct_run_launches_no_kernel():
                         phi_batch=solver["phi_batch"],
                         phi_dphi_batch=solver["phi_dphi_batch"])
         assert r.iterations.item() == 3
-    assert line_search_ops.launches == {"rosenbrock_multi_phi": 0,
-                                        "rosenbrock_multi_phi_dphi": 0}
+    assert {"rosenbrock_multi_phi", "rosenbrock_multi_phi_dphi"} <= set(
+        line_search_ops.launches)
+    assert not any(line_search_ops.launches.values())
     assert not any(fused_ops.launches.values())
 
 
@@ -236,8 +237,22 @@ def test_batched_direct_mode_raises(kw):
     lambda: tt.multi_phi_dphi_for("coupled_quadratic"),
 ])
 def test_unported_kernel_bodies_raise(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call()
+    """The quadratic and coupled bodies of the K-trial kernels used to
+    raise; they are ported now, and on the CPU each evaluator is the plain
+    version of its kernel (tests/test_torch_suite_kernels.py holds those to
+    the interpreted Pallas kernels)."""
+    evaluator = call()
+    x = torch.linspace(-1.0, 1.0, 50)
+    d = torch.cos(3.0 * x)
+    alphas = torch.tensor([0.5, 0.25, 0.125])
+    out = evaluator(x, d, alphas)
+    phi = out[0] if isinstance(out, tuple) else out
+    assert phi.shape == (3,)
+    name = "quadratic" if phi[0] < 1e3 else "coupled_quadratic"
+    f = tt.get_problem(name).f
+    for a, v in zip(alphas, phi):
+        np.testing.assert_allclose(v.item(), f((x + a * d).double()).item(),
+                                   rtol=1e-5)
 
 
 def test_reference_configs_mirror_jax():

@@ -402,9 +402,19 @@ def test_plain_batches_equal_single_trials(n):
 
 
 def test_suite_hands_out_kernels_and_plain_versions():
-    assert tt.multi_phi_for("rosenbrock") is ops.multi_phi_rosenbrock
-    assert tt.multi_phi_dphi_for("rosenbrock") is \
-        ops.multi_phi_dphi_rosenbrock
+    # With use_pallas=True the suite hands out the kernel wrappers, built
+    # per call from the problem's name: off the CPU they launch or raise,
+    # on the CPU they equal the module's own Rosenbrock evaluators.
+    meta = torch.zeros(16, device="meta")
+    x, d, alphas = (torch.from_numpy(v) for v in _kernel_inputs(64, 3))
+    for make, own in ((tt.multi_phi_for, ops.multi_phi_rosenbrock),
+                      (tt.multi_phi_dphi_for, ops.multi_phi_dphi_rosenbrock)):
+        with pytest.raises(ValueError, match="CUDA"):
+            make("rosenbrock")(meta, meta, torch.zeros(4, device="meta"))
+        got, want = make("rosenbrock")(x, d, alphas), own(x, d, alphas)
+        assert all(torch.equal(a, b) for a, b in zip(
+            got if isinstance(got, tuple) else (got,),
+            want if isinstance(want, tuple) else (want,)))
     x, d, alphas = (torch.from_numpy(v).double()
                     for v in _kernel_inputs(64, 3))
     for name in ("rosenbrock", "quadratic", "sphere"):

@@ -8,12 +8,16 @@ kernels.  The port so far covers the two solves that ``bench.py`` times
 the incremental compact direction, for one large instance with
 ``minimize`` and for a batch of small ones in lockstep with
 ``vmap_minimize``), every line search with direct evaluation of its
-trials for one instance, as the reference's own protocol runs them, and
-the solve of a caller's own objective: ``minimize(f, x0)`` with the
-default configuration and autograd's gradient, the three directions,
-damping, compensated dots, traces, the periodic product refresh, segmented
-solves and the SciPy-shaped front end.  Options outside it raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+trials for one instance, as the reference's own protocol runs them, the
+solve of a caller's own objective (``minimize(f, x0)`` with the default
+configuration and autograd's gradient, the three directions, damping,
+compensated dots, traces, the periodic product refresh, segmented solves
+and the SciPy-shaped front end), and the command line over the whole
+problem suite (``python -m tpu_lbfgs_torch``, ``cli.py``): the fused
+kernels of the quadratic and the coupled quadratic beside Rosenbrock's,
+the fused tail's in-kernel history products and compensated sums, and a
+history ring in bfloat16.  What is left (batched direct mode, ``dist/``)
+raises ``NotImplementedError`` naming the ROADMAP item that brings it.
 
 Where it runs: ``minimize`` and ``vmap_minimize`` solve on the device of
 the tensor they are given, so a CPU tensor is the caller asking for the
@@ -35,11 +39,13 @@ from .core.solver import (
     make_value_and_grad,
     minimize,
     refresh_products,
+    resolve_history_dtype,
     solve_bounded,
     solve_from_state,
 )
 from .problems.suite import (
     Problem,
+    auto_with_matvec,
     fused_tail_for,
     fused_value_and_grad,
     get_problem,
@@ -68,6 +74,7 @@ __all__ = [
     "Guard",
     "Trace",
     "Problem",
+    "auto_with_matvec",
     "fused_tail_for",
     "fused_value_and_grad",
     "get_problem",
@@ -82,6 +89,7 @@ __all__ = [
     "finalize_result",
     "make_solve_segment",
     "refresh_products",
+    "resolve_history_dtype",
     "solve_bounded",
     "solve_from_state",
     "vmap_minimize",

@@ -2,15 +2,14 @@
 ``tpu_lbfgs.config.LBFGSConfig``, so one configuration means the same solve
 in both packages.
 
-The port runs every option of the reference for one instance with an f32 or
-f64 history in the iterate's dtype: the three directions, every line
-search, trials evaluated directly (``ls_eval="direct"``) or on the
-closed-form directional polynomial, damping, compensated dots, traces and
-the periodic refresh of the incremental products.  Batches run Armijo
-backtracking on the polynomial.  ``check_supported`` turns what is left
-(a bfloat16 history) into a ``NotImplementedError`` at solve time, naming
-the ROADMAP item that brings it; the kernels' own unported variants raise
-where they are asked for (``problems.suite.fused_tail_for``).
+The port runs every option of the reference for one instance: the three
+directions, every line search, trials evaluated directly
+(``ls_eval="direct"``) or on the closed-form directional polynomial,
+damping, compensated dots, traces, the periodic refresh of the incremental
+products, and a history ring stored in another dtype than the iterate's
+(bfloat16, or float32 under float64).  Batches run Armijo backtracking on
+the polynomial; what a batch cannot run raises ``NotImplementedError`` in
+``core.solver.iterate``, naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -83,9 +82,8 @@ class LBFGSConfig:
     # selects the iteration_tail CUDA kernel (kernels.fused_ops) on the
     # card; on the CPU it runs that kernel's plain version.
     use_pallas: bool = False
-    # None | "float32" | "auto" run; "auto" resolves to the input dtype
-    # (the reference's rule is a TPU VMEM-residency rule).  "bfloat16" is
-    # not ported yet.
+    # None | "bfloat16" | "float32" | "auto": the dtype of the (m, d) ring;
+    # None is the iterate's, "auto" is core.solver.resolve_history_dtype.
     history_dtype: Optional[str] = None
     accurate_dots: bool = False
     record_trace: bool = False
@@ -125,17 +123,6 @@ class LBFGSConfig:
 
     def replace(self, **kw) -> "LBFGSConfig":
         return dataclasses.replace(self, **kw)
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to tpu_lbfgs_torch yet (ROADMAP.md {item})")
-
-
-def check_supported(cfg: LBFGSConfig) -> None:
-    """Raise NotImplementedError for an option outside the ported slice."""
-    if cfg.history_dtype == "bfloat16":
-        raise _unported("bfloat16 history", "Queue 1 item 8")
 
 
 # The reference's sequential driver (main.cpp:24-58).

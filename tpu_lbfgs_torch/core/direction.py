@@ -95,14 +95,18 @@ def _compact_core(cfg: LBFGSConfig, state: LBFGSState, SY_p: Tensor,
     return torch.where(fb_vec, -g, -r_vec), aux, fallback
 
 
-def _ring_row(hist: Tensor, slot: Tensor) -> Tensor:
+def _ring_row(hist: Tensor, slot: Tensor, dtype) -> Tensor:
     """Row ``slot`` of an (m, d) ring, or each lane's own row of a
-    (B, m, d) ring; ``slot`` is (1,) or (B, 1) int64.  An index tensor
-    with a dimension: a 0-d index would be read on the host."""
+    (B, m, d) ring, in ``dtype`` (a bfloat16 row is widened, as the
+    reference's mixed-dtype dots and axpys promote it); ``slot`` is (1,) or
+    (B, 1) int64.  An index tensor with a dimension: a 0-d index would be
+    read on the host."""
     if hist.dim() == 2:
-        return hist.index_select(0, slot)[0]
-    idx = slot[..., None].expand(-1, 1, hist.shape[-1])
-    return hist.gather(-2, idx)[..., 0, :]
+        row = hist.index_select(0, slot)[0]
+    else:
+        idx = slot[..., None].expand(-1, 1, hist.shape[-1])
+        row = hist.gather(-2, idx)[..., 0, :]
+    return row if row.dtype == dtype else row.to(dtype)
 
 
 def _two_loop_core(cfg: LBFGSConfig, state: LBFGSState):
@@ -132,9 +136,10 @@ def _two_loop_core(cfg: LBFGSConfig, state: LBFGSState):
     for j in reversed(range(m)):
         slot = slots[..., j:j + 1]
         a = torch.where(use[..., j],
-                        rho[..., j] * _vdot(_ring_row(state.s_hist, slot), q),
+                        rho[..., j] * _vdot(
+                            _ring_row(state.s_hist, slot, g.dtype), q),
                         0.0)
-        q = q - per_lane(a) * _ring_row(state.y_hist, slot)
+        q = q - per_lane(a) * _ring_row(state.y_hist, slot, g.dtype)
         alphas[j] = a
 
     gamma = _gamma(state, m)
@@ -145,11 +150,12 @@ def _two_loop_core(cfg: LBFGSConfig, state: LBFGSState):
     for j in range(m):
         slot = slots[..., j:j + 1]
         b = torch.where(use[..., j],
-                        rho[..., j] * _vdot(_ring_row(state.y_hist, slot),
-                                            r_vec),
+                        rho[..., j] * _vdot(
+                            _ring_row(state.y_hist, slot, g.dtype), r_vec),
                         0.0)
         coeff = torch.where(use[..., j], alphas[j] - b, 0.0)
-        r_vec = r_vec + per_lane(coeff) * _ring_row(state.s_hist, slot)
+        r_vec = r_vec + per_lane(coeff) * _ring_row(state.s_hist, slot,
+                                                    g.dtype)
 
     fallback = bad_rho | bad_gamma | (state.hist_len == 0)
     return torch.where(per_lane(fallback), -g, -r_vec), fallback
@@ -163,8 +169,12 @@ def two_loop_direction(cfg: LBFGSConfig, state: LBFGSState) -> Tensor:
 def history_products(state: LBFGSState):
     """The four history contractions (SY, YY, Sg, Yg) from the ring and the
     current gradient: what ``compact`` computes every iteration and
-    ``solver.refresh_products`` between segments."""
+    ``solver.refresh_products`` between segments.  A ring in another dtype
+    than the gradient's (bfloat16) is widened first: its products are exact
+    and add up in the gradient's dtype."""
     S, Y, g = state.s_hist, state.y_hist, state.g
+    if S.dtype != g.dtype:
+        S, Y = S.to(g.dtype), Y.to(g.dtype)
     Yt = Y.transpose(-1, -2)
     gcol = g.unsqueeze(-1)
     return (torch.matmul(S, Yt), torch.matmul(Y, Yt),

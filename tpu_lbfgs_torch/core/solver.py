@@ -35,7 +35,7 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import Tensor
 
-from ..config import LBFGSConfig, check_supported
+from ..config import LBFGSConfig
 from ..kernels.fused_ops import _dot, _vdot, iteration_tail
 from ..linesearch.strategies import get_line_search
 from ..types import Guard, LBFGSState, SolveResult, Status, Trace, per_lane
@@ -46,20 +46,40 @@ ObjFn = Callable[[Tensor], Tensor]
 ValGradFn = Callable[[Tensor], Tuple[Tensor, Tensor]]
 
 
+def resolve_history_dtype(history_dtype, m: int, d: int, dtype,
+                          batch: int = 1):
+    """Resolve ``history_dtype="auto"``, with the reference's signature;
+    any other value is returned as it is.
+
+    "auto" is None here, the iterate's dtype, at every m, d and batch.  The
+    reference's rule (bfloat16 once the ring no longer stays in the TPU's
+    VMEM and tiles cleanly) is a rule of that memory and does not carry
+    over, and on an NVIDIA H100 80GB HBM3 (700 W) a bfloat16 ring bought no
+    time at m = 10 (chip_smoke.py, ``[kernel]`` and ``[cli]`` lines): at
+    d = 2^20 the fused tail with its history products took 93 us on a
+    bfloat16 ring against 14 + 47 us for the tail and the solver's two
+    products on a float32 one, at d = 2^24 1190 against 210 + 494 us (the
+    kernel waits on float-to-double conversions, not on bytes), and the
+    solves ran 3.4-5.4 against 3.0-5.4 ms per iteration, bound by the
+    host.  bfloat16 halves the ring's memory; ask for it by name."""
+    del m, d, dtype, batch
+    if history_dtype != "auto":
+        return history_dtype
+    return None
+
+
 @torch.no_grad()
 def init_state(vg: ValGradFn, x0: Tensor, m: int,
                history_dtype=None) -> LBFGSState:
     """The initial state; evaluates f and the gradient once at x0, which is
-    (d,) or, for a batch of instances, (B, d).  The history keeps x0's
-    dtype: "auto" resolves to it in the port (the reference's rule is a TPU
-    VMEM-residency rule), and a history in another dtype is not ported
-    yet."""
+    (d,) or, for a batch of instances, (B, d).  ``history_dtype`` stores
+    the (m, d) ring in another dtype than x0's ("bfloat16", "float32"; the
+    scalars and the small matrices keep x0's); None keeps x0's and "auto"
+    goes through ``resolve_history_dtype``."""
     dtype, dev = x0.dtype, x0.device
-    if history_dtype == "bfloat16" or (history_dtype == "float32"
-                                       and dtype != torch.float32):
-        raise NotImplementedError(
-            f"a {history_dtype} history for {dtype} iterates is not ported "
-            "yet (ROADMAP.md Queue 1 item 8)")
+    history_dtype = resolve_history_dtype(history_dtype, m, x0.shape[-1],
+                                          dtype)
+    hdtype = getattr(torch, history_dtype) if history_dtype else dtype
     if x0.dim() not in (1, 2):
         raise ValueError(f"x0 must be (d,) or (B, d), got {tuple(x0.shape)}")
     lead, d = tuple(x0.shape[:-1]), x0.shape[-1]
@@ -76,8 +96,8 @@ def init_state(vg: ValGradFn, x0: Tensor, m: int,
         f=f0,
         g=g0,
         g_norm=torch.sqrt(_vdot(g0, g0)),
-        s_hist=full((m, d), 0.0),
-        y_hist=full((m, d), 0.0),
+        s_hist=full((m, d), 0.0, hdtype),
+        y_hist=full((m, d), 0.0, hdtype),
         sy_hist=full((m,), 1.0),
         yy_hist=full((m,), 1.0),
         SY=full((m, m), 0.0),
@@ -163,8 +183,15 @@ def make_phi(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, x: Tensor,
     return phi, phi_dphi
 
 
-def _matvec(rows: Tensor, v: Tensor) -> Tensor:
-    """rows (m, d) times v (d,), or per lane (B, m, d) times (B, d)."""
+def _matvec(rows: Tensor, v: Tensor, dtype) -> Tensor:
+    """rows (m, d) times v (d,), or per lane (B, m, d) times (B, d), in
+    ``dtype``: operands in another dtype (a bfloat16 ring and row) are
+    widened first, so their products are exact and add up in ``dtype``, as
+    the reference's ``preferred_element_type`` has them."""
+    if rows.dtype != dtype:
+        rows = rows.to(dtype)
+    if v.dtype != dtype:
+        v = v.to(dtype)
     if rows.dim() == 2:
         return torch.mv(rows, v)
     return torch.bmm(rows, v.unsqueeze(-1)).squeeze(-1)
@@ -202,7 +229,6 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
     where it is False keeps every field, its ring rows included: the freeze
     that the reference's vmapped ``while_loop`` applies to a lane whose
     loop condition has failed."""
-    check_supported(cfg)
     if state.x.dim() > 1 and (cfg.ls_eval == "direct"
                               or cfg.line_search != "backtracking"):
         raise NotImplementedError(
@@ -217,6 +243,7 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
             "accurate_dots=True (fused_tail_for(..., accurate_dots=True))")
     m, dim = state.s_hist.shape[-2:]
     x, g = state.x, state.g
+    dtype, hdtype = x.dtype, state.s_hist.dtype
     incremental = cfg.direction == "compact_incremental"
 
     # --- search direction with descent safeguard (lbfgs.cpp:147-153) --------
@@ -239,12 +266,16 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
     step_failed = alpha < cfg.step_fail_tol
     damped = cfg.damping is not None
     if fused_tail is not None:
-        # One pass: the kernel forms y = g_new - g itself, so damping blends
-        # its rows below.  s.s = alpha^2 d.d costs one more pass over d.
+        # One pass: the kernel forms y = g_new - g itself and hands out both
+        # rows in the history's dtype, so damping blends those below.  With
+        # the tail's matvec, t1 / t2 are S y / Y y against the raw y, over
+        # the rows before the write.  s.s = alpha^2 d.d costs one more pass
+        # over d.
         (x_new, f_new, g_new, s_h, y_raw, sy, yy, gg_new, dgn, _ggn, ygn,
-         _t1, _t2) = fused_tail(x, d, alpha, g, state.s_hist, state.y_hist)
+         t1, t2) = fused_tail(x, d, alpha, g, state.s_hist, state.y_hist)
         ss = alpha * alpha * _vdot(d, d) if damped else None
     else:
+        t1 = t2 = None
         x_new = x + per_lane(alpha) * d
         f_new, g_new = vg(x_new)
         # Under accurate_dots the kernel compensates its cross-block
@@ -258,6 +289,7 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
         ygn = dot(y_raw, g_new)
         ss = dot(s_h, s_h) if damped else None
     y_h = y_raw
+    narrow = hdtype != dtype
 
     damp_fired = None
     if damped:
@@ -280,7 +312,14 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
             damp_fired & (denom > 0) & torch.isfinite(denom),
             (1.0 - mu) * sBs / torch.where(denom > 0, denom, 1.0), 1.0)
         one_m = (1.0 - theta) / gamma_p
-        y_h = per_lane(theta) * y_raw + per_lane(one_m) * s_h
+        # Without a fused tail the raw s and y are blended and the result
+        # is cast once below; the fused tail's rows are already in the
+        # history's dtype and are widened for the blend.
+        if narrow and fused_tail is not None:
+            y_h = per_lane(theta) * y_raw.to(dtype) \
+                + per_lane(one_m) * s_h.to(dtype)
+        else:
+            y_h = per_lane(theta) * y_raw + per_lane(one_m) * s_h
         ygn = theta * ygn + one_m * (alpha * dgn)
         yy = theta * theta * yy + 2.0 * theta * one_m * sy \
             + one_m * one_m * ss
@@ -293,15 +332,24 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
     if lanes is not None:
         store = store & lanes
 
+    if narrow:
+        # The rows as the ring stores them.  The products below contract the
+        # ring against y in the history's dtype, as the reference does.
+        s_h, y_raw, y_h = s_h.to(hdtype), y_raw.to(hdtype), y_h.to(hdtype)
+
     if incremental:
         # u1 = S y_raw, u2 = Y y_raw over the rows before the write below:
         # the one fresh contraction per iteration, against the RAW y (the
-        # damped row would corrupt every off-slot Sg / Yg entry).
-        u1 = _matvec(state.s_hist, y_raw)
-        u2 = _matvec(state.y_hist, y_raw)
+        # damped row would corrupt every off-slot Sg / Yg entry); from the
+        # fused tail where it computed them.
+        if t1 is not None:
+            u1, u2 = t1, t2
+        else:
+            u1 = _matvec(state.s_hist, y_raw, dtype)
+            u2 = _matvec(state.y_hist, y_raw, dtype)
         if damped:
-            us1 = _matvec(state.s_hist, s_h)
-            us2 = _matvec(state.y_hist, s_h)
+            us1 = _matvec(state.s_hist, s_h, dtype)
+            us2 = _matvec(state.y_hist, s_h, dtype)
 
     # --- masked ring write: only each lane's slot row moves, only when
     # storing.  The ring's rows, (B*m, d), picked by integer index: a
@@ -486,7 +534,6 @@ def solve_from_state(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
     split into segments of up to that many iterations, counted from the k
     each segment starts at, and the history products are recomputed after
     every segment (``refresh_products``), for the lanes that entered it."""
-    check_supported(cfg)
     if cfg.record_trace:
         return _solve_traced(cfg, f, vg, state, dir_poly, fused_tail,
                              phi_batch, phi_dphi_batch)[0]
@@ -515,7 +562,6 @@ def solve_bounded(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
     (compact_incremental), the refresh points are relative to the state
     given: a refresh after every full ``refresh_interval`` iterations, none
     after the remainder."""
-    check_supported(cfg)
     interval = _refresh_interval(cfg)
     if interval is not None and interval >= cfg.max_iters:
         interval = None
@@ -545,7 +591,6 @@ def make_solve_segment(cfg: LBFGSConfig, f: ObjFn, grad=None,
     ``donate`` is the reference's buffer donation and has no counterpart
     here: the port's ring is updated in place whatever it says, so the
     state passed in must not be used again either way."""
-    check_supported(cfg)
     vg = make_value_and_grad(f, grad, value_and_grad)
     seg_iters = iters if iters is not None \
         else (cfg.refresh_interval if cfg.refresh_interval is not None

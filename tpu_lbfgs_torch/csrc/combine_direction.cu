@@ -20,9 +20,13 @@
 // combine_direction_plain), acc = gamma g, then for k = 0 .. m-1
 // acc = (acc + v_k s_k) - (gamma u_k) y_k in the working type, and the
 // library is built with -fmad=false, so r matches the plain version bit
-// for bit.  The kernel is a template on the scalar type, float or double.
+// for bit.  The kernel is a template on the scalar type, float or double,
+// and on the ring's type: the scalar type, or bfloat16 under float (the TPU
+// kernel's hist_ok), each ring value widened to float as it is read, which
+// halves the bytes of the two streams that bound the kernel.
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -30,10 +34,16 @@ namespace {
 constexpr int kThreads = 256;
 
 template <typename T>
+__device__ __forceinline__ T widen(T v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T, typename H>
 __global__ void __launch_bounds__(kThreads)
     combine_direction_kernel(const T* __restrict__ g,
-                             const T* __restrict__ s_hist,
-                             const T* __restrict__ y_hist,
+                             const H* __restrict__ s_hist,
+                             const H* __restrict__ y_hist,
                              const T* __restrict__ v, const T* __restrict__ u,
                              const T* __restrict__ gamma, T* __restrict__ r,
                              int m, int64_t n) {
@@ -44,19 +54,19 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 5
   for (int k = 0; k < m; ++k) {
     const int64_t at = static_cast<int64_t>(k) * n + i;
-    acc = (acc + v[k] * s_hist[at]) - (gam * u[k]) * y_hist[at];
+    acc = (acc + v[k] * widen(s_hist[at])) - (gam * u[k]) * widen(y_hist[at]);
   }
   r[i] = acc;
 }
 
-template <typename T>
-int launch(const T* g, const T* s_hist, const T* y_hist, const T* v,
+template <typename T, typename H>
+int launch(const T* g, const H* s_hist, const H* y_hist, const T* v,
            const T* u, const T* gamma, T* r, int m, long long n,
            void* stream) {
   if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  combine_direction_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+  combine_direction_kernel<T, H><<<static_cast<unsigned>(blocks), kThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       g, s_hist, y_hist, v, u, gamma, r, m, n);
   return static_cast<int>(cudaGetLastError());
@@ -66,13 +76,17 @@ int launch(const T* g, const T* s_hist, const T* y_hist, const T* v,
 
 // g, r: n values; s_hist, y_hist: m * n values, row-major (m, n); v, u: m
 // values; gamma: one value; all on the device, float (_f32) or double
-// (_f64).  Returns the cudaError_t of the launch.
-#define TL_COMBINE_ENTRY(NAME, T)                                            \
-  extern "C" int NAME(const T* g, const T* s_hist, const T* y_hist,          \
+// (_f64); for _f32_bf16 the ring is bfloat16 and the rest float.  Returns
+// the cudaError_t of the launch.
+#define TL_COMBINE_ENTRY(NAME, T, H)                                         \
+  extern "C" int NAME(const T* g, const void* s_hist, const void* y_hist,    \
                       const T* v, const T* u, const T* gamma, T* r, int m,   \
                       long long n, void* stream) {                           \
-    return launch<T>(g, s_hist, y_hist, v, u, gamma, r, m, n, stream);       \
+    return launch<T, H>(g, static_cast<const H*>(s_hist),                    \
+                        static_cast<const H*>(y_hist), v, u, gamma, r, m, n, \
+                        stream);                                             \
   }
 
-TL_COMBINE_ENTRY(tl_combine_direction_f32, float)
-TL_COMBINE_ENTRY(tl_combine_direction_f64, double)
+TL_COMBINE_ENTRY(tl_combine_direction_f32, float, float)
+TL_COMBINE_ENTRY(tl_combine_direction_f64, double, double)
+TL_COMBINE_ENTRY(tl_combine_direction_f32_bf16, float, __nv_bfloat16)

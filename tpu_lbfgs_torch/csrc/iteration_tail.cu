@@ -22,7 +22,7 @@
 // `compensated` flag, which guards its sequential cross-block accumulation
 // with _neumaier_add) runs the same Neumaier recurrence over the block
 // partials, in block order: a running sum and, beside it, the sum of the
-// low-order bits each addition dropped.
+// low-order bits each addition dropped (reduce.cuh).
 //
 // The kernel is a template on the scalar type, float or double.  The
 // per-element arithmetic follows the plain PyTorch version
@@ -65,30 +65,6 @@ __global__ void __launch_bounds__(tl::kThreads)
   tl::block_sum_to<kSums>(acc, partials);
 }
 
-// Compensated stage 2, one block per sum: the block's threads bring the
-// sum's partials into shared memory, then one thread runs the Neumaier
-// recurrence over them in block order.
-template <typename T>
-__global__ void __launch_bounds__(tl::kThreads)
-    finish_sums_neumaier(const double* __restrict__ partials, int nblocks,
-                         T* __restrict__ out) {
-  __shared__ double sh[tl::kMaxBlocks];
-  const double* __restrict__ row =
-      partials + static_cast<int64_t>(blockIdx.x) * nblocks;
-  for (int b = threadIdx.x; b < nblocks; b += tl::kThreads) sh[b] = row[b];
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  double sum = 0.0, comp = 0.0;
-  for (int b = 0; b < nblocks; ++b) {
-    const double p = sh[b];
-    const double t = sum + p;
-    // |sum| >= |p|: the low-order bits of p were dropped, else those of sum.
-    comp += fabs(sum) >= fabs(p) ? (sum - t) + p : (p - t) + sum;
-    sum = t;
-  }
-  out[blockIdx.x] = static_cast<T>(sum + comp);
-}
-
 template <typename T>
 int launch(const T* x, const T* d, const T* g, const T* g_new, const T* alpha,
            T* x_new, T* s_row, T* y_row, double* partials, T* sums,
@@ -99,7 +75,7 @@ int launch(const T* x, const T* d, const T* g, const T* g_new, const T* alpha,
   iteration_tail_kernel<T><<<blocks, tl::kThreads, 0, s>>>(
       x, d, g, g_new, alpha, x_new, s_row, y_row, partials, n);
   if (compensated) {
-    finish_sums_neumaier<T><<<kSums, tl::kThreads, 0, s>>>(partials, blocks,
+    tl::finish_sums_neumaier<T><<<kSums, tl::kThreads, 0, s>>>(partials, blocks,
                                                            sums);
   } else {
     tl::finish_sums<T><<<kSums, tl::kThreads, 0, s>>>(partials, blocks, sums);

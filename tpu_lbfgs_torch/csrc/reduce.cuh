@@ -55,6 +55,23 @@ __device__ __forceinline__ void block_sum_to(const double (&acc)[K],
   }
 }
 
+// block_sum_to for K sums taken kChunk at a time, so that the tree's shared
+// memory stays at kChunk * kThreads doubles however large K is: sum k goes to
+// partials[k * gridDim.x + blockIdx.x] as above.
+template <int K, int kChunk>
+__device__ __forceinline__ void block_sum_chunks(
+    const double (&acc)[K], double* __restrict__ partials) {
+  static_assert(K % kChunk == 0, "K must be a multiple of the chunk");
+#pragma unroll
+  for (int c = 0; c < K / kChunk; ++c) {
+    double part[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) part[j] = acc[c * kChunk + j];
+    block_sum_to<kChunk>(
+        part, partials + static_cast<int64_t>(c) * kChunk * gridDim.x);
+  }
+}
+
 // Stage 2, launched with one block of kThreads per scalar: out[k] = sum of
 // the nblocks partials of scalar k = blockIdx.x, rounded once to T (float
 // or double, deduced from out).
@@ -75,6 +92,31 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
   if (t == 0) out[blockIdx.x] = static_cast<T>(sh[0]);
+}
+
+// Compensated stage 2, one block per sum: the block's threads bring the
+// sum's partials into shared memory, then one thread runs the Neumaier
+// recurrence over them in block order: a running sum and, beside it, the
+// sum of the low-order bits each addition dropped.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    finish_sums_neumaier(const double* __restrict__ partials, int nblocks,
+                         T* __restrict__ out) {
+  __shared__ double sh[kMaxBlocks];
+  const double* __restrict__ row =
+      partials + static_cast<int64_t>(blockIdx.x) * nblocks;
+  for (int b = threadIdx.x; b < nblocks; b += kThreads) sh[b] = row[b];
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  double sum = 0.0, comp = 0.0;
+  for (int b = 0; b < nblocks; ++b) {
+    const double p = sh[b];
+    const double t = sum + p;
+    // |sum| >= |p|: the low-order bits of p were dropped, else those of sum.
+    comp += fabs(sum) >= fabs(p) ? (sum - t) + p : (p - t) + sum;
+    sum = t;
+  }
+  out[blockIdx.x] = static_cast<T>(sum + comp);
 }
 
 }  // namespace

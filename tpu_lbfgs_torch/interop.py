@@ -7,6 +7,13 @@ layout.  A batched state (``jax.vmap(init_state)`` on the JAX side) has a
 leading lane axis on every field, and its ring is ``(B, m, R, L)``.  Both
 directions copy, so the two solvers never share a buffer.  A ``Trace``
 crosses the same way, field by field.
+
+numpy has no bfloat16, so a bfloat16 ring crosses as float32 values, each
+exactly representable in bfloat16: ``state_to_numpy`` widens it (on the JAX
+side ``jnp.asarray(a).astype(jnp.bfloat16)`` restores it exactly), and
+``state_from_numpy`` takes ``history_dtype="bfloat16"`` to narrow such a
+carrier again (it also takes the JAX side's ``ml_dtypes`` bfloat16 arrays
+as they are).
 """
 from __future__ import annotations
 
@@ -28,24 +35,39 @@ def hist_block(d: int) -> tuple[int, int]:
     return 1, d
 
 
-def state_from_numpy(arrays: dict, device="cpu") -> LBFGSState:
+def state_from_numpy(arrays: dict, device="cpu",
+                     history_dtype=None) -> LBFGSState:
     """The port's state on ``device`` from a reference state's arrays; the
-    (..., m, R, L) ring becomes a flat (..., m, d) ring."""
+    (..., m, R, L) ring becomes a flat (..., m, d) ring, in
+    ``history_dtype`` when given ("bfloat16": the carrier's float32 values
+    must be representable, which the cast then keeps exactly)."""
     fields = {}
     for f in dataclasses.fields(LBFGSState):
-        t = torch.from_numpy(np.array(arrays[f.name], copy=True)).to(device)
-        if f.name in ("s_hist", "y_hist"):
+        a = np.asarray(arrays[f.name])
+        ring = f.name in ("s_hist", "y_hist")
+        narrow = ring and a.dtype.name == "bfloat16"
+        if narrow:
+            a = a.astype(np.float32)     # exact; torch reads no ml_dtypes
+        t = torch.from_numpy(np.array(a, copy=True)).to(device)
+        if ring:
             t = t.flatten(-2)
+            if narrow:
+                t = t.to(torch.bfloat16)
+            elif history_dtype is not None:
+                t = t.to(getattr(torch, history_dtype))
         fields[f.name] = t
     return LBFGSState(**fields)
 
 
 def state_to_numpy(state: LBFGSState) -> dict:
     """A reference state's arrays from the port's state (ring as
-    (..., m, R, L))."""
+    (..., m, R, L); a bfloat16 ring as the same values in float32)."""
     out = {}
     for f in dataclasses.fields(LBFGSState):
-        a = getattr(state, f.name).detach().cpu().numpy().copy()
+        t = getattr(state, f.name).detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        a = t.numpy().copy()
         if f.name in ("s_hist", "y_hist"):
             a = a.reshape(a.shape[:-1] + hist_block(a.shape[-1]))
         out[f.name] = a

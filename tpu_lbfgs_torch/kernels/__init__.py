@@ -5,7 +5,13 @@ Each wrapper counts its kernel's launches in its module's ``launches``;
 ``launch_counts()`` reads and ``reset_launches()`` zeroes every count of
 the package at once."""
 from . import chain, fused_ops, line_search_ops
-from .fused_ops import combine_direction, iteration_tail
+from .fused_ops import (
+    FUSED_VG,
+    combine_direction,
+    iteration_tail,
+    make_fused_tail,
+)
+from .line_search_ops import make_multi_phi, make_multi_phi_dphi
 
 _COUNTED = (fused_ops, chain, line_search_ops)
 

@@ -34,13 +34,16 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     "tl_max_blocks": ([], ctypes.c_int),
     "tl_error_string": ([ctypes.c_int], ctypes.c_char_p),
-    "tl_rosenbrock_vg_f32": ([_P, _P, _P, _P, ctypes.c_longlong, _P],
-                             ctypes.c_int),
-    "tl_rosenbrock_fused_tail_f32": ([_P] * 10 + [ctypes.c_longlong, _P],
-                                     ctypes.c_int),
-    **{f"tl_rosenbrock_{k}_f32": ([_P] * 3 + [ctypes.c_int, _P, _P,
-                                              ctypes.c_longlong, _P],
-                                  ctypes.c_int)
+    # body, x, g, partials, f, n, stream
+    "tl_fused_vg_f32": ([ctypes.c_int] + [_P] * 4 + [ctypes.c_longlong, _P],
+                        ctypes.c_int),
+    # body, hist_bf16, m, compensated, 12 pointers, n, stream
+    "tl_fused_tail_f32": ([ctypes.c_int] * 4 + [_P] * 12
+                          + [ctypes.c_longlong, _P], ctypes.c_int),
+    # body, x, d, alphas, K, partials, out, n, stream
+    **{f"tl_{k}_f32": ([ctypes.c_int] + [_P] * 3 + [ctypes.c_int, _P, _P,
+                                                    ctypes.c_longlong, _P],
+                       ctypes.c_int)
        for k in ("multi_phi", "multi_phi_dphi")},
     **{f"tl_iteration_tail_{t}": ([_P] * 10 + [ctypes.c_longlong,
                                               ctypes.c_int, _P],
@@ -49,7 +52,7 @@ _SIGNATURES = {
     **{f"tl_combine_direction_{t}": ([_P] * 7 + [ctypes.c_int,
                                                  ctypes.c_longlong, _P],
                                      ctypes.c_int)
-       for t in ("f32", "f64")},
+       for t in ("f32", "f64", "f32_bf16")},
     **{f"tl_compact_chain_{t}": ([_P] * 8 + [c_thr, ctypes.c_int] + [_P] * 5
                                  + [ctypes.c_longlong, ctypes.c_int, _P],
                                  ctypes.c_int)

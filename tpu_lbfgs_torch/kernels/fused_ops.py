@@ -1,19 +1,29 @@
 """Hand-written CUDA kernels of the solver's iteration, each beside its
 plain PyTorch version.
 
-  fused_vg_rosenbrock     f and the analytic gradient in one read of x
-                          (csrc/rosenbrock_vg.cu; replaces the Pallas
-                          _vg_rosenbrock_kernel).
-  fused_tail_rosenbrock   the post-line-search tail in one pass over x, d, g
-                          (csrc/rosenbrock_fused_tail.cu; replaces the Pallas
-                          _make_tail_kernel with _body_rosenbrock).
+  fused_vg                f and the analytic gradient of a suite problem in
+                          one read of x (csrc/fused_vg.cu; replaces the Pallas
+                          _vg_quadratic_kernel, _vg_rosenbrock_kernel and
+                          _vg_coupled_kernel).
+  make_fused_tail         the post-line-search tail of a suite problem in one
+                          pass over x, d, g, optionally with the history
+                          products t1 = S y, t2 = Y y, compensated sums and
+                          bfloat16 ring rows (csrc/fused_tail.cu; replaces
+                          the Pallas _make_tail_kernel with each body of
+                          TAIL_BODIES).
   iteration_tail          the tail of any objective, given its new gradient:
                           x_new, s, y and five sums in one pass
                           (csrc/iteration_tail.cu; replaces the Pallas
                           _make_iteration_tail_kernel, plain and compensated).
   combine_direction       r = gamma g + v S - gamma u Y in one stream over
-                          the history (csrc/combine_direction.cu; replaces
+                          the history, float32, float64 or a bfloat16 ring
+                          under float32 (csrc/combine_direction.cu; replaces
                           the Pallas _combine_kernel).
+
+The problem-specific kernels are templates on the problem's body
+(csrc/bodies.cuh): ``quadratic``, ``rosenbrock`` and ``coupled_quadratic``,
+the reference's FUSED_VG / TAIL_BODIES.  ``sphere`` has no body there and
+none here.
 
 A kernel and its plain version form each sum from the same terms in the
 working dtype, accumulate in float64 and round once to the working dtype,
@@ -26,10 +36,10 @@ contiguous ``(d,)`` vector.
 
 A wrapper takes its plain version only for tensors on the CPU, where the
 tests run (or where the caller passes ``use_pallas=False``, the
-reference's switch).  A CUDA tensor launches the kernel (the Rosenbrock
-kernels float32 only, the two general ones float32 or float64), and
-anything else raises.  ``launches`` counts each wrapper's kernel launches,
-so a run can show that it went through the kernels.
+reference's switch).  A CUDA tensor launches the kernel (the
+problem-specific kernels float32 only, the two general ones float32 or
+float64), and anything else raises.  ``launches`` counts each wrapper's
+kernel launches, so a run can show that it went through the kernels.
 """
 from __future__ import annotations
 
@@ -40,8 +50,16 @@ from ..types import per_lane
 from ..utils.accurate import compensated_dot
 from . import _build
 
+#: The body ids of csrc/bodies.cuh, by problem name.
+BODY_IDS = {"quadratic": 0, "rosenbrock": 1, "coupled_quadratic": 2}
+
+#: History depths the fused tail's matvec is instantiated for
+#: (csrc/fused_tail.cu).
+TAIL_MATVEC_M = (5, 10, 20)
+
 #: Kernel launches per wrapper since the last ``reset_launches()``.
-launches = {"rosenbrock_vg": 0, "rosenbrock_fused_tail": 0,
+launches = {**{f"{name}_vg": 0 for name in BODY_IDS},
+            **{f"{name}_fused_tail": 0 for name in BODY_IDS},
             "iteration_tail": 0, "combine_direction": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -92,6 +110,20 @@ def _dot(a: Tensor, b: Tensor) -> Tensor:
 
 # --- value and gradient -----------------------------------------------------
 
+def quadratic_f_plain(x: Tensor) -> Tensor:
+    """sum (x_i - 1)^2 over the last axis, its terms summed in float64 (the
+    kernels' convention)."""
+    r = x - 1.0
+    return _sum(r * r)
+
+
+def quadratic_vg_plain(x: Tensor) -> tuple[Tensor, Tensor]:
+    """The quadratic's f and gradient from plain tensor ops (the
+    reference's jnp fallback of fused_vg_quadratic)."""
+    r = x - 1.0
+    return _sum(r * r), 2.0 * r
+
+
 def rosenbrock_grad_plain(x: Tensor) -> Tensor:
     """The analytic gradient of chained Rosenbrock over the last axis."""
     xi, xn = x[..., :-1], x[..., 1:]
@@ -117,11 +149,46 @@ def rosenbrock_vg_plain(x: Tensor) -> tuple[Tensor, Tensor]:
     return rosenbrock_f_plain(x), rosenbrock_grad_plain(x)
 
 
-def fused_vg_rosenbrock(x: Tensor) -> tuple[Tensor, Tensor]:
-    """(f, g) of chained Rosenbrock: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor."""
-    if x.device.type == "cpu":
-        return rosenbrock_vg_plain(x)
+def coupled_f_plain(x: Tensor) -> Tensor:
+    """The coupled quadratic (coefficient 1000) over the last axis, one term
+    per element as the kernels form it, 1000 x_i^2 + 100 x_i x_{i+1}, summed
+    in float64."""
+    t = 1000.0 * x * x
+    t[..., :-1] += 100.0 * (x[..., :-1] * x[..., 1:])
+    return _sum(t)
+
+
+def coupled_grad_plain(x: Tensor) -> Tensor:
+    """The coupled quadratic's gradient over the last axis:
+    (2000 x_i + 100 x_{i+1}) + 100 x_{i-1}."""
+    g = 2000.0 * x
+    g[..., :-1] += 100.0 * x[..., 1:]
+    g[..., 1:] += 100.0 * x[..., :-1]
+    return g
+
+
+def coupled_vg_plain(x: Tensor) -> tuple[Tensor, Tensor]:
+    """The coupled quadratic's f and gradient from plain tensor ops (the
+    reference's jnp fallback of fused_vg_coupled_quadratic)."""
+    return coupled_f_plain(x), coupled_grad_plain(x)
+
+
+#: Plain f and (f, g) per problem with a kernel body: the kernels' terms in
+#: the kernels' order.
+F_PLAIN = {"quadratic": quadratic_f_plain, "rosenbrock": rosenbrock_f_plain,
+           "coupled_quadratic": coupled_f_plain}
+VG_PLAIN = {"quadratic": quadratic_vg_plain,
+            "rosenbrock": rosenbrock_vg_plain,
+            "coupled_quadratic": coupled_vg_plain}
+
+
+def fused_vg(problem: str, x: Tensor,
+             use_pallas: bool = True) -> tuple[Tensor, Tensor]:
+    """(f, g) of a suite problem with a kernel body: the CUDA kernel for a
+    CUDA tensor, the plain version for a CPU tensor or under
+    ``use_pallas=False``."""
+    if not use_pallas or x.device.type == "cpu":
+        return VG_PLAIN[problem](x)
     n = x.numel()
     _check_vec("x", x, n)
     lib = _build.load()
@@ -130,69 +197,178 @@ def fused_vg_rosenbrock(x: Tensor) -> tuple[Tensor, Tensor]:
                            device=x.device)
     f = torch.empty(1, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.tl_rosenbrock_vg_f32(
-            x.data_ptr(), g.data_ptr(), partials.data_ptr(), f.data_ptr(), n,
+        err = lib.tl_fused_vg_f32(
+            BODY_IDS[problem], x.data_ptr(), g.data_ptr(),
+            partials.data_ptr(), f.data_ptr(), n,
             torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "rosenbrock_vg")
-    launches["rosenbrock_vg"] += 1
+    _build.check(lib, err, f"{problem}_vg")
+    launches[f"{problem}_vg"] += 1
     return f[0], g
+
+
+def fused_vg_quadratic(x: Tensor, use_pallas: bool = True):
+    """``fused_vg`` of the quadratic, with the reference's signature."""
+    return fused_vg("quadratic", x, use_pallas)
+
+
+def fused_vg_rosenbrock(x: Tensor, use_pallas: bool = True):
+    """``fused_vg`` of chained Rosenbrock, with the reference's signature."""
+    return fused_vg("rosenbrock", x, use_pallas)
+
+
+def fused_vg_coupled_quadratic(x: Tensor, use_pallas: bool = True):
+    """``fused_vg`` of the coupled quadratic, with the reference's
+    signature."""
+    return fused_vg("coupled_quadratic", x, use_pallas)
+
+
+#: The reference's FUSED_VG: the fused value-and-gradient per problem.
+FUSED_VG = {"quadratic": fused_vg_quadratic,
+            "rosenbrock": fused_vg_rosenbrock,
+            "coupled_quadratic": fused_vg_coupled_quadratic}
 
 
 # --- fused iteration tail ---------------------------------------------------
 
+def _ring_matvec(hist: Tensor, v: Tensor) -> Tensor:
+    """hist (..., m, d) times v (..., d) in v's dtype, every product formed
+    and added in float64 (a bfloat16 ring is widened, never multiplied in
+    bfloat16)."""
+    out = torch.matmul(hist.double(), v.double().unsqueeze(-1)).squeeze(-1)
+    return out.to(v.dtype)
+
+
 def fused_tail_plain(vg_fn, x: Tensor, d: Tensor, alpha: Tensor, g: Tensor,
-                     s_hist=None, y_hist=None):
+                     s_hist=None, y_hist=None, with_matvec: bool = False,
+                     accurate: bool = False):
     """The tail from plain tensor ops and any value-and-gradient function
-    (the reference's fused_tail_jnp with with_matvec=False).  Returns
-    (x_new, f_new, g_new, s_row, y_row, s.y, y.y, g_new.g_new, d.g_new,
-    g.g_new, y.g_new, None, None); the history is not read.  Batched,
-    ``alpha`` holds one step per lane."""
+    (the reference's fused_tail_jnp).  Returns (x_new, f_new, g_new, s_row,
+    y_row, s.y, y.y, g_new.g_new, d.g_new, g.g_new, y.g_new, t1, t2).  The
+    two rows are cast to the history's dtype (x's when no history is given).
+    ``with_matvec`` adds t1 = S y and t2 = Y y over the ring as it is given,
+    against the raw y, else they are None and the ring is not read.
+    ``accurate`` takes the six dots through
+    ``utils.accurate.compensated_dot``, all in one call; f is ``vg_fn``'s.
+    Batched, ``alpha`` holds one step per lane."""
     s = per_lane(alpha) * d
     x_new = x + s
     f_new, g_new = vg_fn(x_new)
     y = g_new - g
-    return (x_new, f_new, g_new, s, y,
-            _dot(s, y), _dot(y, y), _dot(g_new, g_new),
-            _dot(d, g_new), _dot(g, g_new), _dot(y, g_new),
-            None, None)
+    if accurate:
+        dots = compensated_dot(torch.stack([s, y, g_new, d, g, y]),
+                               torch.stack([y, y, g_new, g_new, g_new,
+                                            g_new])).unbind(0)
+    else:
+        dots = (_dot(s, y), _dot(y, y), _dot(g_new, g_new), _dot(d, g_new),
+                _dot(g, g_new), _dot(y, g_new))
+    t1 = t2 = None
+    if with_matvec:
+        t1, t2 = _ring_matvec(s_hist, y), _ring_matvec(y_hist, y)
+    s_row, y_row = s, y
+    if s_hist is not None and s_hist.dtype != x.dtype:
+        s_row, y_row = s.to(s_hist.dtype), y.to(s_hist.dtype)
+    return (x_new, f_new, g_new, s_row, y_row, *dots, t1, t2)
 
 
-def fused_tail_rosenbrock(x: Tensor, d: Tensor, alpha: Tensor, g: Tensor,
-                          s_hist=None, y_hist=None):
-    """The post-line-search tail of chained Rosenbrock, with the return
-    tuple of the reference's make_fused_tail (t1 = t2 = None): the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors.  ``alpha``
-    is a one-element tensor on x's device; it is never read to the host."""
-    if x.device.type == "cpu":
-        return fused_tail_plain(rosenbrock_vg_plain, x, d, alpha, g)
+_HIST_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _fused_tail_kernel(problem: str, x: Tensor, d: Tensor, alpha: Tensor,
+                       g: Tensor, s_hist, y_hist, with_matvec: bool,
+                       accurate: bool):
+    """Launch csrc/fused_tail.cu for CUDA tensors, or raise."""
     n = x.numel()
     for name, t in (("x", x), ("d", d), ("g", g)):
-        _check_vec(name, t, n)
+        _check_vec(name, t, n, like=x)
     if (alpha.device != x.device or alpha.dtype != torch.float32
             or alpha.numel() != 1):
         raise ValueError("alpha: expected one float32 element on "
                          f"{x.device}, got {alpha.dtype} {tuple(alpha.shape)} "
                          f"on {alpha.device}")
-    if s_hist is not None and s_hist.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{s_hist.dtype} history is not ported (ROADMAP.md Queue 1 "
-            "item 8)")
+    hdtype = torch.float32 if s_hist is None else s_hist.dtype
+    if hdtype not in _HIST_DTYPES:
+        raise TypeError("s_hist: the fused tail kernel takes a float32 or "
+                        f"bfloat16 history, got {hdtype}")
+    m = 0
+    if with_matvec:
+        if s_hist is None or y_hist is None:
+            raise ValueError("with_matvec needs the history ring")
+        m = s_hist.shape[0]
+        if m not in TAIL_MATVEC_M:
+            raise ValueError(
+                f"the fused tail's matvec is built for m in {TAIL_MATVEC_M}, "
+                f"got m = {m}; build the tail with with_matvec=False")
+        for name, t in (("s_hist", s_hist), ("y_hist", y_hist)):
+            if (t.device != x.device or t.dtype != hdtype
+                    or t.shape != (m, n) or not t.is_contiguous()):
+                raise ValueError(
+                    f"{name}: expected a contiguous ({m}, {n}) {hdtype} "
+                    f"tensor on {x.device}, got {t.dtype} shape "
+                    f"{tuple(t.shape)}, strides {t.stride()} on {t.device}")
     lib = _build.load()
-    x_new, g_new, s_row, y_row = (torch.empty_like(x) for _ in range(4))
-    partials = torch.empty(7 * lib.tl_max_blocks(), dtype=torch.float64,
+    x_new, g_new = torch.empty_like(x), torch.empty_like(x)
+    s_row, y_row = (torch.empty(n, dtype=hdtype, device=x.device)
+                    for _ in range(2))
+    n_sums = 7 + 2 * m
+    partials = torch.empty(n_sums * lib.tl_max_blocks(), dtype=torch.float64,
                            device=x.device)
-    sums = torch.empty(7, dtype=torch.float32, device=x.device)
+    sums = torch.empty(n_sums, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.tl_rosenbrock_fused_tail_f32(
-            x.data_ptr(), d.data_ptr(), g.data_ptr(), alpha.data_ptr(),
-            x_new.data_ptr(), g_new.data_ptr(), s_row.data_ptr(),
-            y_row.data_ptr(), partials.data_ptr(), sums.data_ptr(), n,
+        err = lib.tl_fused_tail_f32(
+            BODY_IDS[problem], int(hdtype == torch.bfloat16), m,
+            int(accurate), x.data_ptr(), d.data_ptr(), g.data_ptr(),
+            alpha.data_ptr(), s_hist.data_ptr() if m else None,
+            y_hist.data_ptr() if m else None, x_new.data_ptr(),
+            g_new.data_ptr(), s_row.data_ptr(), y_row.data_ptr(),
+            partials.data_ptr(), sums.data_ptr(), n,
             torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "rosenbrock_fused_tail")
-    launches["rosenbrock_fused_tail"] += 1
+    _build.check(lib, err, f"{problem}_fused_tail")
+    launches[f"{problem}_fused_tail"] += 1
+    if m:
+        sums, t1, t2 = sums.split((7, m, m))
+    else:
+        t1 = t2 = None
     f_new, sy, yy, gg, dgn, ggn, ygn = sums.unbind(0)
     return (x_new, f_new, g_new, s_row, y_row, sy, yy, gg, dgn, ggn, ygn,
-            None, None)
+            t1, t2)
+
+
+def make_fused_tail(problem: str, vg_fallback, with_matvec: bool = True,
+                    use_pallas: bool = True, accurate_dots: bool = False):
+    """The fused post-line-search tail of a suite problem, with the
+    reference's signature: ``tail(x, d, alpha, g, s_hist, y_hist) -> (x_new,
+    f_new, g_new, s_row, y_row, sy, yy, gg, dgn, ggn, ygn, t1, t2)``, the
+    two rows in the history's dtype and t1 / t2 = S y_new / Y y_new over the
+    ring before this pair is stored (None without ``with_matvec``; the
+    solver patches the slot's entries from the exact sums).
+
+    For a problem with a kernel body under ``use_pallas=True`` a CUDA
+    tensor launches the kernel or raises, and a CPU tensor takes the plain
+    version; otherwise the tail is the plain composition around
+    ``vg_fallback`` on any device, which is the reference's dispatch.
+    ``alpha`` is a one-element tensor on x's device; it is never read to
+    the host.
+
+    ``accurate_dots`` compensates the seven sums (a Neumaier sum over the
+    block partials in the kernel, ``compensated_dot`` in the plain
+    version); the solver reads the returned callable's ``accurate_dots``
+    attribute and rejects a plain tail under ``cfg.accurate_dots``."""
+    has_kernel = use_pallas and problem in BODY_IDS
+
+    def tail(x, d, alpha, g, s_hist=None, y_hist=None):
+        if has_kernel and x.device.type != "cpu":
+            return _fused_tail_kernel(problem, x, d, alpha, g, s_hist,
+                                      y_hist, with_matvec, accurate_dots)
+        return fused_tail_plain(vg_fallback, x, d, alpha, g, s_hist, y_hist,
+                                with_matvec, accurate_dots)
+
+    tail.accurate_dots = accurate_dots
+    return tail
+
+
+#: bench.py's tail: chained Rosenbrock, no matvec, plain sums.
+fused_tail_rosenbrock = make_fused_tail("rosenbrock", rosenbrock_vg_plain,
+                                        with_matvec=False)
 
 
 # --- iteration tail of any objective ----------------------------------------
@@ -265,9 +441,13 @@ def combine_direction_plain(g: Tensor, s_hist: Tensor, y_hist: Tensor,
     """r = gamma g + v S - gamma u Y accumulated row by row in the working
     dtype, ``acc = (acc + v_k s_k) - (gamma u_k) y_k`` for k ascending: the
     order of the reference's Pallas kernel and of the CUDA kernel, which
-    therefore equals this bit for bit.  One instance, (m, d) history."""
+    therefore equals this bit for bit.  A ring in another dtype (bfloat16)
+    is widened to g's as it is read, the coefficients stay as they are.
+    One instance, (m, d) history."""
     acc = gamma * g
     for k, (s_k, y_k) in enumerate(zip(s_hist.unbind(0), y_hist.unbind(0))):
+        if s_k.dtype != g.dtype:
+            s_k, y_k = s_k.to(g.dtype), y_k.to(g.dtype)
         acc = acc + v[k] * s_k - (gamma * u[k]) * y_k
     return acc
 
@@ -277,7 +457,14 @@ def combine_direction_matmul(g: Tensor, s_hist: Tensor, y_hist: Tensor,
     """r = gamma g + v S - gamma u Y as two matrix-vector products over the
     (m, d) ring, or per lane over a (B, m, d) ring (the reference's
     _combine_jnp, which its solver pins; the port's solver takes this
-    route too)."""
+    route too).  For a ring in another dtype than g's (bfloat16) the
+    coefficient vectors are cast down to the ring's dtype, as the
+    reference casts them, and the products are formed and added in g's
+    dtype: the ring is widened, since a bfloat16 matmul would round its
+    result to bfloat16."""
+    if s_hist.dtype != g.dtype:
+        v, u = (c.to(s_hist.dtype).to(g.dtype) for c in (v, u))
+        s_hist, y_hist = s_hist.to(g.dtype), y_hist.to(g.dtype)
     if s_hist.dim() == 2:
         return gamma * g + torch.mv(s_hist.T, v) - gamma * torch.mv(
             y_hist.T, u)
@@ -294,10 +481,10 @@ def combine_direction(g: Tensor, s_hist: Tensor, y_hist: Tensor, v: Tensor,
                       use_pallas: bool = True) -> Tensor:
     """The compact representation's second pass over the history, with the
     reference's signature.  ``use_pallas=True`` launches the CUDA kernel
-    for CUDA tensors (float32 or float64, one instance, history in the
-    iterate's dtype) and takes its plain version for CPU tensors; False is
-    the matrix-vector route anywhere.  ``v``, ``u`` and ``gamma`` stay on
-    the device."""
+    for CUDA tensors (float32 or float64, one instance, the history in the
+    iterate's dtype or bfloat16 under float32) and takes its plain version
+    for CPU tensors; False is the matrix-vector route anywhere.  ``v``,
+    ``u`` and ``gamma`` stay on the device."""
     if not use_pallas:
         return combine_direction_matmul(g, s_hist, y_hist, v, u, gamma)
     if g.dim() != 1 or s_hist.dim() != 2:
@@ -310,17 +497,20 @@ def combine_direction(g: Tensor, s_hist: Tensor, y_hist: Tensor, v: Tensor,
     suffix = _kernel_dtype("g", g)
     n, m = g.numel(), s_hist.shape[0]
     _check_vec("g", g, n, g.dtype)
+    if s_hist.dtype == torch.bfloat16 and g.dtype == torch.float32:
+        suffix = "f32_bf16"
+    elif s_hist.dtype != g.dtype:
+        raise TypeError(
+            f"s_hist: the combine_direction kernel takes a {g.dtype} "
+            "history, or a bfloat16 one for float32 iterates, got "
+            f"{s_hist.dtype}")
     for name, t in (("s_hist", s_hist), ("y_hist", y_hist)):
-        if t.dtype != g.dtype:
-            raise NotImplementedError(
-                f"{name}: a {t.dtype} history for {g.dtype} iterates is not "
-                "ported yet (ROADMAP.md Queue 1 item 8)")
-        if (t.device != g.device or t.shape != (m, n)
-                or not t.is_contiguous()):
+        if (t.device != g.device or t.dtype != s_hist.dtype
+                or t.shape != (m, n) or not t.is_contiguous()):
             raise ValueError(f"{name}: expected a contiguous ({m}, {n}) "
-                             f"tensor on {g.device}, got shape "
-                             f"{tuple(t.shape)}, strides {t.stride()} on "
-                             f"{t.device}")
+                             f"{s_hist.dtype} tensor on {g.device}, got "
+                             f"{t.dtype} shape {tuple(t.shape)}, strides "
+                             f"{t.stride()} on {t.device}")
     for name, t in (("v", v), ("u", u)):
         _check_vec(name, t, m, g.dtype, g)
     if (gamma.device != g.device or gamma.dtype != g.dtype

@@ -2,13 +2,16 @@
 its plain PyTorch version: K trial points of a line search in one pass over
 (x, d).
 
-  multi_phi_rosenbrock       phi(alpha_k) = f(x + alpha_k d), k < K
-                             (csrc/rosenbrock_multi_phi.cu; replaces the
-                             Pallas _make_multi_phi_kernel with _f_rosenbrock).
-  multi_phi_dphi_rosenbrock  (phi(alpha_k), grad f(x + alpha_k d) . d)
-                             (csrc/rosenbrock_multi_phi_dphi.cu; replaces the
-                             Pallas _make_multi_phi_dphi_kernel with
-                             _body_rosenbrock).
+  make_multi_phi       phi(alpha_k) = f(x + alpha_k d), k < K
+                       (csrc/multi_phi.cu; replaces the Pallas
+                       _make_multi_phi_kernel with each body of F_BODIES).
+  make_multi_phi_dphi  (phi(alpha_k), grad f(x + alpha_k d) . d)
+                       (csrc/multi_phi_dphi.cu; replaces the Pallas
+                       _make_multi_phi_dphi_kernel with each body of
+                       TAIL_BODIES).
+
+Both kernels are templates on the problem's body (csrc/bodies.cuh):
+``quadratic``, ``rosenbrock`` and ``coupled_quadratic``.
 
 A kernel and its plain version form each sum from the same float32 terms,
 accumulate in float64 and round once to the working dtype, so the two
@@ -25,15 +28,11 @@ import torch
 from torch import Tensor
 
 from . import _build
-from .fused_ops import (
-    _check_vec,
-    _dot,
-    rosenbrock_f_plain,
-    rosenbrock_vg_plain,
-)
+from .fused_ops import BODY_IDS, F_PLAIN, VG_PLAIN, _check_vec, _dot
 
 #: Kernel launches per wrapper since the last ``reset_launches()``.
-launches = {"rosenbrock_multi_phi": 0, "rosenbrock_multi_phi_dphi": 0}
+launches = {**{f"{name}_multi_phi": 0 for name in BODY_IDS},
+            **{f"{name}_multi_phi_dphi": 0 for name in BODY_IDS}}
 
 #: The most trials one launch takes: 8 per row of blocks, 65535 rows.
 MAX_TRIALS = 8 * 65535
@@ -78,42 +77,64 @@ def _check_alphas(x: Tensor, alphas: Tensor) -> int:
     return k
 
 
-def _launch(name: str, x: Tensor, d: Tensor, alphas: Tensor,
+def _launch(kernel: str, problem: str, x: Tensor, d: Tensor, alphas: Tensor,
             outputs: int) -> Tensor:
-    """Launch kernel ``name`` (C symbol tl_<name>_f32), counted; returns its
-    ``outputs * K`` sums."""
+    """Launch ``kernel`` (C symbol tl_<kernel>_f32) with the problem's body,
+    counted as <problem>_<kernel>; returns its ``outputs * K`` sums."""
     n = x.numel()
     _check_vec("x", x, n)
-    _check_vec("d", d, n)
+    _check_vec("d", d, n, like=x)
     k = _check_alphas(x, alphas)
     lib = _build.load()
     partials = torch.empty(outputs * k * lib.tl_max_blocks(),
                            dtype=torch.float64, device=x.device)
     out = torch.empty(outputs * k, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = getattr(lib, f"tl_{name}_f32")(
-            x.data_ptr(), d.data_ptr(), alphas.data_ptr(), k,
-            partials.data_ptr(), out.data_ptr(), n,
+        err = getattr(lib, f"tl_{kernel}_f32")(
+            BODY_IDS[problem], x.data_ptr(), d.data_ptr(), alphas.data_ptr(),
+            k, partials.data_ptr(), out.data_ptr(), n,
             torch.cuda.current_stream().cuda_stream)
+    name = f"{problem}_{kernel}"
     _build.check(lib, err, name)
     launches[name] += 1
     return out
 
 
-def multi_phi_rosenbrock(x: Tensor, d: Tensor, alphas: Tensor) -> Tensor:
-    """Chained Rosenbrock at K trial points, (K,): the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
-    if x.device.type == "cpu":
-        return multi_phi_plain(rosenbrock_f_plain, x, d, alphas)
-    return _launch("rosenbrock_multi_phi", x, d, alphas, 1)
+def make_multi_phi(problem: str, f_fallback, use_pallas: bool = True):
+    """``phi_batch(x, d, alphas) -> (K,)``, f at every x + alphas[k] d in
+    one pass, with the reference's signature.  For a problem with a kernel
+    body under ``use_pallas=True`` a CUDA tensor launches the kernel or
+    raises and a CPU tensor takes the plain version of the kernel's terms;
+    otherwise it is the plain version around ``f_fallback`` on any device
+    (the reference's vmap fallback)."""
+    has_kernel = use_pallas and problem in BODY_IDS
+    f_plain = F_PLAIN[problem] if has_kernel else f_fallback
+
+    def phi_batch(x, d, alphas):
+        if has_kernel and x.device.type != "cpu":
+            return _launch("multi_phi", problem, x, d, alphas, 1)
+        return multi_phi_plain(f_plain, x, d, alphas)
+
+    return phi_batch
 
 
-def multi_phi_dphi_rosenbrock(x: Tensor, d: Tensor,
-                              alphas: Tensor) -> tuple[Tensor, Tensor]:
-    """Chained Rosenbrock's (phi, phi') at K trial points, each (K,): the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    if x.device.type == "cpu":
-        return multi_phi_dphi_plain(rosenbrock_vg_plain, x, d, alphas)
-    out = _launch("rosenbrock_multi_phi_dphi", x, d, alphas, 2)
-    phi, dphi = out.view(2, -1).unbind(0)
-    return phi, dphi
+def make_multi_phi_dphi(problem: str, vg_fallback, use_pallas: bool = True):
+    """``phi_dphi_batch(x, d, alphas) -> ((K,), (K,))``, f and grad f . d at
+    every x + alphas[k] d in one pass, with the reference's signature and
+    ``make_multi_phi``'s dispatch."""
+    has_kernel = use_pallas and problem in BODY_IDS
+    vg_plain = VG_PLAIN[problem] if has_kernel else vg_fallback
+
+    def phi_dphi_batch(x, d, alphas):
+        if has_kernel and x.device.type != "cpu":
+            out = _launch("multi_phi_dphi", problem, x, d, alphas, 2)
+            phi, dphi = out.view(2, -1).unbind(0)
+            return phi, dphi
+        return multi_phi_dphi_plain(vg_plain, x, d, alphas)
+
+    return phi_dphi_batch
+
+
+#: The direct-evaluation protocol's evaluators: chained Rosenbrock.
+multi_phi_rosenbrock = make_multi_phi("rosenbrock", None)
+multi_phi_dphi_rosenbrock = make_multi_phi_dphi("rosenbrock", None)

@@ -8,34 +8,31 @@ is ``(...)``, and ``dir_poly`` returns its coefficients on the last axis,
 
 ``fused_value_and_grad``, ``fused_tail_for``, ``multi_phi_for`` and
 ``multi_phi_dphi_for`` hand out the CUDA kernels of ``kernels.fused_ops``
-and ``kernels.line_search_ops`` (Rosenbrock only so far), or with
-``use_pallas=False`` the plain PyTorch composition, as the reference hands
-out its Pallas kernels or their jnp fallbacks.
+and ``kernels.line_search_ops`` for the problems that have a kernel body
+(``quadratic``, ``rosenbrock``, ``coupled_quadratic``), or with
+``use_pallas=False`` their plain PyTorch versions, as the reference hands
+out its Pallas kernels or their jnp fallbacks.  ``sphere`` has no kernel
+body in the reference (its FUSED_VG, TAIL_BODIES and F_BODIES lack it) and
+none here: under ``use_pallas=True`` it takes the plain composition on any
+device, which is the reference's dispatch.
 """
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 from typing import Callable, Optional
 
 import torch
 from torch import Tensor
 
 from ..kernels.fused_ops import (
+    F_PLAIN,
+    FUSED_VG,
+    VG_PLAIN,
     _vdot,
-    fused_tail_plain,
-    fused_tail_rosenbrock,
-    fused_vg_rosenbrock,
-    rosenbrock_f_plain,
+    make_fused_tail,
     rosenbrock_grad_plain,
-    rosenbrock_vg_plain,
 )
-from ..kernels.line_search_ops import (
-    multi_phi_dphi_plain,
-    multi_phi_dphi_rosenbrock,
-    multi_phi_plain,
-    multi_phi_rosenbrock,
-)
+from ..kernels.line_search_ops import make_multi_phi, make_multi_phi_dphi
 from ..types import resolve_device
 
 
@@ -169,10 +166,6 @@ _PROBLEMS = {
                       _constant_minimizer(0.0), sphere_dir_poly),
 }
 
-# Problems whose value-and-gradient kernel is still a Pallas kernel only.
-_UNPORTED_KERNELS = ("quadratic", "coupled_quadratic")
-
-
 def get_problem(name: str) -> Problem:
     try:
         return _PROBLEMS[name]
@@ -189,57 +182,24 @@ def register_problem(problem: Problem) -> None:
     _PROBLEMS[problem.name] = problem
 
 
-def _unported_kernel(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the {name} body of the fused kernels is not ported to "
-        "tpu_lbfgs_torch yet (ROADMAP.md Queue 2 item 2); pass "
-        "use_pallas=False for the plain PyTorch version")
-
-
 def fused_value_and_grad(name: str, use_pallas: bool = True):
-    """Objective and analytic gradient in one pass: the CUDA kernel
-    (Rosenbrock), or the problem's plain ``value_and_grad`` when
-    ``use_pallas`` is False or the reference has no kernel for it."""
-    if name == "rosenbrock":
-        return fused_vg_rosenbrock if use_pallas else rosenbrock_vg_plain
-    if use_pallas and name in _UNPORTED_KERNELS:
-        raise _unported_kernel(name)
-    return get_problem(name).value_and_grad
-
-
-def fused_tail_for(name: str, with_matvec: bool = False,
-                   use_pallas: bool = True, accurate_dots: bool = False):
-    """The post-line-search tail ``tail(x, d, alpha, g, s_hist, y_hist)``
-    for a suite problem; pass as ``fused_tail=`` to minimize / iterate.
-    ``use_pallas=True`` gives the CUDA kernel (Rosenbrock), False or a
-    problem the reference has no kernel for the plain composition."""
-    if with_matvec:
-        raise NotImplementedError(
-            "the fused tail's in-kernel history matvec (with_matvec) is not "
-            "ported yet (ROADMAP.md Queue 2 item 2)")
-    if accurate_dots:
-        raise NotImplementedError(
-            "the compensated fused tail (accurate_dots) is not ported yet "
-            "(ROADMAP.md Queue 2 item 2)")
-    if use_pallas and name == "rosenbrock":
-        return fused_tail_rosenbrock
-    if use_pallas and name in _UNPORTED_KERNELS:
-        raise _unported_kernel(name)
-    return partial(fused_tail_plain, fused_value_and_grad(name, False))
+    """Objective and analytic gradient in one pass: the CUDA kernel of a
+    problem with a kernel body (``kernels.fused_ops.FUSED_VG``; its plain
+    version under ``use_pallas=False``), else the problem's plain
+    ``value_and_grad``."""
+    if name not in FUSED_VG:
+        return get_problem(name).value_and_grad
+    return FUSED_VG[name] if use_pallas else VG_PLAIN[name]
 
 
 def multi_phi_for(name: str, use_pallas: bool = True):
     """The K-trial evaluator ``phi_batch(x, d, alphas) -> (K,)``, f at
     every x + alphas[k] d in one pass; pass as ``phi_batch=`` to minimize /
     iterate for ``backtracking_speculative`` under ``ls_eval="direct"``.
-    ``use_pallas=True`` gives the CUDA kernel (Rosenbrock), False or a
-    problem the reference has no kernel for the plain version."""
-    if use_pallas and name == "rosenbrock":
-        return multi_phi_rosenbrock
-    if use_pallas and name in _UNPORTED_KERNELS:
-        raise _unported_kernel(name)
-    f = rosenbrock_f_plain if name == "rosenbrock" else get_problem(name).f
-    return partial(multi_phi_plain, f)
+    ``use_pallas=True`` gives the CUDA kernel of a problem with a kernel
+    body, False or a problem without one the plain version."""
+    f = F_PLAIN[name] if name in F_PLAIN else get_problem(name).f
+    return make_multi_phi(name, f, use_pallas=use_pallas)
 
 
 def multi_phi_dphi_for(name: str, use_pallas: bool = True):
@@ -247,10 +207,65 @@ def multi_phi_dphi_for(name: str, use_pallas: bool = True):
     f and grad f . d at every x + alphas[k] d in one pass; pass as
     ``phi_dphi_batch=`` for ``wolfe_interpolation_speculative`` and
     ``backtracking_wolfe_speculative`` under ``ls_eval="direct"``.
-    ``use_pallas=True`` gives the CUDA kernel (Rosenbrock), False or a
-    problem the reference has no kernel for the plain version."""
-    if use_pallas and name == "rosenbrock":
-        return multi_phi_dphi_rosenbrock
-    if use_pallas and name in _UNPORTED_KERNELS:
-        raise _unported_kernel(name)
-    return partial(multi_phi_dphi_plain, fused_value_and_grad(name, False))
+    ``use_pallas=True`` gives the CUDA kernel of a problem with a kernel
+    body, False or a problem without one the plain version."""
+    return make_multi_phi_dphi(name, fused_value_and_grad(name, False),
+                               use_pallas=use_pallas)
+
+
+#: The smallest d at which the fused tail's history products were measured.
+_MATVEC_MEASURED_FROM = 1 << 20
+
+
+def auto_with_matvec(m: int, d: int, history_dtype=None,
+                     batch: int = 1) -> bool:
+    """Whether ``fused_tail_for(with_matvec="auto")`` computes the history
+    products t1 = S y, t2 = Y y inside the tail kernel, with the reference's
+    signature.  The reference's rule is one of the TPU's VMEM and does not
+    carry over; this one is from chip_smoke.py's ``[kernel]`` and ``[cli]``
+    lines on an NVIDIA H100 80GB HBM3 (700 W), Rosenbrock body, d = 2^20:
+
+    - float32 ring: False.  The tail with the products took 47, 90 and 107
+      us at m = 5, 10 and 20, the tail without them and the solver's two
+      ``torch.mv`` 44, 61 and 91 us (d = 2^24, m = 10: 1138 against 704 us):
+      each ring value costs the kernel a float-to-double conversion, which
+      bounds it before the bytes do.
+    - bfloat16 ring: True for one instance at m = 5, 10 or 20 (the depths
+      the kernel is built for) and d >= 2^20.  The solver's route widens
+      the whole ring to float32 first: 89, 141 and 236 us against the
+      kernel's 35, 93 and 94 us (d = 2^24, m = 10: 1819 against 1190 us),
+      and it takes six launches more.  End to end the solve is bound by the
+      host, and three runs of three turns each do not resolve the two: 3.4,
+      3.7 and 5.3 ms per iteration with the products in the tail against
+      3.7, 3.8 and 4.5 in the solver (medians).  Below d = 2^20 nothing was
+      measured, so it stays False there, as it does for a batch (the kernel
+      takes one instance)."""
+    from ..kernels.fused_ops import TAIL_MATVEC_M
+
+    bf16 = history_dtype in ("bfloat16", torch.bfloat16)
+    return bool(bf16 and batch == 1 and m in TAIL_MATVEC_M
+                and d >= _MATVEC_MEASURED_FROM)
+
+
+def fused_tail_for(name: str, with_matvec="auto", use_pallas: bool = True,
+                   m: int = 10, d: Optional[int] = None, history_dtype=None,
+                   batch: int = 1, accurate_dots: bool = False):
+    """The post-line-search tail ``tail(x, d, alpha, g, s_hist, y_hist)``
+    for a suite problem, with the reference's signature; pass as
+    ``fused_tail=`` to minimize / iterate.  ``use_pallas=True`` gives the
+    CUDA kernel of a problem with a kernel body, False or a problem without
+    one the plain composition.
+
+    ``with_matvec``: True computes t1 = S y and t2 = Y y in the tail (the
+    kernel is built for m = 5, 10 and 20), False leaves them to the
+    solver's two matrix-vector products, "auto" applies
+    ``auto_with_matvec(m, d, history_dtype, batch)`` and needs ``d``
+    (without it: False).  ``accurate_dots`` builds the compensated tail,
+    which ``cfg.accurate_dots`` requires (the solver rejects a plain
+    one)."""
+    if with_matvec == "auto":
+        with_matvec = (auto_with_matvec(m, d, history_dtype, batch=batch)
+                       if d is not None else False)
+    return make_fused_tail(name, fused_value_and_grad(name, False),
+                           with_matvec=with_matvec, use_pallas=use_pallas,
+                           accurate_dots=accurate_dots)
