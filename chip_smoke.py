@@ -6,7 +6,7 @@ Run from the repository root, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from tpu_lbfgs_torch/csrc, holds each
-against its plain PyTorch version on the card, and drives five paths,
+against its plain PyTorch version on the card, and drives six paths,
 each solve with the kernels' launch counts set to 0 just before it and
 read just after:
 
@@ -38,7 +38,28 @@ read just after:
   with and without its in-kernel history products on a float32 and on a
   bfloat16 ring and the compensated tail; over the
   quadratic and coupled bodies of the four fused kernel families, every
-  form of the fused tail and the combine kernel on a bfloat16 ring.
+  form of the fused tail and the combine kernel on a bfloat16 ring;
+- the sharded solve, tpu_lbfgs_torch.dist.sharded_minimize on 4 spawned
+  processes that share the one card over gloo (NCCL takes one rank per
+  card), global d = 2^22 in float32 (d_local = 2^20): chained Rosenbrock on
+  the main path's configuration for 100 iterations, then shorter solves of
+  each problem under the speculative Armijo and Wolfe searches in direct
+  mode, with t1 and t2 in the tail on a bfloat16 ring, at an unaligned d,
+  and of the quadratic on the polynomial; over the shard-local forms of
+  the four fused kernel families, each against the single-device port at
+  the same d, and where those two float32 solves part, beside the same
+  solve in float64 as the witness.  Before it, in one process, each
+  shard-local kernel is held against its plain version and, the shards
+  joined, against the whole-vector kernel, at d = 2^20, 2^20 + 37 and 293
+  and at the shapes this phase hands them (d = 2^22 and 2^22 + 37 in 4
+  shards).  Four ranks on one card share it, so the phase's times are a
+  correctness run's cost and no scaling number.
+
+Between the command line and the sharded solve, [route] checks on the card
+that no wrapper of a problem-specific kernel takes its plain version by
+itself: a float64 tensor, or the tail's products at a history depth they
+are not built for, raises, and the entries that route them (the command
+line under --dtype float64, fused_tail_for) warn and say what they build.
 
 It checks that each solve went through its kernels, that its output is
 sound and equals the plain versions' over the first iterations, and that
@@ -67,7 +88,7 @@ RAGGED = D + 37             # no multiple of any block or lane width
 SEED = 42                   # bench.py's seed
 MAIN_ITERS = 200
 TRACE_ITERS = 20
-BENCH_ITERS = 1000
+BENCH_ITERS = 400
 BATCH, BATCH_D = 4096, 1024  # bench.py's batch cell
 RAGGED_BATCH = BATCH + 37
 BATCH_ITERS = 200
@@ -886,12 +907,19 @@ def phase_no_sync(state, cfg):
 
 def phase_bench(card):
     import tpu_lbfgs_torch as tt
+    from tpu_lbfgs_torch import kernels
     from tpu_lbfgs_torch.bench.harness import bench_gpu
 
+    kernels.reset_launches()
     r = bench_gpu(problem="rosenbrock", d=D, iters=BENCH_ITERS,
                   cfg=_bench_cfg(tt, BENCH_ITERS), repeats=3)
     check(np.isfinite(r.final_f) and r.iterations == BENCH_ITERS,
           "bench_gpu must finish its iterations with a finite f")
+    # One warm-up and three timed runs, each through the kernels.
+    got = kernels.launch_counts()
+    check(got["rosenbrock_fused_tail"] == 4 * BENCH_ITERS
+          and got["rosenbrock_vg"] == 4,
+          f"bench_gpu must run the fused kernels, launches {ran(got)}")
     say(f"[bench] {r.name}: {r.iters_per_s:.2f} iterations/s "
         f"({BENCH_ITERS} iterations, best of 3 runs {r.wall_s:.4f} s, "
         f"runs {[round(w, 4) for w in r.details['repeat_walls_s']]}) on "
@@ -1571,16 +1599,117 @@ def phase_cli(dev):
             solver = _suite_solver(tt, "rosenbrock", cfg, True,
                                    with_matvec=turn)
             torch.cuda.synchronize()
+            kernels.reset_launches()
             t0 = time.perf_counter()
             r = tt.minimize(rose.f, x0, cfg, **solver)
             torch.cuda.synchronize()
             walls[turn].append((time.perf_counter() - t0) / CLI_ITERS * 1e3)
             check(r.iterations.item() == CLI_ITERS, "the solve must run on")
+            _check_suite_launches(f"with_matvec={turn}, ring {h}",
+                                  "rosenbrock", cfg, CLI_ITERS,
+                                  kernels.launch_counts(), 0)
         say(f"[cli] with_matvec end to end, ring {h}, m=10, {CLI_ITERS} "
             f"iterations each, ms/iteration in turns: in the solver "
             f"{[round(w, 3) for w in walls[False]]}, in the tail "
             f"{[round(w, 3) for w in walls[True]]}")
     return launches
+
+
+def phase_routing(dev):
+    """No wrapper leaves a tensor on the card to its plain version by
+    itself: what a problem-specific kernel is not built for (another dtype
+    than float32, the tail's products at a depth outside TAIL_MATVEC_M)
+    raises, and the entries that know dtype and depth route it in the
+    open, with a warning."""
+    import warnings
+
+    import tpu_lbfgs_torch as tt
+    from tpu_lbfgs_torch import kernels
+    from tpu_lbfgs_torch.kernels import fused_ops as ops
+    from tpu_lbfgs_torch.kernels import line_search_ops as ls
+
+    n, problem = 4096, "rosenbrock"
+    x64 = torch.linspace(-1.0, 1.0, n, dtype=torch.float64, device=dev)
+    a64 = torch.full((1,), 0.125, dtype=torch.float64, device=dev)
+    k64 = torch.tensor([0.5, 0.25, 0.125], dtype=torch.float64, device=dev)
+    e2, e4 = (torch.zeros(c, dtype=torch.float32, device=dev) for c in (2, 4))
+    refused = {
+        "fused_vg": lambda: ops.fused_vg(problem, x64),
+        "fused_tail": lambda: tt.fused_tail_for(problem)(x64, x64, a64, x64),
+        "multi_phi": lambda: tt.multi_phi_for(problem)(x64, x64, k64),
+        "multi_phi_dphi": lambda: tt.multi_phi_dphi_for(problem)(x64, x64,
+                                                               k64),
+        "local_fused_vg": lambda: ops.local_fused_vg(problem, x64, n, 0, e2),
+        "local_fused_tail": lambda: ops.local_fused_tail(
+            problem, x64, x64, a64, x64, None, None, False, n, 0, e4),
+        "local_multi_phi": lambda: ls.local_multi_phi(problem, x64, x64, k64,
+                                                      n, 0, e2),
+        "local_multi_phi_dphi": lambda: ls.local_multi_phi_dphi(
+            problem, x64, x64, k64, n, 0, e4),
+    }
+    kernels.reset_launches()
+    for name, call in refused.items():
+        try:
+            call()
+        except TypeError:
+            continue
+        check(False, f"{name} must raise TypeError for a float64 tensor on "
+              "the card")
+    x32 = x64.float()
+    ring = torch.zeros(7, n, dtype=torch.float32, device=dev)
+    try:
+        ops.make_fused_tail(problem, None, with_matvec=True)(
+            x32, x32, a64.float(), x32, ring, ring)
+    except ValueError:
+        pass
+    else:
+        check(False, "the tail kernel must raise for products at m = 7")
+    check(not any(kernels.launch_counts().values()),
+          "a refused call must launch nothing")
+
+    def caught(fn):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = fn()
+        return out, [str(w.message) for w in seen]
+
+    # --pallas --dtype float64: the command line warns and hands the solver
+    # the plain versions; no problem-specific kernel runs, and it says so.
+    argv = ["--problem", problem, "--dim", str(n), "--dtype", "float64",
+            "--pallas", "--json", "--poly-ls", "--direction",
+            "compact_incremental", "--max-iters", "5", "--tol", "0"]
+    kernels.reset_launches()
+    doc, said = caught(lambda: _cli_main(argv))
+    got = kernels.launch_counts()
+    check(doc["results"][0]["iterations"] == 5
+          and any("float32 programs" in w for w in said)
+          and not any(got.values()),
+          f"--pallas --dtype float64 must warn and run the plain versions, "
+          f"warnings {said}, launches {ran(got)}")
+    # with_matvec=True at m = 7: fused_tail_for warns and builds the tail
+    # without the products; the tail kernel still launches every iteration.
+    p = tt.get_problem(problem)
+    cfg = tt.LBFGSConfig(m=7, line_search="backtracking",
+                         direction="compact_incremental",
+                         ls_eval="polynomial", use_pallas=True, max_iters=5,
+                         tol=0.0)
+    tail, said7 = caught(lambda: tt.fused_tail_for(
+        problem, with_matvec=True, m=7, d=n))
+    kernels.reset_launches()
+    r = tt.minimize(p.f, x32, cfg, dir_poly=p.dir_poly, fused_tail=tail,
+                    value_and_grad=tt.fused_value_and_grad(problem))
+    got = kernels.launch_counts()
+    check(any("built for m in" in w for w in said7)
+          and got[f"{problem}_fused_tail"] == int(r.iterations) == 5
+          and got[f"{problem}_vg"] == 1,
+          f"with_matvec=True at m = 7 must warn and launch the tail without "
+          f"products, warnings {said7}, launches {ran(got)}")
+    say(f"[route] float64 tensors on the card: all {len(refused)} "
+        "problem-specific wrappers raise TypeError, the tail's products at "
+        "m = 7 raise ValueError; --pallas --dtype float64 warns and runs "
+        "the plain versions (no launch); "
+        "fused_tail_for(with_matvec=True, m=7) warns and launches the tail "
+        f"without products ({ran(got)})")
 
 
 def phase_bench_batch(card):
@@ -1597,6 +1726,433 @@ def phase_bench_batch(card):
         f"counts {r.details['status_counts']}) on {card}")
 
 
+# --- the sharded solve -------------------------------------------------------
+# The shard-local kernel forms: d, the shard counts, and the depth of the
+# ring for t1 and t2.  Each shard's kernel against its plain version:
+# vectors bit for bit, the float64 sums within TRIAL_SUM_RTOL of the whole
+# vector's sum|terms|; the shards' vectors joined against the whole-vector
+# kernel's bit for bit, and their sums added against its float32 sums within
+# the same bound plus one float32 ulp.
+SHARD_COUNTS = (4, 3)
+SHARD_M = 10
+# The [dist] phase: ranks on the one card (gloo), the global d (d_local =
+# 2^20, the size every kernel is timed at), and its depth.  Against the
+# single-device port at the same d: the first TRACE_ITERS alphas and the
+# status equal, f over those iterations within DIST_F_RTOL.  The two float32
+# solves differ in how their sums are added (the kernels' by the order of
+# float64 additions; dir_poly's coefficients and the history products in
+# float32 on one device, as float64 partials across shards), and a
+# Rosenbrock trajectory amplifies last bits: after 20 iterations each stood
+# 3e-5 to 9e-5 from the same solve in float64 and 1e-4 from the other.
+# Where they part by more than DIST_F_WITNESS, that float64 solve is run and
+# printed beside them.
+DIST_RANKS = 4
+DIST_D = 1 << 22
+DIST_ITERS = 100
+DIST_SHORT_ITERS = 40
+DIST_F_RTOL = 1e-3
+DIST_F_WITNESS = 1e-6       # beyond it a float64 solve is run as the witness
+DIST_TIMEOUT_S = 300.0
+# The shard-local kernel checks also run at the shapes the [dist] phase
+# hands the kernels: d = 2^22 and 2^22 + 37 in 4 shards (d_local = 2^20 and
+# 2^20 + 10, start = r d_local).
+SHARD_FULL_WIDTH = ((DIST_D, DIST_RANKS), (DIST_D + 37, DIST_RANKS))
+
+
+def _shard_inputs(n, shards, dev):
+    """Global x, d, g of n elements and an (m, n) ring, zero-padded to a
+    multiple of the shard count."""
+    x, d, g = _kernel_inputs(n, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    S, Y = (_ring(gen, SHARD_M, n, dev, torch.float32) for _ in range(2))
+    pad = (-n) % shards
+    padded = [torch.nn.functional.pad(t, (0, pad)) for t in (x, d, g, S, Y)]
+    return (x, d, g, S, Y), padded
+
+
+def _block(t, r, d_local):
+    return t[..., r * d_local:(r + 1) * d_local].clone(
+        memory_format=torch.contiguous_format)
+
+
+def _shard_edges(xp, dp, r, d_local):
+    """The four boundary values of shard r, [prev x, prev d, next x, next
+    d], wrapping around at the two ends as the exchange does."""
+    lo, hi = r * d_local - 1, ((r + 1) * d_local) % xp.numel()
+    return torch.stack([xp[lo], dp[lo], xp[hi], dp[hi]])
+
+
+def phase_shard_kernels(dev):
+    """The shard-local forms of the four kernel families, in one process:
+    each shard is handed its block, its start and its edges."""
+    from tpu_lbfgs_torch.dist.shardmap_vg import local_vg_plain
+    from tpu_lbfgs_torch.kernels import fused_ops as ops
+    from tpu_lbfgs_torch.kernels import line_search_ops as ls
+
+    rng = np.random.default_rng(SEED)
+    alpha = torch.full((), 0.125, dtype=torch.float32, device=dev)
+    worst = {}      # largest |kernel - plain| per (problem, family)
+    shapes = list(itertools.product(TAIL_D, SHARD_COUNTS))
+    shapes += list(SHARD_FULL_WIDTH)
+    for problem, (n, shards) in itertools.product(ops.BODY_IDS, shapes):
+        (x, d, g, S, Y), (xp, dp, gp, Sp, Yp) = _shard_inputs(n, shards, dev)
+        d_local = xp.numel() // shards
+        alphas = {k: torch.from_numpy(
+            2.0 ** rng.integers(-6, 3, k) * rng.uniform(0.5, 1.0, k)).to(
+            device=dev, dtype=torch.float32) for k in TRIALS}
+        # The whole-vector kernels and the scale of each sum.
+        f_w, g_w = ops.fused_vg(problem, x)
+        tail_w = ops._fused_tail_kernel(problem, x, d, alpha.reshape(1), g, S,
+                                        Y, True, False)
+        xn, gn, sr, yr = (tail_w[i].double() for i in (0, 2, 3, 4))
+        dd, gg = d.double(), g.double()
+        yS, yY = (S.double() * yr).abs().sum(-1), (Y.double() * yr).abs().sum(-1)
+        tail_scales = torch.cat([torch.stack([
+            _f_abs_terms(problem, xn), (sr * yr).abs().sum(), (yr * yr).sum(),
+            (gn * gn).sum(), (dd * gn).abs().sum(), (gg * gn).abs().sum(),
+            (yr * gn).abs().sum()]), yS, yY])
+        tail_sums_w = torch.cat([torch.stack([tail_w[1], *tail_w[5:11]]),
+                                 tail_w[11], tail_w[12]])
+        trial_w = {k: (ls._launch("multi_phi", problem, x, d, a, 1),
+                       ls._launch("multi_phi_dphi", problem, x, d, a, 2))
+                   for k, a in alphas.items()}
+        trial_scales = {k: _trial_abs_terms(problem, x, d, a)
+                        for k, a in alphas.items()}
+        vg_scale = _f_abs_terms(problem, x.double())
+
+        parts = {"g": [], "tail": [[], [], [], []]}
+        sums = {"f": 0.0, "tail": 0.0,
+                **{("phi", k): 0.0 for k in TRIALS},
+                **{("dphi", k): 0.0 for k in TRIALS}}
+        errs = {"vg": 0.0, "tail": 0.0, "multi_phi": 0.0,
+                "multi_phi_dphi": 0.0}
+        abs_errs = dict(errs)
+        same = True
+        for r in range(shards):
+            start = r * d_local
+            xl, dl, gl, Sl, Yl = (_block(t, r, d_local)
+                                  for t in (xp, dp, gp, Sp, Yp))
+            e4 = _shard_edges(xp, dp, r, d_local)
+            e_vg, e_phi = e4[[0, 2]].contiguous(), e4[2:].contiguous()
+            # value and gradient
+            f_k, g_k = ops.local_fused_vg(problem, xl, n, start, e_vg)
+            f_p, g_p = local_vg_plain(problem, xl, n, start, e_vg)
+            same &= torch.equal(g_k, g_p)
+            abs_errs["vg"] = max(abs_errs["vg"],
+                                 (g_k - g_p).abs().max().item())
+            errs["vg"] = max(errs["vg"], ((f_k - f_p).abs() / vg_scale).item())
+            parts["g"].append(g_k)
+            sums["f"] = sums["f"] + f_k
+            # the tail with t1, t2
+            out_k = ops.local_fused_tail(problem, xl, dl, alpha, gl, Sl, Yl,
+                                         True, n, start, e4)
+            out_p = ops.fused_tail_local_plain(problem, xl, dl, alpha, gl, Sl,
+                                               Yl, True, n, start, e4)
+            for i in range(4):
+                same &= torch.equal(out_k[i], out_p[i])
+                abs_errs["tail"] = max(
+                    abs_errs["tail"],
+                    (out_k[i].float() - out_p[i].float()).abs().max().item())
+                parts["tail"][i].append(out_k[i])
+            errs["tail"] = max(errs["tail"], ((out_k[4] - out_p[4]).abs()
+                                              / tail_scales).max().item())
+            sums["tail"] = sums["tail"] + out_k[4]
+            # the K-trial evaluators
+            for k, a in alphas.items():
+                f_abs, g_abs = trial_scales[k]
+                phi_k = ls.local_multi_phi(problem, xl, dl, a, n, start, e_phi)
+                phi_p = ls.multi_phi_local_plain(problem, xl, dl, a, n, start,
+                                                 e_phi)
+                fk, gk = ls.local_multi_phi_dphi(problem, xl, dl, a, n, start,
+                                                 e4)
+                fp, gp_ = ls.multi_phi_dphi_local_plain(problem, xl, dl, a, n,
+                                                        start, e4)
+                errs["multi_phi"] = max(
+                    errs["multi_phi"], ((phi_k - phi_p).abs() / f_abs).max().item())
+                errs["multi_phi_dphi"] = max(
+                    errs["multi_phi_dphi"],
+                    ((fk - fp).abs() / f_abs).max().item(),
+                    ((gk - gp_).abs() / g_abs).max().item())
+                abs_errs["multi_phi"] = max(
+                    abs_errs["multi_phi"], (phi_k - phi_p).abs().max().item())
+                abs_errs["multi_phi_dphi"] = max(
+                    abs_errs["multi_phi_dphi"], (fk - fp).abs().max().item(),
+                    (gk - gp_).abs().max().item())
+                sums["phi", k] = sums["phi", k] + phi_k
+                sums["dphi", k] = sums["dphi", k] + torch.cat([fk, gk])
+        torch.cuda.synchronize()
+        # Joined vectors against the whole-vector kernels; the padded tail
+        # must be zero in g, g_new, s and y.
+        joined = [torch.cat(parts["g"])] + [torch.cat(v)
+                                            for v in parts["tail"]]
+        whole = [g_w, tail_w[0], tail_w[2], tail_w[3], tail_w[4]]
+        joined_same = all(torch.equal(j[:n], w) for j, w in zip(joined, whole))
+        pad_zero = all(not j[n:].any().item()
+                       for j in (joined[0], joined[2], joined[3], joined[4]))
+        over = max(
+            _beyond_ulp(sums["f"].float(), f_w, vg_scale),
+            _beyond_ulp(sums["tail"].float(), tail_sums_w, tail_scales),
+            *(_beyond_ulp(sums["phi", k].float(), trial_w[k][0],
+                          trial_scales[k][0]) for k in TRIALS),
+            *(_beyond_ulp(sums["dphi", k].float(), trial_w[k][1],
+                          torch.cat(trial_scales[k])) for k in TRIALS))
+        say(f"[kernel] shard-local {problem} d={n} in {shards} shards "
+            f"(d_local {d_local}): vectors bit-equal to the plain versions "
+            f"{same}, joined bit-equal to the whole-vector kernels "
+            f"{joined_same}, padded tail zero {pad_zero}; float64 sums "
+            f"against plain: vg {errs['vg']:.2e}, tail with t1, t2 (m = "
+            f"{SHARD_M}) {errs['tail']:.2e}, multi_phi {errs['multi_phi']:.2e}"
+            f", multi_phi_dphi {errs['multi_phi_dphi']:.2e} of sum|terms| "
+            f"(tol {TRIAL_SUM_RTOL}); added sums against the whole-vector "
+            f"kernels {over:.2e} beyond 1 ulp (tol {TRIAL_SUM_RTOL})")
+        check(same and joined_same and pad_zero,
+              f"shard-local {problem} vectors differ at d={n}, {shards} shards")
+        check(max(errs.values()) <= TRIAL_SUM_RTOL and over <= TRIAL_SUM_RTOL,
+              f"shard-local {problem} sums differ at d={n}, {shards} shards")
+        for family, e in abs_errs.items():
+            worst[problem, family] = max(worst.get((problem, family), 0.0), e)
+
+    # Times at d_local = 2^20: shard 1 of 4 of a global d = 2^22, beside the
+    # whole-vector kernel on the same block.  max_abs_err is the largest
+    # |kernel - plain| over every shape above, all four shards of this one
+    # included (SHARD_FULL_WIDTH).
+    rec = {}
+    n = DIST_RANKS * D
+    x, d, g = _kernel_inputs(n, dev)
+    xl, dl, gl = (_block(t, 1, D) for t in (x, d, g))
+    e4 = _shard_edges(x, d, 1, D)
+    e_vg, e_phi = e4[[0, 2]].contiguous(), e4[2:].contiguous()
+    a8, a36 = (torch.linspace(1e-3, 1.0, k, device=dev) for k in TRIALS)
+    for problem in ops.BODY_IDS:
+        body_ops = {"quadratic": 4, "rosenbrock": 18,
+                    "coupled_quadratic": 9}[problem]
+        per_trial = {"quadratic": (6, 9), "rosenbrock": (13, 28),
+                     "coupled_quadratic": (10, 19)}[problem]
+        tail = ops.make_fused_tail(problem, None, with_matvec=False)
+        forms = {
+            "vg": (lambda: ops.local_fused_vg(problem, xl, n, D, e_vg),
+                   lambda: local_vg_plain(problem, xl, n, D, e_vg),
+                   lambda: ops.fused_vg(problem, xl),
+                   bound_ms(8 * D + 8 + 8, body_ops * D)),
+            "fused_tail": (
+                lambda: ops.local_fused_tail(problem, xl, dl, alpha, gl, None,
+                                             None, False, n, D, e4),
+                lambda: ops.fused_tail_local_plain(
+                    problem, xl, dl, alpha, gl, None, None, False, n, D, e4),
+                lambda: tail(xl, dl, alpha.reshape(1), gl),
+                bound_ms(28 * D + 4 + 56 + 16, (body_ops + 22) * D)),
+            "multi_phi": (
+                lambda: ls.local_multi_phi(problem, xl, dl, a8, n, D, e_phi),
+                lambda: ls.multi_phi_local_plain(problem, xl, dl, a8, n, D,
+                                                 e_phi),
+                lambda: ls._launch("multi_phi", problem, xl, dl, a8, 1),
+                bound_ms(8 * D + 4 * 8 + 8 * 8 + 8, per_trial[0] * D * 8)),
+            "multi_phi_dphi": (
+                lambda: ls.local_multi_phi_dphi(problem, xl, dl, a36, n, D,
+                                                e4),
+                lambda: ls.multi_phi_dphi_local_plain(problem, xl, dl, a36, n,
+                                                      D, e4),
+                lambda: ls._launch("multi_phi_dphi", problem, xl, dl, a36, 2),
+                bound_ms(8 * D + 4 * 36 + 16 * 36 + 16,
+                         per_trial[1] * D * 36)),
+        }
+        for family, (local, plain, whole, bound) in forms.items():
+            name = f"{problem}_{family}_local"
+            r = rec[name] = {"max_abs_err": worst[problem, family.replace(
+                "fused_tail", "tail")], "ms": device_ms(local),
+                "plain_ms": device_ms(plain), "bound": bound}
+            say(f"[kernel] {name} d_local={D} (of d={n}): {r['ms'] * 1e3:.2f}"
+                f" us on the card, the whole-vector kernel on the same block "
+                f"{device_ms(whole) * 1e3:.2f} us, plain version "
+                f"{r['plain_ms'] * 1e3:.2f} us, bound {bound[0] * 1e3:.2f} us "
+                f"by {bound[1]}")
+    return rec
+
+
+def _dist_jobs():
+    """The sharded solves of the [dist] phase: (label, problem, d, iterations,
+    config keywords, sharded_minimize keywords)."""
+    poly = dict(line_search="backtracking", direction="compact_incremental",
+                ls_eval="polynomial")
+    spec = dict(direction="compact_incremental", ls_eval="direct")
+    jobs = [("main", "rosenbrock", DIST_D, DIST_ITERS, poly, {})]
+    for problem in ("coupled_quadratic", "rosenbrock", "quadratic"):
+        # Rosenbrock runs on at tol = 0: the iterations that are compared.
+        iters = TRACE_ITERS if problem == "rosenbrock" else DIST_SHORT_ITERS
+        for search in ("backtracking_speculative",
+                       "wolfe_interpolation_speculative"):
+            jobs.append((f"{problem} {search}", problem, DIST_D, iters,
+                         dict(spec, line_search=search), {}))
+    jobs += [
+        ("t1, t2 in the tail on a bf16 ring", "rosenbrock", DIST_D,
+         DIST_SHORT_ITERS, dict(poly, history_dtype="bfloat16"),
+         dict(with_matvec=True)),
+        ("unaligned d", "rosenbrock", DIST_D + 37, DIST_SHORT_ITERS, poly, {}),
+        ("quadratic polynomial", "quadratic", DIST_D, DIST_SHORT_ITERS, poly,
+         {}),
+    ]
+    return jobs
+
+
+def _dist_x0(d, dev):
+    rng = np.random.default_rng(SEED)
+    return torch.from_numpy(rng.uniform(-2.0, 2.0, d)).to(
+        device=dev, dtype=torch.float32)
+
+
+def _dist_cfg_kw(problem, iters, cfg_kw):
+    # Rosenbrock runs its iterations at tol = 0; the quadratics converge at
+    # the default tol = 1e-5 in a few, as on the command line.
+    tol = 0.0 if problem == "rosenbrock" else 1e-5
+    return dict(m=10, use_pallas=True, max_iters=iters, tol=tol,
+                record_trace=True, **cfg_kw)
+
+
+def phase_dist(dev, card):
+    """The sharded solve at full width: DIST_RANKS processes on the one card
+    (gloo; NCCL takes one rank per card), each through the shard-local
+    kernels, against the single-device port at the same d."""
+    import tpu_lbfgs_torch as tt
+    from tpu_lbfgs_torch.dist.launch import spawn_ranks
+
+    from tpu_lbfgs_torch.dist.launch import solve_cases
+
+    jobs = _dist_jobs()
+    # x0 ~ U(-2, 2) from SEED, as _dist_x0 draws it for the single device.
+    cases = [dict(problem=problem, d=d, dtype="float32", seed=SEED, box=2.0,
+                  cfg=_dist_cfg_kw(problem, iters, cfg_kw), kw=kw,
+                  gather=False)
+             for _, problem, d, iters, cfg_kw, kw in jobs]
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(solve_cases, DIST_RANKS, cases, "cuda:0",
+                        backend="gloo", timeout_s=DIST_TIMEOUT_S,
+                        threads=None)
+    say(f"[dist] {DIST_RANKS} ranks on {card} (gloo, one process each, all "
+        f"on cuda:0), {len(jobs)} solves in "
+        f"{time.perf_counter() - t0:.1f} s with start-up.  The ranks share "
+        "one card, so the times below are a correctness run's cost, not a "
+        "scaling number.")
+    launches = {}
+    for j, (label, problem, d, iters, cfg_kw, kw) in enumerate(jobs):
+        per_rank = [r[j] for r in ranks]
+        for r in per_rank:
+            r["alphas"] = r["trace"]["alpha"].tolist()
+            r["fs"] = r["trace"]["f"].tolist()
+        r0 = per_rank[0]
+        for key in ("f", "alphas", "fs", "status", "iterations", "n_fev",
+                    "all_reduces", "edge_exchanges"):
+            check(all(r[key] == r0[key] for r in per_rank),
+                  f"[dist] {label}: the ranks disagree on {key}")
+        k = r0["iterations"]
+        d_local = -(-d // DIST_RANKS)
+        check(all(r["x_local_shape"] == (d_local,) and r["x_local_finite"]
+                  for r in per_rank) and np.isfinite(r0["f"]),
+              f"[dist] {label}: each rank must hold a finite ({d_local},) "
+              "block and a finite f")
+        # The same solve on one device, whole vector.
+        p = tt.get_problem(problem)
+        cfg = tt.LBFGSConfig(**_dist_cfg_kw(problem, iters, cfg_kw))
+        tail_kw = {}
+        if "with_matvec" in kw:
+            tail_kw["with_matvec"] = kw["with_matvec"]
+        solver = _suite_solver(tt, problem, cfg, True, **tail_kw)
+        single = tt.minimize(p.f, _dist_x0(d, dev), cfg, **solver)
+        a_s, f_s = single.trace.alpha.tolist(), single.trace.f.tolist()
+        # Compared over the iterations that start with f above 1e-9 of the
+        # first f: below it a float32 quadratic's Armijo test is decided by
+        # rounding, and the two solves (whose sums differ in their last
+        # bits) backtrack apart on their way to the same minimum.
+        f0 = abs(p.f(_dist_x0(d, dev)).item())
+        floor = 1e-9 * f0
+        n_cmp = 0
+        while (n_cmp < min(TRACE_ITERS, k, int(single.iterations))
+               and min(([f0] + r0["fs"])[n_cmp], ([f0] + f_s)[n_cmp]) > floor):
+            n_cmp += 1
+        f_err = max((abs(a - b) / max(abs(b), floor) for a, b in
+                     zip(r0["fs"][:n_cmp], f_s[:n_cmp])), default=0.0)
+        same_alpha = r0["alphas"][:n_cmp] == a_s[:n_cmp]
+        f_end = abs(r0["f"] - single.f.item()) / max(abs(single.f.item()),
+                                                     floor)
+        vg = r0["launches"].get(f"{problem}_vg_local", 0)
+        tail = r0["launches"].get(f"{problem}_fused_tail_local", 0)
+        say(f"[dist] {label}: {problem} d={d} (d_local {d_local}) "
+            f"{cfg.line_search}/{cfg.ls_eval}, {k} iterations, status "
+            f"{tt.Status.NAMES[r0['status']]} (single device "
+            f"{tt.Status.NAMES[int(single.status)]}), f {r0['f']:.6e}; per "
+            f"rank: launches {r0['launches']}, "
+            f"{r0['all_reduces'] / k:.2f} all-reduces and "
+            f"{r0['edge_exchanges'] / k:.2f} edge exchanges per iteration, "
+            f"{r0['wall_s'] / k * 1e3:.2f} ms per iteration (4 ranks sharing "
+            f"the card: not a scaling number); against the single-device "
+            f"port: first {n_cmp} alphas equal {same_alpha}, f over them "
+            f"within {f_err:.2e} (tol {DIST_F_RTOL}), final f within "
+            f"{f_end:.2e}")
+        check(all(r["launches"] == r0["launches"] for r in per_rank),
+              f"[dist] {label}: the ranks' launch counts differ")
+        check(tail == k and vg >= 1 and (vg == 1 or cfg.ls_eval == "direct"),
+              f"[dist] {label}: each rank must launch the shard-local tail "
+              f"once per iteration and vg once per solve, got "
+              f"{r0['launches']}")
+        check(all(name.endswith("_local") for name in r0["launches"]),
+              f"[dist] {label}: a whole-vector kernel ran on a shard: "
+              f"{r0['launches']}")
+        if cfg.ls_eval == "direct":
+            own = (f"{problem}_multi_phi_local"
+                   if cfg.line_search == "backtracking_speculative"
+                   else f"{problem}_multi_phi_dphi_local")
+            check(r0["launches"].get(own, 0) >= k,
+                  f"[dist] {label}: {own} must launch at least once per "
+                  f"iteration, got {r0['launches']}")
+        if problem == "quadratic":
+            check(r0["edge_exchanges"] == 0,
+                  "[dist] the quadratic has no chain terms and must exchange "
+                  "no edges")
+        else:
+            check(r0["edge_exchanges"] >= k,
+                  f"[dist] {label}: a chain problem exchanges its edges")
+        check(n_cmp >= 1 and r0["status"] == int(single.status)
+              and same_alpha and f_err <= DIST_F_RTOL,
+              f"[dist] {label}: the sharded solve parts from the "
+              f"single-device port (alphas {r0['alphas'][:n_cmp]} vs "
+              f"{a_s[:n_cmp]})")
+        for name, count in r0["launches"].items():
+            launches.setdefault(name, count)
+        n_all = min(TRACE_ITERS, k, int(single.iterations))
+        if n_cmp < n_all or f_err > DIST_F_WITNESS:
+            # Where the two float32 solves part (in f beyond DIST_F_WITNESS,
+            # or in alpha past the floor), the witness is the same solve in
+            # float64 on one device (plain versions, the same x0 widened):
+            # it says which of the two carries the rounding.
+            wide = tt.minimize(p.f, _dist_x0(d, dev).double(),
+                               cfg.replace(use_pallas=False),
+                               **_suite_solver(tt, problem, cfg, False,
+                                               **tail_kw))
+            a_w, f_w = (t.tolist()[:n_all] for t in (wide.trace.alpha,
+                                                     wide.trace.f))
+
+            def f_off(fs):
+                return max((abs(a - b) / max(abs(b), floor)
+                            for a, b in zip(fs[:n_cmp], f_w)), default=0.0)
+
+            line = (f"[dist] {label}: witness, float64 on one device "
+                    f"({int(wide.iterations)} iterations, status "
+                    f"{tt.Status.NAMES[int(wide.status)]}, f "
+                    f"{wide.f.item():.6e}): f over the first {n_cmp} "
+                    f"iterations against it: sharded float32 within "
+                    f"{f_off(r0['fs']):.2e}, single-device float32 within "
+                    f"{f_off(f_s):.2e}")
+            if n_cmp < n_all:
+                line += (f"; alphas of iterations {n_cmp + 1}-{n_all}: "
+                         f"sharded float32 {r0['alphas'][n_cmp:n_all]}, "
+                         f"single-device float32 {a_s[n_cmp:n_all]}, float64 "
+                         f"{a_w[n_cmp:]}; equal to the float64 solve's: "
+                         f"sharded {r0['alphas'][n_cmp:n_all] == a_w[n_cmp:]}"
+                         f", single-device float32 "
+                         f"{a_s[n_cmp:n_all] == a_w[n_cmp:]}")
+            say(line)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1605,27 +2161,46 @@ def main():
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    clock = [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        say(f"[time] {phase}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     card = phase_card()
     phase_build()
+    lap("card and build")
     rec = phase_kernels(dev)
     rec.update(phase_tail_forms(dev))
     rec["compact_chain"] = phase_chain(dev)
     rec.update(phase_trial_kernels(dev))
     rec.update(phase_general_kernels(dev))
+    lap("[kernel] whole-vector forms")
     launches, state, cfg = phase_main_path(dev)
     phase_no_sync(state, cfg)
     batch_launches, state, cfg = phase_batch(dev)
     phase_batch_no_sync(state, cfg)
     launches["compact_chain"] = batch_launches["compact_chain"]
+    lap("[main], [batch]")
     launches.update(phase_direct(dev))
+    lap("[direct]")
     general_launches, jobs = phase_general(dev)
     launches.update(general_launches)
+    lap("[general]")
     for name, n in phase_cli(dev).items():
         if not launches.get(name):      # a form no earlier path ran
             launches[name] = n
+    phase_routing(dev)
+    lap("[cli], [route]")
+    rec.update(phase_shard_kernels(dev))
+    lap("[kernel] shard-local forms")
+    launches.update(phase_dist(dev, card))
+    lap("[dist]")
     phase_bench(card)
     phase_bench_batch(card)
     phase_launch_counts(jobs)
+    lap("[bench], launch counts")
 
     csrc, pallas = "tpu_lbfgs_torch/csrc/", "tpu_lbfgs/kernels/pallas_ops.py:"
     vg_line = {"quadratic": 443, "rosenbrock": 461, "coupled_quadratic": 489}
@@ -1637,6 +2212,11 @@ def main():
         sources[f"{body}_multi_phi"] = (csrc + "multi_phi.cu", pallas + "895")
         sources[f"{body}_multi_phi_dphi"] = (csrc + "multi_phi_dphi.cu",
                                              pallas + "1010")
+        for family, line in (("vg", 81), ("fused_tail", 108),
+                             ("multi_phi", 171), ("multi_phi_dphi", 196)):
+            sources[f"{body}_{family}_local"] = (
+                sources[f"{body}_{family}"][0],
+                f"tpu_lbfgs/dist/pallas_sharded.py:{line}")
     for name in rec:
         if name.startswith("rosenbrock_fused_tail["):
             sources[name] = sources["rosenbrock_fused_tail"]

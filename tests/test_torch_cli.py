@@ -187,7 +187,7 @@ def test_multi_seed_summary_and_damped_guards(capsys):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--shard"], "Queue 1 item 12"),
+    (["--shard", "--batch", "4", "--poly-ls"], "Queue 1 item 12"),
     (["--backend", "native"], "Queue 1 item 10"),
     (["--debug-nans"], "Queue 1 item 10"),
     (["--batch", "4"], "Queue 1 item 7"),

@@ -156,9 +156,9 @@ def _refresh_points(monkeypatch):
     seen = []
     real = tsolver.refresh_products
 
-    def spy(state):
+    def spy(state, comm=None):
         seen.append(int(state.k))
-        return real(state)
+        return real(state, comm)
 
     monkeypatch.setattr(tsolver, "refresh_products", spy)
     return seen

@@ -246,3 +246,30 @@ def test_op_count_counts_operations(path):
     small, f = op_count.count(*args, d=512, warmup=12, iters=2)
     large, _ = op_count.count(*args, d=2048, warmup=12, iters=2)
     assert small == large > 100 and np.isfinite(f)
+
+
+def test_no_source_of_the_port_imports_jax():
+    """Statically, beside test_import_leaves_jax_out: no module of the port
+    (``dist/`` included) and not ``chip_smoke.py`` names jax or the JAX
+    package in an import."""
+    import re
+
+    pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|tpu_lbfgs)(?:\.|\s|$)",
+                         re.MULTILINE)
+    files = sorted((REPO / "tpu_lbfgs_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 30 and any(f.parent.name == "dist" for f in files)
+    bad = [str(f.relative_to(REPO)) for f in files
+           if pattern.search(f.read_text())]
+    assert not bad, bad
+
+
+def test_the_comm_costs_nothing_when_absent():
+    """The single-device main path runs the aten operations per iteration
+    it ran before the solver learnt to shard (915 under torch 2.13 on the
+    CPU): ``comm=None`` adds no operation."""
+    from tpu_lbfgs_torch.bench import op_count
+
+    n, _ = op_count.count(*op_count.paths()["bench.py single"], d=512,
+                          warmup=12, iters=2)
+    assert n == 915

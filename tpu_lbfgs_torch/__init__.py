@@ -1,7 +1,7 @@
 """tpu_lbfgs_torch: the PyTorch and CUDA port of ``tpu_lbfgs``.
 
 It mirrors the JAX package's module names and public functions, and runs
-them as eager PyTorch on one device, with hand-written CUDA kernels (built
+them as eager PyTorch, with hand-written CUDA kernels (built
 at first use, ``kernels/_build.py``) where the JAX package has Pallas
 kernels.  The port so far covers the two solves that ``bench.py`` times
 (chained Rosenbrock, Armijo backtracking on the directional polynomial and
@@ -16,8 +16,12 @@ and the SciPy-shaped front end), and the command line over the whole
 problem suite (``python -m tpu_lbfgs_torch``, ``cli.py``): the fused
 kernels of the quadratic and the coupled quadratic beside Rosenbrock's,
 the fused tail's in-kernel history products and compensated sums, and a
-history ring in bfloat16.  What is left (batched direct mode, ``dist/``)
-raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+history ring in bfloat16; and the sharded solve (``tpu_lbfgs_torch.dist``:
+``sharded_minimize`` with one process per shard of the vector axis over
+``torch.distributed``, ``--shard`` on the command line, the shard-local
+forms of the four fused kernel families).  What is left (batched direct
+mode, a batch or a caller's own objective on the sharded path) raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 
 Where it runs: ``minimize`` and ``vmap_minimize`` solve on the device of
 the tensor they are given, so a CPU tensor is the caller asking for the

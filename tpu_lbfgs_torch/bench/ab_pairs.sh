@@ -19,8 +19,12 @@ pairs=${3:-5}
 
 run() {
   (cd "$1" && python3 -c "
-from tpu_lbfgs_torch.bench.harness import bench_gpu
-r = bench_gpu(problem='rosenbrock', d=1 << 20, iters=1000, repeats=3)
+from tpu_lbfgs_torch.bench import harness
+# the main path's configuration; a tree from before main_path_cfg has it
+# as bench_gpu's default
+cfg = getattr(harness, 'main_path_cfg', lambda: None)()
+r = harness.bench_gpu(problem='rosenbrock', d=1 << 20, iters=1000, cfg=cfg,
+                      repeats=3)
 print('AB $1', round(r.iters_per_s, 2),
       [round(w, 3) for w in r.details['repeat_walls_s']], flush=True)
 " 2>&1 | grep '^AB')

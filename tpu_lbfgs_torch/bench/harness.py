@@ -18,10 +18,18 @@ from ..config import LBFGSConfig
 from ..core.solver import (
     init_state,
     make_value_and_grad,
+    resolve_history_dtype,
     solve_bounded,
     solve_from_state,
 )
-from ..problems.suite import fused_tail_for, fused_value_and_grad, get_problem
+from ..problems.suite import (
+    fused_tail_for,
+    fused_value_and_grad,
+    get_problem,
+    multi_phi_dphi_for,
+    multi_phi_for,
+    resolve_use_pallas,
+)
 
 REFERENCE_SEEDS = (42, 365, 12345, 777777, 10000)
 
@@ -51,25 +59,69 @@ def _cuda_device(what: str) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def main_path_cfg() -> LBFGSConfig:
+    """The configuration of the port's main path (the one ``bench.py``
+    times in the reference): Armijo backtracking on the directional
+    polynomial, the incremental compact direction, the fused kernels."""
+    return LBFGSConfig(line_search="backtracking",
+                       direction="compact_incremental",
+                       ls_eval="polynomial", use_pallas=True)
+
+
+def solve_callables(problem: str, d: int, cfg: LBFGSConfig, dtype,
+                    with_matvec=False):
+    """(vg, dir_poly, fused_tail, phi_batch, phi_dphi_batch) as
+    ``bench_gpu`` hands them to the solver, the reference's ``bench_tpu``
+    rules: under ``cfg.use_pallas`` the problem's fused value-and-gradient,
+    its fused tail (built for ``with_matvec``, ``cfg.accurate_dots``,
+    ``cfg.m``, ``d`` and the resolved ``cfg.history_dtype``) and, for a
+    speculative search in direct mode, its K-trial evaluator; otherwise the
+    problem's plain f and gradient and no tail.  ``dir_poly`` under
+    ``cfg.ls_eval="polynomial"`` only.  For another ``dtype`` than float32
+    the fused callables are built from their plain versions, with a
+    warning (``problems.suite.resolve_use_pallas``)."""
+    p = get_problem(problem)
+    fused_tail = phi_batch = phi_dphi_batch = None
+    if cfg.use_pallas:
+        kernels = resolve_use_pallas(True, dtype, "bench_gpu")
+        vg = fused_value_and_grad(problem, use_pallas=kernels)
+        fused_tail = fused_tail_for(
+            problem, with_matvec=with_matvec, use_pallas=kernels, m=cfg.m, d=d,
+            history_dtype=resolve_history_dtype(cfg.history_dtype, cfg.m, d,
+                                                dtype),
+            accurate_dots=cfg.accurate_dots)
+        if cfg.ls_eval == "direct":
+            if cfg.line_search == "backtracking_speculative":
+                phi_batch = multi_phi_for(problem, use_pallas=kernels)
+            if cfg.line_search in ("wolfe_interpolation_speculative",
+                                   "backtracking_wolfe_speculative"):
+                phi_dphi_batch = multi_phi_dphi_for(problem,
+                                                    use_pallas=kernels)
+    else:
+        vg = make_value_and_grad(p.f, p.grad)
+    dir_poly = p.dir_poly if cfg.ls_eval == "polynomial" else None
+    return vg, dir_poly, fused_tail, phi_batch, phi_dphi_batch
+
+
 def bench_gpu(problem: str = "rosenbrock", d: int = 1_000_000,
               iters: int = 200, cfg: Optional[LBFGSConfig] = None,
               dtype=torch.float32, seeds=REFERENCE_SEEDS[:1],
-              repeats: int = 3) -> BenchResult:
+              repeats: int = 3, with_matvec=False) -> BenchResult:
     """Fixed-iteration throughput of the solver on the current CUDA
-    device, fenced by ``torch.cuda.synchronize()``.  Raises when no CUDA
-    device is present: a CPU number is not a GPU measurement."""
+    device, fenced by ``torch.cuda.synchronize()``, with ``bench_tpu``'s
+    signature and default configuration (backtracking, ``compact``, direct
+    evaluation, no kernels; ``main_path_cfg()`` is the main path's).
+    Raises when no CUDA device is present: a CPU number is not a GPU
+    measurement."""
     device = _cuda_device("bench_gpu")
-    cfg = cfg or LBFGSConfig(line_search="backtracking",
-                             direction="compact_incremental",
-                             ls_eval="polynomial", use_pallas=True)
+    cfg = cfg or LBFGSConfig(line_search="backtracking", direction="compact")
     cfg = cfg.replace(max_iters=iters, tol=0.0)   # tol=0: never stop early
     p = get_problem(problem)
-    vg = fused_value_and_grad(problem, use_pallas=cfg.use_pallas)
-    fused_tail = fused_tail_for(problem, use_pallas=cfg.use_pallas)
+    vg, *callables = solve_callables(problem, d, cfg, dtype, with_matvec)
 
     def run(x0):
         state = init_state(vg, x0, cfg.m, cfg.history_dtype)
-        return solve_from_state(cfg, p.f, vg, state, p.dir_poly, fused_tail)
+        return solve_from_state(cfg, p.f, vg, state, *callables)
 
     per_seed, all_walls, warmup_s, out = [], [], None, None
     for seed in seeds:

@@ -9,18 +9,30 @@ Examples:
   python -m tpu_lbfgs_torch --problem coupled_quadratic --dim 1048576 --pallas --poly-ls --direction compact_incremental
   python -m tpu_lbfgs_torch --batch 4096 --dim 1000 --max-iters 500 --poly-ls
   python -m tpu_lbfgs_torch --seeds 42 365 12345 777777 10000   # reference protocol
+  torchrun --nproc-per-node=4 -m tpu_lbfgs_torch --problem rosenbrock --dim 4194304 --pallas --poly-ls --direction compact_incremental --shard
 
 It solves on the current CUDA device and raises without one; ``--device
 cpu`` asks for the CPU.  x0 is drawn with numpy's ``default_rng(seed)`` as
 the reference draws it, so both command lines start from the same point.
 ``--pallas`` hands the solver the CUDA kernels of the problem
 (``problems.suite``: the fused value-and-gradient, the fused tail and, for
-the speculative searches in direct mode, the K-trial evaluators).
+the speculative searches in direct mode, the K-trial evaluators).  They
+are float32 programs: with ``--dtype float64`` the command line warns and
+hands the solver their plain versions, on either device
+(``problems.suite.resolve_use_pallas``, the reference's ``pallas_ok``).
+
+``--shard`` splits the vector axis over the processes of the job
+(``dist.sharded_minimize``): launch one process per shard, with
+``torchrun`` or after ``dist.initialize``; every process draws the same x0
+and takes its block, and rank 0 prints the record.  A single process is a
+mesh of one shard.  With ``--device cpu`` the group is gloo; on the card it
+is nccl, one device per process (``LOCAL_RANK``).
 
 Not ported yet, each refused with the ROADMAP item that brings it:
-``--shard`` (Queue 1 item 12), ``--backend native`` and ``--debug-nans``
-(Queue 1 item 10); ``--batch`` runs through ``vmap_minimize`` and so needs
-``--poly-ls`` with ``--line-search backtracking`` (Queue 1 item 7).
+``--shard`` with ``--batch`` (Queue 1 item 12, what is left),
+``--backend native`` and ``--debug-nans`` (Queue 1 item 10); ``--batch``
+runs through ``vmap_minimize`` and so needs ``--poly-ls`` with
+``--line-search backtracking`` (Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -89,7 +101,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "finish; 'bounded' runs the full --max-iters budget "
                          "with no read of the loop condition")
     ap.add_argument("--shard", action="store_true",
-                    help="not ported yet (ROADMAP.md Queue 1 item 12)")
+                    help="shard the vector axis over the job's processes "
+                         "(launch with torchrun, one process per shard)")
     ap.add_argument("--backend", default="torch", choices=["torch", "native"],
                     help="native (the C++ CPU oracle) is not ported "
                          "(ROADMAP.md Queue 1 item 10)")
@@ -134,9 +147,10 @@ def _profiled(solve, out_dir: str):
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.shard:
-        ap.error("--shard is not ported to tpu_lbfgs_torch yet (ROADMAP.md "
-                 "Queue 1 item 12, with dist/)")
+    if args.shard and args.batch:
+        ap.error("--shard with --batch (sharded_vmap_minimize) is not ported "
+                 "to tpu_lbfgs_torch yet (ROADMAP.md Queue 1 item 12, what "
+                 "is left)")
     if args.backend == "native":
         ap.error("--backend native is not ported to tpu_lbfgs_torch "
                  "(ROADMAP.md Queue 1 item 10): the C++ oracle belongs to "
@@ -161,9 +175,26 @@ def main(argv=None) -> int:
         fused_value_and_grad,
         multi_phi_dphi_for,
         multi_phi_for,
+        resolve_use_pallas,
     )
     from .types import Guard, resolve_device
 
+    mesh, own_group = None, False
+    if args.shard:
+        import os
+
+        import torch.distributed
+
+        from .dist import initialize, make_mesh
+
+        # A group this call brings up is taken down before it returns.
+        own_group = not torch.distributed.is_initialized()
+        on_cpu = args.device == "cpu"
+        if not on_cpu and torch.cuda.is_available():
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0))
+                                  % torch.cuda.device_count())
+        initialize(backend="gloo" if on_cpu else None)
+        mesh = make_mesh()
     device = resolve_device("cpu" if args.device == "cpu" else None)
     cfg = LBFGSConfig(
         m=args.history, max_iters=args.max_iters, tol=args.tol,
@@ -207,21 +238,22 @@ def main(argv=None) -> int:
                   f"{cfg.line_search!r}; ignoring", file=sys.stderr)
 
     vg = fused_tail = phi_batch = phi_dphi_batch = None
-    if args.pallas and not args.batch:
-        vg = fused_value_and_grad(args.problem, use_pallas=True)
+    if args.pallas and not args.batch and not args.shard:
+        kernels = resolve_use_pallas(True, dtype, "--pallas")
+        vg = fused_value_and_grad(args.problem, use_pallas=kernels)
         fused_tail = fused_tail_for(
-            args.problem, with_matvec="auto", use_pallas=True,
+            args.problem, with_matvec="auto", use_pallas=kernels,
             m=cfg.m, d=args.dim,
             history_dtype=resolve_history_dtype(
                 cfg.history_dtype, cfg.m, args.dim, dtype),
             accurate_dots=cfg.accurate_dots)
         if cfg.ls_eval == "direct":
             if cfg.line_search == "backtracking_speculative":
-                phi_batch = multi_phi_for(args.problem, use_pallas=True)
+                phi_batch = multi_phi_for(args.problem, use_pallas=kernels)
             if cfg.line_search in ("wolfe_interpolation_speculative",
                                    "backtracking_wolfe_speculative"):
                 phi_dphi_batch = multi_phi_dphi_for(args.problem,
-                                                    use_pallas=True)
+                                                    use_pallas=kernels)
 
     results = []
     for seed in args.seeds:
@@ -244,6 +276,11 @@ def main(argv=None) -> int:
             x0 = draw(rng, args.dim)
 
             def solve():
+                if args.shard:
+                    from .dist import sharded_minimize
+                    return sharded_minimize(p.f, x0, cfg, mesh=mesh,
+                                            grad=p.grad, dir_poly=dir_poly,
+                                            problem=args.problem)
                 return minimize(p.f, x0, cfg, grad=None if vg else p.grad,
                                 value_and_grad=vg, dir_poly=dir_poly,
                                 fused_tail=fused_tail, phi_batch=phi_batch,
@@ -257,7 +294,8 @@ def main(argv=None) -> int:
                 res = solve()
             f_final = float(res.f)      # waits for the device
             wall = time.perf_counter() - t0
-            if args.verbose and res.trace is not None:
+            if args.verbose and res.trace is not None \
+                    and (mesh is None or mesh.rank == 0):
                 k = int(res.iterations)
                 tf = res.trace.f[:k].cpu().numpy()
                 tg = res.trace.g_norm[:k].cpu().numpy()
@@ -282,11 +320,18 @@ def main(argv=None) -> int:
             rec["guards"] = {name: int(g_arr[j]) for j, name in
                              enumerate(Guard.NAMES) if int(g_arr[j])}
         results.append(rec)
+        if mesh is not None and mesh.rank != 0:
+            continue            # replicated: rank 0 prints the record
         if not args.json:
             print(f"seed {seed}: " + "  ".join(
                 f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
                 for k, v in rec.items() if k != "seed"))
 
+    if own_group:
+        from .dist import shutdown
+        shutdown()
+    if mesh is not None and mesh.rank != 0:
+        return 0
     if args.json:
         print(json.dumps({"config": vars(args), "results": results}))
     elif len(results) > 1:

@@ -24,6 +24,13 @@ A batched state (leading axis B) runs the same code over (B, m, d) rings,
 with the small-matrix head in the batched chain (kernels.chain
 ``compact_chain_batched``: the CUDA kernel on the card), where the
 reference's ``custom_vmap`` rule runs its Pallas chain kernel.
+
+With a ``comm`` (``dist.comm.ShardComm``) the state is one shard of a
+sharded solve: the ring holds this shard's columns, and every contraction
+over d is a float64 partial finished by one all-reduce over the group: one
+per dot of the two-loop, ONE for ``history_products``' packed (2m, m + 1)
+block, and one flag for the combine's finiteness check, so that every rank
+takes the same fallback.  The small-matrix chain and the combine are local.
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ from torch import Tensor
 
 from ..config import LBFGSConfig
 from ..kernels.chain import chain_torch, compact_chain_batched
-from ..kernels.fused_ops import _vdot, combine_direction
+from ..kernels.fused_ops import _rdot, combine_direction
 from ..types import LBFGSState, per_lane
 
 
@@ -73,7 +80,7 @@ class DirAux(NamedTuple):
 
 
 def _compact_core(cfg: LBFGSConfig, state: LBFGSState, SY_p: Tensor,
-                  YY_p: Tensor, Sg_p: Tensor, Yg_p: Tensor):
+                  YY_p: Tensor, Sg_p: Tensor, Yg_p: Tensor, comm=None):
     m = state.s_hist.shape[-2]
     g = state.g
     chain = chain_torch if g.dim() == 1 else compact_chain_batched
@@ -84,7 +91,10 @@ def _compact_core(cfg: LBFGSConfig, state: LBFGSState, SY_p: Tensor,
     # (tpu_lbfgs/core/direction.py:215); so does the port.
     r_vec = combine_direction(g, state.s_hist, state.y_hist, v_phys, u_phys,
                               gamma, use_pallas=False)
-    fallback = fb_pre | ~torch.all(torch.isfinite(r_vec), dim=-1)
+    bad_r = ~torch.all(torch.isfinite(r_vec), dim=-1)
+    if comm is not None:
+        bad_r = comm.any_flag(bad_r)
+    fallback = fb_pre | bad_r
 
     gg = state.g_norm * state.g_norm
     fb_vec = per_lane(fallback)
@@ -109,7 +119,7 @@ def _ring_row(hist: Tensor, slot: Tensor, dtype) -> Tensor:
     return row if row.dtype == dtype else row.to(dtype)
 
 
-def _two_loop_core(cfg: LBFGSConfig, state: LBFGSState):
+def _two_loop_core(cfg: LBFGSConfig, state: LBFGSState, comm=None):
     """(direction, fallback_fired) by the two-loop recursion; the bool
     feeds the Guard.DIR_FALLBACK counter."""
     m = state.s_hist.shape[-2]
@@ -136,8 +146,8 @@ def _two_loop_core(cfg: LBFGSConfig, state: LBFGSState):
     for j in reversed(range(m)):
         slot = slots[..., j:j + 1]
         a = torch.where(use[..., j],
-                        rho[..., j] * _vdot(
-                            _ring_row(state.s_hist, slot, g.dtype), q),
+                        rho[..., j] * _rdot(
+                            comm, _ring_row(state.s_hist, slot, g.dtype), q),
                         0.0)
         q = q - per_lane(a) * _ring_row(state.y_hist, slot, g.dtype)
         alphas[j] = a
@@ -150,8 +160,9 @@ def _two_loop_core(cfg: LBFGSConfig, state: LBFGSState):
     for j in range(m):
         slot = slots[..., j:j + 1]
         b = torch.where(use[..., j],
-                        rho[..., j] * _vdot(
-                            _ring_row(state.y_hist, slot, g.dtype), r_vec),
+                        rho[..., j] * _rdot(
+                            comm, _ring_row(state.y_hist, slot, g.dtype),
+                            r_vec),
                         0.0)
         coeff = torch.where(use[..., j], alphas[j] - b, 0.0)
         r_vec = r_vec + per_lane(coeff) * _ring_row(state.s_hist, slot,
@@ -161,52 +172,67 @@ def _two_loop_core(cfg: LBFGSConfig, state: LBFGSState):
     return torch.where(per_lane(fallback), -g, -r_vec), fallback
 
 
-def two_loop_direction(cfg: LBFGSConfig, state: LBFGSState) -> Tensor:
+def two_loop_direction(cfg: LBFGSConfig, state: LBFGSState,
+                       comm=None) -> Tensor:
     """d = -H g by the two-loop recursion over the ring."""
-    return _two_loop_core(cfg, state)[0]
+    return _two_loop_core(cfg, state, comm)[0]
 
 
-def history_products(state: LBFGSState):
+def history_products(state: LBFGSState, comm=None):
     """The four history contractions (SY, YY, Sg, Yg) from the ring and the
     current gradient: what ``compact`` computes every iteration and
     ``solver.refresh_products`` between segments.  A ring in another dtype
     than the gradient's (bfloat16) is widened first: its products are exact
-    and add up in the gradient's dtype."""
+    and add up in the gradient's dtype.  Sharded, the four are float64
+    partials over this shard's columns and cross the group as one packed
+    block."""
     S, Y, g = state.s_hist, state.y_hist, state.g
-    if S.dtype != g.dtype:
-        S, Y = S.to(g.dtype), Y.to(g.dtype)
+    dtype = g.dtype if comm is None else torch.float64
+    if S.dtype != dtype:
+        S, Y = S.to(dtype), Y.to(dtype)
+    if g.dtype != dtype:
+        g = g.to(dtype)
     Yt = Y.transpose(-1, -2)
     gcol = g.unsqueeze(-1)
-    return (torch.matmul(S, Yt), torch.matmul(Y, Yt),
-            torch.matmul(S, gcol).squeeze(-1),
-            torch.matmul(Y, gcol).squeeze(-1))
+    prods = (torch.matmul(S, Yt), torch.matmul(Y, Yt),
+             torch.matmul(S, gcol).squeeze(-1),
+             torch.matmul(Y, gcol).squeeze(-1))
+    if comm is None:
+        return prods
+    return tuple(comm.reduce_parts(prods, state.g.dtype))
 
 
-def compact_direction_with_aux(cfg: LBFGSConfig, state: LBFGSState):
+def compact_direction_with_aux(cfg: LBFGSConfig, state: LBFGSState,
+                               comm=None):
     """(d, DirAux, fallback) with the products recomputed from the ring."""
-    return _compact_core(cfg, state, *history_products(state))
+    return _compact_core(cfg, state, *history_products(state, comm),
+                         comm=comm)
 
 
-def compact_direction(cfg: LBFGSConfig, state: LBFGSState) -> Tensor:
+def compact_direction(cfg: LBFGSConfig, state: LBFGSState,
+                      comm=None) -> Tensor:
     """d = -H g by the compact representation."""
-    return compact_direction_with_aux(cfg, state)[0]
+    return compact_direction_with_aux(cfg, state, comm)[0]
 
 
 def compact_incremental_direction_with_aux(cfg: LBFGSConfig,
-                                           state: LBFGSState):
+                                           state: LBFGSState, comm=None):
     """(d, DirAux, fallback) from the incrementally maintained products."""
-    return _compact_core(cfg, state, state.SY, state.YY, state.Sg, state.Yg)
+    return _compact_core(cfg, state, state.SY, state.YY, state.Sg, state.Yg,
+                         comm=comm)
 
 
-def compute_direction_with_aux(cfg: LBFGSConfig, state: LBFGSState):
+def compute_direction_with_aux(cfg: LBFGSConfig, state: LBFGSState,
+                               comm=None):
     """(direction, DirAux or None, fallback_fired)."""
     if cfg.direction == "compact":
-        return compact_direction_with_aux(cfg, state)
+        return compact_direction_with_aux(cfg, state, comm)
     if cfg.direction == "compact_incremental":
-        return compact_incremental_direction_with_aux(cfg, state)
-    d, fallback = _two_loop_core(cfg, state)
+        return compact_incremental_direction_with_aux(cfg, state, comm)
+    d, fallback = _two_loop_core(cfg, state, comm)
     return d, None, fallback
 
 
-def compute_direction(cfg: LBFGSConfig, state: LBFGSState) -> Tensor:
-    return compute_direction_with_aux(cfg, state)[0]
+def compute_direction(cfg: LBFGSConfig, state: LBFGSState,
+                      comm=None) -> Tensor:
+    return compute_direction_with_aux(cfg, state, comm)[0]

@@ -26,6 +26,15 @@ shape (B, d) gives a batched state (types.LBFGSState), which iterates all
 B instances in lockstep, as ``jax.vmap`` of the reference's functions does.
 Each lane takes its own decisions; a lane that has finished is left as it
 is (``iterate`` is idempotent on finished lanes).
+
+``comm`` (``dist.comm.ShardComm``; one instance only) makes the same code
+one shard of a sharded solve: x, g and the ring hold this process's block
+of the vector axis, every scalar and the small ring metadata are
+replicated, and every reduction over d is a float64 local partial finished
+by one all-reduce over the group (``fused_ops._rdot``, ``reduce_parts``).
+The objective callables are then shard-local ones that finish their own
+sums (``dist.sharded``).  All control flow reads replicated scalars, so the
+ranks take the same branches.  Without a comm none of this runs.
 """
 from __future__ import annotations
 
@@ -36,7 +45,7 @@ import torch
 from torch import Tensor
 
 from ..config import LBFGSConfig
-from ..kernels.fused_ops import _dot, _vdot, iteration_tail
+from ..kernels.fused_ops import _dot, _rdot, _vdot, iteration_tail
 from ..linesearch.strategies import get_line_search
 from ..types import Guard, LBFGSState, SolveResult, Status, Trace, per_lane
 from ..utils.accurate import compensated_dot
@@ -70,12 +79,13 @@ def resolve_history_dtype(history_dtype, m: int, d: int, dtype,
 
 @torch.no_grad()
 def init_state(vg: ValGradFn, x0: Tensor, m: int,
-               history_dtype=None) -> LBFGSState:
+               history_dtype=None, comm=None) -> LBFGSState:
     """The initial state; evaluates f and the gradient once at x0, which is
     (d,) or, for a batch of instances, (B, d).  ``history_dtype`` stores
     the (m, d) ring in another dtype than x0's ("bfloat16", "float32"; the
     scalars and the small matrices keep x0's); None keeps x0's and "auto"
-    goes through ``resolve_history_dtype``."""
+    goes through ``resolve_history_dtype``.  With ``comm``, x0 is this
+    shard's block and ``vg`` a shard-local objective (module docstring)."""
     dtype, dev = x0.dtype, x0.device
     history_dtype = resolve_history_dtype(history_dtype, m, x0.shape[-1],
                                           dtype)
@@ -95,7 +105,7 @@ def init_state(vg: ValGradFn, x0: Tensor, m: int,
         x=x0,
         f=f0,
         g=g0,
-        g_norm=torch.sqrt(_vdot(g0, g0)),
+        g_norm=torch.sqrt(_rdot(comm, g0, g0)),
         s_hist=full((m, d), 0.0, hdtype),
         y_hist=full((m, d), 0.0, hdtype),
         sy_hist=full((m,), 1.0),
@@ -131,7 +141,8 @@ def _polyder(coeffs: Tensor) -> Tensor:
 
 
 def make_phi(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, x: Tensor,
-             d: Tensor, dir_poly=None, phi_batch=None, phi_dphi_batch=None):
+             d: Tensor, dir_poly=None, phi_batch=None, phi_dphi_batch=None,
+             comm=None):
     """phi / phi_dphi of the line search.
 
     ``ls_eval="polynomial"``: from the closed-form directional polynomial,
@@ -163,7 +174,7 @@ def make_phi(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, x: Tensor,
 
     def one_dphi(a):
         f_new, g_new = vg(x + a * d)
-        return f_new, _vdot(g_new, d)
+        return f_new, _rdot(comm, g_new, d)
 
     def phi(a):
         if a.dim() == 0:
@@ -181,6 +192,25 @@ def make_phi(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, x: Tensor,
         return torch.stack(fs), torch.stack(dphis)
 
     return phi, phi_dphi
+
+
+def _sharded_tail(x, d, alpha, g, g_new, accurate: bool, damped: bool,
+                  comm):
+    """``iteration_tail_plain`` and the two sums beside it for one shard:
+    (x_new, s, y, s.y, y.y, g_new.g_new, d.g_new, g.g_new, y.g_new, s.s or
+    None), the sums as float64 partials (compensated locally under
+    ``accurate``) finished by one packed all-reduce."""
+    s = alpha * d
+    y = g_new - g
+    a, b = [s, y, g_new, d, g, y], [y, y, g_new, g_new, g_new, g_new]
+    if damped:
+        a, b = a + [s], b + [s]
+    a, b = torch.stack(a).double(), torch.stack(b).double()
+    parts = compensated_dot(a, b) if accurate else torch.sum(a * b, dim=-1)
+    (sums,) = comm.reduce_parts([parts], x.dtype)
+    sy, yy, gg_new, dgn, ggn, ygn = sums[:6].unbind(0)
+    return (x + s, s, y, sy, yy, gg_new, dgn, ggn, ygn,
+            sums[6] if damped else None)
 
 
 def _matvec(rows: Tensor, v: Tensor, dtype) -> Tensor:
@@ -212,7 +242,7 @@ def _keep_lanes(lanes: Tensor, new: LBFGSState,
 @torch.no_grad()
 def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
             dir_poly=None, fused_tail=None, phi_batch=None,
-            phi_dphi_batch=None, lanes=None) -> LBFGSState:
+            phi_dphi_batch=None, lanes=None, comm=None) -> LBFGSState:
     """One unconditional L-BFGS iteration (assumes status == RUNNING).
     ``fused_tail``: the post-line-search tail
     (problems.suite.fused_tail_for), which replaces the x_new, ``vg`` and
@@ -228,7 +258,10 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
     ``lanes``: an optional bool mask, (B,) for a batched state.  A lane
     where it is False keeps every field, its ring rows included: the freeze
     that the reference's vmapped ``while_loop`` applies to a lane whose
-    loop condition has failed."""
+    loop condition has failed.
+
+    ``comm``: the state is one shard of a sharded solve and every
+    reduction over d crosses the group (module docstring)."""
     if state.x.dim() > 1 and (cfg.ls_eval == "direct"
                               or cfg.line_search != "backtracking"):
         raise NotImplementedError(
@@ -249,15 +282,15 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
     # --- search direction with descent safeguard (lbfgs.cpp:147-153) --------
     # The compact paths give phi'(0) = g.d from the direction's coefficients
     # in O(m); the two-loop takes a full dot.
-    d, aux, dir_fallback = compute_direction_with_aux(cfg, state)
-    g_dot_d = _vdot(g, d) if aux is None else aux.g_dot_d
+    d, aux, dir_fallback = compute_direction_with_aux(cfg, state, comm)
+    g_dot_d = _rdot(comm, g, d) if aux is None else aux.g_dot_d
     not_descent = g_dot_d >= 0
     d = torch.where(per_lane(not_descent), -g, d)
     g_dot_d = torch.where(not_descent, -state.g_norm * state.g_norm, g_dot_d)
 
     # --- line search -------------------------------------------------------
     phi, phi_dphi = make_phi(cfg, f, vg, x, d, dir_poly, phi_batch,
-                             phi_dphi_batch)
+                             phi_dphi_batch, comm)
     ls = get_line_search(cfg.line_search)(cfg, phi, phi_dphi, state.f,
                                           g_dot_d)
     alpha = ls.alpha
@@ -273,7 +306,13 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
         # over d.
         (x_new, f_new, g_new, s_h, y_raw, sy, yy, gg_new, dgn, _ggn, ygn,
          t1, t2) = fused_tail(x, d, alpha, g, state.s_hist, state.y_hist)
-        ss = alpha * alpha * _vdot(d, d) if damped else None
+        ss = alpha * alpha * _rdot(comm, d, d) if damped else None
+    elif comm is not None:
+        t1 = t2 = None
+        f_new, g_new = vg(x + alpha * d)
+        (x_new, s_h, y_raw, sy, yy, gg_new, dgn, _ggn, ygn,
+         ss) = _sharded_tail(x, d, alpha, g, g_new, cfg.accurate_dots,
+                             damped, comm)
     else:
         t1 = t2 = None
         x_new = x + per_lane(alpha) * d
@@ -342,14 +381,21 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
         # the one fresh contraction per iteration, against the RAW y (the
         # damped row would corrupt every off-slot Sg / Yg entry); from the
         # fused tail where it computed them.
-        if t1 is not None:
-            u1, u2 = t1, t2
-        else:
-            u1 = _matvec(state.s_hist, y_raw, dtype)
-            u2 = _matvec(state.y_hist, y_raw, dtype)
+        # Sharded, the products are float64 partials over this shard's
+        # columns, finished together by one all-reduce.
+        mv_dtype = dtype if comm is None else torch.float64
+        prods = []
+        if t1 is None:
+            prods += [_matvec(state.s_hist, y_raw, mv_dtype),
+                      _matvec(state.y_hist, y_raw, mv_dtype)]
         if damped:
-            us1 = _matvec(state.s_hist, s_h, dtype)
-            us2 = _matvec(state.y_hist, s_h, dtype)
+            prods += [_matvec(state.s_hist, s_h, mv_dtype),
+                      _matvec(state.y_hist, s_h, mv_dtype)]
+        if comm is not None and prods:
+            prods = comm.reduce_parts(prods, dtype)
+        u1, u2 = (t1, t2) if t1 is not None else prods[:2]
+        if damped:
+            us1, us2 = prods[-2:]
 
     # --- masked ring write: only each lane's slot row moves, only when
     # storing.  The ring's rows, (B*m, d), picked by integer index: a
@@ -482,24 +528,25 @@ def _refresh_interval(cfg: LBFGSConfig) -> Optional[int]:
 
 
 @torch.no_grad()
-def refresh_products(state: LBFGSState) -> LBFGSState:
+def refresh_products(state: LBFGSState, comm=None) -> LBFGSState:
     """Recompute the incremental products SY / YY / Sg / Yg from the stored
     rows and the current gradient (the ``compact`` path's contractions),
     which zeroes the rounding drift that ``compact_incremental`` adds up in
     the off-diagonal entries.  The diagonals come from the per-slot exact
     tail sums (sy_hist / yy_hist).  Called between solve segments
     (``cfg.refresh_interval``), never inside an iteration."""
-    SY, YY, Sg, Yg = history_products(state)
+    SY, YY, Sg, Yg = history_products(state, comm)
     eye = torch.eye(SY.shape[-1], dtype=torch.bool, device=SY.device)
     SY = torch.where(eye, state.sy_hist[..., None, :], SY)
     YY = torch.where(eye, state.yy_hist[..., None, :], YY)
     return state.replace(SY=SY, YY=YY, Sg=Sg, Yg=Yg)
 
 
-def _stepper(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, *callables):
+def _stepper(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, *callables,
+             comm=None):
     """``step(state, lanes=None)``: one ``iterate`` of this solve."""
     def step(state, lanes=None):
-        return iterate(cfg, f, vg, state, *callables, lanes=lanes)
+        return iterate(cfg, f, vg, state, *callables, lanes=lanes, comm=comm)
     return step
 
 
@@ -523,7 +570,8 @@ def _run_segment(cfg: LBFGSConfig, step, state: LBFGSState,
 
 def solve_from_state(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
                      state: LBFGSState, dir_poly=None, fused_tail=None,
-                     phi_batch=None, phi_dphi_batch=None) -> LBFGSState:
+                     phi_batch=None, phi_dphi_batch=None,
+                     comm=None) -> LBFGSState:
     """Iterate while running; returns the final state with its status
     finalized.  Reads one scalar per iteration, the loop condition (for a
     batch: whether any lane still runs).  A lane stops the moment its own
@@ -536,9 +584,9 @@ def solve_from_state(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
     every segment (``refresh_products``), for the lanes that entered it."""
     if cfg.record_trace:
         return _solve_traced(cfg, f, vg, state, dir_poly, fused_tail,
-                             phi_batch, phi_dphi_batch)[0]
+                             phi_batch, phi_dphi_batch, comm)[0]
     step = _stepper(cfg, f, vg, dir_poly, fused_tail, phi_batch,
-                    phi_dphi_batch)
+                    phi_dphi_batch, comm=comm)
     interval = _refresh_interval(cfg)
     if interval is None:
         state = _run_segment(cfg, step, state, None)
@@ -547,14 +595,16 @@ def solve_from_state(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
             entered = _running(cfg, state)
             if not _any(entered):
                 break
-            out = refresh_products(_run_segment(cfg, step, state, interval))
+            out = refresh_products(_run_segment(cfg, step, state, interval),
+                                   comm)
             state = _keep_lanes(entered, out, state) if entered.dim() else out
     return state.replace(status=_finalize_status(cfg, state))
 
 
 def solve_bounded(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
                   state: LBFGSState, dir_poly=None, fused_tail=None,
-                  phi_batch=None, phi_dphi_batch=None) -> LBFGSState:
+                  phi_batch=None, phi_dphi_batch=None,
+                  comm=None) -> LBFGSState:
     """Exactly ``cfg.max_iters`` more iterations with no read of the loop
     condition: safe because iterate is idempotent on finished states
     (lanes).  A state that would have converged early keeps iterating to
@@ -566,11 +616,11 @@ def solve_bounded(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
     if interval is not None and interval >= cfg.max_iters:
         interval = None
     step = _stepper(cfg, f, vg, dir_poly, fused_tail, phi_batch,
-                    phi_dphi_batch)
+                    phi_dphi_batch, comm=comm)
     for i in range(1, cfg.max_iters + 1):
         state = step(state)
         if interval and i % interval == 0:
-            state = refresh_products(state)
+            state = refresh_products(state, comm)
     return state.replace(status=_finalize_status(cfg, state))
 
 
@@ -616,7 +666,7 @@ def finalize_result(cfg: LBFGSConfig, state: LBFGSState) -> SolveResult:
 
 def _solve_traced(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
                   state: LBFGSState, dir_poly=None, fused_tail=None,
-                  phi_batch=None, phi_dphi_batch=None
+                  phi_batch=None, phi_dphi_batch=None, comm=None
                   ) -> Tuple[LBFGSState, Trace]:
     """The solve with per-iteration metrics: f, g_norm, alpha, n_fev, n_gev
     and the guard counters after each of ``cfg.max_iters`` iterations, kept
@@ -629,7 +679,7 @@ def _solve_traced(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
     from the state given, and after the last, partial segment.  Reads one
     scalar per iteration, the loop condition."""
     step = _stepper(cfg, f, vg, dir_poly, fused_tail, phi_batch,
-                    phi_dphi_batch)
+                    phi_dphi_batch, comm=comm)
     fields = ("f", "g_norm", "alpha", "n_fev", "n_gev", "guards")
     rows = []
 
@@ -644,7 +694,7 @@ def _solve_traced(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
         want = min(interval or cfg.max_iters, cfg.max_iters - before)
         state = _run_segment(cfg, step, state, want, emit)
         if interval is not None:
-            state = refresh_products(state)
+            state = refresh_products(state, comm)
         if len(rows) - before < want:
             break       # stopped early: every later row is a frozen copy
     if not rows:
@@ -669,11 +719,11 @@ def _state_to_result(state: LBFGSState,
 def solve_to_result(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
                     state: LBFGSState, dir_poly=None, fused_tail=None,
                     phi_batch=None, phi_dphi_batch=None,
-                    bounded: bool = False) -> SolveResult:
+                    bounded: bool = False, comm=None) -> SolveResult:
     """Solve from ``state`` and package the result, with its trace under
     ``cfg.record_trace``: what ``minimize`` and ``vmap_minimize`` run."""
     args = (cfg, f, vg, state, dir_poly, fused_tail, phi_batch,
-            phi_dphi_batch)
+            phi_dphi_batch, comm)
     if bounded:
         return _state_to_result(solve_bounded(*args))
     if cfg.record_trace:

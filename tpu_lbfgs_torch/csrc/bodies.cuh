@@ -28,6 +28,21 @@
 
 namespace tl {
 
+// Where one shard's block lies in the global vector, for the shard-local
+// form of a kernel (the sharded solve): the global unpadded length, the
+// block's global offset, and the neighbouring shards' boundary elements in
+// device memory (each kernel states their order).  Element i of the block
+// has the global index start + i; a body is handed that index and n_global,
+// so its index tests decide term ownership globally, and an element at or
+// beyond n_global (the zero-padded tail) is given no term and zero
+// gradient by the kernel.  The whole-vector form passes an empty Shard and
+// never reads it.
+struct Shard {
+  int64_t n_global = 0;
+  int64_t start = 0;
+  const float* edges = nullptr;
+};
+
 // sum (x_i - 1)^2.
 struct Quadratic {
   static constexpr bool kNeighbours = false;

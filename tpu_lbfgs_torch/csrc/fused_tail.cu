@@ -44,6 +44,18 @@
 // (reduce.cuh::finish_sums_neumaier); t1 and t2 stay plain, as the TPU
 // kernel's do.
 //
+// The shard-local form (kShard; replaces tpu_lbfgs/dist/pallas_sharded.py
+// shardmap_fused_tail's per-shard call of _fused_tail_pallas with n, start
+// and edges) runs the same kernel on one shard's blocks of x, d, g and the
+// ring: term ownership and the zero-padded tail go by the global index
+// (bodies.cuh::Shard), the first and last threads rebuild their outer
+// trial-point neighbours from edges = [previous shard's last x and d, next
+// shard's first x and d] in device memory with the same trial_point, and
+// all 7 + 2 m sums come back as float64, unrounded (compensated: the
+// Neumaier sum and its correction added in float64), for the caller's one
+// packed float64 all-reduce.  The whole-vector form is the instantiation
+// without kShard.
+//
 // A bfloat16 row is rounded to nearest even, as Tensor.to(torch.bfloat16)
 // rounds.  The per-element arithmetic follows the plain PyTorch version
 // (tpu_lbfgs_torch/kernels/fused_ops.py::fused_tail_plain) op for op, and
@@ -75,14 +87,14 @@ __device__ __forceinline__ double load_row(const __nv_bfloat16* row,
   return static_cast<double>(__bfloat162float(row[i]));
 }
 
-template <typename Body, typename H, int M>
+template <typename Body, typename H, int M, bool kShard>
 __global__ void __launch_bounds__(tl::kThreads)
     tail_kernel(const float* __restrict__ x, const float* __restrict__ d,
                 const float* __restrict__ g, const float* __restrict__ alpha,
                 const H* __restrict__ s_hist, const H* __restrict__ y_hist,
                 float* __restrict__ x_new, float* __restrict__ g_new,
                 H* __restrict__ s_row, H* __restrict__ y_row,
-                double* __restrict__ partials, int64_t n) {
+                double* __restrict__ partials, int64_t n, tl::Shard shard) {
   const float a = *alpha;
   double acc[kSums] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
   double t[M > 0 ? 2 * M : 1];
@@ -95,11 +107,25 @@ __global__ void __launch_bounds__(tl::kThreads)
     const float s = __fmul_rn(a, di);
     const float xn = __fadd_rn(x[i], s);  // = trial_point(x[i], di, a)
     float xp = 0.0f, xf = 0.0f;
-    if constexpr (Body::kNeighbours) {
-      if (i < n - 1) xf = tl::trial_point(x[i + 1], d[i + 1], a);
-      if (i >= 1) xp = tl::trial_point(x[i - 1], d[i - 1], a);
+    float gn;
+    if constexpr (kShard) {
+      if constexpr (Body::kNeighbours) {
+        xf = i < n - 1 ? tl::trial_point(x[i + 1], d[i + 1], a)
+                       : tl::trial_point(shard.edges[2], shard.edges[3], a);
+        xp = i >= 1 ? tl::trial_point(x[i - 1], d[i - 1], a)
+                    : tl::trial_point(shard.edges[0], shard.edges[1], a);
+      }
+      const int64_t gi = shard.start + i;
+      gn = gi < shard.n_global
+               ? Body::fg(xn, xp, xf, gi, shard.n_global, acc[0])
+               : 0.0f;
+    } else {
+      if constexpr (Body::kNeighbours) {
+        if (i < n - 1) xf = tl::trial_point(x[i + 1], d[i + 1], a);
+        if (i >= 1) xp = tl::trial_point(x[i - 1], d[i - 1], a);
+      }
+      gn = Body::fg(xn, xp, xf, i, n, acc[0]);
     }
-    const float gn = Body::fg(xn, xp, xf, i, n, acc[0]);
     const float gi = g[i];
     const float y = gn - gi;
     x_new[i] = xn;
@@ -135,42 +161,68 @@ struct Args {
   float *x_new, *g_new;
   void *s_row, *y_row;
   double* partials;
-  float* sums;
+  void* sums;  // float for the whole vector, double for a shard
   int64_t n;
   bool compensated;
   cudaStream_t stream;
+  tl::Shard shard;
 };
 
-template <typename Body, typename H, int M>
-void launch(const Args& p) {
-  const int blocks = tl::blocks_for(p.n);
-  tail_kernel<Body, H, M><<<blocks, tl::kThreads, 0, p.stream>>>(
-      p.x, p.d, p.g, p.alpha, static_cast<const H*>(p.s_hist),
-      static_cast<const H*>(p.y_hist), p.x_new, p.g_new,
-      static_cast<H*>(p.s_row), static_cast<H*>(p.y_row), p.partials, p.n);
+// T: the type of the sums, float (rounded once) or double (a shard's
+// partials, unrounded).
+template <typename T>
+void finish(const Args& p, int blocks, int m) {
+  T* sums = static_cast<T*>(p.sums);
   if (p.compensated) {
     tl::finish_sums_neumaier<<<kSums, tl::kThreads, 0, p.stream>>>(
-        p.partials, blocks, p.sums);
-    if (M > 0) {
-      tl::finish_sums<<<2 * M, tl::kThreads, 0, p.stream>>>(
+        p.partials, blocks, sums);
+    if (m > 0) {
+      tl::finish_sums<<<2 * m, tl::kThreads, 0, p.stream>>>(
           p.partials + static_cast<int64_t>(kSums) * blocks, blocks,
-          p.sums + kSums);
+          sums + kSums);
     }
   } else {
-    tl::finish_sums<<<kSums + 2 * M, tl::kThreads, 0, p.stream>>>(
-        p.partials, blocks, p.sums);
+    tl::finish_sums<<<kSums + 2 * m, tl::kThreads, 0, p.stream>>>(
+        p.partials, blocks, sums);
   }
 }
 
-template <typename Body, typename H>
+template <typename Body, typename H, int M, bool kShard>
+void launch(const Args& p) {
+  const int blocks = tl::blocks_for(p.n);
+  tail_kernel<Body, H, M, kShard><<<blocks, tl::kThreads, 0, p.stream>>>(
+      p.x, p.d, p.g, p.alpha, static_cast<const H*>(p.s_hist),
+      static_cast<const H*>(p.y_hist), p.x_new, p.g_new,
+      static_cast<H*>(p.s_row), static_cast<H*>(p.y_row), p.partials, p.n,
+      p.shard);
+  if (kShard) {
+    finish<double>(p, blocks, M);
+  } else {
+    finish<float>(p, blocks, M);
+  }
+}
+
+template <typename Body, typename H, bool kShard>
 bool launch_m(int m, const Args& p) {
   switch (m) {
-    case 0: launch<Body, H, 0>(p); return true;
-    case 5: launch<Body, H, 5>(p); return true;
-    case 10: launch<Body, H, 10>(p); return true;
-    case 20: launch<Body, H, 20>(p); return true;
+    case 0: launch<Body, H, 0, kShard>(p); return true;
+    case 5: launch<Body, H, 5, kShard>(p); return true;
+    case 10: launch<Body, H, 10, kShard>(p); return true;
+    case 20: launch<Body, H, 20, kShard>(p); return true;
     default: return false;
   }
+}
+
+template <bool kShard>
+int run(int body, int hist_bf16, int m, const Args& p) {
+  if (p.n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  bool known_m = false;
+  const bool known = TL_DISPATCH_BODY(
+      body,
+      known_m = hist_bf16 ? launch_m<Body, __nv_bfloat16, kShard>(m, p)
+                          : launch_m<Body, float, kShard>(m, p));
+  if (!known || !known_m) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -194,14 +246,28 @@ extern "C" int tl_fused_tail_f32(int body, int hist_bf16, int m,
                                  float* g_new, void* s_row, void* y_row,
                                  double* partials, float* sums, long long n,
                                  void* stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Args p{x, d, g, alpha, s_hist, y_hist, x_new, g_new, s_row, y_row,
                partials, sums, n, compensated != 0,
-               static_cast<cudaStream_t>(stream)};
-  bool known_m = false;
-  const bool known = TL_DISPATCH_BODY(
-      body, known_m = hist_bf16 ? launch_m<Body, __nv_bfloat16>(m, p)
-                                : launch_m<Body, float>(m, p));
-  if (!known || !known_m) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+               static_cast<cudaStream_t>(stream), tl::Shard{}};
+  return run<false>(body, hist_bf16, m, p);
+}
+
+// The shard-local form: the same arguments over one shard's blocks (n
+// elements; s_hist, y_hist (m, n) rows of the shard's ring), then n_global,
+// the global unpadded length, start, the block's global offset, and edges,
+// 4 floats on the device: [previous shard's last x, its last d, next
+// shard's first x, its first d] (read only by a chain-structured body).
+// sums: 7 + 2 m doubles, this shard's partials in the order above.
+extern "C" int tl_fused_tail_local_f32(
+    int body, int hist_bf16, int m, int compensated, const float* x,
+    const float* d, const float* g, const float* alpha, const void* s_hist,
+    const void* y_hist, float* x_new, float* g_new, void* s_row, void* y_row,
+    double* partials, double* sums, long long n, long long n_global,
+    long long start, const float* edges, void* stream) {
+  if (start < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Args p{x, d, g, alpha, s_hist, y_hist, x_new, g_new, s_row, y_row,
+               partials, sums, n, compensated != 0,
+               static_cast<cudaStream_t>(stream),
+               tl::Shard{n_global, start, edges}};
+  return run<true>(body, hist_bf16, m, p);
 }

@@ -28,6 +28,16 @@
 // a fixed order (reduce.cuh), with no float atomics.  The edge is masked
 // by index, so any n works.
 //
+// The shard-local form (kShard; replaces tpu_lbfgs/dist/pallas_sharded.py
+// shardmap_multi_phi's per-shard call of _multi_phi_pallas with n, start
+// and edges) runs the same kernel on one shard's blocks of x and d: a term
+// exists where the global index start + i says so against the global
+// unpadded length (bodies.cuh::Shard), the last thread takes its forward
+// neighbour from edges = [next shard's first x, its first d] in device
+// memory, and the K sums come back as float64, unrounded, for the caller's
+// one float64 all-reduce.  The whole-vector form is the instantiation
+// without kShard.
+//
 // The terms are those of the plain PyTorch version
 // (tpu_lbfgs_torch/kernels/line_search_ops.py::multi_phi_plain with
 // fused_ops.F_PLAIN), op for op, and the library is built with
@@ -41,11 +51,12 @@ namespace {
 constexpr int kTrialsPerRow = 8;
 constexpr int kMaxRows = 65535;  // gridDim.y
 
-template <typename Body>
+template <typename Body, bool kShard>
 __global__ void __launch_bounds__(tl::kThreads)
     multi_phi_kernel(const float* __restrict__ x, const float* __restrict__ d,
                      const float* __restrict__ alphas, int num_trials,
-                     double* __restrict__ partials, int64_t n) {
+                     double* __restrict__ partials, int64_t n,
+                     tl::Shard shard) {
   const int k0 = blockIdx.y * kTrialsPerRow;
   const int count = min(kTrialsPerRow, num_trials - k0);
   float a[kTrialsPerRow];
@@ -58,13 +69,22 @@ __global__ void __launch_bounds__(tl::kThreads)
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   // Element i owns term i; where a term needs element i + 1 and the last
   // element owns none (Rosenbrock), the loop ends before it.
-  const int64_t terms = Body::terms(n);
+  // A shard's block ends where its terms do: the global count of terms,
+  // seen from this block's offset.
+  const int64_t terms =
+      kShard ? min(n, Body::terms(shard.n_global) - shard.start)
+             : Body::terms(n);
+  const int64_t n_total = kShard ? shard.n_global : n;
+  const int64_t offset = kShard ? shard.start : 0;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < terms; i += stride) {
     const float xi = x[i], di = d[i];
     float xf = 0.0f, df = 0.0f;
     if constexpr (Body::kNeighbours) {
-      if (terms < n || i < n - 1) {
+      if constexpr (kShard) {
+        xf = i < n - 1 ? x[i + 1] : shard.edges[0];
+        df = i < n - 1 ? d[i + 1] : shard.edges[1];
+      } else if (terms < n || i < n - 1) {
         xf = x[i + 1];
         df = d[i + 1];
       }
@@ -74,7 +94,7 @@ __global__ void __launch_bounds__(tl::kThreads)
       const float u = tl::trial_point(xi, di, a[j]);
       const float uf =
           Body::kNeighbours ? tl::trial_point(xf, df, a[j]) : 0.0f;
-      acc[j] += static_cast<double>(Body::f(u, uf, i, n));
+      acc[j] += static_cast<double>(Body::f(u, uf, offset + i, n_total));
     }
   }
   tl::block_sum_to<kTrialsPerRow>(
@@ -100,8 +120,37 @@ extern "C" int tl_multi_phi_f32(int body, const float* x, const float* d,
   const int blocks = tl::blocks_for(n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool known = TL_DISPATCH_BODY(
-      body, multi_phi_kernel<Body><<<dim3(blocks, rows), tl::kThreads, 0, s>>>(
-                x, d, alphas, num_trials, partials, n));
+      body,
+      multi_phi_kernel<Body, false>
+      <<<dim3(blocks, rows), tl::kThreads, 0, s>>>(x, d, alphas, num_trials,
+                                                   partials, n, tl::Shard{}));
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
+  tl::finish_sums<<<num_trials, tl::kThreads, 0, s>>>(partials, blocks, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shard-local form: x, d are one shard's n elements; n_global is the
+// global unpadded length, start the block's global offset, edges 2 floats
+// on the device, [next shard's first x, its first d] (read only by a
+// chain-structured body).  out: num_trials doubles, this shard's partials.
+extern "C" int tl_multi_phi_local_f32(int body, const float* x, const float* d,
+                                      const float* alphas, int num_trials,
+                                      double* partials, double* out,
+                                      long long n, long long n_global,
+                                      long long start, const float* edges,
+                                      void* stream) {
+  const int rows = (num_trials + kTrialsPerRow - 1) / kTrialsPerRow;
+  if (n < 1 || start < 0 || num_trials < 1 || rows > kMaxRows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = tl::blocks_for(n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const tl::Shard shard{n_global, start, edges};
+  const bool known = TL_DISPATCH_BODY(
+      body,
+      multi_phi_kernel<Body, true>
+      <<<dim3(blocks, rows), tl::kThreads, 0, s>>>(x, d, alphas, num_trials,
+                                                   partials, n, shard));
   if (!known) return static_cast<int>(cudaErrorInvalidValue);
   tl::finish_sums<<<num_trials, tl::kThreads, 0, s>>>(partials, blocks, out);
   return static_cast<int>(cudaGetLastError());

@@ -29,6 +29,16 @@
 // in float64 and then per output in a fixed order (reduce.cuh), with no
 // float atomics.  The edge is masked by index, so any n works.
 //
+// The shard-local form (kShard; replaces tpu_lbfgs/dist/pallas_sharded.py
+// shardmap_multi_phi_dphi's per-shard call of _multi_phi_dphi_pallas with
+// n, start and edges) runs the same kernel on one shard's blocks of x and
+// d: term ownership and the zero-padded tail go by the global index
+// (bodies.cuh::Shard), the first and last threads take their outer
+// neighbours from edges = [previous shard's last x and d, next shard's
+// first x and d] in device memory, and the 2 K sums come back as float64,
+// unrounded, for the caller's one float64 all-reduce.  The whole-vector
+// form is the instantiation without kShard.
+//
 // The gradient terms are those of the plain PyTorch version
 // (tpu_lbfgs_torch/kernels/line_search_ops.py::multi_phi_dphi_plain with
 // fused_ops.VG_PLAIN), op for op, and the library is built with
@@ -47,12 +57,13 @@ constexpr int kMaxRows = 65535;  // gridDim.y
 // float-to-double conversions, so the fourth block is worth more than the
 // few registers it spills (Rosenbrock, K = 36, d = 2^20 on an H100: 100.5 us
 // against 115.3 us at the 72 registers the compiler takes unasked).
-template <typename Body>
+template <typename Body, bool kShard>
 __global__ void __launch_bounds__(tl::kThreads, 4)
     multi_phi_dphi_kernel(const float* __restrict__ x,
                           const float* __restrict__ d,
                           const float* __restrict__ alphas, int num_trials,
-                          double* __restrict__ partials, int64_t n) {
+                          double* __restrict__ partials, int64_t n,
+                          tl::Shard shard) {
   const int k0 = blockIdx.y * kTrialsPerRow;
   const int count = min(kTrialsPerRow, num_trials - k0);
   float a[kTrialsPerRow];
@@ -69,15 +80,28 @@ __global__ void __launch_bounds__(tl::kThreads, 4)
     const float xi = x[i], di = d[i];
     float xf = 0.0f, df = 0.0f, xp = 0.0f, dp = 0.0f;
     if constexpr (Body::kNeighbours) {
-      if (i < n - 1) {
-        xf = x[i + 1];
-        df = d[i + 1];
-      }
-      if (i >= 1) {
-        xp = x[i - 1];
-        dp = d[i - 1];
+      if constexpr (kShard) {
+        xf = i < n - 1 ? x[i + 1] : shard.edges[2];
+        df = i < n - 1 ? d[i + 1] : shard.edges[3];
+        xp = i >= 1 ? x[i - 1] : shard.edges[0];
+        dp = i >= 1 ? d[i - 1] : shard.edges[1];
+      } else {
+        if (i < n - 1) {
+          xf = x[i + 1];
+          df = d[i + 1];
+        }
+        if (i >= 1) {
+          xp = x[i - 1];
+          dp = d[i - 1];
+        }
       }
     }
+    // An element of the zero-padded tail owns no term and has no gradient.
+    if constexpr (kShard) {
+      if (shard.start + i >= shard.n_global) continue;
+    }
+    const int64_t at = kShard ? shard.start + i : i;
+    const int64_t n_total = kShard ? shard.n_global : n;
 #pragma unroll
     for (int j = 0; j < kTrialsPerRow; ++j) {
       const float u = tl::trial_point(xi, di, a[j]);
@@ -86,7 +110,7 @@ __global__ void __launch_bounds__(tl::kThreads, 4)
         uf = tl::trial_point(xf, df, a[j]);
         up = tl::trial_point(xp, dp, a[j]);
       }
-      const float gi = Body::fg(u, up, uf, i, n, f_acc[j]);
+      const float gi = Body::fg(u, up, uf, at, n_total, f_acc[j]);
       g_acc[j] += static_cast<double>(gi) * di;
     }
   }
@@ -116,8 +140,36 @@ extern "C" int tl_multi_phi_dphi_f32(int body, const float* x, const float* d,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool known = TL_DISPATCH_BODY(
       body,
-      multi_phi_dphi_kernel<Body><<<dim3(blocks, rows), tl::kThreads, 0, s>>>(
-          x, d, alphas, num_trials, partials, n));
+      multi_phi_dphi_kernel<Body, false>
+      <<<dim3(blocks, rows), tl::kThreads, 0, s>>>(x, d, alphas, num_trials,
+                                                   partials, n, tl::Shard{}));
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
+  tl::finish_sums<<<2 * num_trials, tl::kThreads, 0, s>>>(partials, blocks,
+                                                          out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shard-local form: x, d are one shard's n elements; n_global is the
+// global unpadded length, start the block's global offset, edges 4 floats
+// on the device, [previous shard's last x, its last d, next shard's first
+// x, its first d] (read only by a chain-structured body).  out: 2 *
+// num_trials doubles, this shard's partials of phi and then of dphi.
+extern "C" int tl_multi_phi_dphi_local_f32(
+    int body, const float* x, const float* d, const float* alphas,
+    int num_trials, double* partials, double* out, long long n,
+    long long n_global, long long start, const float* edges, void* stream) {
+  const int rows = (num_trials + kTrialsPerRow - 1) / kTrialsPerRow;
+  if (n < 1 || start < 0 || num_trials < 1 || rows > kMaxRows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = tl::blocks_for(n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const tl::Shard shard{n_global, start, edges};
+  const bool known = TL_DISPATCH_BODY(
+      body,
+      multi_phi_dphi_kernel<Body, true>
+      <<<dim3(blocks, rows), tl::kThreads, 0, s>>>(x, d, alphas, num_trials,
+                                                   partials, n, shard));
   if (!known) return static_cast<int>(cudaErrorInvalidValue);
   tl::finish_sums<<<2 * num_trials, tl::kThreads, 0, s>>>(partials, blocks,
                                                           out);

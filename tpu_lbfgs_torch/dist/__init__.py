@@ -1,0 +1,27 @@
+"""The sharded solve: one process per shard of the vector axis over
+``torch.distributed`` (``tpu_lbfgs.dist``)."""
+from .comm import ShardComm
+from .mesh import Mesh, make_mesh, pad_for_mesh, shard_alignment
+from .multihost import initialize, is_coordinator, process_count, shutdown
+from .pallas_sharded import (
+    SHARDED_PALLAS_PROBLEMS,
+    shardmap_fused_tail,
+    shardmap_fused_vg,
+    shardmap_multi_phi,
+    shardmap_multi_phi_dphi,
+)
+from .sharded import gather_result, sharded_minimize
+from .shardmap_vg import (
+    shardmap_dir_poly,
+    shardmap_value,
+    shardmap_value_and_grad,
+)
+
+__all__ = [
+    "Mesh", "ShardComm", "SHARDED_PALLAS_PROBLEMS", "gather_result",
+    "initialize", "is_coordinator", "make_mesh", "pad_for_mesh",
+    "process_count", "shard_alignment", "sharded_minimize", "shutdown",
+    "shardmap_dir_poly", "shardmap_fused_tail", "shardmap_fused_vg",
+    "shardmap_multi_phi", "shardmap_multi_phi_dphi", "shardmap_value",
+    "shardmap_value_and_grad",
+]

@@ -1,0 +1,145 @@
+"""Run a function as the ranks of one sharded job on this host: what
+``torchrun`` does for a script, for a function, with the ranks' return
+values handed back.  The tests run their 4-rank CPU jobs through it, and
+``chip_smoke.py`` its ranks on the card.
+
+The ranks are started with ``spawn`` (the parent may hold a CUDA context,
+which a fork would break) and joined to one group over
+``tcp://localhost:<a free port>``.  A rank that raises ends the job: its
+traceback is raised in the parent and the other ranks are terminated; a
+rank blocked in a collective after a peer died ends by the group's
+timeout.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import socket
+import tempfile
+from typing import Callable, Optional
+
+
+def free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, fn: Callable, size: int, port: int,
+               backend: Optional[str],
+               timeout_s: float, threads: Optional[int], out_dir: str,
+               args: tuple) -> None:
+    import torch
+
+    from .multihost import initialize, shutdown
+
+    if threads:
+        torch.set_num_threads(threads)
+    if torch.cuda.is_available():
+        # One card per rank where the host has them; ranks beyond that
+        # share (which nccl refuses: pass backend="gloo").
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    initialize(f"localhost:{port}", size, rank, backend=backend,
+               timeout_s=timeout_s)
+    out = fn(rank, size, *args)
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(out, fh)
+    shutdown()
+
+
+def spawn_ranks(fn: Callable, size: int, *args,
+                backend: Optional[str] = None, timeout_s: float = 120.0,
+                threads: Optional[int] = 1) -> list:
+    """``fn(rank, size, *args)`` on ``size`` spawned processes joined to
+    one ``backend`` group (default: ``multihost.initialize``'s, nccl where
+    a CUDA device is present, else gloo); returns the ranks' return values
+    in rank order (they must pickle).  ``fn`` must be importable from the children (a
+    module-level function).  ``threads`` caps each rank's intra-op threads
+    (None leaves PyTorch's default)."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        mp.spawn(_rank_main,
+                 args=(fn, size, free_port(), backend, timeout_s, threads,
+                       out_dir, args),
+                 nprocs=size, join=True)
+        outs = []
+        for rank in range(size):
+            with open(os.path.join(out_dir, f"rank{rank}.pkl"), "rb") as fh:
+                outs.append(pickle.load(fh))
+    return outs
+
+
+def solve_cases(rank: int, size: int, cases: list, device=None):
+    """A rank function for ``spawn_ranks``: each case, a dict, through the
+    sharded solve on ``device`` (default: the current CUDA device, and it
+    raises without one; ``"cpu"`` asks for the CPU, as the tests do, over a
+    gloo group), and per case a dict of plain Python and
+    numpy values (the trace, the status, the gathered x, this rank's kernel
+    launches, all-reduces and edge exchanges, set to 0 just before the
+    solve and read just after, and its seconds).
+
+    A case: ``problem``, ``d``, ``dtype`` (a torch dtype's name), ``seed``
+    and ``box`` (x0 ~ U(-box, box) drawn with numpy in float64, as the
+    command line draws it), ``cfg`` (``LBFGSConfig`` keywords), ``kw``
+    (``sharded_minimize`` keywords), and optionally ``kernels``: True or
+    False calls ``solve_shard`` with that path whatever the dtype, where
+    ``sharded_minimize`` chooses by ``cfg.use_pallas`` and a float32 x0."""
+    import time
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from .. import LBFGSConfig, get_problem, kernels
+    from ..types import resolve_device
+    from .mesh import local_block, make_mesh, pad_for_mesh
+    from .sharded import gather_result, sharded_minimize, solve_shard
+
+    mesh = make_mesh()
+    dev = resolve_device(device)
+    outs = []
+    for case in cases:
+        p = get_problem(case["problem"])
+        cfg = LBFGSConfig(**case["cfg"])
+        rng = np.random.default_rng(case.get("seed", 0))
+        box = case.get("box", 2.0)
+        x0 = torch.from_numpy(rng.uniform(-box, box, case["d"])).to(
+            dev, getattr(torch, case["dtype"]))
+        kernels.reset_launches()
+        mesh.comm.reset_counts()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if case.get("kernels") is None:
+                res = sharded_minimize(p.f, x0, cfg, mesh,
+                                       problem=case["problem"],
+                                       dir_poly=p.dir_poly,
+                                       **case.get("kw", {}))
+            else:
+                x0_pad, n = pad_for_mesh(x0, size)
+                res = solve_shard(case["problem"], local_block(x0_pad, mesh),
+                                  n, cfg, mesh, kernels=case["kernels"],
+                                  **case.get("kw", {}))
+        f_final = res.f.item()       # waits for the device
+        wall = time.perf_counter() - t0
+        out = {"f": f_final, "g_norm": res.g_norm.item(),
+               "status": int(res.status), "iterations": int(res.iterations),
+               "n_fev": int(res.n_fev), "n_gev": int(res.n_gev),
+               "guards": res.guards.tolist(), "wall_s": wall,
+               "launches": {k: v for k, v in kernels.launch_counts().items()
+                            if v},
+               "all_reduces": mesh.comm.all_reduces,
+               "edge_exchanges": mesh.comm.edge_exchanges,
+               "warnings": [str(w.message) for w in caught],
+               "x_local_shape": tuple(res.x.shape),
+               "x_local_finite": bool(torch.isfinite(res.x).all()),
+               "x": gather_result(res, mesh, case["d"]).x.cpu().numpy()
+               if case.get("gather", True) else None}
+        if res.trace is not None:
+            out["trace"] = {name: getattr(res.trace, name).cpu().numpy()
+                            for name in res.trace._fields}
+        outs.append(out)
+    return outs

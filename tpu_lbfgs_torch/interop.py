@@ -14,6 +14,9 @@ side ``jnp.asarray(a).astype(jnp.bfloat16)`` restores it exactly), and
 ``state_from_numpy`` takes ``history_dtype="bfloat16"`` to narrow such a
 carrier again (it also takes the JAX side's ``ml_dtypes`` bfloat16 arrays
 as they are).
+
+A sharded state (``dist``) crosses through ``gather_state`` /
+``shard_state``: gathered, it has the reference's whole-vector fields.
 """
 from __future__ import annotations
 
@@ -86,3 +89,41 @@ def trace_to_numpy(trace: Trace) -> dict:
     """A reference trace's arrays from the port's Trace."""
     return {name: getattr(trace, name).detach().cpu().numpy().copy()
             for name in Trace._fields}
+
+
+_SHARDED_FIELDS = ("x", "g", "s_hist", "y_hist")
+
+
+def shard_state(state: LBFGSState, mesh) -> LBFGSState:
+    """This rank's shard of a whole single-instance state (``dist.mesh.Mesh``):
+    x, g and the ring's columns are zero-padded to a multiple of the mesh's
+    size and cut to the rank's block; every other field is replicated as it
+    is.  With ``state_from_numpy`` this starts the port's sharded solver from
+    a reference state."""
+    from .dist.mesh import local_block, pad_for_mesh
+
+    if mesh.size == 1:
+        return state
+    return state.replace(**{
+        name: local_block(pad_for_mesh(getattr(state, name), mesh.size)[0],
+                          mesh)
+        for name in _SHARDED_FIELDS})
+
+
+def gather_state(state: LBFGSState, mesh, d: int) -> LBFGSState:
+    """The whole unpadded state, on every rank, from each rank's shard (one
+    collective per sharded field): the inverse of ``shard_state``, for
+    ``state_to_numpy`` and the reference's field layout.  A bfloat16 ring
+    crosses the group as float32 (exact)."""
+    if mesh.comm is None:
+        return state
+
+    def whole(t):
+        wide = t.float() if t.dtype == torch.bfloat16 else t
+        # (size * d_local,) for a vector; the ring gathers column blocks.
+        parts = mesh.comm.all_gather_vec(wide.unsqueeze(0))
+        out = torch.cat(parts.unbind(0), dim=-1)[..., :d]
+        return out.to(t.dtype)
+
+    return state.replace(**{name: whole(getattr(state, name))
+                            for name in _SHARDED_FIELDS})

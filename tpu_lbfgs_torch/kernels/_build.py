@@ -40,6 +40,18 @@ _SIGNATURES = {
     # body, hist_bf16, m, compensated, 12 pointers, n, stream
     "tl_fused_tail_f32": ([ctypes.c_int] * 4 + [_P] * 12
                           + [ctypes.c_longlong, _P], ctypes.c_int),
+    # the shard-local forms: the same arguments, then n_global, start, edges
+    "tl_fused_vg_local_f32": ([ctypes.c_int] + [_P] * 4
+                              + [ctypes.c_longlong] * 3 + [_P, _P],
+                              ctypes.c_int),
+    "tl_fused_tail_local_f32": ([ctypes.c_int] * 4 + [_P] * 12
+                                + [ctypes.c_longlong] * 3 + [_P, _P],
+                                ctypes.c_int),
+    **{f"tl_{k}_local_f32": ([ctypes.c_int] + [_P] * 3
+                             + [ctypes.c_int, _P, _P]
+                             + [ctypes.c_longlong] * 3 + [_P, _P],
+                             ctypes.c_int)
+       for k in ("multi_phi", "multi_phi_dphi")},
     # body, x, d, alphas, K, partials, out, n, stream
     **{f"tl_{k}_f32": ([ctypes.c_int] + [_P] * 3 + [ctypes.c_int, _P, _P,
                                                     ctypes.c_longlong, _P],
@@ -60,8 +72,8 @@ _SIGNATURES = {
 }
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _sources(csrc: Path):
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
 def find_nvcc() -> str:
@@ -77,12 +89,20 @@ def find_nvcc() -> str:
                        "the port's CUDA kernels are built at first use")
 
 
-def build() -> tuple[Path, float, str]:
+def build(csrc: Path = CSRC) -> tuple[Path, float, str]:
     """Compile the kernels if this tree's build is missing.  Returns the
     library's path, the seconds spent compiling (0 when reused) and the
-    compiler's report (registers, shared memory and spills per kernel)."""
+    compiler's report (registers, shared memory and spills per kernel).
+    ``csrc`` is another directory of sources with the same interface (a
+    parent commit's, for ``bench/kernel_ab.py``); its library lands beside
+    this tree's under its own hash.
+
+    Two processes may build at once: each compiles into files named by its
+    pid and renames the finished library into place, so a reader sees a
+    whole library or none.  A job of several ranks builds once, in the
+    parent, before it starts them."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
@@ -94,7 +114,7 @@ def build() -> tuple[Path, float, str]:
     nvcc, pid = find_nvcc(), os.getpid()
     t0 = time.perf_counter()
     objs, procs = [], []
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(csrc.glob("*.cu")):
         obj = out_dir / f"{src.stem}.{pid}.o"   # nvcc goes by the suffix
         objs.append(obj)
         procs.append(subprocess.Popen(

@@ -36,10 +36,26 @@ contiguous ``(d,)`` vector.
 
 A wrapper takes its plain version only for tensors on the CPU, where the
 tests run (or where the caller passes ``use_pallas=False``, the
-reference's switch).  A CUDA tensor launches the kernel (the
-problem-specific kernels float32 only, the two general ones float32 or
-float64), and anything else raises.  ``launches`` counts each wrapper's
-kernel launches, so a run can show that it went through the kernels.
+reference's switch).  A CUDA tensor launches the kernel, and anything else
+raises: a wrapper never leaves a tensor on the card to the plain version
+by itself.  The problem-specific kernels (fused_vg, the fused tail, and
+the K-trial evaluators of ``line_search_ops``) are float32 programs; the
+two general kernels are built for float32 and float64.  ``pallas_ok`` is
+the reference's dtype rule of that name, for the callers that know the
+iterate's dtype before they build their callables (the command line,
+``bench_gpu``, ``sharded_minimize``): they pass ``use_pallas=False``
+themselves for a dtype the kernels are not built for, with a warning, and
+the same on either device.  ``launches`` counts each wrapper's kernel
+launches, so a run can show that it went through the kernels.
+
+The four problem-specific families also have a shard-local form for the
+sharded solve (``dist.pallas_sharded``): the same kernels on one shard's
+block with the global unpadded length ``n``, the shard's global offset
+``start`` and the neighbouring shards' boundary elements ``edges`` (a
+device tensor), owning terms by global index and returning their sums as
+float64, unrounded, for one packed all-reduce.  ``local_fused_vg`` and
+``local_fused_tail`` are their wrappers here, beside the plain versions
+``dist.shardmap_vg.local_vg_plain`` and ``fused_tail_local_plain``.
 """
 from __future__ import annotations
 
@@ -60,6 +76,8 @@ TAIL_MATVEC_M = (5, 10, 20)
 #: Kernel launches per wrapper since the last ``reset_launches()``.
 launches = {**{f"{name}_vg": 0 for name in BODY_IDS},
             **{f"{name}_fused_tail": 0 for name in BODY_IDS},
+            **{f"{name}_vg_local": 0 for name in BODY_IDS},
+            **{f"{name}_fused_tail_local": 0 for name in BODY_IDS},
             "iteration_tail": 0, "combine_direction": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -85,6 +103,15 @@ def _check_vec(name: str, t: Tensor, n: int, dtype=torch.float32,
                          f"shape {tuple(t.shape)}, strides {t.stride()}")
 
 
+def pallas_ok(dtype) -> bool:
+    """Whether the problem-specific kernels are built for iterates of
+    ``dtype``: float32 only (the reference's ``pallas_ok``: its kernels are
+    float32 programs and everything else goes its jnp route).  A rule for
+    the caller that chooses ``use_pallas``; the wrappers themselves raise
+    for another dtype on the card."""
+    return dtype == torch.float32
+
+
 def _kernel_dtype(name: str, t: Tensor) -> str:
     """The entry-point suffix for t's dtype; raises for a dtype the two
     general kernels are not built for."""
@@ -101,6 +128,15 @@ def _sum(t: Tensor) -> Tensor:
 def _vdot(a: Tensor, b: Tensor) -> Tensor:
     """a . b over the last axis, in the working dtype."""
     return torch.dot(a, b) if a.dim() == 1 else torch.linalg.vecdot(a, b)
+
+
+def _rdot(comm, a: Tensor, b: Tensor) -> Tensor:
+    """a . b over the whole vector axis: ``_vdot`` without a comm; with one
+    (``dist.comm.ShardComm``, one instance), this shard's float64 partial
+    summed over the group and rounded once to a's dtype."""
+    if comm is None:
+        return _vdot(a, b)
+    return comm.reduce_parts([torch.dot(a.double(), b.double())], a.dtype)[0]
 
 
 def _dot(a: Tensor, b: Tensor) -> Tensor:
@@ -185,8 +221,8 @@ VG_PLAIN = {"quadratic": quadratic_vg_plain,
 def fused_vg(problem: str, x: Tensor,
              use_pallas: bool = True) -> tuple[Tensor, Tensor]:
     """(f, g) of a suite problem with a kernel body: the CUDA kernel for a
-    CUDA tensor, the plain version for a CPU tensor or under
-    ``use_pallas=False``."""
+    float32 CUDA tensor (any other tensor on the card raises), the plain
+    version for a CPU tensor or under ``use_pallas=False``."""
     if not use_pallas or x.device.type == "cpu":
         return VG_PLAIN[problem](x)
     n = x.numel()
@@ -203,6 +239,47 @@ def fused_vg(problem: str, x: Tensor,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, f"{problem}_vg")
     launches[f"{problem}_vg"] += 1
+    return f[0], g
+
+
+def _check_edges(edges: Tensor, count: int, x: Tensor) -> None:
+    if (edges.device != x.device or edges.dtype != torch.float32
+            or edges.shape != (count,) or not edges.is_contiguous()):
+        raise ValueError(f"edges: expected a contiguous ({count},) float32 "
+                         f"vector on {x.device}, got {edges.dtype} "
+                         f"{tuple(edges.shape)} on {edges.device}")
+
+
+def local_fused_vg(problem: str, x_local: Tensor, n: int, start: int,
+                   edges: Tensor,
+                   use_pallas: bool = True) -> tuple[Tensor, Tensor]:
+    """Shard-local fused value and gradient, with the reference's
+    signature: (float64 partial of f, for the caller's all-reduce; the
+    local gradient block).  ``n`` is the global unpadded length, ``start``
+    this shard's global offset, ``edges`` = [previous shard's last x, next
+    shard's first x] on x's device.  The CUDA kernel for a float32 CUDA
+    block (any other block on the card raises), the plain version
+    (``dist.shardmap_vg.local_vg_plain``) for a CPU tensor or under
+    ``use_pallas=False``."""
+    if not use_pallas or x_local.device.type == "cpu":
+        from ..dist.shardmap_vg import local_vg_plain
+        return local_vg_plain(problem, x_local, n, start, edges)
+    n_local = x_local.numel()
+    _check_vec("x_local", x_local, n_local)
+    _check_edges(edges, 2, x_local)
+    lib = _build.load()
+    g = torch.empty_like(x_local)
+    partials = torch.empty(lib.tl_max_blocks(), dtype=torch.float64,
+                           device=x_local.device)
+    f = torch.empty(1, dtype=torch.float64, device=x_local.device)
+    with torch.cuda.device(x_local.device):
+        err = lib.tl_fused_vg_local_f32(
+            BODY_IDS[problem], x_local.data_ptr(), g.data_ptr(),
+            partials.data_ptr(), f.data_ptr(), n_local, n, start,
+            edges.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    name = f"{problem}_vg_local"
+    _build.check(lib, err, name)
+    launches[name] += 1
     return f[0], g
 
 
@@ -275,8 +352,10 @@ _HIST_DTYPES = (torch.float32, torch.bfloat16)
 
 def _fused_tail_kernel(problem: str, x: Tensor, d: Tensor, alpha: Tensor,
                        g: Tensor, s_hist, y_hist, with_matvec: bool,
-                       accurate: bool):
-    """Launch csrc/fused_tail.cu for CUDA tensors, or raise."""
+                       accurate: bool, shard=None):
+    """Launch csrc/fused_tail.cu for CUDA tensors, or raise.  ``shard`` is
+    None for the whole vector, else ``(n, start, edges)`` for one shard's
+    block: the sums then come back as one float64 vector, unrounded."""
     n = x.numel()
     for name, t in (("x", x), ("d", d), ("g", g)):
         _check_vec(name, t, n, like=x)
@@ -312,18 +391,29 @@ def _fused_tail_kernel(problem: str, x: Tensor, d: Tensor, alpha: Tensor,
     n_sums = 7 + 2 * m
     partials = torch.empty(n_sums * lib.tl_max_blocks(), dtype=torch.float64,
                            device=x.device)
-    sums = torch.empty(n_sums, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.tl_fused_tail_f32(
-            BODY_IDS[problem], int(hdtype == torch.bfloat16), m,
+    sums = torch.empty(n_sums, device=x.device,
+                       dtype=torch.float32 if shard is None else torch.float64)
+    args = (BODY_IDS[problem], int(hdtype == torch.bfloat16), m,
             int(accurate), x.data_ptr(), d.data_ptr(), g.data_ptr(),
             alpha.data_ptr(), s_hist.data_ptr() if m else None,
             y_hist.data_ptr() if m else None, x_new.data_ptr(),
             g_new.data_ptr(), s_row.data_ptr(), y_row.data_ptr(),
-            partials.data_ptr(), sums.data_ptr(), n,
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, f"{problem}_fused_tail")
-    launches[f"{problem}_fused_tail"] += 1
+            partials.data_ptr(), sums.data_ptr(), n)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if shard is None:
+            name = f"{problem}_fused_tail"
+            err = lib.tl_fused_tail_f32(*args, stream)
+        else:
+            name = f"{problem}_fused_tail_local"
+            n_global, start, edges = shard
+            _check_edges(edges, 4, x)
+            err = lib.tl_fused_tail_local_f32(*args, n_global, start,
+                                              edges.data_ptr(), stream)
+    _build.check(lib, err, name)
+    launches[name] += 1
+    if shard is not None:
+        return x_new, g_new, s_row, y_row, sums
     if m:
         sums, t1, t2 = sums.split((7, m, m))
     else:
@@ -331,6 +421,56 @@ def _fused_tail_kernel(problem: str, x: Tensor, d: Tensor, alpha: Tensor,
     f_new, sy, yy, gg, dgn, ggn, ygn = sums.unbind(0)
     return (x_new, f_new, g_new, s_row, y_row, sy, yy, gg, dgn, ggn, ygn,
             t1, t2)
+
+
+def fused_tail_local_plain(problem: str, x: Tensor, d: Tensor, alpha: Tensor,
+                           g: Tensor, s_hist, y_hist, with_matvec: bool,
+                           n: int, start: int, edges: Tensor,
+                           accurate: bool = False):
+    """The shard-local tail from plain tensor ops: (x_new, g_new, s_row,
+    y_row, sums) for one shard's block, ``sums`` the float64 partials
+    [f, s.y, y.y, g_new.g_new, d.g_new, g.g_new, y.g_new, t1 (m), t2 (m)]
+    of the caller's packed all-reduce (t1, t2 only ``with_matvec``).
+    ``edges`` = [previous shard's last x and d, next shard's first x and
+    d]: the trial point's halos are rebuilt from them as every element's
+    is.  ``accurate`` compensates the six dots' local partials
+    (``utils.accurate.compensated_dot`` over float64 products)."""
+    from ..dist.shardmap_vg import CHUNKS
+
+    s = alpha * d
+    x_new = x + s
+    prev = edges[0] + alpha * edges[1]
+    nxt = edges[2] + alpha * edges[3]
+    f_part, g_new = CHUNKS[problem](x_new, prev, nxt, n, start)
+    y = g_new - g
+    a = torch.stack([s, y, g_new, d, g, y]).double()
+    b = torch.stack([y, y, g_new, g_new, g_new, g_new]).double()
+    dots = compensated_dot(a, b) if accurate else torch.sum(a * b, dim=-1)
+    parts = [f_part.reshape(1), dots]
+    if with_matvec:
+        yd = y.double()
+        parts += [torch.mv(s_hist.double(), yd), torch.mv(y_hist.double(), yd)]
+    s_row, y_row = s, y
+    if s_hist is not None and s_hist.dtype != x.dtype:
+        s_row, y_row = s.to(s_hist.dtype), y.to(s_hist.dtype)
+    return x_new, g_new, s_row, y_row, torch.cat(parts)
+
+
+def local_fused_tail(problem: str, x: Tensor, d: Tensor, alpha: Tensor,
+                     g: Tensor, s_hist, y_hist, with_matvec: bool, n: int,
+                     start: int, edges: Tensor, accurate: bool = False,
+                     use_pallas: bool = True):
+    """The shard-local fused tail (the reference's ``_fused_tail_pallas``
+    with ``n``, ``start``, ``edges``): the CUDA kernel for float32 CUDA
+    blocks (anything else on the card raises), ``fused_tail_local_plain``
+    for CPU tensors or under ``use_pallas=False``.  Returns (x_new, g_new,
+    s_row, y_row, float64 sums)."""
+    if use_pallas and x.device.type != "cpu":
+        return _fused_tail_kernel(problem, x, d, alpha.reshape(1), g, s_hist,
+                                  y_hist, with_matvec, accurate,
+                                  shard=(n, start, edges))
+    return fused_tail_local_plain(problem, x, d, alpha, g, s_hist, y_hist,
+                                  with_matvec, n, start, edges, accurate)
 
 
 def make_fused_tail(problem: str, vg_fallback, with_matvec: bool = True,
@@ -343,11 +483,13 @@ def make_fused_tail(problem: str, vg_fallback, with_matvec: bool = True,
     solver patches the slot's entries from the exact sums).
 
     For a problem with a kernel body under ``use_pallas=True`` a CUDA
-    tensor launches the kernel or raises, and a CPU tensor takes the plain
-    version; otherwise the tail is the plain composition around
-    ``vg_fallback`` on any device, which is the reference's dispatch.
-    ``alpha`` is a one-element tensor on x's device; it is never read to
-    the host.
+    tensor launches the kernel or raises (another dtype than float32, or
+    ``with_matvec`` at a history depth outside ``TAIL_MATVEC_M``), and a
+    CPU tensor takes the plain version; otherwise the tail is the plain
+    composition around ``vg_fallback`` on any device, which is the
+    reference's dispatch.  ``alpha`` is a one-element tensor on x's device;
+    it is never read to the host.  ``problems.suite.fused_tail_for`` is the
+    entry that knows m and routes a depth the kernel is not built for.
 
     ``accurate_dots`` compensates the seven sums (a Neumaier sum over the
     block partials in the kernel, ``compensated_dot`` in the plain

@@ -19,8 +19,16 @@ differ only by the order of float64 additions (``fused_ops``' convention).
 ``alphas`` is a (K,) tensor on x's device, never read to the host.
 
 A wrapper takes its plain version only for tensors on the CPU, where the
-tests run.  A CUDA tensor launches the kernel (float32 only), and anything
-else raises.  ``launches`` counts each wrapper's kernel launches.
+tests run.  A float32 CUDA tensor launches the kernel, and anything else on
+the card raises (``fused_ops.pallas_ok`` is the dtype rule for callers that
+choose ``use_pallas``).  ``launches`` counts each wrapper's kernel launches.
+
+``local_multi_phi`` and ``local_multi_phi_dphi`` are the shard-local forms
+for the sharded solve: one shard's block of x and d with the global
+unpadded length ``n``, the shard's offset ``start`` and the neighbours'
+boundary elements ``edges`` on the device; they return float64 partials,
+unrounded, for the caller's packed all-reduce.  Their plain versions are
+``multi_phi_local_plain`` and ``multi_phi_dphi_local_plain``.
 """
 from __future__ import annotations
 
@@ -28,11 +36,20 @@ import torch
 from torch import Tensor
 
 from . import _build
-from .fused_ops import BODY_IDS, F_PLAIN, VG_PLAIN, _check_vec, _dot
+from .fused_ops import (
+    BODY_IDS,
+    F_PLAIN,
+    VG_PLAIN,
+    _check_edges,
+    _check_vec,
+    _dot,
+)
 
 #: Kernel launches per wrapper since the last ``reset_launches()``.
 launches = {**{f"{name}_multi_phi": 0 for name in BODY_IDS},
-            **{f"{name}_multi_phi_dphi": 0 for name in BODY_IDS}}
+            **{f"{name}_multi_phi_dphi": 0 for name in BODY_IDS},
+            **{f"{name}_multi_phi_local": 0 for name in BODY_IDS},
+            **{f"{name}_multi_phi_dphi_local": 0 for name in BODY_IDS}}
 
 #: The most trials one launch takes: 8 per row of blocks, 65535 rows.
 MAX_TRIALS = 8 * 65535
@@ -78,9 +95,12 @@ def _check_alphas(x: Tensor, alphas: Tensor) -> int:
 
 
 def _launch(kernel: str, problem: str, x: Tensor, d: Tensor, alphas: Tensor,
-            outputs: int) -> Tensor:
+            outputs: int, shard=None) -> Tensor:
     """Launch ``kernel`` (C symbol tl_<kernel>_f32) with the problem's body,
-    counted as <problem>_<kernel>; returns its ``outputs * K`` sums."""
+    counted as <problem>_<kernel>; returns its ``outputs * K`` sums.
+    ``shard`` = (n, start, edges) launches the shard-local form
+    (tl_<kernel>_local_f32, counted as <problem>_<kernel>_local), whose
+    sums are float64, unrounded."""
     n = x.numel()
     _check_vec("x", x, n)
     _check_vec("d", d, n, like=x)
@@ -88,23 +108,85 @@ def _launch(kernel: str, problem: str, x: Tensor, d: Tensor, alphas: Tensor,
     lib = _build.load()
     partials = torch.empty(outputs * k * lib.tl_max_blocks(),
                            dtype=torch.float64, device=x.device)
-    out = torch.empty(outputs * k, dtype=torch.float32, device=x.device)
+    out = torch.empty(outputs * k, device=x.device,
+                      dtype=torch.float32 if shard is None else torch.float64)
+    args = (BODY_IDS[problem], x.data_ptr(), d.data_ptr(), alphas.data_ptr(),
+            k, partials.data_ptr(), out.data_ptr(), n)
     with torch.cuda.device(x.device):
-        err = getattr(lib, f"tl_{kernel}_f32")(
-            BODY_IDS[problem], x.data_ptr(), d.data_ptr(), alphas.data_ptr(),
-            k, partials.data_ptr(), out.data_ptr(), n,
-            torch.cuda.current_stream().cuda_stream)
-    name = f"{problem}_{kernel}"
+        stream = torch.cuda.current_stream().cuda_stream
+        if shard is None:
+            name = f"{problem}_{kernel}"
+            err = getattr(lib, f"tl_{kernel}_f32")(*args, stream)
+        else:
+            name = f"{problem}_{kernel}_local"
+            n_global, start, edges = shard
+            _check_edges(edges, 2 * outputs, x)
+            err = getattr(lib, f"tl_{kernel}_local_f32")(
+                *args, n_global, start, edges.data_ptr(), stream)
     _build.check(lib, err, name)
     launches[name] += 1
     return out
+
+
+def multi_phi_local_plain(problem: str, x: Tensor, d: Tensor, alphas: Tensor,
+                          n: int, start: int, edges: Tensor) -> Tensor:
+    """The (K,) float64 partials of f at the K trial points over one
+    shard's owned terms, from plain tensor ops.  ``edges`` = [next shard's
+    first x, next shard's first d]."""
+    from ..dist.shardmap_vg import F_CHUNKS
+
+    nxt = edges[0] + alphas * edges[1]
+    return F_CHUNKS[problem](_trial_points(x, d, alphas), nxt, n, start)
+
+
+def multi_phi_dphi_local_plain(problem: str, x: Tensor, d: Tensor,
+                               alphas: Tensor, n: int, start: int,
+                               edges: Tensor) -> tuple[Tensor, Tensor]:
+    """The (K,) float64 partials of f and of grad f . d at the K trial
+    points over one shard's block, from plain tensor ops.  ``edges`` =
+    [previous shard's last x and d, next shard's first x and d]."""
+    from ..dist.shardmap_vg import CHUNKS
+
+    prev = edges[0] + alphas * edges[1]
+    nxt = edges[2] + alphas * edges[3]
+    f_part, g = CHUNKS[problem](_trial_points(x, d, alphas), prev, nxt, n,
+                                start)
+    return f_part, torch.mv(g.double(), d.double())
+
+
+def local_multi_phi(problem: str, x: Tensor, d: Tensor, alphas: Tensor,
+                    n: int, start: int, edges: Tensor,
+                    use_pallas: bool = True) -> Tensor:
+    """The shard-local K-trial values (the reference's
+    ``_multi_phi_pallas`` with ``n``, ``start``, ``edges``): the CUDA
+    kernel for float32 CUDA blocks (anything else on the card raises),
+    ``multi_phi_local_plain`` for CPU tensors or under
+    ``use_pallas=False``."""
+    if use_pallas and x.device.type != "cpu":
+        return _launch("multi_phi", problem, x, d, alphas, 1,
+                       shard=(n, start, edges))
+    return multi_phi_local_plain(problem, x, d, alphas, n, start, edges)
+
+
+def local_multi_phi_dphi(problem: str, x: Tensor, d: Tensor, alphas: Tensor,
+                         n: int, start: int, edges: Tensor,
+                         use_pallas: bool = True) -> tuple[Tensor, Tensor]:
+    """The shard-local K-trial (phi, phi') partials (the reference's
+    ``_multi_phi_dphi_pallas`` with ``n``, ``start``, ``edges``), with
+    ``local_multi_phi``'s dispatch."""
+    if use_pallas and x.device.type != "cpu":
+        out = _launch("multi_phi_dphi", problem, x, d, alphas, 2,
+                      shard=(n, start, edges))
+        phi, dphi = out.view(2, -1).unbind(0)
+        return phi, dphi
+    return multi_phi_dphi_local_plain(problem, x, d, alphas, n, start, edges)
 
 
 def make_multi_phi(problem: str, f_fallback, use_pallas: bool = True):
     """``phi_batch(x, d, alphas) -> (K,)``, f at every x + alphas[k] d in
     one pass, with the reference's signature.  For a problem with a kernel
     body under ``use_pallas=True`` a CUDA tensor launches the kernel or
-    raises and a CPU tensor takes the plain version of the kernel's terms;
+    raises, and a CPU tensor takes the plain version of the kernel's terms;
     otherwise it is the plain version around ``f_fallback`` on any device
     (the reference's vmap fallback)."""
     has_kernel = use_pallas and problem in BODY_IDS

@@ -15,10 +15,17 @@ out its Pallas kernels or their jnp fallbacks.  ``sphere`` has no kernel
 body in the reference (its FUSED_VG, TAIL_BODIES and F_BODIES lack it) and
 none here: under ``use_pallas=True`` it takes the plain composition on any
 device, which is the reference's dispatch.
+
+The kernels are float32 programs, and a wrapper raises for any other tensor
+on the card.  A caller that knows the iterate's dtype asks
+``resolve_use_pallas`` first, which applies the reference's ``pallas_ok``
+rule in the open: for another dtype it warns and answers False, and the
+caller builds the plain versions, on either device alike.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Optional
 
 import torch
@@ -27,9 +34,11 @@ from torch import Tensor
 from ..kernels.fused_ops import (
     F_PLAIN,
     FUSED_VG,
+    TAIL_MATVEC_M,
     VG_PLAIN,
     _vdot,
     make_fused_tail,
+    pallas_ok,
     rosenbrock_grad_plain,
 )
 from ..kernels.line_search_ops import make_multi_phi, make_multi_phi_dphi
@@ -182,6 +191,22 @@ def register_problem(problem: Problem) -> None:
     _PROBLEMS[problem.name] = problem
 
 
+def resolve_use_pallas(use_pallas: bool, dtype, who: str) -> bool:
+    """``use_pallas`` as the four factories below should be given it for
+    iterates of ``dtype``: unchanged for float32; for any other dtype
+    (``--pallas --dtype float64``) False, with a warning, because the
+    problem-specific kernels are float32 programs
+    (``kernels.fused_ops.pallas_ok``, the reference's rule, under which it
+    takes its jnp route).  The answer does not depend on the device."""
+    if use_pallas and not pallas_ok(dtype):
+        warnings.warn(
+            f"{who}: use_pallas=True, but the problem-specific CUDA kernels "
+            f"are float32 programs and the iterate is {dtype}; building "
+            "their plain versions instead (use_pallas=False)", stacklevel=3)
+        return False
+    return bool(use_pallas)
+
+
 def fused_value_and_grad(name: str, use_pallas: bool = True):
     """Objective and analytic gradient in one pass: the CUDA kernel of a
     problem with a kernel body (``kernels.fused_ops.FUSED_VG``; its plain
@@ -240,8 +265,6 @@ def auto_with_matvec(m: int, d: int, history_dtype=None,
       3.7, 3.8 and 4.5 in the solver (medians).  Below d = 2^20 nothing was
       measured, so it stays False there, as it does for a batch (the kernel
       takes one instance)."""
-    from ..kernels.fused_ops import TAIL_MATVEC_M
-
     bf16 = history_dtype in ("bfloat16", torch.bfloat16)
     return bool(bf16 and batch == 1 and m in TAIL_MATVEC_M
                 and d >= _MATVEC_MEASURED_FROM)
@@ -256,16 +279,26 @@ def fused_tail_for(name: str, with_matvec="auto", use_pallas: bool = True,
     CUDA kernel of a problem with a kernel body, False or a problem without
     one the plain composition.
 
-    ``with_matvec``: True computes t1 = S y and t2 = Y y in the tail (the
-    kernel is built for m = 5, 10 and 20), False leaves them to the
-    solver's two matrix-vector products, "auto" applies
-    ``auto_with_matvec(m, d, history_dtype, batch)`` and needs ``d``
-    (without it: False).  ``accurate_dots`` builds the compensated tail,
-    which ``cfg.accurate_dots`` requires (the solver rejects a plain
-    one)."""
+    ``with_matvec``: True computes t1 = S y and t2 = Y y in the tail,
+    False leaves them to the solver's two matrix-vector products, "auto"
+    applies ``auto_with_matvec(m, d, history_dtype, batch)`` and needs
+    ``d`` (without it: False).  The kernel's products are built for the
+    history depths ``TAIL_MATVEC_M`` (the reference's kernel takes any m):
+    True at another ``m`` warns and builds the tail without them, on
+    either device alike, which is what "auto" chooses there; the tail
+    kernel still runs, and the solver forms the two products.
+    ``accurate_dots`` builds the compensated tail, which
+    ``cfg.accurate_dots`` requires (the solver rejects a plain one)."""
     if with_matvec == "auto":
         with_matvec = (auto_with_matvec(m, d, history_dtype, batch=batch)
                        if d is not None else False)
+    elif with_matvec and m not in TAIL_MATVEC_M:
+        warnings.warn(
+            f"fused_tail_for: with_matvec=True at m = {m}, but the tail's "
+            f"history products are built for m in {TAIL_MATVEC_M}; building "
+            "the tail without them (the solver forms t1 and t2)",
+            stacklevel=2)
+        with_matvec = False
     return make_fused_tail(name, fused_value_and_grad(name, False),
                            with_matvec=with_matvec, use_pallas=use_pallas,
                            accurate_dots=accurate_dots)
