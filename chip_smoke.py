@@ -57,9 +57,9 @@ read just after:
 
 Between the command line and the sharded solve, [route] checks on the card
 that no wrapper of a problem-specific kernel takes its plain version by
-itself: a float64 tensor, or the tail's products at a history depth they
-are not built for, raises, and the entries that route them (the command
-line under --dtype float64, fused_tail_for) warn and say what they build.
+itself: a float64 tensor raises, and the command line under --dtype
+float64 warns and says what it builds; the tail's products at m = 7 launch
+without a warning.
 
 It checks that each solve went through its kernels, that its output is
 sound and equals the plain versions' over the first iterations, and that
@@ -151,13 +151,14 @@ OPTIONS_REFRESH = 50
 # CLI_ITERS iterations at tol = 0; the quadratics converge at the default
 # tol = 1e-5 in a few.  The fused tail with its history products (t1, t2)
 # against its plain version: each of the 2 m sums within TRIAL_SUM_RTOL of
-# sum|terms| plus one float32 ulp, as the K-trial sums are held.  GIANT is
-# the second size at which the tail's forms are timed for the with_matvec
-# rule.
+# sum|terms| plus one float32 ulp, as the K-trial sums are held, and two
+# calls give bit-equal sums.  GIANT and MATVEC_D are the other sizes at
+# which the tail's forms are timed for the with_matvec rule.
 CLI_ITERS = 100
 CLI_ARGS = ["--dim", str(D), "--dtype", "float32", "--pallas", "--json"]
 TAIL_M = (5, 10, 20)
 GIANT = 1 << 24
+MATVEC_D = (1 << 16, 1 << 18)   # the smaller sizes the with_matvec rule reads
 # The roofline's peaks for one H100 SXM (NVIDIA's data sheet): device memory
 # and float32 outside the tensor cores.  Every arithmetic operation is
 # counted at the float32 rate, the float64 additions of the sums too.
@@ -245,13 +246,22 @@ def phase_build():
 
     t0 = time.perf_counter()
     path, compile_s, report = _build.build()
-    _build.load()
+    lib = _build.load()
     say(f"[build] {path.relative_to(_build._PKG.parent)}: nvcc "
         f"{compile_s:.2f} s, total {time.perf_counter() - t0:.2f} s "
         f"({'reused' if compile_s == 0 else 'compiled'})")
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say(f"[build]   {line.strip()}")
+    for body, name in enumerate(("quadratic", "rosenbrock",
+                                 "coupled_quadratic")):
+        per_sm = [lib.tl_fused_tail_blocks_per_sm(body, bf16)
+                  for bf16 in (0, 1)]
+        dphi = lib.tl_multi_phi_dphi_blocks_per_sm(body)
+        say(f"[build] blocks of 256 threads per SM: {name} fused "
+            f"tail with products {per_sm[0]} (f32 ring), {per_sm[1]} (bf16 "
+            f"ring); multi_phi_dphi {dphi}")
+        check(min(per_sm + [dphi]) >= 1, f"{name}: a kernel fits no SM")
 
 
 def _kernel_inputs(n, dev):
@@ -372,10 +382,11 @@ def _ring(rng_gen, m, n, dev, hdtype):
 
 def phase_tail_forms(dev):
     """The fused tail's other forms against the plain version: the
-    in-kernel history products at m = 5, 10, 20 on a float32 and a bfloat16
-    ring (bfloat16 rows without the matvec too), and the compensated sums;
-    then their times beside the route they replace, at d = 2^20 and 2^24,
-    for the with_matvec rule."""
+    in-kernel history products at m = 5, 10, 20 and 7 on a float32 and a
+    bfloat16 ring (bfloat16 rows without the matvec too), and the
+    compensated sums, each called twice (bit-equal sums); then their times
+    beside the route they replace, at d = 2^16, 2^18, 2^20 and 2^24, for
+    the with_matvec rule."""
     from tpu_lbfgs_torch.core.solver import _matvec
     from tpu_lbfgs_torch.kernels import fused_ops as ops
 
@@ -387,7 +398,7 @@ def phase_tail_forms(dev):
     for problem, n in itertools.product(ops.BODY_IDS, TAIL_D):
         x, d, g = _kernel_inputs(n, dev)
         vg_plain = ops.VG_PLAIN[problem]
-        forms = [(h, m, False) for h in hist for m in (0,) + TAIL_M
+        forms = [(h, m, False) for h in hist for m in (0,) + TAIL_M + (7,)
                  if (h, m) != ("f32", 0)]
         forms += [("f32", 0, True), ("bf16", 10, True)]
         worst = {"sum": 0.0, "t": 0.0}
@@ -396,11 +407,15 @@ def phase_tail_forms(dev):
             tail = ops.make_fused_tail(problem, vg_plain, with_matvec=m > 0,
                                        accurate_dots=accurate)
             out_k = tail(x, d, alpha, g, S, Y)
+            again = tail(x, d, alpha, g, S, Y)
             out_p = ops.fused_tail_plain(vg_plain, x, d, alpha, g, S, Y,
                                          m > 0, accurate)
             torch.cuda.synchronize()
             where = (f"{problem} d={n} ring {h} matvec m={m} "
                      f"compensated={accurate}")
+            check(all(a is None and b is None or torch.equal(a, b)
+                      for a, b in zip(out_k, again)),
+                  f"two calls of the fused tail differ ({where})")
             same = all(torch.equal(out_k[i], out_p[i])
                        and out_k[i].dtype == out_p[i].dtype
                        for i in (0, 2, 3, 4))
@@ -429,8 +444,8 @@ def phase_tail_forms(dev):
                 (a.float() - b.float()).abs().max().item()
                 for a, b in zip(out_k, out_p) if a is not None)
         say(f"[kernel] {problem}_fused_tail forms d={n}: {len(forms)} forms "
-            f"(ring f32/bf16, matvec m=0,5,10,20, compensated): vectors "
-            f"bit-equal, 7 sums {worst['sum']:.3e} and t1/t2 "
+            f"(ring f32/bf16, matvec m=0,5,10,20,7, compensated): vectors "
+            f"bit-equal, two calls bit-equal, 7 sums {worst['sum']:.3e} and t1/t2 "
             f"{worst['t']:.3e} of sum|terms| beyond 1 ulp (tol "
             f"{TRIAL_SUM_RTOL})")
 
@@ -440,14 +455,14 @@ def phase_tail_forms(dev):
     # core.solver._matvec twice (two torch.mv; a bfloat16 ring is widened
     # first).  library_ms is two torch.mv on the ring as it is stored.
     problem, vg_plain = "rosenbrock", ops.VG_PLAIN["rosenbrock"]
-    for n in (D, GIANT):
+    for n in MATVEC_D + (D, GIANT):
         x = 4.0 * torch.rand(n, generator=gen, device=dev) - 2.0
         d, g = (2.0 * torch.rand(n, generator=gen, device=dev) - 1.0
                 for _ in range(2))
         base = ops.make_fused_tail(problem, vg_plain, with_matvec=False)
         for h, m in (("f32", 10), ("bf16", 10), ("f32", 5), ("f32", 20),
                      ("bf16", 5), ("bf16", 20), ("bf16", 0)):
-            if n == GIANT and m not in (0, 10):
+            if n != D and m not in (0, 10) or n < D and m == 0:
                 continue
             S, Y = (_ring(gen, max(m, 1), n, dev, hist[h]) for _ in range(2))
             tail = ops.make_fused_tail(problem, vg_plain, with_matvec=m > 0)
@@ -593,7 +608,7 @@ def _beyond_ulp(a, b, scale):
 
 def phase_trial_kernels(dev):
     """multi_phi and multi_phi_dphi of every body against their plain
-    versions."""
+    versions, each called twice (bit-equal sums)."""
     from tpu_lbfgs_torch.kernels import fused_ops
     from tpu_lbfgs_torch.kernels import line_search_ops as ops
 
@@ -616,7 +631,11 @@ def phase_trial_kernels(dev):
         phi_p = ops.multi_phi_plain(f_plain, x, d, alphas)
         f_k, g_k = dphi_kernel(x, d, alphas)
         f_p, g_p = ops.multi_phi_dphi_plain(vg_plain, x, d, alphas)
+        again = (phi_kernel(x, d, alphas), *dphi_kernel(x, d, alphas))
         torch.cuda.synchronize()
+        check(all(map(torch.equal, (phi_k, f_k, g_k), again)),
+              f"two calls of {problem}'s K-trial kernels differ at d={n} "
+              f"K={k}")
         f_abs, g_abs = _trial_abs_terms(problem, x, d, alphas)
         for name, pairs in ((names[0], ((phi_k, phi_p, f_abs),)),
                             (names[1], ((f_k, f_p, f_abs),
@@ -1618,9 +1637,8 @@ def phase_cli(dev):
 def phase_routing(dev):
     """No wrapper leaves a tensor on the card to its plain version by
     itself: what a problem-specific kernel is not built for (another dtype
-    than float32, the tail's products at a depth outside TAIL_MATVEC_M)
-    raises, and the entries that know dtype and depth route it in the
-    open, with a warning."""
+    than float32) raises, and the entries that know the dtype route it in
+    the open, with a warning.  The tail's products take any depth."""
     import warnings
 
     import tpu_lbfgs_torch as tt
@@ -1655,15 +1673,6 @@ def phase_routing(dev):
             continue
         check(False, f"{name} must raise TypeError for a float64 tensor on "
               "the card")
-    x32 = x64.float()
-    ring = torch.zeros(7, n, dtype=torch.float32, device=dev)
-    try:
-        ops.make_fused_tail(problem, None, with_matvec=True)(
-            x32, x32, a64.float(), x32, ring, ring)
-    except ValueError:
-        pass
-    else:
-        check(False, "the tail kernel must raise for products at m = 7")
     check(not any(kernels.launch_counts().values()),
           "a refused call must launch nothing")
 
@@ -1686,8 +1695,11 @@ def phase_routing(dev):
           and not any(got.values()),
           f"--pallas --dtype float64 must warn and run the plain versions, "
           f"warnings {said}, launches {ran(got)}")
-    # with_matvec=True at m = 7: fused_tail_for warns and builds the tail
-    # without the products; the tail kernel still launches every iteration.
+    # with_matvec=True at m = 7: the products take any depth, so
+    # fused_tail_for builds them without a word, and the tail kernel
+    # launches every iteration with t1 and t2.
+    x32 = x64.float()
+    ring = torch.zeros(7, n, dtype=torch.float32, device=dev)
     p = tt.get_problem(problem)
     cfg = tt.LBFGSConfig(m=7, line_search="backtracking",
                          direction="compact_incremental",
@@ -1695,21 +1707,21 @@ def phase_routing(dev):
                          tol=0.0)
     tail, said7 = caught(lambda: tt.fused_tail_for(
         problem, with_matvec=True, m=7, d=n))
+    t1 = tail(x32, x32, a64.float(), x32, ring, ring)[11]
     kernels.reset_launches()
     r = tt.minimize(p.f, x32, cfg, dir_poly=p.dir_poly, fused_tail=tail,
                     value_and_grad=tt.fused_value_and_grad(problem))
     got = kernels.launch_counts()
-    check(any("built for m in" in w for w in said7)
+    check(not said7 and t1.shape == (7,)
           and got[f"{problem}_fused_tail"] == int(r.iterations) == 5
           and got[f"{problem}_vg"] == 1,
-          f"with_matvec=True at m = 7 must warn and launch the tail without "
-          f"products, warnings {said7}, launches {ran(got)}")
+          f"with_matvec=True at m = 7 must launch the tail with its products "
+          f"without a warning, warnings {said7}, launches {ran(got)}")
     say(f"[route] float64 tensors on the card: all {len(refused)} "
-        "problem-specific wrappers raise TypeError, the tail's products at "
-        "m = 7 raise ValueError; --pallas --dtype float64 warns and runs "
-        "the plain versions (no launch); "
-        "fused_tail_for(with_matvec=True, m=7) warns and launches the tail "
-        f"without products ({ran(got)})")
+        "problem-specific wrappers raise TypeError; --pallas --dtype float64 "
+        "warns and runs the plain versions (no launch); "
+        "fused_tail_for(with_matvec=True, m=7) launches the tail with its "
+        f"products, no warning ({ran(got)})")
 
 
 def phase_bench_batch(card):
@@ -1846,6 +1858,8 @@ def phase_shard_kernels(dev):
             # the tail with t1, t2
             out_k = ops.local_fused_tail(problem, xl, dl, alpha, gl, Sl, Yl,
                                          True, n, start, e4)
+            same &= torch.equal(out_k[4], ops.local_fused_tail(
+                problem, xl, dl, alpha, gl, Sl, Yl, True, n, start, e4)[4])
             out_p = ops.fused_tail_local_plain(problem, xl, dl, alpha, gl, Sl,
                                                Yl, True, n, start, e4)
             for i in range(4):
@@ -1865,6 +1879,8 @@ def phase_shard_kernels(dev):
                                                  e_phi)
                 fk, gk = ls.local_multi_phi_dphi(problem, xl, dl, a, n, start,
                                                  e4)
+                same &= all(map(torch.equal, (fk, gk), ls.local_multi_phi_dphi(
+                    problem, xl, dl, a, n, start, e4)))
                 fp, gp_ = ls.multi_phi_dphi_local_plain(problem, xl, dl, a, n,
                                                         start, e4)
                 errs["multi_phi"] = max(
@@ -1898,6 +1914,7 @@ def phase_shard_kernels(dev):
                           torch.cat(trial_scales[k])) for k in TRIALS))
         say(f"[kernel] shard-local {problem} d={n} in {shards} shards "
             f"(d_local {d_local}): vectors bit-equal to the plain versions "
+            f"and the tail's and multi_phi_dphi's sums to a second call's "
             f"{same}, joined bit-equal to the whole-vector kernels "
             f"{joined_same}, padded tail zero {pad_zero}; float64 sums "
             f"against plain: vg {errs['vg']:.2e}, tail with t1, t2 (m = "

@@ -355,49 +355,55 @@ def test_cli_pallas_float64_warns_and_runs_the_plain_versions(capsys):
 
 @pytest.mark.parametrize("m", [3, 7, 10])
 def test_tail_products_at_any_history_depth(m):
-    """``with_matvec=True`` at a depth the kernel's products are not built
-    for: ``fused_tail_for``, which is told m, warns and builds the tail
-    without them (t1 = t2 = None), whatever the device, and the solve
-    equals the one without them bit for bit; ``sharded_minimize``'s rule
-    does the same.  The wrapper itself raises for such a ring off the
-    CPU."""
-    built = m in fused_ops.TAIL_MATVEC_M
+    """The tail's history products take any history depth, as the
+    reference's kernel does: ``fused_tail_for(with_matvec=True, m=m)``
+    builds them without a warning, t1 and t2 equal the solver's own two
+    float64 products of the ring and y, and the solve with them takes the
+    alphas of the solve without them; ``sharded_minimize``'s rule keeps
+    them.  The wrapper itself raises for a ring that is neither on the CPU
+    nor on the card."""
+    import warnings
+
+    from tpu_lbfgs_torch.core.solver import _matvec
+
     rng = np.random.default_rng(5)
     x0 = torch.from_numpy(rng.uniform(-2, 2, 96))
-    S = torch.zeros(m, 96, dtype=torch.float64)
+    S, Y = (torch.from_numpy(rng.uniform(-1, 1, (m, 96))) for _ in range(2))
     a = torch.tensor(0.1, dtype=torch.float64)
 
-    def build(wm):
-        if built or not wm:
-            return tt.fused_tail_for("rosenbrock", with_matvec=wm, m=m)
-        with pytest.warns(UserWarning, match="built for m in"):
-            return tt.fused_tail_for("rosenbrock", with_matvec=wm, m=m)
-
-    out = build(True)(x0, x0, a, x0, S, S)
-    assert (out[11] is not None) is built and (out[12] is not None) is built
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        with_t = tt.fused_tail_for("rosenbrock", with_matvec=True, m=m)
+        out = with_t(x0, x0, a, x0, S, Y)
+    plain = tt.fused_tail_for("rosenbrock", with_matvec=False, m=m)(
+        x0, x0, a, x0, S, Y)
+    assert out[11] is not None and out[12] is not None and plain[11] is None
+    for i in range(11):
+        assert torch.equal(out[i], plain[i])
+    y = plain[4]
+    for t, ring in ((out[11], S), (out[12], Y)):
+        assert t.shape == (m,)
+        torch.testing.assert_close(t, _matvec(ring, y, torch.float64),
+                                   rtol=1e-13, atol=1e-13)
     p = tt.get_problem("rosenbrock")
     cfg = tt.LBFGSConfig(m=m, direction="compact_incremental", max_iters=25,
                          tol=0.0, line_search="backtracking",
                          ls_eval="polynomial", record_trace=True)
     vg = tt.fused_value_and_grad("rosenbrock")
     runs = [tt.minimize(p.f, x0, cfg, value_and_grad=vg, dir_poly=p.dir_poly,
-                        fused_tail=build(wm))
+                        fused_tail=tt.fused_tail_for("rosenbrock",
+                                                     with_matvec=wm, m=m))
             for wm in (True, False)]
     assert torch.equal(runs[0].trace.alpha, runs[1].trace.alpha)
-    if not built:
-        assert torch.equal(runs[0].trace.f, runs[1].trace.f)
-        assert torch.equal(runs[0].x, runs[1].x)
-        with pytest.warns(UserWarning, match="built for m in"):
-            assert sharded._resolve_shard_local(
-                cfg, 96, 4, torch.float32, True)[1] is False
-        x32 = torch.empty(96, dtype=torch.float32, device="meta")
-        S32 = torch.empty(m, 96, dtype=torch.float32, device="meta")
-        with pytest.raises(ValueError, match="CUDA|built for m"):
-            fused_ops.make_fused_tail("rosenbrock", None, with_matvec=True)(
-                x32, x32, x32[:1], x32, S32, S32)
-    else:
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         assert sharded._resolve_shard_local(
             cfg, 96, 4, torch.float32, True)[1] is True
+    x32 = torch.empty(96, dtype=torch.float32, device="meta")
+    S32 = torch.empty(m, 96, dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_ops.make_fused_tail("rosenbrock", None, with_matvec=True)(
+            x32, x32, x32[:1], x32, S32, S32)
 
 
 def test_solve_cases_runs_on_the_card_unless_asked_for_the_cpu():

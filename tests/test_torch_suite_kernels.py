@@ -284,16 +284,18 @@ def test_suite_factories_mirror_the_reference():
         assert list(inspect.signature(ours).parameters) == \
             list(inspect.signature(theirs).parameters), ours.__name__
     # The port's own rules (measured on an H100, problems/suite.py): the
-    # products go into the tail for a bfloat16 ring at the depths the kernel
-    # is built for, from d = 2^20 on, one instance; "auto" history is the
-    # iterate's dtype.
-    assert tt.auto_with_matvec(10, 1 << 20) is False
-    assert tt.auto_with_matvec(10, 1 << 24, "float32") is False
+    # products go into the tail for a float32 or bfloat16 ring at any depth,
+    # from d = 2^16 on, one instance; "auto" history is the iterate's dtype.
+    assert tt.auto_with_matvec(10, 1 << 20) is True
+    assert tt.auto_with_matvec(10, 1 << 24, "float32") is True
+    assert tt.auto_with_matvec(10, 1 << 16, torch.float32) is True
     for m in (5, 10, 20):
         assert tt.auto_with_matvec(m, 1 << 20, "bfloat16") is True
     assert tt.auto_with_matvec(10, 1 << 20, torch.bfloat16) is True
-    assert tt.auto_with_matvec(7, 1 << 20, "bfloat16") is False
+    assert tt.auto_with_matvec(7, 1 << 20, "bfloat16") is True
+    assert tt.auto_with_matvec(10, (1 << 16) - 1, "float32") is False
     assert tt.auto_with_matvec(10, 4096, "bfloat16") is False
+    assert tt.auto_with_matvec(10, 1 << 20, "float64") is False
     assert tt.auto_with_matvec(10, 1 << 20, "bfloat16", batch=8) is False
     assert tt.resolve_history_dtype("auto", 10, 1 << 26, torch.float32) is None
     assert tt.resolve_history_dtype("bfloat16", 10, 64, torch.float32) \

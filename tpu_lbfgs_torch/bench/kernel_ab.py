@@ -1,30 +1,44 @@
 """Compare the four fused kernel families between two source trees on one
-card: registers, outputs and times of the whole-vector entries.
+card: registers, outputs and times of their C entries.
 
     python3 -m tpu_lbfgs_torch.bench.kernel_ab PARENT_CSRC [CHANGE_CSRC]
+        [--only REGEX] [--sums-may-move REGEX]
 
 ``PARENT_CSRC`` is a directory with another commit's ``csrc`` sources (from
 ``git archive <commit> tpu_lbfgs_torch/csrc``, unpacked into a directory
 that .gitignore lists); ``CHANGE_CSRC`` defaults to this tree's.  Both are
 built with the flags of ``kernels/_build.py`` into their own libraries, and
-the C entries ``tl_fused_vg_f32``, ``tl_fused_tail_f32``,
-``tl_multi_phi_f32`` and ``tl_multi_phi_dphi_f32`` are called through
-``ctypes`` in turns in one process (parent, change, change, parent), so both
-see the same card, clocks and inputs.  For each kernel it prints
+the C entries are called through ``ctypes`` in turns in one process
+(parent, change, change, parent), so both see the same card, clocks and
+inputs, at d = 2^20 float32 (the shard-local entries on a block of 2^20 in
+the middle of a d of 2^22):
 
-- the registers per thread the compiler reports for each instantiation that
-  both trees have (a template can change a kernel's registers, and so its
-  blocks per SM, with its instructions unchanged),
-- whether the two trees' outputs are equal bit for bit (every vector, every
-  sum), and
+- ``tl_fused_vg_f32`` and ``tl_fused_vg_local_f32``;
+- ``tl_fused_tail_f32``: without products on a float32 ring, and with the
+  history products t1, t2 at m = 5, 10 and 20 on a float32 and a bfloat16
+  ring; ``tl_fused_tail_local_f32`` at m = 0 and m = 10;
+- ``tl_multi_phi_f32`` and ``tl_multi_phi_dphi_f32`` at K = 8 and 36, and
+  their ``_local_f32`` forms at K = 8 (and 36 for ``multi_phi_dphi``);
+
+each for the three bodies.  ``--only`` keeps the calls whose label matches.
+For each it prints
+
+- the registers per thread the compiler reports for every instantiation of
+  the two trees (a template can change a kernel's registers, and so its
+  blocks per SM, with its instructions unchanged), and which moved,
+- whether the two trees' outputs are equal bit for bit: the vectors, and
+  the sums (a kernel that adds its sums in another order moves their last
+  bits; for the labels ``--sums-may-move`` matches, the largest relative
+  difference of a sum is printed instead), and
 - the median device time of each (CUDA events around ten calls queued
   behind a sleep kernel, microseconds) and their ratio.
 
-It needs a CUDA device and nvcc and exits non-zero without them, or when an
-output differs.
+It needs a CUDA device and nvcc and exits non-zero without them, when a
+launch fails, or when an output differs that may not.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import re
 import statistics
@@ -37,10 +51,14 @@ import torch
 from ..kernels import _build
 
 N = 1 << 20
+SHARDS = 4                  # the shard-local entries: block 1 of 4
 BODIES = ("quadratic", "rosenbrock", "coupled_quadratic")
+TAIL_M = (5, 10, 20)
 _SIGS = {k: _build._SIGNATURES[k]
          for k in ("tl_max_blocks", "tl_fused_vg_f32", "tl_fused_tail_f32",
-                   "tl_multi_phi_f32", "tl_multi_phi_dphi_f32")}
+                   "tl_multi_phi_f32", "tl_multi_phi_dphi_f32",
+                   "tl_fused_vg_local_f32", "tl_fused_tail_local_f32",
+                   "tl_multi_phi_local_f32", "tl_multi_phi_dphi_local_f32")}
 
 
 def _load(csrc: Path):
@@ -61,14 +79,8 @@ def _registers(report: str) -> dict:
         return {}
     plain = subprocess.run(["c++filt", *names], capture_output=True,
                            text=True, check=True).stdout.split("\n")
-    out = {}
-    for name, r in zip(plain, regs):
-        if re.search(r", (true|\(bool\)1)>", name):
-            continue        # a shard-local form: the parent has none
-        # One key for both trees: drop what the shard-local template added.
-        key = re.sub(r", (false|\(bool\)0)>", ">", name)
-        out[key.replace(", tl::Shard)", ")")] = int(r)
-    return out
+    return {name.replace("(bool)1", "true").replace("(bool)0", "false"):
+            int(r) for name, r in zip(plain, regs)}
 
 
 def _time(fn, calls=10, reps=5):
@@ -91,94 +103,159 @@ def _time(fn, calls=10, reps=5):
 
 
 def _calls(lib, body: int):
-    """{kernel: (callable, output tensors)} of the whole-vector entries on
+    """{label: (callable, output vectors, output sums)} of the C entries on
     fixed inputs, for one body."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(body)
-    x, d, g = (torch.empty(N, device=dev).uniform_(-2, 2, generator=gen)
-               for _ in range(3))
-    m = 10
-    S, Y = (torch.empty(m, N, device=dev).uniform_(-1, 1, generator=gen)
-            for _ in range(2))
+    uniform = lambda *shape: torch.empty(*shape, device=dev).uniform_(
+        -2, 2, generator=gen)
+    xw, dw, gw = (uniform(SHARDS * N) for _ in range(3))
+    x, d, g = (t[:N] for t in (xw, dw, gw))
+    xl, dl, gl = (t[N:2 * N] for t in (xw, dw, gw))
+    edges = torch.stack([xw[N - 1], dw[N - 1], xw[2 * N], dw[2 * N]])
+    mmax = max(TAIL_M)
+    rings = {"f32": [uniform(mmax, N) / 2 for _ in range(2)]}
+    rings["bf16"] = [r.to(torch.bfloat16) for r in rings["f32"]]
     alpha = torch.full((1,), 0.37, device=dev)
     nb = lib.tl_max_blocks()
     stream = torch.cuda.current_stream().cuda_stream
     out = {}
 
-    g_out, f_out = torch.empty(N, device=dev), torch.empty(1, device=dev)
-    part = torch.empty(nb, dtype=torch.float64, device=dev)
-    out["fused_vg"] = (lambda: lib.tl_fused_vg_f32(
-        body, x.data_ptr(), g_out.data_ptr(), part.data_ptr(),
-        f_out.data_ptr(), N, stream), (g_out, f_out))
+    for local in (False, True):
+        sfx = " local" if local else ""
+        g_out = torch.empty(N, device=dev)
+        f_out = torch.empty(1, device=dev,
+                            dtype=torch.float64 if local else torch.float32)
+        part = torch.empty(nb, dtype=torch.float64, device=dev)
+        xx = xl if local else x
+        tail_args = ((SHARDS * N, N, edges[[0, 2]].contiguous().data_ptr())
+                     if local else ())
+        entry = lib.tl_fused_vg_local_f32 if local else lib.tl_fused_vg_f32
+        out[f"fused_vg{sfx}"] = (
+            lambda entry=entry, xx=xx, g_out=g_out, part=part, f_out=f_out,
+            tail_args=tail_args: entry(
+                body, xx.data_ptr(), g_out.data_ptr(), part.data_ptr(),
+                f_out.data_ptr(), N, *tail_args, stream), (g_out,), (f_out,))
 
-    for mm in (0, m):
-        vecs = [torch.empty(N, device=dev) for _ in range(4)]
-        sums = torch.empty(7 + 2 * mm, device=dev)
-        tpart = torch.empty((7 + 2 * mm) * nb, dtype=torch.float64,
-                            device=dev)
-        out[f"fused_tail m={mm}"] = (
-            lambda mm=mm, vecs=vecs, sums=sums, tpart=tpart:
-            lib.tl_fused_tail_f32(
-                body, 0, mm, 0, x.data_ptr(), d.data_ptr(), g.data_ptr(),
-                alpha.data_ptr(), S.data_ptr(), Y.data_ptr(),
+    tails = [("f32", 0, False)] + [(h, m, False) for h in ("f32", "bf16")
+                                   for m in TAIL_M]
+    tails += [("f32", 0, True), ("f32", 10, True)]
+    for h, m, local in tails:
+        S, Y = (r[:m].contiguous() if m else r for r in rings[h])
+        hdt = S.dtype
+        vecs = [torch.empty(N, device=dev) for _ in range(2)]
+        vecs += [torch.empty(N, device=dev, dtype=hdt) for _ in range(2)]
+        sums = torch.empty(7 + 2 * m, device=dev,
+                           dtype=torch.float64 if local else torch.float32)
+        tpart = torch.empty((7 + 2 * m) * nb, dtype=torch.float64, device=dev)
+        xx, dd, gg = (xl, dl, gl) if local else (x, d, g)
+        extra = (SHARDS * N, N, edges.data_ptr()) if local else ()
+        entry = (lib.tl_fused_tail_local_f32 if local
+                 else lib.tl_fused_tail_f32)
+        label = (f"fused_tail{' local' if local else ''} ring {h} m={m}")
+        out[label] = (
+            lambda entry=entry, h=h, m=m, S=S, Y=Y, vecs=vecs, sums=sums,
+            tpart=tpart, xx=xx, dd=dd, gg=gg, extra=extra: entry(
+                body, int(h == "bf16"), m, 0, xx.data_ptr(), dd.data_ptr(),
+                gg.data_ptr(), alpha.data_ptr(), S.data_ptr(), Y.data_ptr(),
                 *(v.data_ptr() for v in vecs), tpart.data_ptr(),
-                sums.data_ptr(), N, stream), (*vecs, sums))
+                sums.data_ptr(), N, *extra, stream), tuple(vecs), (sums,))
 
     for kernel, outputs in (("multi_phi", 1), ("multi_phi_dphi", 2)):
-        for k in (8, 36):
+        for k, local in ((8, False), (36, False), (8, True), (36, True)):
+            if local and kernel == "multi_phi" and k == 36:
+                continue
             alphas = torch.linspace(1e-3, 1.0, k, device=dev)
-            res = torch.empty(outputs * k, device=dev)
+            res = torch.empty(outputs * k, device=dev,
+                              dtype=torch.float64 if local else torch.float32)
             kpart = torch.empty(outputs * k * nb, dtype=torch.float64,
                                 device=dev)
-            fn = getattr(lib, f"tl_{kernel}_f32")
-            out[f"{kernel} K={k}"] = (
-                lambda fn=fn, alphas=alphas, res=res, kpart=kpart, k=k:
-                fn(body, x.data_ptr(), d.data_ptr(), alphas.data_ptr(), k,
-                   kpart.data_ptr(), res.data_ptr(), N, stream), (res,))
+            xx, dd = (xl, dl) if local else (x, d)
+            e = (edges[2:] if kernel == "multi_phi" else edges).contiguous()
+            extra = (SHARDS * N, N, e.data_ptr()) if local else ()
+            fn = getattr(lib, f"tl_{kernel}{'_local' if local else ''}_f32")
+            out[f"{kernel}{' local' if local else ''} K={k}"] = (
+                lambda fn=fn, alphas=alphas, res=res, kpart=kpart, k=k,
+                xx=xx, dd=dd, extra=extra, e=e:
+                fn(body, xx.data_ptr(), dd.data_ptr(), alphas.data_ptr(), k,
+                   kpart.data_ptr(), res.data_ptr(), N, *extra, stream),
+                (), (res,))
     return out
 
 
+def _same(a, b):
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def _sum_rel(a, b):
+    """Largest |a - b| / |b| over the sums (0 where both are 0)."""
+    a, b = a.double(), b.double()
+    return ((a - b).abs() / b.abs().clamp(min=1e-300)).max().item()
+
+
 def main(argv) -> int:
+    ap = argparse.ArgumentParser(prog="kernel_ab")
+    ap.add_argument("parent")
+    ap.add_argument("change", nargs="?")
+    ap.add_argument("--only", default="")
+    ap.add_argument("--sums-may-move", default=None)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab needs a CUDA device", file=sys.stderr)
         return 1
-    parent_dir = Path(argv[0]).resolve()
-    change_dir = Path(argv[1]).resolve() if len(argv) > 1 else _build.CSRC
+    parent_dir = Path(args.parent).resolve()
+    change_dir = Path(args.change).resolve() if args.change else _build.CSRC
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(f"card: {card}")
+    print(f"parent {parent_dir}, change {change_dir}")
     parent, ps, preport = _load(parent_dir)
     change, cs, creport = _load(change_dir)
     print(f"built parent in {ps:.1f} s, change in {cs:.1f} s")
 
     pregs, cregs = _registers(preport), _registers(creport)
-    moved = {k: (pregs[k], cregs[k]) for k in pregs
-             if k in cregs and pregs[k] != cregs[k]}
-    print(f"registers: {len(set(pregs) & set(cregs))} kernels in both trees, "
-          f"{len(moved)} with another count")
-    for k, (a, b) in sorted(moved.items()):
-        print(f"  {k}: parent {a}, change {b}")
+    both = sorted(set(pregs) & set(cregs))
+    moved = [k for k in both if pregs[k] != cregs[k]]
+    print(f"registers: {len(both)} kernels in both trees, {len(moved)} with "
+          f"another count")
+    for k in moved:
+        print(f"  moved {k}: parent {pregs[k]}, change {cregs[k]}")
+    for k in sorted(set(pregs) ^ set(cregs)):
+        tree = "parent" if k in pregs else "change"
+        print(f"  only in {tree}: {k}: {pregs.get(k, cregs.get(k))}")
+    for k in both:
+        if re.search(args.only or ".", k) and (
+                "tail" in k or "dphi" in k or args.only):
+            print(f"  {k}: parent {pregs[k]}, change {cregs[k]}")
 
+    may_move = re.compile(args.sums_may_move) if args.sums_may_move else None
     bad = 0
     for body, name in enumerate(BODIES):
         pcalls, ccalls = _calls(parent, body), _calls(change, body)
-        for kernel in pcalls:
-            (pf, pouts), (cf, couts) = pcalls[kernel], ccalls[kernel]
-            if pf() or cf():
-                print(f"{name} {kernel}: a launch failed")
+        for label in pcalls:
+            if args.only and not re.search(args.only, label):
+                continue
+            (pf, pvec, psum), (cf, cvec, csum) = pcalls[label], ccalls[label]
+            errs = (pf(), cf())
+            if any(errs):
+                print(f"{name} {label}: a launch failed {errs}")
                 bad += 1
                 continue
             torch.cuda.synchronize()
-            same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                       for a, b in zip(pouts, couts))
-            bad += not same
+            vec_same = all(_same(a, b) for a, b in zip(pvec, cvec))
+            sum_same = all(_same(a, b) for a, b in zip(psum, csum))
+            moving = may_move is not None and may_move.search(label)
+            bad += not vec_same or (not sum_same and not moving)
             t = [_time(f) for f in (pf, cf, cf, pf)]
             tp, tc = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-            print(f"{name} {kernel}: outputs "
-                  f"{'bit-equal' if same else 'DIFFER'}; parent {tp:.2f} us "
-                  f"({t[0]:.2f}, {t[3]:.2f}), change {tc:.2f} us "
+            sums = ("sums bit-equal" if sum_same else
+                    f"sums differ by {max(map(_sum_rel, csum, psum)):.2e} "
+                    "relative" + ("" if moving else " (MAY NOT)"))
+            print(f"{name} {label}: vectors "
+                  f"{'bit-equal' if vec_same else 'DIFFER'}, {sums}; parent "
+                  f"{tp:.2f} us ({t[0]:.2f}, {t[3]:.2f}), change {tc:.2f} us "
                   f"({t[1]:.2f}, {t[2]:.2f}), change/parent {tc / tp:.3f} "
                   f"on {card}")
     print(f"kernel_ab: {'ok' if not bad else f'{bad} kernels differ'}")

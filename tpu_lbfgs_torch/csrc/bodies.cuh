@@ -14,7 +14,10 @@
 //   f(xv, xf, i, n)           the term of the objective that element i owns;
 //                             only called for i < terms(n)
 //   fg(xv, xp, xf, i, n, acc) adds that term to acc (a double) and returns
-//                             element i of the gradient
+//                             element i of the gradient; fg<true> is for an
+//                             element known to have both neighbours and a
+//                             term (1 <= i < n - 1), with the index tests
+//                             taken out
 //
 // The arithmetic is float, each operation rounded once (the library is built
 // with -fmad=false), in the order of the plain PyTorch versions in
@@ -54,6 +57,7 @@ struct Quadratic {
     return r * r;
   }
 
+  template <bool kInterior = false>
   static __device__ __forceinline__ float fg(float xv, float, float, int64_t,
                                              int64_t, double& acc) {
     const float r = xv - 1.0f;
@@ -75,17 +79,18 @@ struct Rosenbrock {
     return 100.0f * t * t + e * e;
   }
 
+  template <bool kInterior = false>
   static __device__ __forceinline__ float fg(float xv, float xp, float xf,
                                              int64_t i, int64_t n,
                                              double& acc) {
     float g = 0.0f;
-    if (i < n - 1) {
+    if (kInterior || i < n - 1) {
       const float t = xf - xv * xv;
       const float e = 1.0f - xv;
       acc += static_cast<double>(100.0f * t * t + e * e);
       g = 2.0f * (xv - 1.0f) - 400.0f * xv * t;
     }
-    if (i >= 1) g += 200.0f * (xv - xp * xp);
+    if (kInterior || i >= 1) g += 200.0f * (xv - xp * xp);
     return g;
   }
 };
@@ -96,20 +101,22 @@ struct Coupled {
   static constexpr bool kNeighbours = true;
   static __host__ __device__ int64_t terms(int64_t n) { return n; }
 
+  template <bool kInterior = false>
   static __device__ __forceinline__ float f(float xv, float xf, int64_t i,
                                             int64_t n) {
     float t = 1000.0f * xv * xv;
-    if (i < n - 1) t += 100.0f * (xv * xf);
+    if (kInterior || i < n - 1) t += 100.0f * (xv * xf);
     return t;
   }
 
+  template <bool kInterior = false>
   static __device__ __forceinline__ float fg(float xv, float xp, float xf,
                                              int64_t i, int64_t n,
                                              double& acc) {
-    acc += static_cast<double>(f(xv, xf, i, n));
+    acc += static_cast<double>(f<kInterior>(xv, xf, i, n));
     float g = 2000.0f * xv;
-    if (i < n - 1) g += 100.0f * xf;
-    if (i >= 1) g += 100.0f * xp;
+    if (kInterior || i < n - 1) g += 100.0f * xf;
+    if (kInterior || i >= 1) g += 100.0f * xp;
     return g;
   }
 };

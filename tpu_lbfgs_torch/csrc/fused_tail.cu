@@ -4,7 +4,8 @@
 // _make_tail_kernel (run by _fused_tail_pallas) with each body of
 // TAIL_BODIES, with and without with_matvec, plain and compensated, with
 // the ring rows in float32 or bfloat16.  One kernel, a template on the
-// problem's body (bodies.cuh), the history's type and the history depth.
+// problem's body (bodies.cuh), the history's type and whether it forms the
+// products; the history depth m is a runtime count.
 //
 // From x, d, g and the accepted step alpha it computes
 //   x_new = x + alpha d,   f and g_new at x_new,
@@ -15,29 +16,45 @@
 //
 // Bound by device-memory bytes: 28 bytes move per element (x, d, g in;
 // x_new, g_new, s, y out; 24 with bfloat16 rows) for about 40 flops, plus
-// the ring's 2 m values per element with the matvec.  So everything the
-// iteration needs after the line search comes out of this one read of
-// x, d and g, with the sums reduced in the same pass (reduce.cuh).
+// the ring's 2 m values per element with the products (8.76 us at n = 2^20;
+// 33.80 us with an f32 ring at m = 10, 20.03 with a bf16 one, on an H100).
+// So everything the iteration needs after the line search comes out of
+// this one read of x, d and g, with the sums reduced in the same pass.
 // alpha is read from device memory: the line search leaves it there and
 // the host never waits for it.
 //
-// A chain-structured body needs the trial point's neighbours x_new[i+-1].
-// A thread rebuilds them from x and d (the loads hit lines its warp already
-// holds), with the same correctly rounded expression as the thread that
-// owns that element (trial_point.cuh), so a neighbour equals its owner's
-// x_new bit for bit.  The TPU kernel shifted the formed x_new through an
-// SMEM carry and an 8-row halo DMA instead.  The edge is masked by index,
-// so any n works.
-//
-// The matvec.  y exists only in the thread that made g_new, so that thread
-// reads S[k][i] and Y[k][i] for every row k (each warp's loads of a row are
-// contiguous, and a thread's 2 m loads are independent) and keeps 2 m more
-// float64 running sums beside the seven.  m is a template parameter (5, 10
-// or 20; 0 for no matvec) so that they stay in registers; their block tree
-// runs five sums at a time (reduce.cuh::block_sum_chunks) to keep its shared
-// memory small.  The ring is only read: the kernel writes the new rows to
-// their own buffers, and the solver stores them after its curvature test
-// and patches the slot's own entries of t1 and t2 from the exact sums.
+// The first design, one element per thread per step with the 2 m ring
+// sums in each thread's registers as float64, waited on latency: 90 us at
+// m = 10 for the 33.80 us bound, 80-128 registers, three blocks per SM and
+// five 8-level shared-memory trees per block (NVIDIA H100 80GB HBM3,
+// 700 W).  Four blocks per SM, float32 sums, no trees or 16-byte loads
+// each took a third off, none alone came near the bound, and forcing four
+// blocks at m = 20 spilled and ran 2.5x slower.  So this kernel works in
+// tiles of kTile elements:
+// - each thread owns a run of kRun consecutive elements and loads and
+//   stores it 16 bytes at a time (bfloat16 rows 8); a chain body's
+//   neighbours x_new[i+-1] come from the thread's own registers and, at
+//   the run's ends, from the neighbouring lanes by shuffle, with one load
+//   at a warp's edge.  The TPU kernel shifted the formed x_new through an
+//   SMEM carry and an 8-row halo DMA instead.  The ragged end is masked by
+//   index, so any n works;
+// - the products: the threads put y, widened to double, into shared
+//   memory, and warp w takes ring rows w, w + 8, ... of S and Y, a row's
+//   16-byte loads in flight together (eight a lane, four for bf16), and
+//   adds its tile's share of each row into the block's partial in
+//   global memory, tile after tile in a fixed order.  Each product is
+//   formed and added in double, as the plain version's float64 matmul
+//   forms it; the m rows are a runtime loop, so any m works, and no sum
+//   of the ring lives in a register across tiles;
+// - the seven sums stay in double in each thread and reduce once per block
+//   by warp shuffles (reduce.cuh::block_sum_warps), not by trees.
+// On the same card this design takes 45.90 us at m = 10 on an f32 ring (73%
+// of the bytes bound; the tail without products and two torch.mv: 58.20),
+// 38.40 on a bf16 ring, 11.49 without products (the main path's form;
+// 14.5 before), with 64 registers and four blocks per SM.
+// The ring is only read: the kernel writes the new rows to their own
+// buffers, and the solver stores them after its curvature test and patches
+// the slot's own entries of t1 and t2 from the exact sums.
 //
 // The compensated form (the TPU kernel's `compensated` flag) adds the block
 // partials of the seven sums by the Neumaier recurrence in block order
@@ -48,9 +65,9 @@
 // shardmap_fused_tail's per-shard call of _fused_tail_pallas with n, start
 // and edges) runs the same kernel on one shard's blocks of x, d, g and the
 // ring: term ownership and the zero-padded tail go by the global index
-// (bodies.cuh::Shard), the first and last threads rebuild their outer
-// trial-point neighbours from edges = [previous shard's last x and d, next
-// shard's first x and d] in device memory with the same trial_point, and
+// (bodies.cuh::Shard), elements 0 and n - 1 take their outer trial-point
+// neighbours from edges = [previous shard's last x and d, next shard's
+// first x and d] in device memory through the same trial_point, and
 // all 7 + 2 m sums come back as float64, unrounded (compensated: the
 // Neumaier sum and its correction added in float64), for the caller's one
 // packed float64 all-reduce.  The whole-vector form is the instantiation
@@ -70,89 +87,243 @@
 namespace {
 
 constexpr int kSums = 7;
-constexpr int kMatvecChunk = 5;
+// The deepest ring the products form takes: its 7 + 2 m stage-2 blocks.
+constexpr int kMaxDepth = 1 << 20;
+// Each thread owns a run of kRun consecutive elements of a tile of kTile,
+// loaded and stored 16 (bfloat16 rows: 8) bytes at a time.
+constexpr int kRun = 4;
+constexpr int kTile = tl::kThreads * kRun;
+constexpr int kWarps = tl::kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ void store_row(float* row, int64_t i, float v) {
-  row[i] = v;
-}
-__device__ __forceinline__ void store_row(__nv_bfloat16* row, int64_t i,
-                                          float v) {
-  row[i] = __float2bfloat16_rn(v);
-}
-__device__ __forceinline__ double load_row(const float* row, int64_t i) {
-  return static_cast<double>(row[i]);
-}
-__device__ __forceinline__ double load_row(const __nv_bfloat16* row,
-                                           int64_t i) {
-  return static_cast<double>(__bfloat162float(row[i]));
+inline int tile_blocks(int64_t n) {
+  const int64_t b = (n + kTile - 1) / kTile;
+  return static_cast<int>(b < tl::kMaxBlocks ? b : tl::kMaxBlocks);
 }
 
-template <typename Body, typename H, int M, bool kShard>
-__global__ void __launch_bounds__(tl::kThreads)
-    tail_kernel(const float* __restrict__ x, const float* __restrict__ d,
-                const float* __restrict__ g, const float* __restrict__ alpha,
-                const H* __restrict__ s_hist, const H* __restrict__ y_hist,
-                float* __restrict__ x_new, float* __restrict__ g_new,
-                H* __restrict__ s_row, H* __restrict__ y_row,
-                double* __restrict__ partials, int64_t n, tl::Shard shard) {
+// A run of kRun floats at p[i0..]: one 16-byte access where `vec` says the
+// pointers are aligned and the run lies inside n, else one per element
+// below n (0 beyond it).
+__device__ __forceinline__ void load_run(const float* __restrict__ p,
+                                         int64_t i0, int64_t n, bool vec,
+                                         float (&v)[kRun]) {
+  if (vec && i0 + kRun <= n) {
+    const float4 q = *reinterpret_cast<const float4*>(p + i0);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) v[j] = i0 + j < n ? p[i0 + j] : 0.0f;
+  }
+}
+__device__ __forceinline__ void store_run(float* __restrict__ p, int64_t i0,
+                                          int64_t n, bool vec,
+                                          const float (&v)[kRun]) {
+  if (vec && i0 + kRun <= n) {
+    *reinterpret_cast<float4*>(p + i0) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) {
+      if (i0 + j < n) p[i0 + j] = v[j];
+    }
+  }
+}
+__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(hi)))
+          << 16);
+}
+__device__ __forceinline__ void store_run(__nv_bfloat16* __restrict__ p,
+                                          int64_t i0, int64_t n, bool vec,
+                                          const float (&v)[kRun]) {
+  if (vec && i0 + kRun <= n) {
+    *reinterpret_cast<uint2*>(p + i0) =
+        make_uint2(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) {
+      if (i0 + j < n) p[i0 + j] = __float2bfloat16_rn(v[j]);
+    }
+  }
+}
+
+// One lane's share of row . y over a tile of len elements, y in shared
+// memory as double: each product is formed and added in double, as the plain
+// version's float64 matmul forms it.  A whole aligned tile takes
+// kTile / 32 / V 16-byte loads a lane, all issued before the first is used.
+__device__ __forceinline__ double row_dot(const float* __restrict__ row,
+                                          const double* y, int64_t len,
+                                          bool vec, int lane) {
+  constexpr int V = 4, kLoads = kTile / V / 32;
+  double v = 0.0;
+  if (vec && len == kTile) {
+    float4 q[kLoads];
+#pragma unroll
+    for (int c = 0; c < kLoads; ++c) {
+      q[c] = reinterpret_cast<const float4*>(row)[lane + 32 * c];
+    }
+#pragma unroll
+    for (int c = 0; c < kLoads; ++c) {
+      const double* yy = y + (lane + 32 * c) * V;
+      v += static_cast<double>(q[c].x) * yy[0];
+      v += static_cast<double>(q[c].y) * yy[1];
+      v += static_cast<double>(q[c].z) * yy[2];
+      v += static_cast<double>(q[c].w) * yy[3];
+    }
+  } else {
+    for (int64_t e = lane; e < len; e += 32) {
+      v += static_cast<double>(row[e]) * y[e];
+    }
+  }
+  return v;
+}
+// The same for a bfloat16 row, 8 values a load; a bfloat16 is the high half
+// of the float it widens to.
+__device__ __forceinline__ double row_dot(
+    const __nv_bfloat16* __restrict__ row, const double* y, int64_t len,
+    bool vec, int lane) {
+  constexpr int V = 8, kLoads = kTile / V / 32;
+  double v = 0.0;
+  if (vec && len == kTile) {
+    uint4 q[kLoads];
+#pragma unroll
+    for (int c = 0; c < kLoads; ++c) {
+      q[c] = reinterpret_cast<const uint4*>(row)[lane + 32 * c];
+    }
+#pragma unroll
+    for (int c = 0; c < kLoads; ++c) {
+      const double* yy = y + (lane + 32 * c) * V;
+      const unsigned w[4] = {q[c].x, q[c].y, q[c].z, q[c].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v += static_cast<double>(__uint_as_float(w[j] << 16)) * yy[2 * j];
+        v += static_cast<double>(__uint_as_float(w[j] & 0xffff0000u)) *
+             yy[2 * j + 1];
+      }
+    }
+  } else {
+    for (int64_t e = lane; e < len; e += 32) {
+      v += static_cast<double>(__bfloat162float(row[e])) * y[e];
+    }
+  }
+  return v;
+}
+
+// The tail with the history products, any m >= 1 (or, with kProducts
+// false, without them).  Per tile: each thread forms its run of x_new, f,
+// g_new, s and y, with the trial point's chain neighbours from its own
+// registers and, at a run's two ends, from the neighbouring lanes by
+// shuffle (one load at a warp's edge); it stores the run and puts y, in
+// double, into shared memory.  Then warp w takes ring rows w, w + kWarps,
+// ... of the 2 m rows of S and Y (each read once, 16 bytes a lane) against
+// that y and adds its tile's sum of each row into the block's partial of
+// t1 or t2 in global memory, tile after tile in a fixed order.  The seven
+// sums stay in double in each thread and reduce once per block by warp
+// shuffles.
+template <typename Body, typename H, bool kProducts, bool kShard>
+__global__ void __launch_bounds__(tl::kThreads, 4)
+    tail_tile_kernel(const float* __restrict__ x, const float* __restrict__ d,
+                     const float* __restrict__ g,
+                     const float* __restrict__ alpha,
+                     const H* __restrict__ s_hist,
+                     const H* __restrict__ y_hist, float* __restrict__ x_new,
+                     float* __restrict__ g_new, H* __restrict__ s_row,
+                     H* __restrict__ y_row, double* __restrict__ partials,
+                     int64_t n, int m, bool vec, bool ring_vec,
+                     tl::Shard shard) {
+  __shared__ double ysh[kProducts ? kTile : 1];
   const float a = *alpha;
+  const int lane = threadIdx.x & 31;
+  // A shard's outer neighbours; the whole vector has none (a body reads
+  // x_new[-1] and x_new[n] behind its index tests only).
+  float e_prev = 0.0f, e_next = 0.0f;
+  if constexpr (kShard && Body::kNeighbours) {
+    e_prev = tl::trial_point(shard.edges[0], shard.edges[1], a);
+    e_next = tl::trial_point(shard.edges[2], shard.edges[3], a);
+  }
   double acc[kSums] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  double t[M > 0 ? 2 * M : 1];
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kTile;
+  for (int64_t base = first; base < n;
+       base += static_cast<int64_t>(gridDim.x) * kTile) {
+    const int64_t i0 = base + static_cast<int64_t>(threadIdx.x) * kRun;
+    float xs[kRun], ds[kRun], gs[kRun];
+    load_run(x, i0, n, vec, xs);
+    load_run(d, i0, n, vec, ds);
+    load_run(g, i0, n, vec, gs);
+    float s[kRun], xn[kRun];
 #pragma unroll
-  for (int k = 0; k < 2 * M; ++k) t[k] = 0.0;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    const float di = d[i];
-    const float s = __fmul_rn(a, di);
-    const float xn = __fadd_rn(x[i], s);  // = trial_point(x[i], di, a)
-    float xp = 0.0f, xf = 0.0f;
-    float gn;
-    if constexpr (kShard) {
-      if constexpr (Body::kNeighbours) {
-        xf = i < n - 1 ? tl::trial_point(x[i + 1], d[i + 1], a)
-                       : tl::trial_point(shard.edges[2], shard.edges[3], a);
-        xp = i >= 1 ? tl::trial_point(x[i - 1], d[i - 1], a)
-                    : tl::trial_point(shard.edges[0], shard.edges[1], a);
-      }
-      const int64_t gi = shard.start + i;
-      gn = gi < shard.n_global
-               ? Body::fg(xn, xp, xf, gi, shard.n_global, acc[0])
-               : 0.0f;
-    } else {
-      if constexpr (Body::kNeighbours) {
-        if (i < n - 1) xf = tl::trial_point(x[i + 1], d[i + 1], a);
-        if (i >= 1) xp = tl::trial_point(x[i - 1], d[i - 1], a);
-      }
-      gn = Body::fg(xn, xp, xf, i, n, acc[0]);
+    for (int j = 0; j < kRun; ++j) {
+      s[j] = __fmul_rn(a, ds[j]);
+      xn[j] = __fadd_rn(xs[j], s[j]);  // = trial_point(xs[j], ds[j], a)
     }
-    const float gi = g[i];
-    const float y = gn - gi;
-    x_new[i] = xn;
-    g_new[i] = gn;
-    store_row(s_row, i, s);
-    store_row(y_row, i, y);
-    acc[1] += static_cast<double>(s) * y;
-    acc[2] += static_cast<double>(y) * y;
-    acc[3] += static_cast<double>(gn) * gn;
-    acc[4] += static_cast<double>(di) * gn;
-    acc[5] += static_cast<double>(gi) * gn;
-    acc[6] += static_cast<double>(y) * gn;
-    if constexpr (M > 0) {
-      const double yd = static_cast<double>(y);
-#pragma unroll
-      for (int k = 0; k < M; ++k) {
-        const int64_t at = static_cast<int64_t>(k) * n + i;
-        t[k] += load_row(s_hist, at) * yd;
-        t[M + k] += load_row(y_hist, at) * yd;
+    float xn_prev = 0.0f, xn_next = 0.0f;
+    if constexpr (Body::kNeighbours) {
+      xn_prev = __shfl_up_sync(kFull, xn[kRun - 1], 1);
+      xn_next = __shfl_down_sync(kFull, xn[0], 1);
+      if (lane == 0 && i0 >= 1 && i0 <= n) {
+        xn_prev = tl::trial_point(x[i0 - 1], d[i0 - 1], a);
+      }
+      if (lane == 31 && i0 + kRun < n) {
+        xn_next = tl::trial_point(x[i0 + kRun], d[i0 + kRun], a);
       }
     }
+    float gn[kRun], y[kRun];
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) {
+      const int64_t i = i0 + j;
+      gn[j] = 0.0f;
+      y[j] = 0.0f;
+      if (i >= n) continue;
+      float xp = 0.0f, xf = 0.0f;
+      if constexpr (Body::kNeighbours) {
+        xp = i == 0 ? e_prev : (j > 0 ? xn[j - 1] : xn_prev);
+        xf = i == n - 1 ? e_next : (j < kRun - 1 ? xn[j + 1] : xn_next);
+      }
+      if constexpr (kShard) {
+        const int64_t at = shard.start + i;
+        gn[j] = at < shard.n_global
+                    ? Body::fg(xn[j], xp, xf, at, shard.n_global, acc[0])
+                    : 0.0f;
+      } else {
+        gn[j] = Body::fg(xn[j], xp, xf, i, n, acc[0]);
+      }
+      y[j] = gn[j] - gs[j];
+      acc[1] += static_cast<double>(s[j]) * y[j];
+      acc[2] += static_cast<double>(y[j]) * y[j];
+      acc[3] += static_cast<double>(gn[j]) * gn[j];
+      acc[4] += static_cast<double>(ds[j]) * gn[j];
+      acc[5] += static_cast<double>(gs[j]) * gn[j];
+      acc[6] += static_cast<double>(y[j]) * gn[j];
+    }
+    store_run(x_new, i0, n, vec, xn);
+    store_run(g_new, i0, n, vec, gn);
+    store_run(s_row, i0, n, vec, s);
+    store_run(y_row, i0, n, vec, y);
+    if constexpr (kProducts) {
+#pragma unroll
+      for (int j = 0; j < kRun; ++j) {
+        ysh[threadIdx.x * kRun + j] = static_cast<double>(y[j]);
+      }
+      __syncthreads();
+      const int64_t len = n - base < kTile ? n - base : kTile;
+      for (int r = threadIdx.x >> 5; r < 2 * m; r += kWarps) {
+        const H* row = (r < m ? s_hist + static_cast<int64_t>(r) * n
+                              : y_hist + static_cast<int64_t>(r - m) * n) +
+                       base;
+        const double v = tl::warp_sum(row_dot(row, ysh, len, ring_vec, lane));
+        if (lane == 0) {
+          double* slot = partials +
+                         static_cast<int64_t>(kSums + r) * gridDim.x +
+                         blockIdx.x;
+          *slot = base == first ? v : *slot + v;
+        }
+      }
+      __syncthreads();  // ysh is rewritten by the next tile
+    }
   }
-  tl::block_sum_to<kSums>(acc, partials);
-  if constexpr (M > 0) {
-    tl::block_sum_chunks<2 * M, kMatvecChunk>(
-        t, partials + static_cast<int64_t>(kSums) * gridDim.x);
-  }
+  tl::block_sum_warps<kSums>(acc, partials);
 }
 
 struct Args {
@@ -187,41 +358,49 @@ void finish(const Args& p, int blocks, int m) {
   }
 }
 
-template <typename Body, typename H, int M, bool kShard>
-void launch(const Args& p) {
-  const int blocks = tl::blocks_for(p.n);
-  tail_kernel<Body, H, M, kShard><<<blocks, tl::kThreads, 0, p.stream>>>(
-      p.x, p.d, p.g, p.alpha, static_cast<const H*>(p.s_hist),
-      static_cast<const H*>(p.y_hist), p.x_new, p.g_new,
-      static_cast<H*>(p.s_row), static_cast<H*>(p.y_row), p.partials, p.n,
-      p.shard);
-  if (kShard) {
-    finish<double>(p, blocks, M);
-  } else {
-    finish<float>(p, blocks, M);
-  }
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename Body, typename H, bool kShard>
-bool launch_m(int m, const Args& p) {
-  switch (m) {
-    case 0: launch<Body, H, 0, kShard>(p); return true;
-    case 5: launch<Body, H, 5, kShard>(p); return true;
-    case 10: launch<Body, H, 10, kShard>(p); return true;
-    case 20: launch<Body, H, 20, kShard>(p); return true;
-    default: return false;
+void launch(const Args& p, int m) {
+  const H* s_hist = static_cast<const H*>(p.s_hist);
+  const H* y_hist = static_cast<const H*>(p.y_hist);
+  H* s_row = static_cast<H*>(p.s_row);
+  H* y_row = static_cast<H*>(p.y_row);
+  const bool vec = aligned16(p.x) && aligned16(p.d) && aligned16(p.g) &&
+                   aligned16(p.x_new) && aligned16(p.g_new) &&
+                   aligned16(s_row) && aligned16(y_row);
+  const bool ring_vec = m > 0 && aligned16(s_hist) && aligned16(y_hist) &&
+                        p.n * static_cast<int64_t>(sizeof(H)) % 16 == 0;
+  const int blocks = tile_blocks(p.n);
+  if (m == 0) {
+    tail_tile_kernel<Body, H, false, kShard>
+        <<<blocks, tl::kThreads, 0, p.stream>>>(
+            p.x, p.d, p.g, p.alpha, s_hist, y_hist, p.x_new, p.g_new, s_row,
+            y_row, p.partials, p.n, 0, vec, false, p.shard);
+  } else {
+    tail_tile_kernel<Body, H, true, kShard>
+        <<<blocks, tl::kThreads, 0, p.stream>>>(
+            p.x, p.d, p.g, p.alpha, s_hist, y_hist, p.x_new, p.g_new, s_row,
+            y_row, p.partials, p.n, m, vec, ring_vec, p.shard);
+  }
+  if (kShard) {
+    finish<double>(p, blocks, m);
+  } else {
+    finish<float>(p, blocks, m);
   }
 }
 
 template <bool kShard>
 int run(int body, int hist_bf16, int m, const Args& p) {
-  if (p.n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  bool known_m = false;
+  if (p.n < 1 || m < 0 || m > kMaxDepth) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const bool known = TL_DISPATCH_BODY(
-      body,
-      known_m = hist_bf16 ? launch_m<Body, __nv_bfloat16, kShard>(m, p)
-                          : launch_m<Body, float, kShard>(m, p));
-  if (!known || !known_m) return static_cast<int>(cudaErrorInvalidValue);
+      body, hist_bf16 ? launch<Body, __nv_bfloat16, kShard>(p, m)
+                      : launch<Body, float, kShard>(p, m));
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -230,14 +409,14 @@ int run(int body, int hist_bf16, int m, const Args& p) {
 // body: 0 quadratic, 1 rosenbrock, 2 coupled quadratic.  hist_bf16: nonzero
 // when the ring and the two rows are bfloat16, else they are float.  m: 0
 // for no matvec (s_hist and y_hist are then not read), else the ring's depth,
-// 5, 10 or 20.  compensated: nonzero for the Neumaier stage 2 of the seven
-// sums.  x, d, g, x_new, g_new: n floats on the device; s_row, y_row: n ring
-// values; s_hist, y_hist: m * n ring values, row-major (m, n); alpha: one
-// float on the device.  partials: (7 + 2 m) * tl_max_blocks() doubles of
-// scratch.  sums: 7 + 2 m floats, in the order f, s.y, y.y, g_new.g_new,
-// d.g_new, g.g_new, y.g_new, t1[0..m), t2[0..m).  Returns the cudaError_t of
-// the launches (cudaErrorInvalidValue for n < 1, an unknown body or an m the
-// kernel is not built for).
+// any m up to kMaxDepth.  compensated: nonzero for the Neumaier stage 2 of
+// the seven sums.  x, d, g, x_new, g_new: n floats on the device; s_row,
+// y_row: n ring values; s_hist, y_hist: m * n ring values, row-major
+// (m, n); alpha: one float on the device.  partials: (7 + 2 m) *
+// tl_max_blocks() doubles of scratch.  sums: 7 + 2 m floats, in the order
+// f, s.y, y.y, g_new.g_new, d.g_new, g.g_new, y.g_new, t1[0..m), t2[0..m).
+// Returns the cudaError_t of the launches (cudaErrorInvalidValue for n < 1,
+// an unknown body or m outside [0, kMaxDepth]).
 extern "C" int tl_fused_tail_f32(int body, int hist_bf16, int m,
                                  int compensated, const float* x,
                                  const float* d, const float* g,
@@ -270,4 +449,23 @@ extern "C" int tl_fused_tail_local_f32(
                static_cast<cudaStream_t>(stream),
                tl::Shard{n_global, start, edges}};
   return run<true>(body, hist_bf16, m, p);
+}
+
+// Blocks of the products form (body, ring type) that fit on one SM of the
+// current device, by cudaOccupancyMaxActiveBlocksPerMultiprocessor; -1 for
+// an unknown body.
+extern "C" int tl_fused_tail_blocks_per_sm(int body, int hist_bf16) {
+  int blocks = -1;
+  TL_DISPATCH_BODY(
+      body,
+      if (hist_bf16) {
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, tail_tile_kernel<Body, __nv_bfloat16, true, false>,
+            tl::kThreads, 0);
+      } else {
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, tail_tile_kernel<Body, float, true, false>, tl::kThreads,
+            0);
+      });
+  return blocks;
 }

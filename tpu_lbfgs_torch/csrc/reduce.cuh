@@ -2,7 +2,8 @@
 //
 // Stage 1: every block of a grid-stride kernel folds its threads' running
 // sums (kept in double) into one partial per scalar, by a fixed tree in
-// shared memory.  Stage 2: one block per scalar sums its partials in a
+// shared memory (block_sum_to) or by warp shuffles (block_sum_warps).
+// Stage 2: one block per scalar sums its partials in a
 // fixed order.  No float atomics, and the block count depends on n alone,
 // so a result repeats bit for bit from run to run and from card to card.
 #pragma once
@@ -55,20 +56,44 @@ __device__ __forceinline__ void block_sum_to(const double (&acc)[K],
   }
 }
 
-// block_sum_to for K sums taken kChunk at a time, so that the tree's shared
-// memory stays at kChunk * kThreads doubles however large K is: sum k goes to
-// partials[k * gridDim.x + blockIdx.x] as above.
-template <int K, int kChunk>
-__device__ __forceinline__ void block_sum_chunks(
-    const double (&acc)[K], double* __restrict__ partials) {
-  static_assert(K % kChunk == 0, "K must be a multiple of the chunk");
+// The sum of v over the 32 lanes of a warp, in lane 0, by a fixed shuffle
+// tree.  Every lane of the warp must call it.
+__device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
-  for (int c = 0; c < K / kChunk; ++c) {
-    double part[kChunk];
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+// block_sum_to by warps: a shuffle tree inside each warp, then thread k
+// adds the warps' sums of scalar k in warp order and writes
+// partials[k * gridDim.x + blockIdx.x], for k < count.  Two barriers and
+// kThreads / 32 doubles of shared memory per scalar, where block_sum_to
+// takes ten barriers and kThreads doubles.  A kernel may call it more than
+// once.
+template <int K>
+__device__ __forceinline__ void block_sum_warps(const double (&acc)[K],
+                                                double* __restrict__ partials,
+                                                int count = K) {
+  constexpr int kWarps = kThreads / 32;
+  static_assert(K <= kThreads, "one thread per scalar");
+  __shared__ double sh[K][kWarps];
+  double v[K];
 #pragma unroll
-    for (int j = 0; j < kChunk; ++j) part[j] = acc[c * kChunk + j];
-    block_sum_to<kChunk>(
-        part, partials + static_cast<int64_t>(c) * kChunk * gridDim.x);
+  for (int k = 0; k < K; ++k) v[k] = warp_sum(acc[k]);
+  __syncthreads();  // an earlier call's reads of sh are done
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) sh[k][threadIdx.x >> 5] = v[k];
+  }
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t < K && t < count) {
+    double s = sh[t][0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) s += sh[t][w];
+    partials[static_cast<int64_t>(t) * gridDim.x + blockIdx.x] = s;
   }
 }
 

@@ -62,10 +62,7 @@ def _resolve_shard_local(cfg: LBFGSConfig, d_pad: int, n_shards: int,
     its own (m, d_local) ring, so the port's measured rules
     (``resolve_history_dtype``, ``problems.suite.auto_with_matvec``) are
     asked about that, not about the global d.  Returns (cfg with a concrete
-    history dtype, with_matvec as a bool).  ``with_matvec=True`` at a
-    history depth the tail's products are not built for warns and answers
-    False, as ``problems.suite.fused_tail_for`` does."""
-    from ..kernels.fused_ops import TAIL_MATVEC_M
+    history dtype, with_matvec as a bool)."""
     from ..problems.suite import auto_with_matvec
 
     d_local = d_pad // n_shards
@@ -75,13 +72,6 @@ def _resolve_shard_local(cfg: LBFGSConfig, d_pad: int, n_shards: int,
         # t1 = S y and t2 = Y y are read only by the incremental direction.
         with_matvec = (cfg.direction == "compact_incremental"
                        and auto_with_matvec(cfg.m, d_local, hdtype))
-    elif with_matvec and cfg.m not in TAIL_MATVEC_M:
-        warnings.warn(
-            f"sharded_minimize: with_matvec=True at m = {cfg.m}, but the "
-            f"tail's history products are built for m in {TAIL_MATVEC_M}; "
-            "running the tail without them (the solver forms t1 and t2)",
-            stacklevel=3)
-        with_matvec = False
     return cfg, bool(with_matvec)
 
 

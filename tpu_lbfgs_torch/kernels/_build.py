@@ -34,6 +34,9 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     "tl_max_blocks": ([], ctypes.c_int),
     "tl_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    # body (and hist_bf16): blocks of the kernel per SM of the current device
+    "tl_fused_tail_blocks_per_sm": ([ctypes.c_int] * 2, ctypes.c_int),
+    "tl_multi_phi_dphi_blocks_per_sm": ([ctypes.c_int], ctypes.c_int),
     # body, x, g, partials, f, n, stream
     "tl_fused_vg_f32": ([ctypes.c_int] + [_P] * 4 + [ctypes.c_longlong, _P],
                         ctypes.c_int),

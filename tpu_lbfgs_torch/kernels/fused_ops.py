@@ -69,10 +69,6 @@ from . import _build
 #: The body ids of csrc/bodies.cuh, by problem name.
 BODY_IDS = {"quadratic": 0, "rosenbrock": 1, "coupled_quadratic": 2}
 
-#: History depths the fused tail's matvec is instantiated for
-#: (csrc/fused_tail.cu).
-TAIL_MATVEC_M = (5, 10, 20)
-
 #: Kernel launches per wrapper since the last ``reset_launches()``.
 launches = {**{f"{name}_vg": 0 for name in BODY_IDS},
             **{f"{name}_fused_tail": 0 for name in BODY_IDS},
@@ -373,10 +369,8 @@ def _fused_tail_kernel(problem: str, x: Tensor, d: Tensor, alpha: Tensor,
         if s_hist is None or y_hist is None:
             raise ValueError("with_matvec needs the history ring")
         m = s_hist.shape[0]
-        if m not in TAIL_MATVEC_M:
-            raise ValueError(
-                f"the fused tail's matvec is built for m in {TAIL_MATVEC_M}, "
-                f"got m = {m}; build the tail with with_matvec=False")
+        if m < 1:
+            raise ValueError("with_matvec needs a ring of at least one row")
         for name, t in (("s_hist", s_hist), ("y_hist", y_hist)):
             if (t.device != x.device or t.dtype != hdtype
                     or t.shape != (m, n) or not t.is_contiguous()):
@@ -483,13 +477,12 @@ def make_fused_tail(problem: str, vg_fallback, with_matvec: bool = True,
     solver patches the slot's entries from the exact sums).
 
     For a problem with a kernel body under ``use_pallas=True`` a CUDA
-    tensor launches the kernel or raises (another dtype than float32, or
-    ``with_matvec`` at a history depth outside ``TAIL_MATVEC_M``), and a
-    CPU tensor takes the plain version; otherwise the tail is the plain
-    composition around ``vg_fallback`` on any device, which is the
-    reference's dispatch.  ``alpha`` is a one-element tensor on x's device;
-    it is never read to the host.  ``problems.suite.fused_tail_for`` is the
-    entry that knows m and routes a depth the kernel is not built for.
+    tensor launches the kernel (with the products at any history depth) or
+    raises (another dtype than float32), and a CPU tensor takes the plain
+    version; otherwise the tail is the plain composition around
+    ``vg_fallback`` on any device, which is the reference's dispatch.
+    ``alpha`` is a one-element tensor on x's device; it is never read to
+    the host.
 
     ``accurate_dots`` compensates the seven sums (a Neumaier sum over the
     block partials in the kernel, ``compensated_dot`` in the plain

@@ -34,7 +34,6 @@ from torch import Tensor
 from ..kernels.fused_ops import (
     F_PLAIN,
     FUSED_VG,
-    TAIL_MATVEC_M,
     VG_PLAIN,
     _vdot,
     make_fused_tail,
@@ -239,7 +238,7 @@ def multi_phi_dphi_for(name: str, use_pallas: bool = True):
 
 
 #: The smallest d at which the fused tail's history products were measured.
-_MATVEC_MEASURED_FROM = 1 << 20
+_MATVEC_MEASURED_FROM = 1 << 16
 
 
 def auto_with_matvec(m: int, d: int, history_dtype=None,
@@ -247,27 +246,27 @@ def auto_with_matvec(m: int, d: int, history_dtype=None,
     """Whether ``fused_tail_for(with_matvec="auto")`` computes the history
     products t1 = S y, t2 = Y y inside the tail kernel, with the reference's
     signature.  The reference's rule is one of the TPU's VMEM and does not
-    carry over; this one is from chip_smoke.py's ``[kernel]`` and ``[cli]``
-    lines on an NVIDIA H100 80GB HBM3 (700 W), Rosenbrock body, d = 2^20:
+    carry over; this one is from chip_smoke.py's ``[kernel]`` lines on an
+    NVIDIA H100 80GB HBM3 (700 W), Rosenbrock body, where the tail with the
+    products beat the tail without them plus the solver's two products at
+    every size measured:
 
-    - float32 ring: False.  The tail with the products took 47, 90 and 107
-      us at m = 5, 10 and 20, the tail without them and the solver's two
-      ``torch.mv`` 44, 61 and 91 us (d = 2^24, m = 10: 1138 against 704 us):
-      each ring value costs the kernel a float-to-double conversion, which
-      bounds it before the bytes do.
-    - bfloat16 ring: True for one instance at m = 5, 10 or 20 (the depths
-      the kernel is built for) and d >= 2^20.  The solver's route widens
-      the whole ring to float32 first: 89, 141 and 236 us against the
-      kernel's 35, 93 and 94 us (d = 2^24, m = 10: 1819 against 1190 us),
-      and it takes six launches more.  End to end the solve is bound by the
-      host, and three runs of three turns each do not resolve the two: 3.4,
-      3.7 and 5.3 ms per iteration with the products in the tail against
-      3.7, 3.8 and 4.5 in the solver (medians).  Below d = 2^20 nothing was
-      measured, so it stays False there, as it does for a batch (the kernel
-      takes one instance)."""
-    bf16 = history_dtype in ("bfloat16", torch.bfloat16)
-    return bool(bf16 and batch == 1 and m in TAIL_MATVEC_M
-                and d >= _MATVEC_MEASURED_FROM)
+    - float32 ring, m = 10: 9.12 against 18.20 us at d = 2^16, 12.02
+      against 28.91 at 2^18, 45.90 against 58.20 at 2^20 (m = 5: 32.76
+      against 42.39; m = 20: 75.08 against 88.67), 606.85 against 671.52
+      at 2^24;
+    - bfloat16 ring, m = 10: 9.88 against 32.74 us at 2^16, 13.65 against
+      49.23 at 2^18, 38.40 against 141.35 at 2^20, 480.03 against 1806.51
+      at 2^24 (the solver's route widens the whole ring first).
+
+    So True for one instance at any m >= 1 from d = 2^16 on, for a float32
+    or bfloat16 ring (None is the iterate's dtype); below 2^16 nothing was
+    measured, so it stays False there, as it does for a float64 ring (the
+    kernel's rings are float32 and bfloat16) and for a batch (the kernel
+    takes one instance)."""
+    if history_dtype in ("float64", torch.float64):
+        return False
+    return bool(batch == 1 and m >= 1 and d >= _MATVEC_MEASURED_FROM)
 
 
 def fused_tail_for(name: str, with_matvec="auto", use_pallas: bool = True,
@@ -282,23 +281,12 @@ def fused_tail_for(name: str, with_matvec="auto", use_pallas: bool = True,
     ``with_matvec``: True computes t1 = S y and t2 = Y y in the tail,
     False leaves them to the solver's two matrix-vector products, "auto"
     applies ``auto_with_matvec(m, d, history_dtype, batch)`` and needs
-    ``d`` (without it: False).  The kernel's products are built for the
-    history depths ``TAIL_MATVEC_M`` (the reference's kernel takes any m):
-    True at another ``m`` warns and builds the tail without them, on
-    either device alike, which is what "auto" chooses there; the tail
-    kernel still runs, and the solver forms the two products.
-    ``accurate_dots`` builds the compensated tail, which
+    ``d`` (without it: False).  The kernel's products take any history
+    depth, as the reference's do.  ``accurate_dots`` builds the compensated tail, which
     ``cfg.accurate_dots`` requires (the solver rejects a plain one)."""
     if with_matvec == "auto":
         with_matvec = (auto_with_matvec(m, d, history_dtype, batch=batch)
                        if d is not None else False)
-    elif with_matvec and m not in TAIL_MATVEC_M:
-        warnings.warn(
-            f"fused_tail_for: with_matvec=True at m = {m}, but the tail's "
-            f"history products are built for m in {TAIL_MATVEC_M}; building "
-            "the tail without them (the solver forms t1 and t2)",
-            stacklevel=2)
-        with_matvec = False
     return make_fused_tail(name, fused_value_and_grad(name, False),
                            with_matvec=with_matvec, use_pallas=use_pallas,
                            accurate_dots=accurate_dots)
