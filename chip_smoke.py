@@ -16,7 +16,9 @@ read just after:
   and gradient and fused tail kernels;
 - the batch (4096 instances of d = 1024 in bounded lockstep, the same
   solver with fidelity="fixed" and the pair skip) through
-  tpu_lbfgs_torch.vmap_minimize, over the batched compact chain kernel;
+  tpu_lbfgs_torch.vmap_minimize, over the batched compact chain kernel,
+  then a short solve of the same batch at m = 7 through the kernel and
+  through its plain version;
 - direct evaluation (the reference protocol's f32 stack: REFERENCE_PARALLEL,
   compact_incremental, ls_eval="direct", no alpha rescue) under each of the
   8 line searches at d = 2^20 from U(-10, 10), over the value and gradient
@@ -92,7 +94,13 @@ BENCH_ITERS = 400
 BATCH, BATCH_D = 4096, 1024  # bench.py's batch cell
 RAGGED_BATCH = BATCH + 37
 BATCH_ITERS = 200
-CHAIN_M = (5, 10, 20)
+# The batched chain takes any m from 1 to 64: checked at these, timed at
+# CHAIN_TIMED_M; the batch solve also runs CHAIN_SOLVE_ITERS iterations at
+# m = 7, a depth the first kernel refused.
+CHAIN_M = (3, 5, 7, 10, 20)
+CHAIN_TIMED_M = (5, 10, 20)
+CHAIN_SOLVE_M = 7
+CHAIN_SOLVE_ITERS = 20
 
 # Kernel against plain version, float32 on the card.  Output vectors: the
 # kernels are built with -fmad=false and round where the plain version does,
@@ -565,22 +573,23 @@ def phase_chain(dev):
             check(same_nan and err <= CHAIN_ABS_TOL and 0 < n_fb < B,
                   f"compact_chain disagrees with its plain version ({where})")
             rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
-        if m == 10 and B == BATCH:
+        if m in CHAIN_TIMED_M and B == BATCH:
             ms = device_ms(lambda: chain.compact_chain_batched(
                 *args, m=m, skip_thr=1e-10))
             plain_ms = device_ms(lambda: chain.chain_batched_plain(
                 *args, m=m, skip_thr=1e-10))
+            # Per instance: SY, YY, four (m,) vectors and g_norm in the
+            # working dtype, n_pairs as int32; v, u, gamma, g.d out and the
+            # flag; two triangular solves, the YY product and the dots,
+            # about 6 m^2 + 10 m operations.
+            size = torch.finfo(dt).bits // 8
+            bound = bound_ms(B * (size * (2 * m * m + 6 * m + 3) + 4 + 1),
+                             B * (6 * m * m + 10 * m))
             say(f"[kernel] compact_chain m={m} B={B} {dt}: {ms * 1e3:.2f} us "
-                f"on the card, plain version {plain_ms * 1e3:.2f} us")
-            if dt == torch.float32:     # the batch solve's dtype
-                rec["ms"], rec["plain_ms"] = ms, plain_ms
-                # Per instance: SY, YY, four (m,) vectors, n_pairs and
-                # g_norm in; v, u, gamma, g.d and the flag out; two
-                # triangular solves, the YY product and the dots, about
-                # 6 m^2 + 10 m operations.
-                rec["bound"] = bound_ms(
-                    B * (4 * (2 * m * m + 6 * m + 4) + 1),
-                    B * (6 * m * m + 10 * m))
+                f"on the card, plain version {plain_ms * 1e3:.2f} us, bound "
+                f"{bound[0] * 1e3:.2f} us by {bound[1]}")
+            if dt == torch.float32 and m == 10:    # the batch solve's
+                rec["ms"], rec["plain_ms"], rec["bound"] = ms, plain_ms, bound
     return rec
 
 
@@ -672,19 +681,20 @@ def phase_trial_kernels(dev):
             if not kept and problem != "rosenbrock":
                 continue
             ms, plain_ms = device_ms(kernel), device_ms(plain)
+            # x, d and K alphas in, K (or 2 K) sums out; per element and
+            # trial two trial points (one for the quadratic), the body's
+            # term and its float64 add, with phi' the gradient and g_i d_i
+            # as well.
+            outs = 1 if name == names[0] else 2
+            per_trial = {"quadratic": (6, 9), "rosenbrock": (13, 28),
+                         "coupled_quadratic": (10, 19)}[problem][outs - 1]
+            bound = bound_ms(8 * n + 4 * k + 4 * outs * k,
+                             per_trial * n * k)
             say(f"[kernel] {name} d={n} K={k}: {ms * 1e3:.2f} us on the "
-                f"card, plain version {plain_ms * 1e3:.2f} us")
+                f"card, plain version {plain_ms * 1e3:.2f} us, bound "
+                f"{bound[0] * 1e3:.2f} us by {bound[1]}")
             if kept:
-                rec[name]["ms"], rec[name]["plain_ms"] = ms, plain_ms
-                # x, d and K alphas in, K (or 2 K) sums out; per element
-                # and trial two trial points (one for the quadratic), the
-                # body's term and its float64 add, with phi' the gradient
-                # and g_i d_i as well.
-                outs = 1 if name == names[0] else 2
-                per_trial = {"quadratic": (6, 9), "rosenbrock": (13, 28),
-                             "coupled_quadratic": (10, 19)}[problem][outs - 1]
-                rec[name]["bound"] = bound_ms(
-                    8 * n + 4 * k + 4 * outs * k, per_trial * n * k)
+                rec[name].update(ms=ms, plain_ms=plain_ms, bound=bound)
     return rec
 
 
@@ -744,7 +754,7 @@ def phase_general_kernels(dev):
                     rec["iteration_tail"].update(ms=ms, plain_ms=plain_ms,
                                                  bound=bound)
 
-    for n, m, dt in itertools.product(COMBINE_D, CHAIN_M,
+    for n, m, dt in itertools.product(COMBINE_D, TAIL_M,
                                       (torch.float32, torch.float64)):
         if dt == torch.float64 and m != 10:
             continue
@@ -801,7 +811,7 @@ def phase_general_kernels(dev):
     # of v and u: held to 2^-8 of sum |coefficient| max |ring|.
     form = "combine_direction[ring bf16]"
     rec[form] = {"max_abs_err": 0.0}
-    for n, m in itertools.product(TAIL_D, CHAIN_M):
+    for n, m in itertools.product(TAIL_D, TAIL_M):
         g = torch.from_numpy(rng.uniform(-1.0, 1.0, n)).to(dev, torch.float32)
         S, Y = (torch.from_numpy(rng.uniform(-1.0, 1.0, (m, n))).to(
             dev, torch.bfloat16) for _ in range(2))
@@ -1023,7 +1033,47 @@ def phase_batch(dev):
         f"{f_rel:.3e} (tol {BATCH_TRACE_F_RTOL})")
     check(same_alpha, "alpha differs between the chain kernel and plain")
     check(f_rel <= BATCH_TRACE_F_RTOL, "f differs between kernel and plain")
+    phase_batch_any_m(dev, p, x0)
     return launches, state, cfg
+
+
+def phase_batch_any_m(dev, p, x0):
+    """A short f32 batch solve at m = CHAIN_SOLVE_M through the chain
+    kernel, against the same solve through chain_batched_plain: x, f and
+    g_norm equal bit for bit, one chain launch per iteration."""
+    import tpu_lbfgs_torch as tt
+    from tpu_lbfgs_torch import kernels
+    from tpu_lbfgs_torch.core import direction
+    from tpu_lbfgs_torch.kernels import chain
+
+    cfg = _batch_cfg(tt, CHAIN_SOLVE_ITERS).replace(m=CHAIN_SOLVE_M)
+    runs = {}
+    for label in ("kernel", "plain"):
+        if label == "plain":
+            direction.compact_chain_batched = chain.chain_batched_plain
+        kernels.reset_launches()
+        try:
+            r = tt.vmap_minimize(p.f, x0, cfg, grad=p.grad,
+                                 dir_poly=p.dir_poly, lockstep="bounded")
+            torch.cuda.synchronize()
+        finally:
+            direction.compact_chain_batched = chain.compact_chain_batched
+        runs[label] = (r, kernels.launch_counts()["compact_chain"])
+    (rk, nk), (rp, np_) = runs["kernel"], runs["plain"]
+    same = all(torch.equal(a.isnan(), b.isnan())
+               and torch.equal(a.nan_to_num(), b.nan_to_num())
+               for a, b in ((rk.x, rp.x), (rk.f, rp.f),
+                            (rk.g_norm, rp.g_norm)))
+    ok = rk.status != tt.Status.LINE_SEARCH_FAILED
+    say(f"[batch] m={CHAIN_SOLVE_M} B={BATCH} d={BATCH_D} float32, "
+        f"{CHAIN_SOLVE_ITERS} iterations: chain launches {nk} (plain run "
+        f"{np_}), x, f, g_norm bit-equal to the plain chain's solve {same}, "
+        f"mean f {rk.f.mean().item():.6e}")
+    check(nk == CHAIN_SOLVE_ITERS and np_ == 0,
+          f"the m={CHAIN_SOLVE_M} batch solve must launch the chain kernel "
+          "once per iteration")
+    check(same and bool(torch.isfinite(rk.f[ok]).all()),
+          f"the m={CHAIN_SOLVE_M} batch solve differs from the plain chain's")
 
 
 def phase_batch_no_sync(state, cfg):

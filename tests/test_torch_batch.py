@@ -84,9 +84,16 @@ def test_batched_f64_trajectory_matches_jax(seed):
     alpha, status, n_pairs, k, n_fev and guards; f and g_norm within the
     bound of test_torch_solver.py::test_f64_trajectory_matches_jax, 1e-9 or
     100x the JAX package's own deviation from x0 moved by one ulp."""
-    B, d, iters = 8, 64, 60
-    cfg_j = tl.LBFGSConfig(**BATCH, max_iters=iters, tol=0.0)
-    cfg_t = tt.LBFGSConfig(**BATCH, max_iters=iters, tol=0.0)
+    _check_batched_trajectory(seed, iters=60, m=10)
+
+
+def _check_batched_trajectory(seed, iters, m):
+    """The batched iterate at B = 8, d = 64, m pairs, float64, bench.py's
+    batch configuration, from the JAX package's ``jax.vmap(init_state)``
+    carried over by interop, against ``jax.vmap(iterate)`` step by step."""
+    B, d = 8, 64
+    cfg_j = tl.LBFGSConfig(**BATCH, m=m, max_iters=iters, tol=0.0)
+    cfg_t = tt.LBFGSConfig(**BATCH, m=m, max_iters=iters, tol=0.0)
     pj, pt = tl.get_problem("rosenbrock"), tt.get_problem("rosenbrock")
     vgj = jax_vg(pj.f, pj.grad)
     vgt = tt.make_value_and_grad(pt.f, pt.grad)
@@ -97,7 +104,7 @@ def test_batched_f64_trajectory_matches_jax(seed):
     x1 = x0.copy()
     x1[:, ::7] = np.nextafter(x1[:, ::7], np.inf)
     sj, sp = init(jnp.asarray(x0)), init(jnp.asarray(x1))
-    st = interop.state_from_numpy(_np_state(sj))
+    st = interop.state_from_numpy(_np_state(sj), device="cpu")
     assert st.s_hist.shape == (B, cfg_t.m, d)
     for k in range(iters):
         sj, sp = step(sj), step(sp)
@@ -113,6 +120,39 @@ def test_batched_f64_trajectory_matches_jax(seed):
             dev = _rel(ref, getattr(st, name).numpy())
             assert (dev <= bound).all(), (k, name, dev.max())
     assert (st.k.numpy() == iters).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_vmap_minimize_m7_matches_jax(seed):
+    """m = 7, a depth the batched chain kernel takes since it takes any m,
+    float64 at B = 8, d = 64, bench.py's batch configuration
+    (compact_incremental): 40 iterations of the batched iterate step by
+    step against the JAX package, then ``vmap_minimize`` in bounded
+    lockstep against ``tpu_lbfgs.batch.vmap_minimize``: equal status,
+    iterations, n_fev and guards per lane; f, g_norm and x within the bound
+    of the step-by-step check, 1e-9 or 100x the JAX package's own deviation
+    from x0 moved by one ulp."""
+    _check_batched_trajectory(seed, iters=40, m=7)
+    cfg_j = tl.LBFGSConfig(**BATCH, m=7, max_iters=40, tol=0.0)
+    cfg_t = tt.LBFGSConfig(**BATCH, m=7, max_iters=40, tol=0.0)
+    pj, pt = tl.get_problem("rosenbrock"), tt.get_problem("rosenbrock")
+    x0 = -1.2 + np.random.default_rng(seed).uniform(-0.1, 0.1, (8, 64))
+    x1 = x0.copy()
+    x1[:, ::7] = np.nextafter(x1[:, ::7], np.inf)
+    ref, ref1 = (jax_vmap_minimize(pj.f, jnp.asarray(x), cfg_j, grad=pj.grad,
+                                   dir_poly=pj.dir_poly, lockstep="bounded")
+                 for x in (x0, x1))
+    got = tt.vmap_minimize(pt.f, torch.from_numpy(x0), cfg_t, grad=pt.grad,
+                           dir_poly=pt.dir_poly, lockstep="bounded")
+    for name in ("status", "iterations", "n_fev", "guards"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(ref, name)),
+                                      err_msg=name)
+    for name in ("f", "g_norm", "x"):
+        want = np.asarray(getattr(ref, name))
+        bound = np.maximum(1e-9, 100 * _rel(want, np.asarray(
+            getattr(ref1, name))).max())
+        assert (_rel(want, getattr(got, name).numpy()) <= bound).all(), name
 
 
 def _mixed_batch(backend):
@@ -316,7 +356,7 @@ def test_batched_interop_round_trip_is_exact(d):
     for _ in range(12):        # fill and wrap the ring
         s = step(s)
     arrays = _np_state(s)
-    st = interop.state_from_numpy(arrays)
+    st = interop.state_from_numpy(arrays, device="cpu")
     assert st.s_hist.shape == (B, cfg.m, d) and st.s_hist.is_contiguous()
     assert st.guards.shape == (B, tt.Guard.N)
     back = interop.state_to_numpy(st)

@@ -69,7 +69,7 @@ def _jax_chain(m, skip_thr):
 
 @pytest.mark.parametrize("pathological", [False, True])
 @pytest.mark.parametrize("skip_thr", [None, 1e-10])
-@pytest.mark.parametrize("m", [5, 10])
+@pytest.mark.parametrize("m", [5, 7, 10])
 def test_batched_plain_matches_pallas_chain(m, skip_thr, pathological):
     """float32 at B = 1024, where the JAX package runs its Pallas kernel.
     Equal fallback flags; the other outputs within the reference's own
@@ -125,6 +125,27 @@ def test_wrapper_takes_the_plain_version_on_cpu(dtype):
     for name, a, w in zip(NAMES, got, want):
         assert torch.equal(a.nan_to_num(), w.nan_to_num()), name
     assert chain.launches == {"compact_chain": 0}
+
+
+@pytest.mark.parametrize("m", [0, 1, 7, chain.MAX_M, chain.MAX_M + 1])
+def test_kernel_argument_rule(m):
+    """The CUDA kernel's argument rule, checked before any launch: m from 1
+    to MAX_M, any B; outside that a ValueError that names the queue item
+    of deeper histories; float32 or float64 only; shapes that match m."""
+    args = _torch_args(chain_inputs(np.random.default_rng(6), 3, max(m, 1)),
+                       torch.float32)
+    if 1 <= m <= chain.MAX_M:
+        chain.check_chain_args(args, m)
+        chain.check_chain_args([a.double() if a.is_floating_point() else a
+                                for a in args], m)
+        with pytest.raises(ValueError, match="must be a contiguous"):
+            chain.check_chain_args(args, m + 1 if m < chain.MAX_M else m - 1)
+        with pytest.raises(TypeError, match="float32 or float64"):
+            chain.check_chain_args([a.half() if a.is_floating_point() else a
+                                    for a in args], m)
+    else:
+        with pytest.raises(ValueError, match="Queue 2 item 5"):
+            chain.check_chain_args(args, m)
 
 
 def test_wrapper_refuses_other_devices():

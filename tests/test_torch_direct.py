@@ -88,10 +88,10 @@ def _follow_jax(cfg_j, step_j, step_t, x0, iters):
     x1[::7] = np.nextafter(x1[::7], np.inf)
     sj = tl.init_state(step_j.vg, jnp.asarray(x0), cfg_j.m)
     sp = tl.init_state(step_j.vg, jnp.asarray(x1), cfg_j.m)
-    st = interop.state_from_numpy(_np_state(sj))
+    st = interop.state_from_numpy(_np_state(sj), device="cpu")
     for k in range(iters):
         if not free:
-            st = interop.state_from_numpy(_np_state(sj))
+            st = interop.state_from_numpy(_np_state(sj), device="cpu")
         sj, st = step_j(sj), step_t(st)
         assert st.status.item() == int(sj.status), k
         assert st.n_pairs.item() == int(sj.n_pairs), k

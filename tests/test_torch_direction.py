@@ -47,7 +47,7 @@ def _jax_state(m, fill, seed=0, d=D):
 
 def _both(arrays):
     sj = JaxState(**{k: jnp.asarray(v) for k, v in arrays.items()})
-    return sj, interop.state_from_numpy(arrays)
+    return sj, interop.state_from_numpy(arrays, device="cpu")
 
 
 def _damage(arrays, how, m):

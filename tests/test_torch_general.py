@@ -95,7 +95,7 @@ def test_f64_trajectory_matches_jax(case):
     step = jax.jit(lambda s: tl.iterate(cj, pj.f, vgj, s, pj.dir_poly,
                                         tail_j))
     sj = tl.init_state(vgj, jnp.asarray(_x0()), cj.m)
-    st = interop.state_from_numpy(_np_state(sj))
+    st = interop.state_from_numpy(_np_state(sj), device="cpu")
     for k in range(ITERS):
         sj = step(sj)
         st = tt.iterate(ct, pt.f, vgt, st, pt.dir_poly, tail_t)
@@ -186,7 +186,7 @@ def test_refresh_interval_matches_jax(monkeypatch, solve, max_iters, points):
     vgj = tl.make_value_and_grad(pj.f, pj.grad)
     vgt = tt.make_value_and_grad(pt.f, pt.grad)
     sj0 = tl.init_state(vgj, jnp.asarray(_x0(1)), cj.m)
-    st0 = interop.state_from_numpy(_np_state(sj0))
+    st0 = interop.state_from_numpy(_np_state(sj0), device="cpu")
     sj = jax.jit(lambda s: getattr(tl, solve)(cj, pj.f, vgj, s))(sj0)
     seen = _refresh_points(monkeypatch)
     st = getattr(tt, solve)(ct, pt.f, vgt, st0)
@@ -232,7 +232,8 @@ def test_refresh_products_matches_jax():
     step = jax.jit(lambda s: tl.iterate(cj, pj.f, vgj, s))
     for _ in range(15):
         sj = step(sj)
-    st = tt.refresh_products(interop.state_from_numpy(_np_state(sj)))
+    st = tt.refresh_products(interop.state_from_numpy(_np_state(sj),
+                                                      device="cpu"))
     sj = tl.refresh_products(sj)
     for name in ("SY", "YY", "Sg", "Yg"):
         np.testing.assert_allclose(getattr(st, name).numpy(),
@@ -289,10 +290,12 @@ def test_record_trace_matches_jax(case, monkeypatch):
     if case == "quadratic_frozen_rows":
         assert k < n
     np.testing.assert_array_equal(rt.trace.f[-1].numpy(), rt.f.numpy())
-    back = interop.trace_from_numpy(interop.trace_to_numpy(rt.trace))
+    back = interop.trace_from_numpy(interop.trace_to_numpy(rt.trace),
+                                    device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(back, rt.trace))
     carried = interop.trace_from_numpy(
-        {k_: np.asarray(v) for k_, v in rj.trace._asdict().items()})
+        {k_: np.asarray(v) for k_, v in rj.trace._asdict().items()},
+        device="cpu")
     assert torch.equal(carried.alpha, rt.trace.alpha)
 
 
@@ -321,7 +324,7 @@ def test_solve_segments_match_jax(kw):
     seg_t = tt.make_solve_segment(ct, pt.f, grad=pt.grad, iters=6)
     sj = tl.init_state(tl.make_value_and_grad(pj.f, pj.grad),
                        jnp.asarray(_x0(5)), cj.m)
-    st = interop.state_from_numpy(_np_state(sj))
+    st = interop.state_from_numpy(_np_state(sj), device="cpu")
     ks = []
     while st.k.item() < ct.max_iters:
         sj, st = seg_j(sj), seg_t(st)
@@ -591,13 +594,20 @@ def test_fixture_suite_dims():
 
 
 def test_entry_points_without_a_tensor_need_a_cuda_device():
-    """scipy_compat.minimize with a numpy or list x0, the fixtures and
-    Problem.minimizer run on the current CUDA device and raise without
-    one; device="cpu" asks for the CPU; a tensor x0 is solved where it
-    lies."""
+    """scipy_compat.minimize with a numpy or list x0, the fixtures,
+    Problem.minimizer and interop's state_from_numpy and trace_from_numpy
+    run on the current CUDA device and raise without one; device="cpu" asks
+    for the CPU; a tensor x0 is solved where it lies."""
     p = tt.get_problem("quadratic")
     fx = fixtures.make_spd_fixture(3)
+    arrays = interop.state_to_numpy(tt.init_state(
+        tt.make_value_and_grad(p.f, p.grad), torch.zeros(4), 3))
+    trace = {name: np.zeros(2) for name in tt.Trace._fields}
     if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            interop.state_from_numpy(arrays)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            interop.trace_from_numpy(trace)
         with pytest.raises(RuntimeError, match="CUDA"):
             scipy_compat.minimize(p.f, np.zeros(4), jac=p.grad)
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -613,6 +623,10 @@ def test_entry_points_without_a_tensor_need_a_cuda_device():
     assert res.success and res.x.dtype == np.float64
     assert fx.problem(device="cpu").f(torch.zeros(
         3, dtype=torch.float64)).device.type == "cpu"
+    assert interop.state_from_numpy(arrays, device="cpu").x.device.type \
+        == "cpu"
+    assert interop.trace_from_numpy(trace, device="cpu").f.device.type \
+        == "cpu"
 
 
 SCIPY_CASES = {

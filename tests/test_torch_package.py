@@ -151,14 +151,14 @@ def test_interop_round_trip_is_exact(d):
     for _ in range(12):        # fill and wrap the ring
         s = step(s)
     arrays = {k: np.asarray(v) for k, v in s._asdict().items()}
-    st = interop.state_from_numpy(arrays)
+    st = interop.state_from_numpy(arrays, device="cpu")
     assert st.s_hist.shape == (cfg.m, d) and st.s_hist.is_contiguous()
     back = interop.state_to_numpy(st)
     assert back.keys() == arrays.keys()
     for k, a in arrays.items():
         assert back[k].dtype == a.dtype and back[k].shape == a.shape, k
         np.testing.assert_array_equal(back[k], a, err_msg=k)
-    again = interop.state_from_numpy(back)
+    again = interop.state_from_numpy(back, device="cpu")
     for f in dataclasses.fields(tt.LBFGSState):
         assert torch.equal(getattr(again, f.name), getattr(st, f.name))
 
@@ -169,7 +169,7 @@ def test_interop_copies():
     arrays = interop.state_to_numpy(tt.init_state(
         tt.fused_value_and_grad("rosenbrock"),
         torch.linspace(-1, 1, 256, dtype=torch.float64), 3))
-    st = interop.state_from_numpy(arrays)
+    st = interop.state_from_numpy(arrays, device="cpu")
     st.s_hist.fill_(7.0)
     assert not arrays["s_hist"].any()
 

@@ -76,7 +76,7 @@ def test_f64_trajectory_matches_jax(seed, fidelity):
     x1[::7] = np.nextafter(x1[::7], np.inf)
     sj = tl.init_state(vg, jnp.asarray(x0), cfg_j.m)
     sp = tl.init_state(vg, jnp.asarray(x1), cfg_j.m)
-    st = interop.state_from_numpy(_np_state(sj))
+    st = interop.state_from_numpy(_np_state(sj), device="cpu")
     for k in range(iters):
         sj, sp, st = step(sj), step(sp), _torch_step(cfg_t, st)
         assert st.alpha.item() == float(sj.alpha), k
@@ -99,7 +99,7 @@ def test_f32_steps_match_pallas_interpret(d):
     cfg_j, cfg_t = tl.LBFGSConfig(**BENCH), tt.LBFGSConfig(**BENCH)
     vg, step = _jax_stepper(cfg_j)
     sj = tl.init_state(vg, jax_x0(d, 0, jnp.float32), cfg_j.m)
-    st = interop.state_from_numpy(_np_state(sj))
+    st = interop.state_from_numpy(_np_state(sj), device="cpu")
     assert st.x.dtype == torch.float32
     for k in range(10):
         sj, st = step(sj), _torch_step(cfg_t, st)

@@ -412,7 +412,7 @@ def test_f64_fused_solve_matches_jax(problem, case):
     x1[::7] = np.nextafter(x1[::7], np.inf)
     sj = tl.init_state(vg_j, jnp.asarray(x0), cfg_kw["m"])
     sp = tl.init_state(vg_j, jnp.asarray(x1), cfg_kw["m"])
-    st = interop.state_from_numpy(_np_state(sj))
+    st = interop.state_from_numpy(_np_state(sj), device="cpu")
     floor = {name: 1e-13 * float(getattr(sj, name))
              for name in ("f", "g_norm")}
     damped = 0
@@ -460,7 +460,7 @@ def test_bf16_history_f64_iterates_match_jax(direction, with_matvec):
     x0 = _x0("rosenbrock", 293, seed=8)
     sj = tl.init_state(vg_j, jnp.asarray(x0), 5, "bfloat16")
     assert sj.s_hist.dtype == jnp.bfloat16
-    st = interop.state_from_numpy(_np_state(sj))
+    st = interop.state_from_numpy(_np_state(sj), device="cpu")
     assert st.s_hist.dtype == torch.bfloat16 and st.SY.dtype == torch.float64
     for k in range(25):
         sj, st = step_j(sj), step_t(st)
@@ -522,7 +522,7 @@ def test_f32_history_under_f64_iterates_matches_jax():
     cfg_j, cfg_t = tl.LBFGSConfig(**cfg_kw), tt.LBFGSConfig(**cfg_kw)
     x0 = _x0("rosenbrock", 293, seed=10)
     sj = tl.init_state(pj.value_and_grad, jnp.asarray(x0), 5, "float32")
-    st = interop.state_from_numpy(_np_state(sj))
+    st = interop.state_from_numpy(_np_state(sj), device="cpu")
     assert st.s_hist.dtype == torch.float32 and st.x.dtype == torch.float64
     step = jax.jit(lambda s: tl.iterate(cfg_j, pj.f, pj.value_and_grad, s,
                                         pj.dir_poly))
@@ -549,7 +549,7 @@ def test_f32_fused_steps_match_pallas_interpret(problem):
                                      dict(with_matvec=True))
     x0 = _x0(problem, 1152, seed=11).astype(np.float32)
     sj = tl.init_state(vg_j, jnp.asarray(x0), 5)
-    st = interop.state_from_numpy(_np_state(sj))
+    st = interop.state_from_numpy(_np_state(sj), device="cpu")
     assert st.x.dtype == torch.float32
     atol = 1e-9 * float(sj.f)
     for k in range({"rosenbrock": 10, "coupled_quadratic": 4,
@@ -594,7 +594,7 @@ def test_interop_carries_a_bf16_ring(hdtype):
         np.random.default_rng(0).uniform(-2, 2, 256), jnp.float32), 4, hdtype)
     for _ in range(6):      # fill and wrap the ring
         s = tl.iterate(cfg, pj.f, pj.value_and_grad, s, pj.dir_poly)
-    st = interop.state_from_numpy(_np_state(s))
+    st = interop.state_from_numpy(_np_state(s), device="cpu")
     assert st.s_hist.dtype == TORCH_DTYPE[hdtype]
     assert st.s_hist.shape == (4, 256) and st.s_hist.abs().sum() > 0
     back = interop.state_to_numpy(st)
@@ -603,7 +603,8 @@ def test_interop_carries_a_bf16_ring(hdtype):
         restored = jnp.asarray(back[name]).astype(s.s_hist.dtype)
         assert restored.shape == getattr(s, name).shape
         assert bool(jnp.all(restored == getattr(s, name))), name
-    again = interop.state_from_numpy(back, history_dtype=hdtype)
+    again = interop.state_from_numpy(back, history_dtype=hdtype,
+                                     device="cpu")
     assert again.s_hist.dtype == st.s_hist.dtype
     assert torch.equal(again.s_hist, st.s_hist)
     assert torch.equal(again.y_hist, st.y_hist)

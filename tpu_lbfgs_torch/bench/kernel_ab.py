@@ -18,9 +18,15 @@ the middle of a d of 2^22):
   history products t1, t2 at m = 5, 10 and 20 on a float32 and a bfloat16
   ring; ``tl_fused_tail_local_f32`` at m = 0 and m = 10;
 - ``tl_multi_phi_f32`` and ``tl_multi_phi_dphi_f32`` at K = 8 and 36, and
-  their ``_local_f32`` forms at K = 8 (and 36 for ``multi_phi_dphi``);
+  their ``_local_f32`` forms at K = 8 and 36;
 
-each for the three bodies.  ``--only`` keeps the calls whose label matches.
+each for the three bodies; and ``tl_compact_chain_f32`` and
+``tl_compact_chain_f64`` at B = 4096 and m = 5, 10, 20 (both trees) and
+m = 7 (the change only, held to ``chain_batched_plain`` on the card: a
+tree older than the chain's runtime m refuses it), on ring states with
+empty, partial and wrapped histories, zero pivots and NaN entries.  A
+chain's outputs are compared with NaN positions equal and the other values
+bit for bit.  ``--only`` keeps the calls whose label matches.
 For each it prints
 
 - the registers per thread the compiler reports for every instantiation of
@@ -40,25 +46,31 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import re
 import statistics
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from ..kernels import _build
+from ..kernels import _build, chain
 
 N = 1 << 20
 SHARDS = 4                  # the shard-local entries: block 1 of 4
 BODIES = ("quadratic", "rosenbrock", "coupled_quadratic")
 TAIL_M = (5, 10, 20)
+CHAIN_B = 4096              # bench.py's batch
+CHAIN_M = (5, 10, 20)       # both trees
+CHAIN_M_CHANGE = (7,)       # the change only
 _SIGS = {k: _build._SIGNATURES[k]
          for k in ("tl_max_blocks", "tl_fused_vg_f32", "tl_fused_tail_f32",
                    "tl_multi_phi_f32", "tl_multi_phi_dphi_f32",
                    "tl_fused_vg_local_f32", "tl_fused_tail_local_f32",
-                   "tl_multi_phi_local_f32", "tl_multi_phi_dphi_local_f32")}
+                   "tl_multi_phi_local_f32", "tl_multi_phi_dphi_local_f32",
+                   "tl_compact_chain_f32", "tl_compact_chain_f64")}
 
 
 def _load(csrc: Path):
@@ -128,12 +140,12 @@ def _calls(lib, body: int):
                             dtype=torch.float64 if local else torch.float32)
         part = torch.empty(nb, dtype=torch.float64, device=dev)
         xx = xl if local else x
-        tail_args = ((SHARDS * N, N, edges[[0, 2]].contiguous().data_ptr())
-                     if local else ())
+        e_vg = edges[[0, 2]].contiguous()   # kept alive by the closure
+        tail_args = (SHARDS * N, N, e_vg.data_ptr()) if local else ()
         entry = lib.tl_fused_vg_local_f32 if local else lib.tl_fused_vg_f32
         out[f"fused_vg{sfx}"] = (
             lambda entry=entry, xx=xx, g_out=g_out, part=part, f_out=f_out,
-            tail_args=tail_args: entry(
+            tail_args=tail_args, e_vg=e_vg: entry(
                 body, xx.data_ptr(), g_out.data_ptr(), part.data_ptr(),
                 f_out.data_ptr(), N, *tail_args, stream), (g_out,), (f_out,))
 
@@ -163,8 +175,6 @@ def _calls(lib, body: int):
 
     for kernel, outputs in (("multi_phi", 1), ("multi_phi_dphi", 2)):
         for k, local in ((8, False), (36, False), (8, True), (36, True)):
-            if local and kernel == "multi_phi" and k == 36:
-                continue
             alphas = torch.linspace(1e-3, 1.0, k, device=dev)
             res = torch.empty(outputs * k, device=dev,
                               dtype=torch.float64 if local else torch.float32)
@@ -181,6 +191,90 @@ def _calls(lib, body: int):
                    kpart.data_ptr(), res.data_ptr(), N, *extra, stream),
                 (), (res,))
     return out
+
+
+def _chain_args(m: int, dt):
+    """Batched ring states for the chain (those of chip_smoke.py's chain
+    phase): the eight input tensors on the card."""
+    rng = np.random.default_rng(m)
+    B = CHAIN_B
+    SY = rng.uniform(0.1, 2.0, (B, m, m))
+    SY[:, np.arange(m), np.arange(m)] += 2.0
+    YY = rng.uniform(0.1, 2.0, (B, m, m))
+    vecs = [rng.uniform(-1, 1, (B, m)) for _ in range(2)]
+    vecs += [rng.uniform(0.1, 2.0, (B, m)) for _ in range(2)]
+    vecs[2][3::11] = -1.0                                 # bad gamma
+    n_pairs = rng.integers(0, 4 * m, (B,))
+    gn = rng.uniform(0.1, 10.0, (B,))
+    SY[::7, 0, 0] = 0.0                                   # zero pivots
+    SY[5::13, 0, min(1, m - 1)] = np.nan                  # NaN entries
+    dev = torch.device("cuda")
+    args = [torch.from_numpy(a).to(dev, dt) for a in (SY, YY, *vecs)]
+    return args + [torch.from_numpy(n_pairs).to(dev, torch.int32),
+                   torch.from_numpy(gn).to(dev, dt)]
+
+
+def _chain_call(lib, m: int, dt, args):
+    """(callable, outputs) of tl_compact_chain_<dt> with the skip
+    threshold 1e-10 (bench.py's batch)."""
+    entry, c_scalar = chain._ENTRY[dt]
+    dev = args[0].device
+    outs = [torch.empty((CHAIN_B, m), dtype=dt, device=dev) for _ in range(2)]
+    outs += [torch.empty(CHAIN_B, dtype=dt, device=dev) for _ in range(2)]
+    outs.append(torch.empty(CHAIN_B, dtype=torch.bool, device=dev))
+    fn = getattr(lib, entry)
+    stream = torch.cuda.current_stream().cuda_stream
+    return (lambda: fn(*(t.data_ptr() for t in args), c_scalar(1e-10), 1,
+                       *(o.data_ptr() for o in outs), CHAIN_B, m, stream),
+            outs)
+
+
+def _same_nan(a, b):
+    """NaN at the same places and every other value bit-equal."""
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and _same(a[~nan], b[~nan])
+
+
+def _chain_ab(parent, change, card, only) -> int:
+    """Both trees' chains in turns at CHAIN_M; the change's alone, against
+    the plain version, at CHAIN_M_CHANGE.  Returns the count of chains
+    whose outputs differ."""
+    bad = 0
+    for m, dt in itertools.product(CHAIN_M + CHAIN_M_CHANGE,
+                                   (torch.float32, torch.float64)):
+        name = "f32" if dt == torch.float32 else "f64"
+        label = f"compact_chain {name} m={m} B={CHAIN_B}"
+        if only and not re.search(only, label):
+            continue
+        args = _chain_args(m, dt)
+        cf, cout = _chain_call(change, m, dt, args)
+        if m in CHAIN_M_CHANGE:
+            err = cf()
+            ref = chain.chain_batched_plain(*args, m=m, skip_thr=1e-10)
+            torch.cuda.synchronize()
+            same = not err and all(map(_same_nan, cout, ref))
+            bad += not same
+            tc = statistics.median(_time(cf) for _ in range(2))
+            print(f"{label}: change only (the parent refuses m={m}): launch "
+                  f"{err}, outputs {'equal' if same else 'DIFFER'} to the "
+                  f"plain version on the card; change {tc:.2f} us on {card}")
+            continue
+        pf, pout = _chain_call(parent, m, dt, args)
+        errs = (pf(), cf())
+        if any(errs):
+            print(f"{label}: a launch failed {errs}")
+            bad += 1
+            continue
+        torch.cuda.synchronize()
+        same = all(map(_same_nan, cout, pout))
+        bad += not same
+        t = [_time(f) for f in (pf, cf, cf, pf)]
+        tp, tc = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        print(f"{label}: outputs {'bit-equal' if same else 'DIFFER'}; parent "
+              f"{tp:.2f} us ({t[0]:.2f}, {t[3]:.2f}), change {tc:.2f} us "
+              f"({t[1]:.2f}, {t[2]:.2f}), change/parent {tc / tp:.3f} on "
+              f"{card}")
+    return bad
 
 
 def _same(a, b):
@@ -227,7 +321,7 @@ def main(argv) -> int:
         print(f"  only in {tree}: {k}: {pregs.get(k, cregs.get(k))}")
     for k in both:
         if re.search(args.only or ".", k) and (
-                "tail" in k or "dphi" in k or args.only):
+                "tail" in k or "phi" in k or "chain" in k or args.only):
             print(f"  {k}: parent {pregs[k]}, change {cregs[k]}")
 
     may_move = re.compile(args.sums_may_move) if args.sums_may_move else None
@@ -258,6 +352,7 @@ def main(argv) -> int:
                   f"{tp:.2f} us ({t[0]:.2f}, {t[3]:.2f}), change {tc:.2f} us "
                   f"({t[1]:.2f}, {t[2]:.2f}), change/parent {tc / tp:.3f} "
                   f"on {card}")
+    bad += _chain_ab(parent, change, card, args.only)
     print(f"kernel_ab: {'ok' if not bad else f'{bad} kernels differ'}")
     return 1 if bad else 0
 

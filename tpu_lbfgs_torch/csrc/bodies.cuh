@@ -12,7 +12,9 @@
 // reads them only behind the same index tests).
 //
 //   f(xv, xf, i, n)           the term of the objective that element i owns;
-//                             only called for i < terms(n)
+//                             only called for i < terms(n); f<true> is for
+//                             an element known to have its forward
+//                             neighbour (i < n - 1)
 //   fg(xv, xp, xf, i, n, acc) adds that term to acc (a double) and returns
 //                             element i of the gradient; fg<true> is for an
 //                             element known to have both neighbours and a
@@ -51,6 +53,7 @@ struct Quadratic {
   static constexpr bool kNeighbours = false;
   static __host__ __device__ int64_t terms(int64_t n) { return n; }
 
+  template <bool kInterior = false>
   static __device__ __forceinline__ float f(float xv, float, int64_t,
                                             int64_t) {
     const float r = xv - 1.0f;
@@ -72,6 +75,7 @@ struct Rosenbrock {
   static constexpr bool kNeighbours = true;
   static __host__ __device__ int64_t terms(int64_t n) { return n - 1; }
 
+  template <bool kInterior = false>
   static __device__ __forceinline__ float f(float xv, float xf, int64_t,
                                             int64_t) {
     const float t = xf - xv * xv;

@@ -25,7 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .types import LBFGSState, Trace
+from .types import LBFGSState, Trace, resolve_device
 
 _LANES = 128
 
@@ -38,12 +38,14 @@ def hist_block(d: int) -> tuple[int, int]:
     return 1, d
 
 
-def state_from_numpy(arrays: dict, device="cpu",
+def state_from_numpy(arrays: dict, device=None,
                      history_dtype=None) -> LBFGSState:
-    """The port's state on ``device`` from a reference state's arrays; the
-    (..., m, R, L) ring becomes a flat (..., m, d) ring, in
+    """The port's state on ``device`` (``types.resolve_device``: the current
+    CUDA device unless "cpu" is asked for) from a reference state's arrays;
+    the (..., m, R, L) ring becomes a flat (..., m, d) ring, in
     ``history_dtype`` when given ("bfloat16": the carrier's float32 values
     must be representable, which the cast then keeps exactly)."""
+    device = resolve_device(device)
     fields = {}
     for f in dataclasses.fields(LBFGSState):
         a = np.asarray(arrays[f.name])
@@ -77,9 +79,10 @@ def state_to_numpy(state: LBFGSState) -> dict:
     return out
 
 
-def trace_from_numpy(arrays: dict, device="cpu") -> Trace:
-    """The port's Trace on ``device`` from a reference trace's arrays
-    (``trace._asdict()`` on the JAX side)."""
+def trace_from_numpy(arrays: dict, device=None) -> Trace:
+    """The port's Trace on ``device`` (``types.resolve_device``) from a
+    reference trace's arrays (``trace._asdict()`` on the JAX side)."""
+    device = resolve_device(device)
     return Trace(**{name: torch.from_numpy(
         np.array(arrays[name], copy=True)).to(device)
         for name in Trace._fields})

@@ -8,7 +8,7 @@
                          (csrc/compact_chain.cu; replaces the Pallas
                          ``_make_chain_kernel``, which the reference's
                          ``custom_vmap`` rule runs for vmapped float32
-                         batches), in float32 and float64.
+                         batches), in float32 and float64, m = 1 to MAX_M.
   chain_batched_plain    its plain PyTorch version, in the Pallas kernel's
                          order of operations.
 
@@ -31,8 +31,8 @@ from . import _build
 #: Kernel launches since the last ``reset_launches()``.
 launches = {"compact_chain": 0}
 
-#: History depths the CUDA kernel is instantiated for (csrc/compact_chain.cu).
-KERNEL_M = (5, 10, 20)
+#: The deepest history the CUDA kernel takes (csrc/compact_chain.cu kMaxM).
+MAX_M = 64
 #: The kernel's entry point and threshold type for each dtype.
 _ENTRY = {torch.float32: ("tl_compact_chain_f32", ctypes.c_float),
           torch.float64: ("tl_compact_chain_f64", ctypes.c_double)}
@@ -165,7 +165,17 @@ def chain_batched_plain(SY_p: Tensor, YY_p: Tensor, Sg_p: Tensor,
     return v_phys, u_phys, gamma, g_dot_d, fallback
 
 
-def _check_chain_args(args, m: int) -> None:
+def check_chain_args(args, m: int) -> None:
+    """Raise unless the CUDA kernel takes these eight tensors (SY_p .. g_norm)
+    at history depth m: float32 or float64, 1 <= m <= MAX_M, contiguous
+    (B, m, m), (B, m) and (B,) shapes on one device, n_pairs int32."""
+    if args[0].dtype not in _ENTRY:
+        raise TypeError(f"compact_chain: the CUDA kernel takes float32 or "
+                        f"float64, got {args[0].dtype}")
+    if not 1 <= m <= MAX_M:
+        raise ValueError(
+            f"compact_chain: the CUDA kernel takes m from 1 to {MAX_M}, not "
+            f"m={m} (a deeper history is ROADMAP Queue 2 item 5)")
     B, dt = args[0].shape[0], args[0].dtype
     shapes = [(B, m, m)] * 2 + [(B, m)] * 4 + [(B,)] * 2
     dtypes = [dt] * 6 + [torch.int32, dt]
@@ -186,21 +196,15 @@ def compact_chain_batched(SY_p: Tensor, YY_p: Tensor, Sg_p: Tensor,
                           Yg_p: Tensor, sy_hist: Tensor, yy_hist: Tensor,
                           n_pairs: Tensor, g_norm: Tensor, m: int, skip_thr):
     """The batched chain: the CUDA kernel for CUDA float32 and float64
-    tensors, at any B and for m in KERNEL_M; the plain version for CPU
-    tensors.  Anything else raises."""
+    tensors, at any B and m from 1 to MAX_M; the plain version for CPU
+    tensors.  Anything else raises (``check_chain_args``)."""
     args = (SY_p, YY_p, Sg_p, Yg_p, sy_hist, yy_hist, n_pairs, g_norm)
     dev = SY_p.device
     if dev.type == "cpu":
         return chain_batched_plain(*args, m=m, skip_thr=skip_thr)
     if dev.type != "cuda":
         raise ValueError(f"compact_chain: expected a CUDA tensor, got {dev}")
-    if SY_p.dtype not in _ENTRY:
-        raise TypeError(f"compact_chain: the CUDA kernel takes float32 or "
-                        f"float64, got {SY_p.dtype}")
-    if m not in KERNEL_M:
-        raise ValueError(f"compact_chain: the CUDA kernel is built for m in "
-                         f"{KERNEL_M}, not m={m}")
-    _check_chain_args(args, m)
+    check_chain_args(args, m)
     B, dt = SY_p.shape[0], SY_p.dtype
     entry, c_scalar = _ENTRY[dt]
     lib = _build.load()
