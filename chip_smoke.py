@@ -78,6 +78,7 @@ it exits with an error and prints no record.
 """
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -150,6 +151,27 @@ DIRECT_BOX = 10.0
 # version's operations in its order: bit for bit, tolerance 0.
 TAIL_D = (D, RAGGED, 293)
 COMBINE_D = (D, RAGGED)
+# fused_vg around its runs of 4 elements and its warps' 32 runs, at the
+# main path's ragged size, and at an x that starts one float past a 16-byte
+# boundary (VG_OFFSET_N; the kernel then takes its element-wise path): g
+# bit for bit against the plain version, f within TRIAL_SUM_RTOL of
+# sum|terms| plus one float32 ulp.  local_fused_vg at blocks of VG_LOCAL_N
+# elements, 4 of them over a global d one element short (the last block
+# holds a padded element): each block's g bit for bit, its float64 f within
+# TRIAL_SUM_RTOL of sum|terms|, the blocks' g joined against the
+# whole-vector kernel's bit for bit.
+VG_N = (1, 2, 3, 4, 5, 255, 257, RAGGED)
+VG_OFFSET_N = (5, 257, RAGGED)
+VG_LOCAL_N = (1, 2, 3, 257)
+# The compensated sums on the data of tests/test_torch_kernels.py::
+# test_compensated_tail_tracks_f64_on_lossy_data at d = 2^20 (g_new near 1,
+# so a running float32 sum of its squares loses bits): each compensated sum
+# of iteration_tail (float32, float64) and of the fused tail (each body)
+# within LOSSY_F32_ULPS float32 units in the last place of the exact sum
+# (math.fsum of the float64 products, which equal the kernels' terms) and
+# no further from it than the same kernel's uncompensated sum.
+LOSSY_SEED = 11
+LOSSY_F32_ULPS = 64.0
 COMBINE_ABS_TOL = 0.0
 GENERAL_ITERS = 60
 GENERAL_WARMUP = 5
@@ -380,6 +402,166 @@ def phase_kernels(dev):
                 f"card, plain version {r['plain_ms'] * 1e3:.2f} us, bound "
                 f"{r['bound'][0] * 1e3:.2f} us by {r['bound'][1]}")
     return rec
+
+
+def phase_vg_shapes(dev, card):
+    """fused_vg and local_fused_vg at the shapes that take their
+    element-wise paths (VG_N, VG_OFFSET_N, VG_LOCAL_N)."""
+    from tpu_lbfgs_torch.dist.shardmap_vg import local_vg_plain
+    from tpu_lbfgs_torch.kernels import fused_ops as ops
+
+    tiny = torch.finfo(torch.float64).tiny
+    for problem in ops.BODY_IDS:
+        plain = ops.VG_PLAIN[problem]
+        shapes = [(n, 0) for n in VG_N] + [(n, 1) for n in VG_OFFSET_N]
+        worst, same = 0.0, True
+        for n, offset in shapes:
+            x = _kernel_inputs(n + offset, dev)[0][offset:]
+            check(x.is_contiguous()
+                  and (x.data_ptr() % 16 != 0) == bool(offset),
+                  "the offset x must start off a 16-byte boundary")
+            f_k, g_k = ops.fused_vg(problem, x)
+            f_p, g_p = plain(x)
+            torch.cuda.synchronize()
+            scale = _f_abs_terms(problem, x.double()).clamp(min=tiny)
+            over = _beyond_ulp(f_k, f_p, scale)
+            ok = torch.equal(g_k, g_p) and over <= TRIAL_SUM_RTOL
+            check(ok, f"{problem}_vg at d={n} offset {offset}: g bit-equal "
+                  f"{torch.equal(g_k, g_p)}, f {over:.3e} of sum|terms| "
+                  "beyond 1 ulp")
+            worst, same = max(worst, over), same and ok
+        say(f"[kernel] {problem}_vg at d = {', '.join(map(str, VG_N))} and "
+            f"one float off a 16-byte boundary at d = "
+            f"{', '.join(map(str, VG_OFFSET_N))}: g bit-equal to the plain "
+            f"version {same}, f {worst:.3e} of sum|terms| beyond 1 ulp (tol "
+            f"{TRIAL_SUM_RTOL}) on {card}")
+
+        errs, same = 0.0, True
+        for d_local in VG_LOCAL_N:
+            shards = 4
+            n = shards * d_local - 1
+            x = _kernel_inputs(n, dev)[0]
+            xp = torch.nn.functional.pad(x, (0, 1))
+            scale = _f_abs_terms(problem, x.double()).clamp(min=tiny)
+            g_whole = ops.fused_vg(problem, x)[1]
+            parts = []
+            for r in range(shards):
+                xl = _block(xp, r, d_local)
+                e_vg = _shard_edges(xp, xp, r, d_local)[[0, 2]].contiguous()
+                f_k, g_k = ops.local_fused_vg(problem, xl, n, r * d_local,
+                                              e_vg)
+                f_p, g_p = local_vg_plain(problem, xl, n, r * d_local, e_vg)
+                torch.cuda.synchronize()
+                same &= torch.equal(g_k, g_p)
+                errs = max(errs, ((f_k - f_p).abs() / scale).item())
+                parts.append(g_k)
+            joined = torch.cat(parts)
+            same &= (torch.equal(joined[:n], g_whole)
+                     and joined[n].item() == 0.0)
+        say(f"[kernel] {problem}_vg_local at blocks of "
+            f"{', '.join(map(str, VG_LOCAL_N))} (4 blocks, d one short): g "
+            f"bit-equal to the plain version and, joined, to the whole-vector "
+            f"kernel {same}; float64 f {errs:.3e} of sum|terms| (tol "
+            f"{TRIAL_SUM_RTOL}) on {card}")
+        check(same and errs <= TRIAL_SUM_RTOL,
+              f"{problem}_vg_local disagrees at small blocks")
+
+
+def _lossy_inputs(n, dev):
+    """tests/test_torch_kernels.py's lossy data at n elements, float32 on
+    the card: g_new, g, x, d."""
+    rng = np.random.default_rng(LOSSY_SEED)
+    gn = (1.0 + 1e-3 * rng.standard_normal(n)).astype(np.float32)
+    g = (1e-3 * rng.standard_normal(n)).astype(np.float32)
+    x = rng.standard_normal(n).astype(np.float32)
+    d = rng.standard_normal(n).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (gn, g, x, d)]
+
+
+def _f_terms(problem, u):
+    """f's float32 terms at u, formed as the plain versions form them."""
+    if problem == "quadratic":
+        r = u - 1.0
+        return r * r
+    if problem == "rosenbrock":
+        t1 = u[1:] - u[:-1] * u[:-1]
+        t2 = 1.0 - u[:-1]
+        return 100.0 * t1 * t1 + t2 * t2
+    t = 1000.0 * u * u
+    t[:-1] += 100.0 * (u[:-1] * u[1:])
+    return t
+
+
+def _lossy_check(label, terms, comp, plain, card):
+    """Each compensated sum against math.fsum of its float64 terms: within
+    LOSSY_F32_ULPS float32 ulps and no further than the plain sum."""
+    worst_ulps, margin = 0.0, float("inf")
+    for t, c, p in zip(terms, comp, plain):
+        exact = math.fsum(t.double().cpu().tolist())
+        unit = float(np.spacing(np.float32(abs(exact))))
+        err_c, err_p = abs(c.item() - exact), abs(p.item() - exact)
+        worst_ulps = max(worst_ulps, err_c / unit)
+        margin = min(margin, err_p - err_c)
+        check(err_c <= LOSSY_F32_ULPS * unit and err_c <= err_p,
+              f"{label}: compensated sum {c.item()!r} is {err_c:.3e} from "
+              f"the exact {exact!r} (plain {p.item()!r}, {err_p:.3e}; "
+              f"float32 ulp {unit:.3e})")
+    say(f"[kernel] {label} on the lossy data, d={D}: {len(terms)} "
+        f"compensated sums within {worst_ulps:.3e} float32 ulps of math.fsum "
+        f"of their float64 terms (tol {LOSSY_F32_ULPS}), none further from "
+        f"it than the plain form's (closest margin {margin:.3e}) on {card}")
+
+
+def phase_compensated(dev, card):
+    """The compensated sums of iteration_tail and the fused tail against
+    the exact sums on the lossy data, and both forms' times."""
+    from tpu_lbfgs_torch.kernels import fused_ops as ops
+
+    gn32, g32, x32, d32 = _lossy_inputs(D, dev)
+    for dt in (torch.float32, torch.float64):
+        gn, g, x, d = (t.to(dt) for t in (gn32, g32, x32, d32))
+        alpha = torch.full((), 0.37, dtype=dt, device=dev)
+        plain = ops.iteration_tail(x, d, alpha, g, gn)
+        comp = ops.iteration_tail(x, d, alpha, g, gn, accurate=True)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(plain[:3], comp[:3])),
+              "iteration_tail's vectors depend on the compensated flag")
+        # The kernel's terms: float64 products of the working values, exact
+        # for float32 values, rounded once for float64 ones, as here.
+        s, y, gd, dd, gg = (t.double() for t in (comp[1], comp[2], gn, d, g))
+        terms = [s * y, y * y, gd * gd, dd * gd, gg * gd]
+        _lossy_check(f"iteration_tail {dt}", terms, comp[3:], plain[3:], card)
+        size = x.element_size()
+        bound = bound_ms(size * (7 * D + 6), 13 * D)
+        times = [device_ms(lambda a=a: ops.iteration_tail(
+            x, d, alpha, g, gn, accurate=a)) for a in (False, True)]
+        say(f"[kernel] iteration_tail {dt} d={D}: plain {times[0] * 1e3:.2f} "
+            f"us, compensated {times[1] * 1e3:.2f} us, bound "
+            f"{bound[0] * 1e3:.2f} us by {bound[1]} on {card}")
+
+    alpha = torch.full((), 0.37, dtype=torch.float32, device=dev)
+    for problem in ops.BODY_IDS:
+        vg_plain = ops.VG_PLAIN[problem]
+        forms = [ops.make_fused_tail(problem, vg_plain, with_matvec=False,
+                                     accurate_dots=a) for a in (False, True)]
+        plain, comp = (tail(x32, d32, alpha, g32) for tail in forms)
+        torch.cuda.synchronize()
+        check(all(torch.equal(plain[i], comp[i]) for i in (0, 2, 3, 4)),
+              f"{problem}: the fused tail's vectors depend on the flag")
+        xn, gd, s, y = (comp[i].double() for i in (0, 2, 3, 4))
+        dd, gg = d32.double(), g32.double()
+        terms = [_f_terms(problem, comp[0]), s * y, y * y, gd * gd, dd * gd,
+                 gg * gd, y * gd]
+        sums = lambda out: [out[1], *out[5:11]]
+        _lossy_check(f"{problem}_fused_tail", terms, sums(comp), sums(plain),
+                     card)
+        if problem == "rosenbrock":
+            bound = bound_ms(28 * D + 32, 40 * D)
+            times = [device_ms(lambda tail=tail: tail(x32, d32, alpha, g32))
+                     for tail in forms]
+            say(f"[kernel] rosenbrock_fused_tail d={D}: plain "
+                f"{times[0] * 1e3:.2f} us, compensated {times[1] * 1e3:.2f} "
+                f"us, bound {bound[0] * 1e3:.2f} us by {bound[1]} on {card}")
 
 
 def _ring(rng_gen, m, n, dev, hdtype):
@@ -2239,10 +2421,12 @@ def main():
     phase_build()
     lap("card and build")
     rec = phase_kernels(dev)
+    phase_vg_shapes(dev, card)
     rec.update(phase_tail_forms(dev))
     rec["compact_chain"] = phase_chain(dev)
     rec.update(phase_trial_kernels(dev))
     rec.update(phase_general_kernels(dev))
+    phase_compensated(dev, card)
     lap("[kernel] whole-vector forms")
     launches, state, cfg = phase_main_path(dev)
     phase_no_sync(state, cfg)

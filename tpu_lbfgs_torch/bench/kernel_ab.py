@@ -13,18 +13,22 @@ the C entries are called through ``ctypes`` in turns in one process
 inputs, at d = 2^20 float32 (the shard-local entries on a block of 2^20 in
 the middle of a d of 2^22):
 
-- ``tl_fused_vg_f32`` and ``tl_fused_vg_local_f32``;
+- ``tl_fused_vg_f32`` and ``tl_fused_vg_local_f32``, and the first also on
+  the second's block;
 - ``tl_fused_tail_f32``: without products on a float32 ring, and with the
   history products t1, t2 at m = 5, 10 and 20 on a float32 and a bfloat16
-  ring; ``tl_fused_tail_local_f32`` at m = 0 and m = 10;
+  ring; ``tl_fused_tail_local_f32`` at m = 0 and m = 10; both with
+  compensated sums (the Neumaier stage 2) at m = 0 and m = 10;
 - ``tl_multi_phi_f32`` and ``tl_multi_phi_dphi_f32`` at K = 8 and 36, and
   their ``_local_f32`` forms at K = 8 and 36;
 
-each for the three bodies; and ``tl_compact_chain_f32`` and
-``tl_compact_chain_f64`` at B = 4096 and m = 5, 10, 20 (both trees) and
-m = 7 (the change only, held to ``chain_batched_plain`` on the card: a
-tree older than the chain's runtime m refuses it), on ring states with
-empty, partial and wrapped histories, zero pivots and NaN entries.  A
+each for the three bodies; ``tl_iteration_tail_f32`` and
+``tl_iteration_tail_f64``, plain and compensated; and
+``tl_compact_chain_f32`` and ``tl_compact_chain_f64`` at B = 4096 and
+m = 5, 10, 20 (both trees) and m = 7 (the change only, held to
+``chain_batched_plain`` on the card: a tree older than the chain's runtime
+m refuses it), on ring states with empty, partial and wrapped histories,
+zero pivots and NaN entries.  A
 chain's outputs are compared with NaN positions equal and the other values
 bit for bit.  ``--only`` keeps the calls whose label matches.
 For each it prints
@@ -70,7 +74,8 @@ _SIGS = {k: _build._SIGNATURES[k]
                    "tl_multi_phi_f32", "tl_multi_phi_dphi_f32",
                    "tl_fused_vg_local_f32", "tl_fused_tail_local_f32",
                    "tl_multi_phi_local_f32", "tl_multi_phi_dphi_local_f32",
-                   "tl_compact_chain_f32", "tl_compact_chain_f64")}
+                   "tl_compact_chain_f32", "tl_compact_chain_f64",
+                   "tl_iteration_tail_f32", "tl_iteration_tail_f64")}
 
 
 def _load(csrc: Path):
@@ -133,13 +138,14 @@ def _calls(lib, body: int):
     stream = torch.cuda.current_stream().cuda_stream
     out = {}
 
-    for local in (False, True):
-        sfx = " local" if local else ""
+    # The whole-vector kernel also on the shard-local entry's block, for the
+    # local form's cost against it.
+    for sfx, local, xx in (("", False, x), (" local", True, xl),
+                           (" on the local block", False, xl)):
         g_out = torch.empty(N, device=dev)
         f_out = torch.empty(1, device=dev,
                             dtype=torch.float64 if local else torch.float32)
         part = torch.empty(nb, dtype=torch.float64, device=dev)
-        xx = xl if local else x
         e_vg = edges[[0, 2]].contiguous()   # kept alive by the closure
         tail_args = (SHARDS * N, N, e_vg.data_ptr()) if local else ()
         entry = lib.tl_fused_vg_local_f32 if local else lib.tl_fused_vg_f32
@@ -152,7 +158,10 @@ def _calls(lib, body: int):
     tails = [("f32", 0, False)] + [(h, m, False) for h in ("f32", "bf16")
                                    for m in TAIL_M]
     tails += [("f32", 0, True), ("f32", 10, True)]
-    for h, m, local in tails:
+    tails = [(h, m, local, 0) for h, m, local in tails]
+    tails += [("f32", m, local, 1) for local in (False, True)
+              for m in (0, 10)]
+    for h, m, local, comp in tails:
         S, Y = (r[:m].contiguous() if m else r for r in rings[h])
         hdt = S.dtype
         vecs = [torch.empty(N, device=dev) for _ in range(2)]
@@ -164,12 +173,14 @@ def _calls(lib, body: int):
         extra = (SHARDS * N, N, edges.data_ptr()) if local else ()
         entry = (lib.tl_fused_tail_local_f32 if local
                  else lib.tl_fused_tail_f32)
-        label = (f"fused_tail{' local' if local else ''} ring {h} m={m}")
+        label = (f"fused_tail{' local' if local else ''} ring {h} m={m}"
+                 + (" compensated" if comp else ""))
         out[label] = (
             lambda entry=entry, h=h, m=m, S=S, Y=Y, vecs=vecs, sums=sums,
-            tpart=tpart, xx=xx, dd=dd, gg=gg, extra=extra: entry(
-                body, int(h == "bf16"), m, 0, xx.data_ptr(), dd.data_ptr(),
-                gg.data_ptr(), alpha.data_ptr(), S.data_ptr(), Y.data_ptr(),
+            tpart=tpart, xx=xx, dd=dd, gg=gg, extra=extra, comp=comp: entry(
+                body, int(h == "bf16"), m, comp, xx.data_ptr(),
+                dd.data_ptr(), gg.data_ptr(), alpha.data_ptr(),
+                S.data_ptr(), Y.data_ptr(),
                 *(v.data_ptr() for v in vecs), tpart.data_ptr(),
                 sums.data_ptr(), N, *extra, stream), tuple(vecs), (sums,))
 
@@ -190,6 +201,38 @@ def _calls(lib, body: int):
                 fn(body, xx.data_ptr(), dd.data_ptr(), alphas.data_ptr(), k,
                    kpart.data_ptr(), res.data_ptr(), N, *extra, stream),
                 (), (res,))
+    return out
+
+
+def _general_calls(lib):
+    """{label: (callable, output vectors, output sums)} of
+    tl_iteration_tail_f32 / _f64, plain and compensated, on fixed inputs
+    (g_new near 1, so the sum of its squares loses bits in a float32 running
+    sum)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    stream = torch.cuda.current_stream().cuda_stream
+    nb = lib.tl_max_blocks()
+    out = {}
+    for dt, name in ((torch.float32, "f32"), (torch.float64, "f64")):
+        x, d, g = (torch.empty(N, device=dev, dtype=dt).uniform_(
+            -2, 2, generator=gen) for _ in range(3))
+        g_new = 1.0 + 1e-3 * torch.empty(N, device=dev, dtype=dt).uniform_(
+            -1, 1, generator=gen)
+        alpha = torch.full((1,), 0.37, device=dev, dtype=dt)
+        fn = getattr(lib, f"tl_iteration_tail_{name}")
+        for comp in (0, 1):
+            vecs = [torch.empty(N, device=dev, dtype=dt) for _ in range(3)]
+            sums = torch.empty(5, device=dev, dtype=dt)
+            part = torch.empty(10 * nb, dtype=torch.float64, device=dev)
+            label = (f"iteration_tail {name} "
+                     f"{'compensated' if comp else 'plain'}")
+            out[label] = (
+                lambda fn=fn, ins=(x, d, g, g_new, alpha), vecs=vecs,
+                part=part, sums=sums, comp=comp: fn(
+                    *(t.data_ptr() for t in ins),
+                    *(v.data_ptr() for v in vecs), part.data_ptr(),
+                    sums.data_ptr(), N, comp, stream), tuple(vecs), (sums,))
     return out
 
 
@@ -287,6 +330,29 @@ def _sum_rel(a, b):
     return ((a - b).abs() / b.abs().clamp(min=1e-300)).max().item()
 
 
+def _ab_call(label, pcall, ccall, moving, card) -> bool:
+    """One label of both trees in turns: prints whether their outputs are
+    equal and their times; True where an output differs that may not."""
+    (pf, pvec, psum), (cf, cvec, csum) = pcall, ccall
+    errs = (pf(), cf())
+    if any(errs):
+        print(f"{label}: a launch failed {errs}")
+        return True
+    torch.cuda.synchronize()
+    vec_same = all(_same(a, b) for a, b in zip(pvec, cvec))
+    sum_same = all(_same(a, b) for a, b in zip(psum, csum))
+    t = [_time(f) for f in (pf, cf, cf, pf)]
+    tp, tc = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    sums = ("sums bit-equal" if sum_same else
+            f"sums differ by {max(map(_sum_rel, csum, psum)):.2e} "
+            "relative" + ("" if moving else " (MAY NOT)"))
+    print(f"{label}: vectors {'bit-equal' if vec_same else 'DIFFER'}, "
+          f"{sums}; parent {tp:.2f} us ({t[0]:.2f}, {t[3]:.2f}), change "
+          f"{tc:.2f} us ({t[1]:.2f}, {t[2]:.2f}), change/parent "
+          f"{tc / tp:.3f} on {card}")
+    return not vec_same or (not sum_same and not moving)
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(prog="kernel_ab")
     ap.add_argument("parent")
@@ -321,37 +387,22 @@ def main(argv) -> int:
         print(f"  only in {tree}: {k}: {pregs.get(k, cregs.get(k))}")
     for k in both:
         if re.search(args.only or ".", k) and (
-                "tail" in k or "phi" in k or "chain" in k or args.only):
+                "tail" in k or "phi" in k or "chain" in k or "vg" in k
+                or "finish" in k or args.only):
             print(f"  {k}: parent {pregs[k]}, change {cregs[k]}")
 
     may_move = re.compile(args.sums_may_move) if args.sums_may_move else None
     bad = 0
-    for body, name in enumerate(BODIES):
-        pcalls, ccalls = _calls(parent, body), _calls(change, body)
+    groups = [(name, _calls(parent, body), _calls(change, body))
+              for body, name in enumerate(BODIES)]
+    groups.append(("general", _general_calls(parent), _general_calls(change)))
+    for name, pcalls, ccalls in groups:
         for label in pcalls:
             if args.only and not re.search(args.only, label):
                 continue
-            (pf, pvec, psum), (cf, cvec, csum) = pcalls[label], ccalls[label]
-            errs = (pf(), cf())
-            if any(errs):
-                print(f"{name} {label}: a launch failed {errs}")
-                bad += 1
-                continue
-            torch.cuda.synchronize()
-            vec_same = all(_same(a, b) for a, b in zip(pvec, cvec))
-            sum_same = all(_same(a, b) for a, b in zip(psum, csum))
-            moving = may_move is not None and may_move.search(label)
-            bad += not vec_same or (not sum_same and not moving)
-            t = [_time(f) for f in (pf, cf, cf, pf)]
-            tp, tc = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-            sums = ("sums bit-equal" if sum_same else
-                    f"sums differ by {max(map(_sum_rel, csum, psum)):.2e} "
-                    "relative" + ("" if moving else " (MAY NOT)"))
-            print(f"{name} {label}: vectors "
-                  f"{'bit-equal' if vec_same else 'DIFFER'}, {sums}; parent "
-                  f"{tp:.2f} us ({t[0]:.2f}, {t[3]:.2f}), change {tc:.2f} us "
-                  f"({t[1]:.2f}, {t[2]:.2f}), change/parent {tc / tp:.3f} "
-                  f"on {card}")
+            moving = may_move is not None and bool(may_move.search(label))
+            bad += _ab_call(f"{name} {label}", pcalls[label], ccalls[label],
+                            moving, card)
     bad += _chain_ab(parent, change, card, args.only)
     print(f"kernel_ab: {'ok' if not bad else f'{bad} kernels differ'}")
     return 1 if bad else 0

@@ -57,8 +57,8 @@
 // the slot's own entries of t1 and t2 from the exact sums.
 //
 // The compensated form (the TPU kernel's `compensated` flag) adds the block
-// partials of the seven sums by the Neumaier recurrence in block order
-// (reduce.cuh::finish_sums_neumaier); t1 and t2 stay plain, as the TPU
+// partials of the seven sums by the Neumaier recurrence, one warp per sum
+// (reduce.cuh::finish_sums_compensated); t1 and t2 stay plain, as the TPU
 // kernel's do.
 //
 // The shard-local form (kShard; replaces tpu_lbfgs/dist/pallas_sharded.py
@@ -345,8 +345,8 @@ template <typename T>
 void finish(const Args& p, int blocks, int m) {
   T* sums = static_cast<T*>(p.sums);
   if (p.compensated) {
-    tl::finish_sums_neumaier<<<kSums, tl::kThreads, 0, p.stream>>>(
-        p.partials, blocks, sums);
+    tl::launch_finish_compensated(p.partials, nullptr, blocks, kSums, sums,
+                                  p.stream);
     if (m > 0) {
       tl::finish_sums<<<2 * m, tl::kThreads, 0, p.stream>>>(
           p.partials + static_cast<int64_t>(kSums) * blocks, blocks,

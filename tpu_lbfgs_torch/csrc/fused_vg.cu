@@ -7,12 +7,31 @@
 // (bodies.cuh).
 //
 // Bound by device-memory bytes: 8 bytes move per element (x in, g out) for
-// 3 to 15 flops.  So the design reads x once and writes g once: for a
-// chain-structured body each thread loads x[i-1] and x[i+1] beside x[i], and
-// those neighbour loads hit the lines its warp already brought into L1,
-// where the TPU kernels needed an SMEM carry and an 8-row halo DMA.  f is
-// reduced in the same pass (see reduce.cuh).  The edge is masked by index,
-// so any n works; there is no (R, 128) padding.
+// 3 to 15 flops, 2.50 us at n = 2^20 on an H100.  So the design reads x
+// once and writes g once, and reduces f in the same pass (reduce.cuh).
+//
+// The first design, one element per thread per step with both neighbours
+// loaded beside it, 1024 blocks, a 9-level shared-memory tree per block and
+// stage 2 as a second ordinary launch, took 7.85 us for Rosenbrock (NVIDIA
+// H100 80GB HBM3, 700 W), mostly fixed cost: the two launches and their
+// block sums.  This design:
+// - each thread owns a run of kRun = 4 consecutive elements of a tile,
+//   loaded and stored 16 bytes at a time where x and g are aligned
+//   (element by element otherwise and at the ragged end, so any n and any
+//   offset work); a chain body's neighbours come from the thread's own
+//   registers and, at the run's ends, from the neighbouring lanes by
+//   shuffle, with one load at a warp's edge, where the TPU kernels needed
+//   an SMEM carry and an 8-row halo DMA;
+// - a run whose elements all have both neighbours and a term takes the
+//   bodies' fg<true>, with no index test per element; the others (at most
+//   two runs a vector) test their indices;
+// - one wave of blocks (kBlocksPerSM a multiprocessor), each walking its
+//   tiles in a fixed order;
+// - the block sum by warp shuffles (reduce.cuh::block_sum_warps);
+// - stage 2 in one warp (reduce.cuh::finish_sums_lanes), launched behind
+//   stage 1 by programmatic dependent launch (reduce.cuh::launch_after):
+//   its launch overlaps stage 1, where an ordinary launch waited for
+//   stage 1 to drain.
 //
 // The per-element arithmetic is written in the order of the plain PyTorch
 // versions (tpu_lbfgs_torch/kernels/fused_ops.py::VG_PLAIN), and the library
@@ -23,44 +42,138 @@
 // kernel on one shard's block of x: element i has the global index
 // start + i, a term exists where that index says so against the global
 // unpadded length n_global (a zero-padded tail contributes nothing and gets
-// zero gradient), and the first and last threads take their outer
-// neighbours from edges = [previous shard's last x, next shard's first x]
-// in device memory.  Its f is the float64 sum, unrounded: the caller adds
-// the shards' partials in one float64 all-reduce and rounds once.  The
-// whole-vector form is the instantiation without kShard.
+// zero gradient), and elements 0 and n - 1 take their outer neighbours
+// from edges = [previous shard's last x, next shard's first x] in device
+// memory; only the runs that hold them read edges, so every other run takes
+// the same interior path as the whole vector's.  Its f is the float64 sum,
+// unrounded: the caller adds the shards' partials in one float64
+// all-reduce and rounds once.  The whole-vector form is the instantiation
+// without kShard.
 #include "bodies.cuh"
 #include "reduce.cuh"
 
 namespace {
 
+constexpr int kRun = 4;  // consecutive elements per thread and tile
+constexpr int kTile = tl::kThreads * kRun;
+constexpr int kSMs = 132;         // an H100's
+constexpr int kBlocksPerSM = 4;   // one wave
+constexpr unsigned kFull = 0xffffffffu;
+
+int tile_blocks(int64_t n) {
+  static_assert(kBlocksPerSM * kSMs <= tl::kMaxBlocks,
+                "partials hold kMaxBlocks");
+  const int64_t tiles = (n + kTile - 1) / kTile;
+  return static_cast<int>(tiles < kBlocksPerSM * kSMs ? tiles
+                                                      : kBlocksPerSM * kSMs);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 template <typename Body, bool kShard>
-__global__ void __launch_bounds__(tl::kThreads)
+__global__ void __launch_bounds__(tl::kThreads, kBlocksPerSM)
     vg_kernel(const float* __restrict__ x, float* __restrict__ g,
-              double* __restrict__ partials, int64_t n, tl::Shard shard) {
+              double* __restrict__ partials, int64_t n, bool vec,
+              tl::Shard shard) {
+  tl::allow_dependents();
   double acc[1] = {0.0};
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    const float xi = x[i];
-    float xp = 0.0f, xf = 0.0f;
-    if constexpr (kShard) {
-      if constexpr (Body::kNeighbours) {
-        xf = i < n - 1 ? x[i + 1] : shard.edges[1];
-        xp = i >= 1 ? x[i - 1] : shard.edges[0];
-      }
-      const int64_t gi = shard.start + i;
-      g[i] = gi < shard.n_global
-                 ? Body::fg(xi, xp, xf, gi, shard.n_global, acc[0])
-                 : 0.0f;
-    } else {
-      if constexpr (Body::kNeighbours) {
-        if (i < n - 1) xf = x[i + 1];
-        if (i >= 1) xp = x[i - 1];
-      }
-      g[i] = Body::fg(xi, xp, xf, i, n, acc[0]);
+  const int lane = threadIdx.x & 31;
+  const int64_t start = kShard ? shard.start : 0;
+  const int64_t n_total = kShard ? shard.n_global : n;
+  // A shard's outer neighbours: only the threads that will hold its first
+  // and its last element read them, here, so that the loads overlap the
+  // run's own (loaded where they are used, they held up those two warps).
+  float e_prev = 0.0f, e_next = 0.0f;
+  if constexpr (kShard && Body::kNeighbours) {
+    const int64_t last = n - 1;
+    if (blockIdx.x == 0 && threadIdx.x == 0) e_prev = shard.edges[0];
+    if ((last / kTile) % gridDim.x == blockIdx.x &&
+        (last % kTile) / kRun == threadIdx.x) {
+      e_next = shard.edges[1];
     }
   }
-  tl::block_sum_to<1>(acc, partials);
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kTile; base < n;
+       base += static_cast<int64_t>(gridDim.x) * kTile) {
+    const int64_t i0 = base + static_cast<int64_t>(threadIdx.x) * kRun;
+    const bool whole = vec && i0 + kRun <= n;
+    float xs[kRun];
+    if (whole) {
+      const float4 q = *reinterpret_cast<const float4*>(x + i0);
+      xs[0] = q.x; xs[1] = q.y; xs[2] = q.z; xs[3] = q.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < kRun; ++e) xs[e] = i0 + e < n ? x[i0 + e] : 0.0f;
+    }
+    // The run's outer neighbours, x[i0 - 1] and x[i0 + kRun] (0 outside
+    // the block; a body reads them behind its index tests only).
+    float xprev = 0.0f, xnext = 0.0f;
+    if constexpr (Body::kNeighbours) {
+      xprev = __shfl_up_sync(kFull, xs[kRun - 1], 1);
+      xnext = __shfl_down_sync(kFull, xs[0], 1);
+      if (lane == 0) xprev = i0 >= 1 && i0 <= n ? x[i0 - 1] : 0.0f;
+      if (lane == 31) xnext = i0 + kRun < n ? x[i0 + kRun] : 0.0f;
+    }
+    float gs[kRun];
+    if (i0 >= 1 && i0 + kRun < n && start + i0 + kRun < n_total) {
+      // Every element has both neighbours in the block and, by its global
+      // index, both neighbours and a term.
+#pragma unroll
+      for (int e = 0; e < kRun; ++e) {
+        const float xp = e > 0 ? xs[e - 1] : xprev;
+        const float xf = e < kRun - 1 ? xs[e + 1] : xnext;
+        gs[e] = Body::template fg<true>(xs[e], xp, xf, start + i0 + e,
+                                        n_total, acc[0]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kRun; ++e) {
+        const int64_t i = i0 + e;
+        gs[e] = 0.0f;
+        if (i >= n) continue;
+        float xp = e > 0 ? xs[e - 1] : xprev;
+        float xf = e < kRun - 1 ? xs[e + 1] : xnext;
+        if constexpr (kShard) {
+          if (i == 0) xp = e_prev;
+          if (i == n - 1) xf = e_next;
+          const int64_t at = start + i;
+          gs[e] = at < n_total ? Body::fg(xs[e], xp, xf, at, n_total, acc[0])
+                               : 0.0f;
+        } else {
+          gs[e] = Body::fg(xs[e], xp, xf, i, n, acc[0]);
+        }
+      }
+    }
+    if (whole) {
+      *reinterpret_cast<float4*>(g + i0) =
+          make_float4(gs[0], gs[1], gs[2], gs[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kRun; ++e) {
+        if (i0 + e < n) g[i0 + e] = gs[e];
+      }
+    }
+  }
+  tl::block_sum_warps<1>(acc, partials);
+}
+
+// Both stages: the kernel on one wave of blocks, then finish_sums_lanes
+// behind it.
+template <bool kShard, typename Out>
+int launch(int body, const float* x, float* g, double* partials, Out* f,
+           long long n, void* stream, const tl::Shard& shard) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = tile_blocks(n);
+  const bool vec = aligned16(x) && aligned16(g);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool known = TL_DISPATCH_BODY(
+      body, vg_kernel<Body, kShard><<<blocks, tl::kThreads, 0, s>>>(
+                x, g, partials, n, vec, shard));
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
+  tl::launch_after(tl::finish_sums_lanes<Out>, 1, tl::kLanes, s, partials,
+                   blocks, f);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -71,15 +184,7 @@ __global__ void __launch_bounds__(tl::kThreads)
 extern "C" int tl_fused_vg_f32(int body, const float* x, float* g,
                                double* partials, float* f, long long n,
                                void* stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = tl::blocks_for(n);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool known = TL_DISPATCH_BODY(
-      body, vg_kernel<Body, false><<<blocks, tl::kThreads, 0, s>>>(
-                x, g, partials, n, tl::Shard{}));
-  if (!known) return static_cast<int>(cudaErrorInvalidValue);
-  tl::finish_sums<<<1, tl::kThreads, 0, s>>>(partials, blocks, f);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(body, x, g, partials, f, n, stream, tl::Shard{});
 }
 
 // The shard-local form.  x, g: n floats, one shard's block.  n_global: the
@@ -90,14 +195,7 @@ extern "C" int tl_fused_vg_local_f32(int body, const float* x, float* g,
                                      double* partials, double* f, long long n,
                                      long long n_global, long long start,
                                      const float* edges, void* stream) {
-  if (n < 1 || start < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = tl::blocks_for(n);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const tl::Shard shard{n_global, start, edges};
-  const bool known = TL_DISPATCH_BODY(
-      body, vg_kernel<Body, true><<<blocks, tl::kThreads, 0, s>>>(
-                x, g, partials, n, shard));
-  if (!known) return static_cast<int>(cudaErrorInvalidValue);
-  tl::finish_sums<<<1, tl::kThreads, 0, s>>>(partials, blocks, f);
-  return static_cast<int>(cudaGetLastError());
+  if (start < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<true>(body, x, g, partials, f, n, stream,
+                      tl::Shard{n_global, start, edges});
 }

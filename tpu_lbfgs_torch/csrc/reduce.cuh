@@ -6,6 +6,13 @@
 // Stage 2: one block per scalar sums its partials in a
 // fixed order.  No float atomics, and the block count depends on n alone,
 // so a result repeats bit for bit from run to run and from card to card.
+//
+// Stage 2 may be launched behind stage 1 by programmatic dependent launch
+// (launch_after): stage 1 calls allow_dependents() as it starts, so the
+// stage-2 grid is put on the card while stage 1 runs, and stage 2
+// (finish_sums_lanes, finish_sums_compensated) waits in
+// wait_for_prerequisites() until stage 1 has finished and its partials are
+// visible.
 #pragma once
 
 #include <cstdint>
@@ -25,6 +32,37 @@ inline int blocks_for(int64_t n) {
 }
 
 namespace {
+
+// Lets the grids launched behind this one by launch_after start now.
+__device__ __forceinline__ void allow_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" :::);
+}
+
+// Waits until the grids this one was launched behind have finished and
+// their writes are visible; no wait for an ordinary launch.
+__device__ __forceinline__ void wait_for_prerequisites() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// Launches kernel<<<blocks, threads, 0, s>>>(args...) so that it may start
+// before the kernel ahead of it on s has finished (it must call
+// wait_for_prerequisites() before it reads what that kernel wrote).  A
+// CUDA graph captures the dependency as it is.
+template <typename... P, typename... A>
+inline cudaError_t launch_after(void (*kernel)(P...), int blocks, int threads,
+                                cudaStream_t s, A... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<P>(args)...);
+}
 
 // Writes this block's sum of acc[k] over its threads to
 // partials[k * gridDim.x + blockIdx.x], for k < count.  A kernel may call it
@@ -119,29 +157,120 @@ __global__ void __launch_bounds__(kThreads)
   if (t == 0) out[blockIdx.x] = static_cast<T>(sh[0]);
 }
 
-// Compensated stage 2, one block per sum: the block's threads bring the
-// sum's partials into shared memory, then one thread runs the Neumaier
-// recurrence over them in block order: a running sum and, beside it, the
-// sum of the low-order bits each addition dropped.
+// One step of the Neumaier recurrence: adds p to the running sum and, to
+// comp, the low-order bits that addition dropped (those of p where
+// |sum| >= |p|, else those of sum).
+__device__ __forceinline__ void neumaier_add(double& sum, double& comp,
+                                             double p) {
+  const double t = sum + p;
+  comp += fabs(sum) >= fabs(p) ? (sum - t) + p : (p - t) + sum;
+  sum = t;
+}
+
+// TwoSum: s + e = a + b exactly, s the rounded sum (no branch; the library
+// is built with -fmad=false and nvcc does not reassociate).
+__device__ __forceinline__ void two_sum(double a, double b, double& s,
+                                        double& e) {
+  s = a + b;
+  const double bb = s - a;
+  e = (a - (s - bb)) + (b - bb);
+}
+
+// Folds the (sum, comp) pair of lane + off into this lane's: the sums by
+// TwoSum, whose error goes into the compensation, the compensations by
+// plain addition.  Every lane of the warp must call it.
+__device__ __forceinline__ void fold_pair(double& sum, double& comp,
+                                          int off) {
+  const double s2 = __shfl_down_sync(0xffffffffu, sum, off);
+  const double c2 = __shfl_down_sync(0xffffffffu, comp, off);
+  double e;
+  two_sum(sum, s2, sum, e);
+  comp = (comp + c2) + e;
+}
+
+// Lanes of the one-warp stage 2 kernels below, and the partials each lane
+// takes at most (nblocks <= kMaxBlocks).
+constexpr int kLanes = 32;
+constexpr int kLaneSteps = kMaxBlocks / kLanes;
+
+// Stage 2 in one warp per sum, for the kernels that launch it behind stage
+// 1 (launch_after): out[k] = sum of the nblocks partials of scalar k =
+// blockIdx.x, rounded once to T.  Lane l loads the partials b = l, l + 32,
+// ... all at once, adds them in block order, and a fixed shuffle tree adds
+// the 32 lanes' sums (warp_sum).  One round of loads and five shuffles,
+// where finish_sums takes a strided loop and an 8-level shared-memory tree.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    finish_sums_neumaier(const double* __restrict__ partials, int nblocks,
-                         T* __restrict__ out) {
-  __shared__ double sh[kMaxBlocks];
-  const double* __restrict__ row =
-      partials + static_cast<int64_t>(blockIdx.x) * nblocks;
-  for (int b = threadIdx.x; b < nblocks; b += kThreads) sh[b] = row[b];
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  double sum = 0.0, comp = 0.0;
-  for (int b = 0; b < nblocks; ++b) {
-    const double p = sh[b];
-    const double t = sum + p;
-    // |sum| >= |p|: the low-order bits of p were dropped, else those of sum.
-    comp += fabs(sum) >= fabs(p) ? (sum - t) + p : (p - t) + sum;
-    sum = t;
+__global__ void __launch_bounds__(kLanes)
+    finish_sums_lanes(const double* __restrict__ partials, int nblocks,
+                      T* __restrict__ out) {
+  const int lane = threadIdx.x;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * nblocks;
+  wait_for_prerequisites();
+  double v[kLaneSteps];
+#pragma unroll
+  for (int j = 0; j < kLaneSteps; ++j) {
+    const int b = lane + kLanes * j;
+    v[j] = b < nblocks ? partials[row + b] : 0.0;
   }
-  out[blockIdx.x] = static_cast<T>(sum + comp);
+  double a = 0.0;
+#pragma unroll
+  for (int j = 0; j < kLaneSteps; ++j) a += v[j];
+  a = warp_sum(a);
+  if (lane == 0) out[blockIdx.x] = static_cast<T>(a);
+}
+
+// Compensated stage 2, one warp per sum k = blockIdx.x, launched with
+// kLanes threads a block (launch_finish_compensated).  Lane l runs the
+// Neumaier recurrence over the partials b = l, l + 32, l + 64, ... of sum k
+// in block order; where stage 1 kept a compensation per partial (comps not
+// null, the same layout as partials), the lane adds it to its own
+// compensation after that partial.  Then the 32 (sum, compensation) pairs
+// fold by a fixed shuffle tree (fold_pair: lane i takes lane i + 16, then
+// i + 8, 4, 2, 1), and out[k] = sum + compensation, rounded once to T.
+// The dependent chain is 32 steps and 5 folds, where the serial recurrence
+// over up to 1024 partials was 1024 steps on one thread; the error stays
+// that of the serial Neumaier sum: the rounding of the result plus terms
+// of order 2^-106 of the sum of the partials' magnitudes.  The order
+// depends on nblocks alone.  fused_ops.py::compensated_sum_plain mirrors
+// it operation for operation.
+template <typename T>
+__global__ void __launch_bounds__(kLanes)
+    finish_sums_compensated(const double* __restrict__ partials,
+                            const double* __restrict__ comps, int nblocks,
+                            T* __restrict__ out) {
+  const int lane = threadIdx.x;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * nblocks;
+  wait_for_prerequisites();
+  double v[kLaneSteps], c[kLaneSteps];
+#pragma unroll
+  for (int j = 0; j < kLaneSteps; ++j) {
+    const int b = lane + kLanes * j;
+    v[j] = b < nblocks ? partials[row + b] : 0.0;
+    c[j] = comps != nullptr && b < nblocks ? comps[row + b] : 0.0;
+  }
+  double sum = 0.0, comp = 0.0;
+#pragma unroll
+  for (int j = 0; j < kLaneSteps; ++j) {
+    if (lane + kLanes * j < nblocks) {
+      neumaier_add(sum, comp, v[j]);
+      if (comps != nullptr) comp += c[j];
+    }
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1) fold_pair(sum, comp, off);
+  if (lane == 0) out[blockIdx.x] = static_cast<T>(sum + comp);
+}
+
+// Launches finish_sums_compensated for count sums of nblocks partials each
+// (and their compensations, or nullptr) behind the stage-1 kernel on s
+// (launch_after; a stage 1 that never calls allow_dependents lets it start
+// when it ends, as an ordinary launch would).
+template <typename T>
+inline void launch_finish_compensated(const double* partials,
+                                      const double* comps, int nblocks,
+                                      int count, T* out, cudaStream_t s) {
+  launch_after(finish_sums_compensated<T>, count, kLanes, s, partials, comps,
+               nblocks, out);
 }
 
 }  // namespace

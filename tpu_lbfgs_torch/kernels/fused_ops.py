@@ -555,7 +555,9 @@ def iteration_tail(x: Tensor, d: Tensor, alpha: Tensor, g: Tensor,
                          f"{tuple(alpha.shape)} on {alpha.device}")
     lib = _build.load()
     x_new, s_row, y_row = (torch.empty_like(x) for _ in range(3))
-    partials = torch.empty(5 * lib.tl_max_blocks(), dtype=torch.float64,
+    # Five partials per block, and in float64 compensated form five
+    # compensations beside them.
+    partials = torch.empty(10 * lib.tl_max_blocks(), dtype=torch.float64,
                            device=x.device)
     sums = torch.empty(5, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
@@ -567,6 +569,37 @@ def iteration_tail(x: Tensor, d: Tensor, alpha: Tensor, g: Tensor,
     _build.check(lib, err, "iteration_tail")
     launches["iteration_tail"] += 1
     return (x_new, s_row, y_row, *sums.unbind(0))
+
+
+def compensated_sum_plain(partials, comps=None) -> float:
+    """The compensated stage 2 of the kernels' sums
+    (``csrc/reduce.cuh::finish_sums_compensated``), operation for operation
+    in float64, for the tests: lane l of 32 runs the Neumaier recurrence
+    over ``partials[l::32]`` in order, adding ``comps[b]`` (a compensation
+    per partial, where stage 1 kept one) to its compensation after partial
+    b; the 32 (sum, compensation) pairs then fold by the kernel's shuffle
+    tree, lane i taking lane i + 16, then i + 8, 4, 2, 1, the sums by
+    TwoSum and the compensations by plain addition; the result is sum +
+    compensation, unrounded."""
+    lanes = 32
+    sums, cmps = [0.0] * lanes, [0.0] * lanes
+    for b, p in enumerate(map(float, partials)):
+        lane, s = b % lanes, sums[b % lanes]
+        t = s + p
+        cmps[lane] += (s - t) + p if abs(s) >= abs(p) else (p - t) + s
+        sums[lane] = t
+        if comps is not None:
+            cmps[lane] += float(comps[b])
+    off = lanes // 2
+    while off:
+        for i in range(off):
+            a, b = sums[i], sums[i + off]
+            s = a + b
+            bb = s - a
+            e = (a - (s - bb)) + (b - bb)
+            sums[i], cmps[i] = s, (cmps[i] + cmps[i + off]) + e
+        off //= 2
+    return sums[0] + cmps[0]
 
 
 # --- the compact direction's combine ----------------------------------------
