@@ -63,6 +63,32 @@ itself: a float64 tensor raises, and the command line under --dtype
 float64 warns and says what it builds; the tail's products at m = 7 launch
 without a warning.
 
+After the sharded solve, four phases drive the experiment harnesses and
+the checkpoints at the sizes their users run:
+
+- [checkpoint]: the single instance's configuration at d = 2^20 in
+  float32, two make_solve_segment segments of 50 iterations cut by
+  tpu_lbfgs_torch.io.save_state / load_state, against the same two
+  segments uncut, every field bit for bit, on a float32 ring and on a
+  bfloat16 ring with the history products in the tail; the file holds the
+  reference's schema key, (m, R, L) ring and casts;
+- [giant]: fused_vg and the fused tail with its products (m = 10)
+  against their plain versions on the same inputs at d = 2^26 on a
+  bfloat16 ring and d = 1e8 on a float32 ring (vectors and rows bit for
+  bit, sums within 1e-9 of sum|terms| beyond 1 ulp); then
+  tpu_lbfgs_torch.bench.giant.main at d = 2^26 (float32 ring,
+  bfloat16 ring, the bfloat16 ring in segments) and d = 1e8 (float32
+  ring, 8 GB), m = 10, the products in the tail: a finite f, one fused
+  tail launch per iteration run, and its rate on the traffic model at
+  most 1.05 of the card's memory rate; each line beside the device time
+  per iteration;
+- [tol]: time_to_tolerance_refined at d = 2^11, float32 on the main path
+  to 1e-3, then float64 on the card to 1e-5 within 100 iterations;
+- [protocol]: the reference protocol's cells from U(-1000, 1000) at d =
+  10,000: the three float32 parallel-configuration cells that the
+  reference records as line_search_failed at iteration 1 end so here, and
+  a float64 cell on the quadratic converges.
+
 It checks that each solve went through its kernels, that its output is
 sound and equals the plain versions' over the first iterations, and that
 one iteration of each polynomial path never waits on the device; then it
@@ -79,8 +105,10 @@ it exits with an error and prints no record.
 import itertools
 import json
 import math
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -570,6 +598,35 @@ def _ring(rng_gen, m, n, dev, hdtype):
                              dtype=torch.float32) - 1.0).to(hdtype)
 
 
+def _tail_form_check(problem, out_k, out_p, d, g, S, Y, m, hdtype, where):
+    """A fused tail form's outputs against its plain version's on the same
+    inputs: x_new, g_new and the two rows bit for bit (the rows in the
+    ring's dtype), the 7 sums and, with the products, t1 and t2 each within
+    TRIAL_SUM_RTOL of sum|terms| beyond one ulp.  Returns those two
+    errors."""
+    same = all(torch.equal(out_k[i], out_p[i])
+               and out_k[i].dtype == out_p[i].dtype for i in (0, 2, 3, 4))
+    check(same and out_k[3].dtype == hdtype,
+          f"fused tail vectors differ from plain ({where})")
+    _, over = _tail_sums_check(problem, out_k, out_p, d, g)
+    t_over = 0.0
+    if m:
+        y = (out_p[2] - g).double().abs()
+        for i, ring in ((11, S), (12, Y)):
+            check(out_k[i].shape == (m,) and out_k[i].dtype == torch.float32,
+                  f"t1/t2 must be ({m},) float32 ({where})")
+            # Row by row, so that no float64 copy of a giant ring is made.
+            scale = torch.stack([row.double().abs() @ y for row in ring])
+            t_over = max(t_over, _beyond_ulp(out_k[i], out_p[i], scale))
+    else:
+        check(out_k[11] is None and out_k[12] is None,
+              f"t1/t2 must be None ({where})")
+    check(over <= TRIAL_SUM_RTOL and t_over <= TRIAL_SUM_RTOL,
+          f"fused tail sums differ from plain ({where}): 7 sums "
+          f"{over:.3e}, t1/t2 {t_over:.3e} beyond 1 ulp")
+    return over, t_over
+
+
 def phase_tail_forms(dev):
     """The fused tail's other forms against the plain version: the
     in-kernel history products at m = 5, 10, 20 and 7 on a float32 and a
@@ -606,28 +663,8 @@ def phase_tail_forms(dev):
             check(all(a is None and b is None or torch.equal(a, b)
                       for a, b in zip(out_k, again)),
                   f"two calls of the fused tail differ ({where})")
-            same = all(torch.equal(out_k[i], out_p[i])
-                       and out_k[i].dtype == out_p[i].dtype
-                       for i in (0, 2, 3, 4))
-            check(same and out_k[3].dtype == hist[h],
-                  f"fused tail vectors differ from plain ({where})")
-            _, over = _tail_sums_check(problem, out_k, out_p, d, g)
-            t_over = 0.0
-            if m:
-                y = (out_p[2] - g).double()
-                for i, ring in ((11, S), (12, Y)):
-                    check(out_k[i].shape == (m,)
-                          and out_k[i].dtype == torch.float32,
-                          f"t1/t2 must be ({m},) float32 ({where})")
-                    scale = ring.double().abs() @ y.abs()
-                    t_over = max(t_over, _beyond_ulp(out_k[i], out_p[i],
-                                                     scale))
-            else:
-                check(out_k[11] is None and out_k[12] is None,
-                      f"t1/t2 must be None ({where})")
-            check(over <= TRIAL_SUM_RTOL and t_over <= TRIAL_SUM_RTOL,
-                  f"fused tail sums differ from plain ({where}): 7 sums "
-                  f"{over:.3e}, t1/t2 {t_over:.3e} beyond 1 ulp")
+            over, t_over = _tail_form_check(problem, out_k, out_p, d, g,
+                                            S, Y, m, hist[h], where)
             worst["sum"] = max(worst["sum"], over)
             worst["t"] = max(worst["t"], t_over)
             errs[problem, n, h, m, accurate] = max(
@@ -2402,6 +2439,279 @@ def phase_dist(dev, card):
     return launches
 
 
+# --- checkpoints, the giant cell, time to tolerance, the protocol ----------
+# [checkpoint]: the main path's configuration at d = D in float32, two
+# make_solve_segment segments of CKPT_ITERS iterations, cut between them by
+# save_state / load_state and uncut; every field of the final states bit
+# for bit.  Once with the tail without its products on a float32 ring, once
+# on a bfloat16 ring with the products in the tail.
+CKPT_ITERS = 50
+# [giant]: bench.giant.main in process, GIANT_ITERS iterations and
+# GIANT_REPEATS timed runs each, at d = 2^26 on a float32 ring and on a
+# bfloat16 ring with the products in the tail, the bfloat16 ring driven in
+# segments, and at d = 1e8 on a float32 ring (8 GB).  Each line: a finite
+# f, one fused tail launch per iteration run (the warm-up run, the timed
+# runs and the device-time run), and at most GIANT_FRAC_MAX of the H100's
+# memory rate on the traffic model (beyond it the model counts wrong).
+GIANT_ITERS = 50
+GIANT_REPEATS = 2
+GIANT_FRAC_MAX = 1.05
+GIANT_M = 10
+# Before the runs, fused_vg and the fused tail with its products at
+# m = GIANT_M against their plain versions on the same inputs, at the
+# runs' sizes: d = 2^26 on a bfloat16 ring, d = 1e8 on a float32 ring
+# (past 2^31 bytes of ring and of each row's offset into it).
+GIANT_CHECKS = ((1 << 26, "bfloat16"), (100_000_000, "float32"))
+GIANT_RUNS = (
+    ["--d", str(1 << 26), "--with-matvec"],
+    ["--d", str(1 << 26), "--with-matvec", "--history-dtype", "bfloat16"],
+    ["--d", str(1 << 26), "--with-matvec", "--history-dtype", "bfloat16",
+     "--donate"],
+    ["--d", "100000000", "--with-matvec"],
+)
+# [tol]: time_to_tolerance_refined with the float64 stage on the card, at a
+# d where the float32 stage takes ~10,000 iterations (10,285 in the
+# reference's run on the CPU): the checks of the reference's
+# tests/test_utils.py::test_time_to_tolerance_refined_reaches_1e5.
+TOL_D = 1 << 11
+TOL_REFINE_MAX = 100
+# [protocol]: the published box, d = 10,000, two seeds.  The reference
+# records Armijo Backtracking, Armijo Interpolation and Wolfe Interpolation
+# under its float32 parallel configuration as line_search_failed at
+# iteration 1 for every seed (reference_protocol_results.json); a float64
+# sequential cell on the quadratic converges.
+PROTOCOL_D = 10_000
+PROTOCOL_SEEDS = (42, 365)
+PROTOCOL_FAILS = ("backtracking", "armijo_interpolation",
+                  "wolfe_interpolation")
+
+
+def _states_equal(a, b):
+    import dataclasses
+
+    return [f.name for f in dataclasses.fields(a)
+            if not (getattr(a, f.name).dtype == getattr(b, f.name).dtype
+                    and torch.equal(getattr(a, f.name), getattr(b, f.name)))]
+
+
+def phase_checkpoint(dev, tmp):
+    """Two segments of the main path cut by a checkpoint equal the same
+    two segments uncut, bit for bit, on both rings."""
+    import tpu_lbfgs_torch as tt
+    from tpu_lbfgs_torch.bench.harness import _x0
+    from tpu_lbfgs_torch.io import load_state, save_state
+
+    p = tt.get_problem("rosenbrock")
+    vg = tt.fused_value_and_grad("rosenbrock")
+    x0 = _x0(D, SEED, torch.float32, dev)
+    for label, hdtype, products in (("float32 ring", None, False),
+                                    ("bfloat16 ring, products in the tail",
+                                     "bfloat16", True)):
+        cfg = _bench_cfg(tt, 2 * CKPT_ITERS).replace(history_dtype=hdtype)
+        tail = tt.fused_tail_for("rosenbrock", with_matvec=products)
+
+        def segment():
+            return tt.make_solve_segment(cfg, p.f, value_and_grad=vg,
+                                         iters=CKPT_ITERS, dir_poly=p.dir_poly,
+                                         fused_tail=tail)
+
+        seg = segment()
+        uncut = seg(seg(tt.init_state(vg, x0.clone(), cfg.m, hdtype)))
+        seg = segment()
+        mid = seg(tt.init_state(vg, x0.clone(), cfg.m, hdtype))
+        path = tmp / f"ckpt_{hdtype or 'float32'}.npz"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_state(path, mid)
+        save_s = time.perf_counter() - t0
+        del mid
+        t0 = time.perf_counter()
+        loaded = load_state(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        resumed = seg(loaded)
+        with np.load(path) as z:
+            schema, ring = str(z["__schema__"]), z["s_hist"].shape
+            casts = json.loads(str(z["__casts__"]))
+        differ = _states_equal(resumed, uncut)
+        say(f"[checkpoint] {label}, d={D}: {CKPT_ITERS} + {CKPT_ITERS} "
+            f"iterations cut by save_state / load_state against uncut: "
+            f"fields that differ {differ}; k {resumed.k.item()}, f "
+            f"{resumed.f.item():.6e}; save {save_s:.3f} s, load (to the "
+            f"card) {load_s:.3f} s, file {path.stat().st_size / 1e6:.1f} MB, "
+            f"schema {schema}, ring {ring}, casts {casts}")
+        check(not differ, f"[checkpoint] {label}: the resumed solve differs "
+              f"from the uncut one in {differ}")
+        check(resumed.k.item() == 2 * CKPT_ITERS
+              and bool(torch.isfinite(resumed.f)),
+              f"[checkpoint] {label}: k must reach {2 * CKPT_ITERS}, f finite")
+        check(schema == "tpu-lbfgs-state-v1"
+              and ring == (cfg.m, D // 128, 128)
+              and casts == ({"s_hist": "bfloat16", "y_hist": "bfloat16"}
+                            if hdtype else {})
+              and resumed.s_hist.dtype == (torch.bfloat16 if hdtype
+                                           else torch.float32),
+              f"[checkpoint] {label}: the file must hold the schema key, the "
+              "(m, R, L) ring and the casts")
+        path.unlink()
+
+
+def _giant_kernel_checks(dev, card):
+    """The giant runs' kernels against their plain versions on the same
+    inputs, at each of GIANT_CHECKS (d, ring): fused_vg (g bit for bit, f
+    within TRIAL_SUM_RTOL of sum|terms| beyond 1 ulp) and the Rosenbrock
+    fused tail with its products at m = 10 (as at D, _tail_form_check).
+    One ring is alive at a time.  These launches are not the path's: the
+    runs reset the counts after them."""
+    from tpu_lbfgs_torch.kernels import fused_ops as ops
+
+    problem, vg_plain = "rosenbrock", ops.VG_PLAIN["rosenbrock"]
+    hist = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    alpha = torch.full((), 0.125, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    tail = ops.make_fused_tail(problem, vg_plain, with_matvec=True)
+    for n, h in GIANT_CHECKS:
+        x = 4.0 * torch.rand(n, generator=gen, device=dev) - 2.0
+        d, g = (2.0 * torch.rand(n, generator=gen, device=dev) - 1.0
+                for _ in range(2))
+        f_k, g_k = ops.fused_vg(problem, x)
+        f_p, g_p = vg_plain(x)
+        vg_over = _beyond_ulp(f_k, f_p, _f_abs_terms(problem, x.double()))
+        vg_same = torch.equal(g_k, g_p)
+        del f_k, g_k, f_p, g_p
+        S, Y = (_ring(gen, GIANT_M, n, dev, hist[h]) for _ in range(2))
+        out_k = tail(x, d, alpha, g, S, Y)
+        out_p = ops.fused_tail_plain(vg_plain, x, d, alpha, g, S, Y, True)
+        torch.cuda.synchronize()
+        where = f"{problem} d={n} ring {h} matvec m={GIANT_M}"
+        over, t_over = _tail_form_check(problem, out_k, out_p, d, g, S, Y,
+                                        GIANT_M, hist[h], where)
+        say(f"[giant] {problem}_vg d={n}: g bit-equal to the plain version "
+            f"{vg_same}, f {vg_over:.3e} of sum|terms| beyond 1 ulp; "
+            f"{problem}_fused_tail d={n} ring {h} matvec m={GIANT_M}: "
+            f"x_new, g_new, s, y bit-equal to the plain version, 7 sums "
+            f"{over:.3e} and t1/t2 {t_over:.3e} of sum|terms| beyond 1 ulp "
+            f"(tol {TRIAL_SUM_RTOL}); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; on {card}")
+        check(vg_same and vg_over <= TRIAL_SUM_RTOL,
+              f"{problem}_vg disagrees with its plain version at d={n}")
+        del x, d, g, S, Y, out_k, out_p
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def phase_giant(dev, card):
+    """The giant runs' kernels against their plain versions, then
+    bench.giant.main in process for each of GIANT_RUNS."""
+    import contextlib
+    import io
+
+    from tpu_lbfgs_torch import kernels
+    from tpu_lbfgs_torch.bench.giant import main as giant
+
+    torch.cuda.empty_cache()
+    _giant_kernel_checks(dev, card)
+    torch.cuda.reset_peak_memory_stats()
+    common = ["--iters", str(GIANT_ITERS), "--repeats", str(GIANT_REPEATS)]
+    for argv in GIANT_RUNS:
+        kernels.reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            giant(argv + common)
+        got = kernels.launch_counts()
+        line = buf.getvalue().strip().splitlines()[-1]
+        row = json.loads(line)
+        roof = row["roofline"]
+        run = GIANT_ITERS * (GIANT_REPEATS + 2)
+        say(f"[giant] {line}")
+        say(f"[giant] d={row['d']} ring {row['history_dtype']}"
+            f"{' in segments' if row['donated_segments'] else ''}: "
+            f"{row['iters_per_s']:.2f} it/s, {row['ms_per_iter']:.3f} ms per "
+            f"iteration, device {row['device_us_per_iter']:.1f} us per "
+            f"iteration (CUDA events around {GIANT_ITERS} iterations queued "
+            f"ahead: {row['host_ahead']}), the card waits on the host "
+            f"{100 * row['host_share']:.1f}% of an iteration; "
+            f"{roof['modeled_gb_per_iter']:.3f} GB per iteration on the "
+            f"model, {roof['achieved_gbps_on_model']:.1f} GB/s = "
+            f"{roof['frac_of_h100_spec']:.4f} of 3350 GB/s; fused tail "
+            f"launches {got['rosenbrock_fused_tail']} for {run} iterations "
+            f"run; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+            f"GB; on {card}")
+        check(np.isfinite(row["final_f"]) and np.isfinite(row["device_f"]),
+              f"[giant] {argv}: f must stay finite")
+        check(got["rosenbrock_fused_tail"] == run,
+              f"[giant] {argv}: the fused tail must launch once per "
+              f"iteration run, {got['rosenbrock_fused_tail']} for {run}")
+        check(roof["frac_of_h100_spec"] <= GIANT_FRAC_MAX,
+              f"[giant] {argv}: {roof['frac_of_h100_spec']} of the card's "
+              "memory rate on the model: the model counts wrong")
+        torch.cuda.reset_peak_memory_stats()
+
+
+def phase_tol(card):
+    """Time to ||g|| <= 1e-5 in two stages, the float64 one on the card."""
+    from tpu_lbfgs_torch import kernels
+    from tpu_lbfgs_torch.bench.harness import (
+        _WARMUP_ITERS,
+        time_to_tolerance_refined,
+    )
+
+    kernels.reset_launches()
+    r = time_to_tolerance_refined(d=TOL_D, refine_backend="torch")
+    got = kernels.launch_counts()
+    say(f"[tol] time_to_tolerance_refined(d={TOL_D}, coarse_tol=1e-3, "
+        f"tol=1e-5, refine_backend='torch'): {json.dumps(r)}; fused tail "
+        f"launches {got['rosenbrock_fused_tail']} on {card}")
+    check(r["status"] == "converged" and r["g_norm"] <= 1e-5
+          and r["refine_iterations"] <= TOL_REFINE_MAX,
+          f"[tol] must converge to 1e-5 within {TOL_REFINE_MAX} float64 "
+          "iterations")
+    check(got["rosenbrock_fused_tail"]
+          == r["coarse_iterations"] + _WARMUP_ITERS,
+          "[tol] the float32 stage must launch the fused tail once per "
+          "iteration")
+
+
+def phase_protocol(card):
+    """The reference's iteration-1 failures from the published box, and a
+    float64 cell on the card."""
+    from tpu_lbfgs_torch import kernels
+    from tpu_lbfgs_torch.bench.reference_protocol import (
+        TABLE_I_STRATEGIES,
+        markdown_table,
+        run_cuda_cell,
+    )
+
+    labels = {key: label for label, key in TABLE_I_STRATEGIES}
+    cells = []
+    kernels.reset_launches()
+    for strategy in PROTOCOL_FAILS:
+        cell = run_cuda_cell("rosenbrock", PROTOCOL_D, strategy,
+                             seeds=PROTOCOL_SEEDS)
+        cells.append(dict(cell, d=PROTOCOL_D, strategy=labels[strategy]))
+        check(cell["statuses"] == ["line_search_failed"] * len(PROTOCOL_SEEDS)
+              and cell["per_seed_iterations"] == [1] * len(PROTOCOL_SEEDS),
+              f"[protocol] {strategy}: the reference fails at iteration 1 "
+              f"from U(-1000, 1000) in float32; got {cell['statuses']}, "
+              f"{cell['per_seed_iterations']}")
+    got = kernels.launch_counts()
+    check(got["rosenbrock_vg"] > 0 and got["rosenbrock_fused_tail"] > 0,
+          f"[protocol] the float32 cells must run the fused kernels, "
+          f"launches {ran(got)}")
+    cell = run_cuda_cell("quadratic", PROTOCOL_D, "backtracking",
+                         seeds=PROTOCOL_SEEDS, dtype="float64")
+    cells.append(dict(cell, d=PROTOCOL_D, strategy="Armijo Backtracking "
+                      "(quadratic)"))
+    check(cell["statuses"] == ["converged"] * len(PROTOCOL_SEEDS)
+          and cell["max_final_g_norm"] <= 1e-8,
+          f"[protocol] the float64 quadratic cell must converge: {cell}")
+    say(f"[protocol] d={PROTOCOL_D}, seeds {PROTOCOL_SEEDS}, x0 ~ U(-1000, "
+        f"1000), launches {ran(got)}, on {card}:")
+    for line in markdown_table({"cells": cells}).splitlines():
+        say(f"[protocol] {line}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2448,6 +2758,15 @@ def main():
     lap("[kernel] shard-local forms")
     launches.update(phase_dist(dev, card))
     lap("[dist]")
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        phase_checkpoint(dev, pathlib.Path(tmp))
+    lap("[checkpoint]")
+    phase_giant(dev, card)
+    lap("[giant]")
+    phase_tol(card)
+    lap("[tol]")
+    phase_protocol(card)
+    lap("[protocol]")
     phase_bench(card)
     phase_bench_batch(card)
     phase_launch_counts(jobs)

@@ -19,16 +19,21 @@ the fused tail's in-kernel history products and compensated sums, and a
 history ring in bfloat16; and the sharded solve (``tpu_lbfgs_torch.dist``:
 ``sharded_minimize`` with one process per shard of the vector axis over
 ``torch.distributed``, ``--shard`` on the command line, the shard-local
-forms of the four fused kernel families).  What is left (batched direct
-mode, a batch or a caller's own objective on the sharded path) raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+forms of the four fused kernel families); checkpoints (``io.save_state`` /
+``load_state``, the reference's file); and the experiment harnesses
+(``bench``: time to tolerance, the giant-instance cell, the reference
+protocol, the sweep; ``utils.roofline``: the traffic model on the H100).
+What is left (batched direct mode, a batch or a caller's own objective on
+the sharded path) raises ``NotImplementedError`` naming the ROADMAP item
+that brings it; sharded checkpoints and the scaling sweep are not here
+yet (ROADMAP Queue 1 item 12).
 
 Where it runs: ``minimize`` and ``vmap_minimize`` solve on the device of
 the tensor they are given, so a CPU tensor is the caller asking for the
 CPU.  An entry point that is handed no tensor (``scipy_compat.minimize``
-with a numpy or list ``x0``, ``problems.fixtures``, ``Problem.minimizer``)
-runs on the current CUDA device, raises ``RuntimeError`` when there is
-none, and takes ``device="cpu"``.
+with a numpy or list ``x0``, ``problems.fixtures``, ``Problem.minimizer``,
+``reference_x0``, ``io.load_state``) runs on the current CUDA device,
+raises ``RuntimeError`` when there is none, and takes ``device="cpu"``.
 
 This package imports torch and never jax.
 """
@@ -56,6 +61,7 @@ from .problems.suite import (
     multi_phi_dphi_for,
     multi_phi_for,
     problem_names,
+    reference_x0,
     register_problem,
 )
 from .types import (
@@ -85,6 +91,7 @@ __all__ = [
     "multi_phi_dphi_for",
     "multi_phi_for",
     "problem_names",
+    "reference_x0",
     "register_problem",
     "init_state",
     "iterate",

@@ -28,6 +28,7 @@ import dataclasses
 import warnings
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -290,3 +291,20 @@ def fused_tail_for(name: str, with_matvec="auto", use_pallas: bool = True,
     return make_fused_tail(name, fused_value_and_grad(name, False),
                            with_matvec=with_matvec, use_pallas=use_pallas,
                            accurate_dots=accurate_dots)
+
+
+def reference_x0(d: int, seed: int, low: float = -1000.0, high: float = 1000.0,
+                 dtype=torch.float64, device=None) -> Tensor:
+    """The starting point of the reference's experiment protocol, x0 ~
+    U(low, high) (main.cpp:36-45; experiment seeds 42, 365, 12345, 777777,
+    10000, main.cpp:33), on ``device`` (``types.resolve_device``: the
+    current CUDA device unless "cpu" is asked for).
+
+    Drawn in float64 by numpy's ``default_rng(seed).uniform`` and rounded
+    to ``dtype``, as ``bench.harness._x0`` and the command line draw theirs;
+    the reference draws with ``jax.random.uniform``, so the two packages'
+    points for one seed differ.  Neither matches the C++ program's
+    ``std::mt19937``, which is not needed: a parity run feeds one array to
+    both solvers."""
+    x = np.random.default_rng(seed).uniform(low, high, d)
+    return torch.from_numpy(x).to(device=resolve_device(device), dtype=dtype)
