@@ -6,7 +6,7 @@ Run from the repository root, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from tpu_lbfgs_torch/csrc, holds each
-against its plain PyTorch version on the card, and drives six paths,
+against its plain PyTorch version on the card, and drives seven paths,
 each solve with the kernels' launch counts set to 0 just before it and
 read just after:
 
@@ -24,6 +24,15 @@ read just after:
   8 line searches at d = 2^20 from U(-10, 10), over the value and gradient
   and fused tail kernels and, for the speculative twins, the K-trial
   multi_phi and multi_phi_dphi kernels;
+- every line search on a batch ([batch-search]): the batch cell (4096 x
+  1024, float32, direct evaluation) under each of the 8 searches in
+  bounded lockstep for 20 iterations, under
+  torch.cuda.set_sync_debug_mode("error") so that a host read fails it,
+  over the batched compact chain kernel, against the same solve in
+  float64; then one instance at d = 2^20 under each search, solve_bounded
+  (its searches' fixed-trip loop, the same sync mode) against
+  solve_from_state (their read-driven loop), bit for bit, both timed,
+  over the value and gradient, fused tail and K-trial kernels;
 - the general path, a caller's own objective at d = 2^20 in float32 with
   use_pallas=True and no fused tail, over the iteration_tail kernel every
   iteration: chained Rosenbrock under each of the three directions, the
@@ -171,6 +180,20 @@ TRIAL_SUM_RTOL = 1e-9
 # version take equal alphas and f within TRACE_F_RTOL.
 DIRECT_ITERS = 100
 DIRECT_BOX = 10.0
+# [batch-search]: every line search in direct mode on the batch cell
+# (SEARCH_ITERS iterations of 4096 x 1024, bounded lockstep) and on one
+# instance at d = 2^20 (SEARCH_D_ITERS iterations under each loop).  The
+# float32 batch against the same solve in float64 from the same start: the
+# status equal on at least SEARCH_LANE_SHARE of the lanes, and on that
+# share of the lanes that run in both, f within SEARCH_F_RTOL relative.  Not every
+# lane: float32 rounding moves a lane's alphas, and a few lanes part (on
+# the CPU at 512 x 1024, armijo_interpolation failed one float32 lane that
+# float64 kept, and one lane ended 475x apart; every other search kept
+# every lane's status, f within 8.1e-5, median 2-4e-7).
+SEARCH_ITERS = 20
+SEARCH_D_ITERS = 10
+SEARCH_LANE_SHARE = 0.99
+SEARCH_F_RTOL = 1e-3
 # The general path.  iteration_tail against its plain version: the three
 # vectors bit for bit, each sum within TRIAL_SUM_RTOL of sum|terms| plus
 # one ulp of the working dtype (float64 partials in another order; the
@@ -1418,6 +1441,150 @@ def phase_direct(dev):
     return launches
 
 
+def phase_batch_search(dev, card):
+    """[batch-search]: every line search on bench.py's batch cell in direct
+    mode, then one instance at d = 2^20 under both line-search loops.
+
+    The batch: 4096 x 1024, float32, m = 10, compact_incremental, direct
+    evaluation, SEARCH_ITERS iterations of vmap_minimize(lockstep=
+    "bounded") under torch.cuda.set_sync_debug_mode("error"), so a host
+    read fails the run; held against the same solve in float64 on the card
+    (SEARCH_LANE_SHARE of the lanes with the same status and f within
+    SEARCH_F_RTOL); the chain kernel launches once per iteration.  One
+    instance: solve_bounded (fixed-trip searches, under the same sync
+    mode) against solve_from_state
+    (read-driven) over the same SEARCH_D_ITERS iterations of the direct
+    stack of [direct]: x bit for bit, the same counts; both timed.
+    Returns the profiler jobs of the single-instance runs, counted after
+    every timed phase (phase_launch_counts)."""
+    import tpu_lbfgs_torch as tt
+    from tpu_lbfgs_torch import kernels
+    from tpu_lbfgs_torch.linesearch import strategies
+
+    p = tt.get_problem("rosenbrock")
+    x0 = _batch_x0(dev)
+    for strategy in tt.config.LINE_SEARCH_METHODS:
+        cfg = _batch_cfg(tt, SEARCH_ITERS).replace(line_search=strategy,
+                                                   ls_eval="direct")
+        # One iteration first, outside the check and the counts: it loads
+        # the kernels and puts the searches' tables on the card.
+        tt.vmap_minimize(p.f, x0, cfg.replace(max_iters=1), grad=p.grad,
+                         lockstep="bounded")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        strategies.reset_host_reads()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            r = tt.vmap_minimize(p.f, x0, cfg, grad=p.grad,
+                                 lockstep="bounded")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = kernels.launch_counts()
+        reads = strategies.host_reads["line_search"]
+        ref = tt.vmap_minimize(p.f, x0.double(), cfg, grad=p.grad,
+                               lockstep="bounded")
+        counts = torch.bincount(r.status.long(), minlength=4).tolist()
+        ref_counts = torch.bincount(ref.status.long(), minlength=4).tolist()
+        same_status = (r.status == ref.status).double().mean().item()
+        ok = (r.status != tt.Status.LINE_SEARCH_FAILED) \
+            & (ref.status != tt.Status.LINE_SEARCH_FAILED)
+        rel = ((r.f.double() - ref.f) / ref.f).abs()[ok]
+        close = (rel <= SEARCH_F_RTOL).double().mean().item()
+        trials = ((r.n_fev - 1 - r.iterations).double()
+                  / r.iterations).mean().item()
+        say(f"[batch-search] {strategy}: B={BATCH} d={BATCH_D} float32 "
+            f"direct, bounded, {SEARCH_ITERS} iterations in {wall:.3f} s "
+            f"({wall / SEARCH_ITERS * 1e3:.3f} ms/iteration, "
+            f"{BATCH * SEARCH_ITERS / wall:.0f} instance-it/s), "
+            f"{trials:.2f} trials/iteration/lane, line-search host reads "
+            f"{reads}, under set_sync_debug_mode('error'); mean f "
+            f"{r.f.mean().item():.6e} (float64 {ref.f.mean().item():.6e}), "
+            f"f rel err vs float64 median {rel.median().item():.3e} max "
+            f"{rel.max().item():.3e}, within {SEARCH_F_RTOL} on "
+            f"{100 * close:.2f}% of the lanes that ran in both; status "
+            f"counts {counts} (float64 {ref_counts}), equal on "
+            f"{100 * same_status:.2f}% of the lanes; launches {ran(got)}, "
+            f"on {card}")
+        check(reads == 0, f"{strategy}: the bounded batch read on the host")
+        check(got["compact_chain"] == SEARCH_ITERS,
+              f"{strategy}: the chain kernel must launch once per iteration")
+        check(same_status >= SEARCH_LANE_SHARE,
+              f"{strategy}: statuses differ from the float64 run")
+        check(bool(torch.isfinite(r.f[ok]).all())
+              and close >= SEARCH_LANE_SHARE,
+              f"{strategy}: f differs from the float64 run")
+
+    # One instance at d = 2^20: the two loops over the same iterations.
+    rng = np.random.default_rng(SEED)
+    x1 = torch.from_numpy(rng.uniform(-DIRECT_BOX, DIRECT_BOX, D)).to(
+        device=dev, dtype=torch.float32)
+    solver = _direct_solver(tt)
+    vg = solver["value_and_grad"]
+    args = (None, solver["fused_tail"], solver["phi_batch"],
+            solver["phi_dphi_batch"])
+    jobs = []
+    for strategy in tt.config.LINE_SEARCH_METHODS:
+        cfg = _direct_cfg(tt, strategy, SEARCH_D_ITERS)
+        tt.solve_bounded(cfg.replace(max_iters=1), p.f, vg,
+                         tt.init_state(vg, x1, cfg.m), *args)
+        runs = {}
+        for mode in ("read-driven", "fixed-trip"):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            strategies.reset_host_reads()
+            t0 = time.perf_counter()
+            # init_state's vg launch counts, as under minimize in [direct].
+            state = tt.init_state(vg, x1, cfg.m)
+            if mode == "fixed-trip":
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = tt.solve_bounded(cfg, p.f, vg, state, *args)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            else:
+                out = tt.solve_from_state(cfg, p.f, vg, state, *args)
+            torch.cuda.synchronize()
+            runs[mode] = (out, time.perf_counter() - t0,
+                            kernels.launch_counts(),
+                            strategies.host_reads["line_search"])
+            jobs.append((f"[batch-search] d={D} {strategy} {mode}", x1, vg,
+                         cfg.m, lambda s, cfg=cfg, b=mode == "fixed-trip":
+                         tt.iterate(cfg, p.f, vg, s, *args, bounded=b)))
+        (a, wall_a, got_a, reads_a), (b, wall_b, got_b, reads_b) = \
+            runs["read-driven"], runs["fixed-trip"]
+        k = b.k.item()
+        same = all(torch.equal(getattr(a, n), getattr(b, n))
+                   for n in ("x", "f", "g", "k", "n_fev", "n_gev", "guards"))
+        say(f"[batch-search] d={D} {strategy}, {k} iterations: read-driven "
+            f"{wall_a / k * 1e3:.3f} ms/iteration, {reads_a / k:.2f} host "
+            f"reads/iteration, kernel launches/iteration "
+            f"{sum(got_a.values()) / k:.2f} {ran(got_a)}; fixed-trip "
+            f"{wall_b / k * 1e3:.3f} ms/iteration, {reads_b} host reads "
+            f"under set_sync_debug_mode('error'), kernel launches/iteration "
+            f"{sum(got_b.values()) / k:.2f} {ran(got_b)}; x, f, g and counts "
+            f"bit-equal {same}; f {b.f.item():.6e}, on {card}")
+        check(k == SEARCH_D_ITERS and reads_b == 0,
+              f"{strategy}: solve_bounded must run {SEARCH_D_ITERS} "
+              "iterations and read nothing")
+        check(same, f"{strategy}: the fixed-trip loop's solve differs from "
+              "the read-driven one")
+        for got in (got_a, got_b):
+            check(got["rosenbrock_fused_tail"] == k
+                  and got["rosenbrock_vg"] >= 1,
+                  f"{strategy}: the tail kernel must launch once per "
+                  "iteration and the vg kernel at least once")
+            if strategy.endswith("_speculative"):
+                own = ("rosenbrock_multi_phi"
+                       if strategy == "backtracking_speculative"
+                       else "rosenbrock_multi_phi_dphi")
+                check(got[own] >= k, f"{strategy}: {own} must launch at "
+                      "least once per iteration")
+    return jobs
+
+
 def _launches_per_iteration(step, state, iters=5):
     """Device kernels (and copies) launched per call of ``step``, counted
     by torch.profiler over ``iters`` calls; None where the profiler sees no
@@ -1492,7 +1659,8 @@ def _general_solve(label, tt, f, x0, cfg, jobs, expect_status=None,
 
 
 def phase_launch_counts(jobs):
-    """Device launches per iteration of each general-path solve, after
+    """Device launches per iteration of each general-path solve (and of
+    [batch-search]'s single-instance runs), after
     every timed phase: a profiler session can leave its tracing hooks on
     the launches that follow."""
     import tpu_lbfgs_torch as tt
@@ -1502,7 +1670,8 @@ def phase_launch_counts(jobs):
         for _ in range(3):
             state = step(state)
         per_it = _launches_per_iteration(step, state)
-        say(f"[general] {label}: "
+        tag = "" if label.startswith("[") else "[general] "
+        say(f"{tag}{label}: "
             + ("device launches/iteration not measured (the profiler saw "
                "no device activity)" if per_it is None
                else f"{per_it:.0f} device launches/iteration"))
@@ -2625,13 +2794,16 @@ def phase_giant(dev, card):
         roof = row["roofline"]
         run = GIANT_ITERS * (GIANT_REPEATS + 2)
         say(f"[giant] {line}")
+        share = ("an unknown share (the host was not ahead)"
+                 if row["host_share"] is None
+                 else f"{100 * row['host_share']:.1f}%")
         say(f"[giant] d={row['d']} ring {row['history_dtype']}"
             f"{' in segments' if row['donated_segments'] else ''}: "
             f"{row['iters_per_s']:.2f} it/s, {row['ms_per_iter']:.3f} ms per "
             f"iteration, device {row['device_us_per_iter']:.1f} us per "
             f"iteration (CUDA events around {GIANT_ITERS} iterations queued "
             f"ahead: {row['host_ahead']}), the card waits on the host "
-            f"{100 * row['host_share']:.1f}% of an iteration; "
+            f"{share} of an iteration; "
             f"{roof['modeled_gb_per_iter']:.3f} GB per iteration on the "
             f"model, {roof['achieved_gbps_on_model']:.1f} GB/s = "
             f"{roof['frac_of_h100_spec']:.4f} of 3350 GB/s; fused tail "
@@ -2746,7 +2918,10 @@ def main():
     lap("[main], [batch]")
     launches.update(phase_direct(dev))
     lap("[direct]")
+    search_jobs = phase_batch_search(dev, card)
+    lap("[batch-search]")
     general_launches, jobs = phase_general(dev)
+    jobs += search_jobs
     launches.update(general_launches)
     lap("[general]")
     for name, n in phase_cli(dev).items():

@@ -15,6 +15,7 @@ from tpu_lbfgs.bench.giant import main as jax_giant
 from tpu_lbfgs.utils.roofline import traffic_model as jax_traffic_model
 from tpu_lbfgs_torch.bench import harness
 from tpu_lbfgs_torch.bench.__main__ import main as bench_main
+from tpu_lbfgs_torch.bench import giant as giant_module
 from tpu_lbfgs_torch.bench.giant import main as giant
 from tpu_lbfgs_torch.utils.roofline import (
     HBM_BW_GBPS,
@@ -200,6 +201,22 @@ def test_giant_line(argv, capsys):
     ref = jax_traffic_model(jcfg, 4096, hist_resident=False)
     assert roof["modeled_passes_per_iter"] == ref.passes_total - (
         1.0 if "--with-matvec" in argv else 0.0)
+
+
+@pytest.mark.parametrize("host_ahead", [True, False])
+def test_giant_host_share_needs_the_host_ahead(host_ahead):
+    """host_share from a stubbed timing: 1 - device time / wall while the
+    host kept ahead of the card; None when it did not (the events timed
+    the host, and the share would read negative: -0.039 at d = 2^22 in
+    torch_records/torch_giant_results.jsonl)."""
+    timing = {"device_us_per_iter": 3930.0 * (1.039 if not host_ahead
+                                              else 0.25),
+              "host_ahead": host_ahead}
+    share = giant_module.host_share(timing, 3.93)
+    if host_ahead:
+        assert share == pytest.approx(0.75, rel=1e-12)
+    else:
+        assert share is None
 
 
 def test_giant_profile_needs_the_card(capsys):

@@ -81,6 +81,17 @@ F64_SETS = {
     "auto_speculative": "--problem rosenbrock --dim 64 --max-iters 40 "
                         "--auto-speculative --line-search "
                         "wolfe_interpolation --x0-range 0.5",
+    # --batch in direct mode through vmap_minimize, both lockstep modes
+    "batch_direct_wolfe": "--batch 4 --problem rosenbrock --dim 32 "
+                          "--max-iters 20 --line-search wolfe_interpolation",
+    "batch_direct_bt_wolfe_speculative": "--batch 4 --problem "
+                                         "coupled_quadratic --dim 32 "
+                                         "--max-iters 30 --tol 1e-8 "
+                                         "--line-search "
+                                         "backtracking_wolfe_speculative "
+                                         "--lockstep bounded",
+    "batch_direct_backtracking": "--batch 4 --problem rosenbrock --dim 32 "
+                                 "--max-iters 20 --lockstep bounded",
 }
 
 
@@ -94,10 +105,13 @@ def test_cli_matches_jax_f64(name, capsys):
         {k: v for k, v in ref["config"].items() if k != "backend"}
     for a, b in zip(out["results"], ref["results"]):
         assert a.keys() == b.keys()
-        for key in ("seed", "status", "iterations", "n_fev", "n_gev",
-                    "guards"):
+        # A --batch record has counts and means over its lanes instead.
+        batch = "batch" in b
+        for key in (("seed", "batch", "converged", "mean_iterations") if batch
+                    else ("seed", "status", "iterations", "n_fev", "n_gev",
+                          "guards")):
             assert a[key] == b[key], key
-        for key in ("f", "g_norm"):
+        for key in (("mean_f", "max_g_norm") if batch else ("f", "g_norm")):
             assert abs(a[key] - b[key]) <= 1e-5 * abs(b[key]) + 1e-12, key
         assert a["wall_s"] > 0
 
@@ -190,9 +204,6 @@ def test_multi_seed_summary_and_damped_guards(capsys):
     (["--shard", "--batch", "4", "--poly-ls"], "Queue 1 item 12"),
     (["--backend", "native"], "Queue 1 item 10"),
     (["--debug-nans"], "Queue 1 item 10"),
-    (["--batch", "4"], "Queue 1 item 7"),
-    (["--batch", "4", "--poly-ls", "--line-search", "backtracking_wolfe"],
-     "Queue 1 item 7"),
     (["--line-search", "nope"], "invalid choice"),
 ])
 def test_unported_flags_exit_through_the_parser(argv, message, capsys):

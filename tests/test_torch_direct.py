@@ -217,19 +217,6 @@ def test_cpu_direct_run_launches_no_kernel():
     assert not any(fused_ops.launches.values())
 
 
-@pytest.mark.parametrize("kw", [dict(ls_eval="direct"),
-                                dict(ls_eval="polynomial",
-                                     line_search="wolfe_interpolation")])
-def test_batched_direct_mode_raises(kw):
-    cfg = tt.LBFGSConfig(line_search=kw.get("line_search", "backtracking"),
-                         ls_eval=kw["ls_eval"],
-                         direction="compact_incremental", max_iters=2)
-    p = tt.get_problem("rosenbrock")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.vmap_minimize(p.f, torch.full((4, 16), -1.2, dtype=torch.float64),
-                         cfg, grad=p.grad, dir_poly=p.dir_poly)
-
-
 @pytest.mark.parametrize("call", [
     lambda: tt.multi_phi_for("quadratic"),
     lambda: tt.multi_phi_dphi_for("quadratic"),

@@ -418,8 +418,31 @@ def test_initialize_with_explicit_arguments_propagates_failure():
 
 
 def test_a_failing_rank_fails_the_job():
-    with pytest.raises(Exception, match="rank 1 gives up"):
+    """The job fails with the error of the rank whose own code raised
+    (rank 1), not rank 0's broken collective, whichever exit the parent
+    sees first."""
+    with pytest.raises(RuntimeError,
+                       match="rank 1 failed first: RuntimeError: rank 1 "
+                             "gives up"):
         spawn_ranks(_one_rank_raises, 2, timeout_s=20.0)
+
+
+def test_first_error_is_the_earliest_rank(tmp_path):
+    """``first_error`` picks the rank that raised first by its own clock,
+    whatever the file order: here rank 2's error, written last."""
+    import pickle
+
+    from tpu_lbfgs_torch.dist.launch import first_error
+
+    assert first_error(str(tmp_path)) is None
+    for rank, t, msg in ((0, 105.0, "connection closed by peer"),
+                         (3, 104.5, "connection closed by peer"),
+                         (2, 100.0, "ValueError: the real fault")):
+        with open(tmp_path / f"rank{rank}.err", "wb") as fh:
+            pickle.dump({"rank": rank, "time": t, "error": msg,
+                         "traceback": ""}, fh)
+    first = first_error(str(tmp_path))
+    assert first["rank"] == 2 and first["error"] == "ValueError: the real fault"
 
 
 def _one_rank_raises(rank, size):

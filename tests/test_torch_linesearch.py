@@ -239,20 +239,6 @@ def test_twin_alpha_equals_sequential(twin, spec_width, shrink):
         assert a_spec == seq(cfg, phi, phi_dphi, fx, gd).alpha.item()
 
 
-@pytest.mark.parametrize("strategy", ["armijo_interpolation",
-                                      "backtracking_wolfe",
-                                      "wolfe_interpolation"])
-def test_loop_searches_refuse_a_batch(strategy):
-    """A host-driven loop takes one instance: per-lane f_x and g . d make a
-    (B,) loop condition, which raises instead of looping on a list."""
-    phi = lambda a: 1.0 - a + 0.5 * a * a                      # noqa: E731
-    phi_dphi = lambda a: (phi(a), a - 1.0)                      # noqa: E731
-    cfg = tt.LBFGSConfig(line_search=strategy)
-    one = torch.ones(3, dtype=torch.float64)
-    with pytest.raises(ValueError, match="one instance"):
-        ls.get_line_search(strategy)(cfg, phi, phi_dphi, one, -one)
-
-
 def test_search_reads_one_flag_per_turn():
     """The sequential search reads its loop condition once per trial; the
     speculative twin once per round of K = 8 trials.  phi(a) = 1 - a +

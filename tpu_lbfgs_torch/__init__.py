@@ -8,7 +8,10 @@ kernels.  The port so far covers the two solves that ``bench.py`` times
 the incremental compact direction, for one large instance with
 ``minimize`` and for a batch of small ones in lockstep with
 ``vmap_minimize``), every line search with direct evaluation of its
-trials for one instance, as the reference's own protocol runs them, the
+trials, as the reference's own protocol runs them, or on the directional
+polynomial, for one instance and for a batch (each search a lane-masked
+turn: read-driven, or a fixed trip that reads nothing under
+``solve_bounded`` and ``lockstep="bounded"``), the
 solve of a caller's own objective (``minimize(f, x0)`` with the default
 configuration and autograd's gradient, the three directions, damping,
 compensated dots, traces, the periodic product refresh, segmented solves
@@ -23,8 +26,8 @@ forms of the four fused kernel families); checkpoints (``io.save_state`` /
 ``load_state``, the reference's file); and the experiment harnesses
 (``bench``: time to tolerance, the giant-instance cell, the reference
 protocol, the sweep; ``utils.roofline``: the traffic model on the H100).
-What is left (batched direct mode, a batch or a caller's own objective on
-the sharded path) raises ``NotImplementedError`` naming the ROADMAP item
+What is left (a batch or a caller's own objective on the sharded path)
+raises ``NotImplementedError`` naming the ROADMAP item
 that brings it; sharded checkpoints and the scaling sweep are not here
 yet (ROADMAP Queue 1 item 12).
 

@@ -6,6 +6,14 @@ writes the batch out instead: a (B, d) x0 gives a batched state whose every
 field has a leading lane axis, and ``core.solver`` runs all lanes with the
 same tensor ops, each lane taking its own decisions.  ``torch.func.vmap``
 is not used: ``iterate`` updates the history ring in place.
+
+Every line search runs on a batch, under ``ls_eval="direct"`` and
+``"polynomial"``, in both fidelity modes: each search is one turn over the
+lanes (``linesearch.strategies``), and a lane whose search has ended keeps
+its carry, as under the reference's vmapped ``while_loop``.  In direct mode
+a trial is one pass of f (or f and the gradient) over all B lanes, and K
+trials per lane are K such passes; the K-trial kernels of
+``problems.suite`` take one instance.
 """
 from __future__ import annotations
 
@@ -36,10 +44,12 @@ def vmap_minimize(f: Callable, x0_batch: Tensor,
          loop condition (RUNNING, g_norm >= tol, k < max_iters) fails and
          keeps its state from then on, as the reference's vmapped
          ``while_loop`` does; it reads one scalar per iteration, whether
-         any lane still runs.  "bounded" runs every lane for exactly
-         cfg.max_iters iterations and reads nothing on the host: failed
-         lanes end the same, lanes that converge early keep polishing past
-         tol and still report CONVERGED.
+         any lane still runs, and each line search reads one flag per
+         turn, whether any lane's search goes on.  "bounded" runs every
+         lane for exactly cfg.max_iters iterations and each search for its
+         own trip bound, and reads nothing on the host: failed lanes end
+         the same, lanes that converge early keep polishing past tol (and
+         report CONVERGED unless a later search fails).
 
     Returns a SolveResult whose fields carry the leading batch axis, a
     per-lane trace (B, max_iters, ...) under ``cfg.record_trace`` included.

@@ -18,7 +18,8 @@ line carries:
   time the card's work and not the host's launches (when the host cannot
   keep ahead of the card, they time the host; ``host_ahead`` says which);
   ``host_share``: 1 - device / wall time per iteration, the share of an
-  iteration in which the card waits for the host;
+  iteration in which the card waits for the host (null when the host did
+  not keep ahead: the events then timed the host);
 - ``roofline``: the model's passes and GB per iteration
   (``utils.roofline.traffic_model``, with the port's products in the
   tail under ``--with-matvec``), the rate the timed runs reached on it and
@@ -111,7 +112,7 @@ def main(argv=None) -> int:
 
     ms_per_iter = 1e3 / r["iters_per_s"]
     if "device_us_per_iter" in r:
-        r["host_share"] = 1.0 - r["device_us_per_iter"] / (ms_per_iter * 1e3)
+        r["host_share"] = host_share(r, ms_per_iter)
     tm = traffic_model(cfg, args.d, with_matvec=args.with_matvec)
     achieved_gbps = tm.bytes_per_iter * r["iters_per_s"] / 1e9
     roof = {
@@ -136,6 +137,16 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return 0
+
+
+def host_share(timing: dict, ms_per_iter: float):
+    """The share of an iteration's wall the card spent waiting on the host,
+    1 - device time / wall, from ``_device_time``'s timing; None when the
+    host never got ahead of the card, since the events then timed the
+    host's launches and not the card's work."""
+    if not timing["host_ahead"]:
+        return None
+    return 1.0 - timing["device_us_per_iter"] / (ms_per_iter * 1e3)
 
 
 def _x0_giant(args, device) -> torch.Tensor:

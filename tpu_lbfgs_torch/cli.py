@@ -28,11 +28,14 @@ and takes its block, and rank 0 prints the record.  A single process is a
 mesh of one shard.  With ``--device cpu`` the group is gloo; on the card it
 is nccl, one device per process (``LOCAL_RANK``).
 
+``--batch`` runs through ``vmap_minimize``: every ``--line-search``, with
+or without ``--poly-ls``, in either ``--lockstep``; the trials of a batch
+go through the problem's plain f and gradient, not the one-instance
+kernels of ``--pallas``.
+
 Not ported yet, each refused with the ROADMAP item that brings it:
 ``--shard`` with ``--batch`` (Queue 1 item 12, what is left),
-``--backend native`` and ``--debug-nans`` (Queue 1 item 10); ``--batch``
-runs through ``vmap_minimize`` and so needs ``--poly-ls`` with
-``--line-search backtracking`` (Queue 1 item 7).
+``--backend native`` and ``--debug-nans`` (Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -93,8 +96,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="x0 ~ U(-r, r); the reference's main.cpp uses 1000")
     ap.add_argument("--batch", type=int, default=0,
                     help="solve N independent instances in lockstep "
-                         "(0 = single); needs --poly-ls and --line-search "
-                         "backtracking")
+                         "(0 = single)")
     ap.add_argument("--lockstep", default="while",
                     choices=["while", "bounded"],
                     help="batch loop mode: 'while' freezes lanes as they "
@@ -158,12 +160,6 @@ def main(argv=None) -> int:
     if args.debug_nans:
         ap.error("--debug-nans is not ported to tpu_lbfgs_torch yet "
                  "(ROADMAP.md Queue 1 item 10)")
-    if args.batch and not (args.poly_ls
-                           and args.line_search == "backtracking"):
-        ap.error("--batch runs through vmap_minimize, which takes --poly-ls "
-                 "with --line-search backtracking; batched direct mode and "
-                 "the other searches are not ported yet (ROADMAP.md Queue 1 "
-                 "item 7)")
 
     import numpy as np
     import torch

@@ -2,14 +2,12 @@
 ``tpu_lbfgs.config.LBFGSConfig``, so one configuration means the same solve
 in both packages.
 
-The port runs every option of the reference for one instance: the three
-directions, every line search, trials evaluated directly
+The port runs every option of the reference, for one instance and for a
+batch: the three directions, every line search, trials evaluated directly
 (``ls_eval="direct"``) or on the closed-form directional polynomial,
 damping, compensated dots, traces, the periodic refresh of the incremental
 products, and a history ring stored in another dtype than the iterate's
-(bfloat16, or float32 under float64).  Batches run Armijo backtracking on
-the polynomial; what a batch cannot run raises ``NotImplementedError`` in
-``core.solver.iterate``, naming the ROADMAP item that brings it.
+(bfloat16, or float32 under float64).
 """
 from __future__ import annotations
 

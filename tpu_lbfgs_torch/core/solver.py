@@ -6,9 +6,10 @@ history products, guard counters, state advance.  Every decision is a
 tensor select on the device.  Under ``ls_eval="polynomial"`` with
 ``backtracking`` (bench.py's path) it reads nothing back to the host, so
 the host only enqueues work; every other line search reads its loop
-condition once per turn (``linesearch.strategies``).
+condition once per turn (``linesearch.strategies``), unless ``iterate`` is
+asked for the searches' fixed-trip loop (``bounded=True``).
 ``solve_from_state`` reads one scalar per iteration, the loop condition;
-``solve_bounded`` reads none of its own.
+``solve_bounded`` reads none, its searches' included.
 
 The history ring is updated in place: ``iterate`` writes the new pair's
 rows into ``state.s_hist`` / ``state.y_hist`` and hands the same tensors to
@@ -145,51 +146,65 @@ def make_phi(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, x: Tensor,
              comm=None):
     """phi / phi_dphi of the line search.
 
+    The lane axis is x's: a step of x's lane shape, () for one instance or
+    (B,) for a batch, is one trial per lane; with one more trailing axis,
+    (K,) or (B, K), it is K trials per lane, and phi returns that shape.
+
     ``ls_eval="polynomial"``: from the closed-form directional polynomial,
     one pass over (x, d) for the coefficients, then every trial is scalar
-    Horner work.  The coefficients carry one row per lane, (..., n); phi of
-    a (K,) batch of steps is (..., K).
+    Horner work on its lane's row of coefficients.
 
-    ``ls_eval="direct"`` (one instance): a trial is f(x + a d), a Wolfe
-    trial vg(x + a d) and g_new . d, each a full pass.  A (K,) batch of
-    trials, which the speculative searches ask for, goes through
-    ``phi_batch`` / ``phi_dphi_batch`` (``problems.suite.multi_phi_for`` /
-    ``multi_phi_dphi_for``: one pass for all K) when given, else trial by
-    trial, as the reference's vmap does."""
+    ``ls_eval="direct"``: a trial is f(x + a d), a Wolfe trial vg(x + a d)
+    and g_new . d, each a full pass, over every lane at once.  K trials per
+    lane, which the speculative searches ask for, go through ``phi_batch``
+    / ``phi_dphi_batch`` (``problems.suite.multi_phi_for`` /
+    ``multi_phi_dphi_for``: one pass for all K; one instance only) when
+    given, else trial by trial, as the reference's vmap does."""
+    lanes = x.dim() - 1
     if cfg.ls_eval == "polynomial":
         if dir_poly is None:
             raise ValueError("ls_eval='polynomial' requires dir_poly "
                              "(see Problem.dir_poly)")
         coeffs = dir_poly(x, d)
-        if coeffs.dim() > 1:
-            coeffs = coeffs.unsqueeze(-2)
+        # K trials per lane see their lane's row across the trial axis.
+        coeffs_k = coeffs.unsqueeze(-2) if lanes else coeffs
+
+        def rows(a):
+            return coeffs_k if a.dim() > lanes else coeffs
 
         def phi(a):
-            return _polyval(coeffs, a)
+            return _polyval(rows(a), a)
 
         def phi_dphi(a):
-            return _polyval(coeffs, a), _polyval(_polyder(coeffs), a)
+            c = rows(a)
+            return _polyval(c, a), _polyval(_polyder(c), a)
 
         return phi, phi_dphi
 
+    if lanes and (phi_batch is not None or phi_dphi_batch is not None):
+        raise ValueError("phi_batch / phi_dphi_batch evaluate K trials of "
+                         "one instance; a batch evaluates its trials "
+                         "through f and value_and_grad")
+
     def one_dphi(a):
-        f_new, g_new = vg(x + a * d)
+        f_new, g_new = vg(x + per_lane(a) * d)
         return f_new, _rdot(comm, g_new, d)
 
     def phi(a):
-        if a.dim() == 0:
-            return f(x + a * d)
+        if a.dim() == lanes:
+            return f(x + per_lane(a) * d)
         if phi_batch is not None:
             return phi_batch(x, d, a)
-        return torch.stack([f(x + aa * d) for aa in a.unbind(0)])
+        return torch.stack([f(x + per_lane(aa) * d) for aa in a.unbind(-1)],
+                           dim=-1)
 
     def phi_dphi(a):
-        if a.dim() == 0:
+        if a.dim() == lanes:
             return one_dphi(a)
         if phi_dphi_batch is not None:
             return phi_dphi_batch(x, d, a)
-        fs, dphis = zip(*(one_dphi(aa) for aa in a.unbind(0)))
-        return torch.stack(fs), torch.stack(dphis)
+        fs, dphis = zip(*(one_dphi(aa) for aa in a.unbind(-1)))
+        return torch.stack(fs, dim=-1), torch.stack(dphis, dim=-1)
 
     return phi, phi_dphi
 
@@ -242,7 +257,8 @@ def _keep_lanes(lanes: Tensor, new: LBFGSState,
 @torch.no_grad()
 def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
             dir_poly=None, fused_tail=None, phi_batch=None,
-            phi_dphi_batch=None, lanes=None, comm=None) -> LBFGSState:
+            phi_dphi_batch=None, lanes=None, comm=None,
+            bounded: bool = False) -> LBFGSState:
     """One unconditional L-BFGS iteration (assumes status == RUNNING).
     ``fused_tail``: the post-line-search tail
     (problems.suite.fused_tail_for), which replaces the x_new, ``vg`` and
@@ -261,14 +277,12 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
     loop condition has failed.
 
     ``comm``: the state is one shard of a sharded solve and every
-    reduction over d crosses the group (module docstring)."""
-    if state.x.dim() > 1 and (cfg.ls_eval == "direct"
-                              or cfg.line_search != "backtracking"):
-        raise NotImplementedError(
-            f"a batched solve with ls_eval={cfg.ls_eval!r} and line_search="
-            f"{cfg.line_search!r} is not ported to tpu_lbfgs_torch yet "
-            "(ROADMAP.md Queue 1 item 7); batches run backtracking under "
-            "ls_eval='polynomial'")
+    reduction over d crosses the group (module docstring).
+
+    ``bounded``: the line search runs its fixed-trip loop (its own trip
+    bound, finished lanes frozen) and reads nothing on the host, instead of
+    reading its loop condition once per turn (``linesearch.strategies``);
+    both give the same iterate bit for bit."""
     if cfg.accurate_dots and fused_tail is not None \
             and not getattr(fused_tail, "accurate_dots", False):
         raise ValueError(
@@ -292,7 +306,7 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
     phi, phi_dphi = make_phi(cfg, f, vg, x, d, dir_poly, phi_batch,
                              phi_dphi_batch, comm)
     ls = get_line_search(cfg.line_search)(cfg, phi, phi_dphi, state.f,
-                                          g_dot_d)
+                                          g_dot_d, bounded=bounded)
     alpha = ls.alpha
 
     # --- trial point, f/g there, pair and scalars ---------------------------
@@ -543,10 +557,12 @@ def refresh_products(state: LBFGSState, comm=None) -> LBFGSState:
 
 
 def _stepper(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, *callables,
-             comm=None):
-    """``step(state, lanes=None)``: one ``iterate`` of this solve."""
+             comm=None, bounded: bool = False):
+    """``step(state, lanes=None)``: one ``iterate`` of this solve, its line
+    search on the fixed-trip loop under ``bounded``."""
     def step(state, lanes=None):
-        return iterate(cfg, f, vg, state, *callables, lanes=lanes, comm=comm)
+        return iterate(cfg, f, vg, state, *callables, lanes=lanes, comm=comm,
+                       bounded=bounded)
     return step
 
 
@@ -607,8 +623,10 @@ def solve_bounded(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
                   comm=None) -> LBFGSState:
     """Exactly ``cfg.max_iters`` more iterations with no read of the loop
     condition: safe because iterate is idempotent on finished states
-    (lanes).  A state that would have converged early keeps iterating to
-    the budget.  The budget and, with ``cfg.refresh_interval``
+    (lanes).  The line search runs its fixed-trip loop, so no search
+    reads on the host either, in direct mode included.  A state that would
+    have converged early keeps iterating to the budget.  The budget and,
+    with ``cfg.refresh_interval``
     (compact_incremental), the refresh points are relative to the state
     given: a refresh after every full ``refresh_interval`` iterations, none
     after the remainder."""
@@ -616,7 +634,7 @@ def solve_bounded(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
     if interval is not None and interval >= cfg.max_iters:
         interval = None
     step = _stepper(cfg, f, vg, dir_poly, fused_tail, phi_batch,
-                    phi_dphi_batch, comm=comm)
+                    phi_dphi_batch, comm=comm, bounded=True)
     for i in range(1, cfg.max_iters + 1):
         state = step(state)
         if interval and i % interval == 0:

@@ -5,10 +5,13 @@ values handed back.  The tests run their 4-rank CPU jobs through it, and
 
 The ranks are started with ``spawn`` (the parent may hold a CUDA context,
 which a fork would break) and joined to one group over
-``tcp://localhost:<a free port>``.  A rank that raises ends the job: its
-traceback is raised in the parent and the other ranks are terminated; a
-rank blocked in a collective after a peer died ends by the group's
-timeout.
+``tcp://localhost:<a free port>``.  A rank that raises ends the job and
+the other ranks are terminated; a rank blocked in a collective after a
+peer died ends by the group's timeout.  Each rank that raises writes its
+error beside its result, with the time it raised, and the parent raises
+the error of the rank that raised first: the rank whose own code failed,
+not a peer whose collective broke when it went (whichever process exit
+the parent happens to see first).
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ import os
 import pickle
 import socket
 import tempfile
+import time
+import traceback
 from typing import Callable, Optional
 
 
@@ -39,12 +44,31 @@ def _rank_main(rank: int, fn: Callable, size: int, port: int,
         # One card per rank where the host has them; ranks beyond that
         # share (which nccl refuses: pass backend="gloo").
         torch.cuda.set_device(rank % torch.cuda.device_count())
-    initialize(f"localhost:{port}", size, rank, backend=backend,
-               timeout_s=timeout_s)
-    out = fn(rank, size, *args)
+    try:
+        initialize(f"localhost:{port}", size, rank, backend=backend,
+                   timeout_s=timeout_s)
+        out = fn(rank, size, *args)
+    except BaseException as e:
+        err = {"rank": rank, "time": time.time(),
+               "error": f"{type(e).__name__}: {e}",
+               "traceback": traceback.format_exc()}
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "wb") as fh:
+            pickle.dump(err, fh)
+        raise
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
         pickle.dump(out, fh)
     shutdown()
+
+
+def first_error(out_dir: str) -> Optional[dict]:
+    """The error that the earliest failing rank wrote into ``out_dir``
+    (``rank``, ``time``, ``error``, ``traceback``), or None."""
+    errs = []
+    for name in os.listdir(out_dir):
+        if name.endswith(".err"):
+            with open(os.path.join(out_dir, name), "rb") as fh:
+                errs.append(pickle.load(fh))
+    return min(errs, key=lambda e: (e["time"], e["rank"])) if errs else None
 
 
 def spawn_ranks(fn: Callable, size: int, *args,
@@ -55,14 +79,24 @@ def spawn_ranks(fn: Callable, size: int, *args,
     a CUDA device is present, else gloo); returns the ranks' return values
     in rank order (they must pickle).  ``fn`` must be importable from the children (a
     module-level function).  ``threads`` caps each rank's intra-op threads
-    (None leaves PyTorch's default)."""
+    (None leaves PyTorch's default).  When a rank raises, a
+    ``RuntimeError`` names the rank that raised first and carries its
+    error and traceback (``first_error``)."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as out_dir:
-        mp.spawn(_rank_main,
-                 args=(fn, size, free_port(), backend, timeout_s, threads,
-                       out_dir, args),
-                 nprocs=size, join=True)
+        try:
+            mp.spawn(_rank_main,
+                     args=(fn, size, free_port(), backend, timeout_s,
+                           threads, out_dir, args),
+                     nprocs=size, join=True)
+        except Exception as e:
+            first = first_error(out_dir)
+            if first is None:
+                raise
+            raise RuntimeError(
+                f"rank {first['rank']} failed first: {first['error']}\n"
+                f"{first['traceback']}") from e
         outs = []
         for rank in range(size):
             with open(os.path.join(out_dir, f"rank{rank}.pkl"), "rb") as fh:

@@ -4,25 +4,37 @@ three speculative twins.
 
 They see the objective only through phi(alpha) = f(x + alpha d) and
 phi_dphi(alpha) = (phi, phi'), built by ``core.solver.make_phi``.  Every
-scalar of a search is a 0-d tensor in the working dtype on the device, so
-each operation rounds as the reference's weak-typed scalar arithmetic does.
+scalar of a search carries the lane shape of ``f_x``: () for one instance,
+(B,) for a batch, in the working dtype on the device, so each operation
+rounds as the reference's weak-typed scalar arithmetic does.  K trials are
+(..., K); ``phi`` of a step of the lane shape is one trial per lane.
 
-The reference runs each search as a ``lax.while_loop`` on the device.  In
-eager PyTorch a loop whose length depends on the data reads its condition
-on the host: ``_while_loop`` reads one bool per turn, that is one per trial
-for the sequential searches and one per K-wide round for the speculative
-twins (``host_reads`` counts them).  Each body is the reference's body,
-line for line.
+The reference runs each search as a ``lax.while_loop`` on the device, and a
+batch as its ``jax.vmap``: the loop runs while any lane's condition holds,
+and a lane whose condition has failed keeps its carry.  Here each search
+is one turn, ``cond`` / ``body`` over the lanes, and one of two loops
+runs it (``_loop``):
 
-The exception is ``backtracking`` under ``ls_eval="polynomial"`` (the
-bench.py path) or on a batch: there a trial is one scalar Horner
-evaluation, so the port tests the whole ladder alpha_k = initial_step *
-shrink^k at once (27 trials at the defaults) and reads nothing.  The ladder is built by the loop's own
+- read-driven (the default): while any lane's condition holds, one bool
+  read on the host per turn, that is one per trial for the sequential
+  searches and one per K-wide round for the speculative twins
+  (``host_reads`` counts them).  ``solve_from_state`` and
+  ``vmap_minimize(lockstep="while")`` use it.
+- fixed-trip (``bounded=True``): exactly the search's own trip bound
+  (``cfg.ls_max_iters``, ``cfg.ls_safety_cap``, or the ladder's length),
+  with finished lanes frozen by a ``torch.where``; it reads nothing.
+  ``solve_bounded`` and ``vmap_minimize(lockstep="bounded")`` use it.
+
+A finished lane is frozen in both, so the two give the same result bit for
+bit.  Each body is the reference's body, line for line.
+
+``backtracking`` under ``ls_eval="polynomial"`` (the bench.py path) takes
+no loop at all: a trial is one scalar Horner evaluation, so the port tests
+the whole ladder alpha_k = initial_step * shrink^k at once (27 trials at
+the defaults) and reads nothing.  The ladder is built by the loop's own
 repeated multiplication in the working dtype, and each trial runs the
 loop's own comparison, so the accepted alpha is bit-identical to the
-loop's.  Batched, ``f_x`` and ``g_dot_d`` carry one value per lane, ``(B,)``,
-and ``phi`` returns ``(B, K)``: each lane picks its own first accepted
-trial.  The other searches take one instance.
+loop's; each lane picks its own first accepted trial.
 
 Fidelity traps 1-5 of the reference (``tpu_lbfgs.linesearch.strategies``
 docstring) are reproduced under ``cfg.fidelity == "reference"``, not fixed.
@@ -58,30 +70,45 @@ def reset_host_reads() -> None:
 
 
 def _read(*flags: Tensor) -> list[bool]:
-    """Bring 0-d loop conditions to the host, in one transfer."""
-    for flag in flags:
-        if flag.dim():
-            raise ValueError("these line searches take one instance, got "
-                             f"a loop condition of shape {tuple(flag.shape)}; "
-                             "a batch runs backtracking on its whole ladder")
+    """Whether each loop condition holds on any lane, in one transfer."""
     host_reads["line_search"] += 1
+    flags = [f.any() if f.dim() else f for f in flags]
     return (torch.stack(flags) if len(flags) > 1
             else flags[0].reshape(1)).tolist()
 
 
-def _while_loop(cond, body, carry, enter=None):
-    """``lax.while_loop`` driven from the host: one bool read per turn.
-    ``enter`` is the first condition where the caller knows it from the
-    configuration alone; it is then not read."""
-    go = _read(cond(carry))[0] if enter is None else enter
-    while go:
-        carry = body(carry)
-        go = _read(cond(carry))[0]
+def _select(go: Tensor, new: tuple, old: tuple) -> tuple:
+    """The carry ``new`` on the lanes where ``go`` holds, ``old`` elsewhere."""
+    return tuple(torch.where(go, a, b) for a, b in zip(new, old))
+
+
+def _loop(cond, body, carry, trips: int, bounded: bool, enter=None):
+    """Run one search's turn until its condition fails on every lane.
+
+    Read-driven (``bounded=False``): ``lax.while_loop`` driven from the
+    host, one bool read per turn; on a batch a lane whose condition has
+    failed keeps its carry.  ``enter`` is the first condition where the
+    caller knows it from the configuration alone; it is then not read.
+    Fixed-trip (``bounded=True``): ``trips`` turns, the search's own bound,
+    each lane frozen once its condition fails; no read."""
+    if bounded:
+        for _ in range(trips):
+            carry = _select(cond(carry), body(carry), carry)
+        return carry
+    lanes = carry[0].dim() > 0
+    go = cond(carry) if lanes or enter is None else None
+    more = _read(go)[0] if enter is None else enter
+    while more:
+        new = body(carry)
+        carry = _select(go, new, carry) if lanes else new
+        go = cond(carry)
+        more = _read(go)[0]
     return carry
 
 
 def _full(v, like: Tensor, dtype=None) -> Tensor:
-    return torch.full((), v, dtype=dtype or like.dtype, device=like.device)
+    return torch.full(like.shape, v, dtype=dtype or like.dtype,
+                      device=like.device)
 
 
 def _i32(v, like: Tensor) -> Tensor:
@@ -93,13 +120,15 @@ def _false(like: Tensor) -> Tensor:
 
 
 def _pick(v: Tensor, idx: Tensor) -> Tensor:
-    """v[idx] for a 0-d device index, with no host read."""
-    return v.index_select(0, idx.reshape(1)).reshape(())
+    """v[..., idx] per lane: v is (..., K), idx an index per lane; a gather,
+    with no host read."""
+    return v.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
 
 
 def _first(mask: Tensor) -> Tensor:
-    """Index of the first True of a (K,) mask (0 when there is none)."""
-    return torch.argmax(mask.to(torch.int32))
+    """Index of each lane's first True of a (..., K) mask (0 when there is
+    none)."""
+    return torch.argmax(mask.to(torch.int32), dim=-1)
 
 
 def _apply_rescue(cfg: LBFGSConfig, alpha: Tensor) -> tuple[Tensor, Tensor]:
@@ -121,13 +150,16 @@ def _armijo_accept(cfg: LBFGSConfig, f_x, f_new, alpha, g_dot_d) -> Tensor:
 
 # --- 1. Armijo backtracking ---------------------------------------------------
 
+@lru_cache(maxsize=8)
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
 @lru_cache(maxsize=64)
-def _ladder(initial_step: float, shrink: float, tol: float,
-            dtype: torch.dtype, device: torch.device) -> tuple[Tensor, float]:
-    """(trials, underflowed): every alpha the loop can test, on the device,
-    and the untested alpha it returns when none is accepted.  Cached, so
-    the host-to-device copy happens once per configuration and device."""
-    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+def _ladder_values(initial_step: float, shrink: float, tol: float,
+                   np_dtype: np.dtype) -> tuple[np.ndarray, float]:
+    """(trials, underflowed): every alpha the loop can test, in its order,
+    and the untested alpha it returns when none is accepted."""
     shrink_t, tol_t = np_dtype.type(shrink), np_dtype.type(tol)
     trials = [np_dtype.type(initial_step)]
     while True:
@@ -138,17 +170,34 @@ def _ladder(initial_step: float, shrink: float, tol: float,
         if len(trials) > _LADDER_CAP:
             raise ValueError(f"backtracking never falls below "
                              f"backtracking_tol={tol} with shrink={shrink}")
-    return (torch.tensor(np.array(trials, np_dtype), device=device),
-            float(nxt))
+    return np.array(trials, np_dtype), float(nxt)
+
+
+@lru_cache(maxsize=64)
+def _ladder(initial_step: float, shrink: float, tol: float,
+            dtype: torch.dtype, device: torch.device) -> tuple[Tensor, float]:
+    """``_ladder_values`` on the device.  Cached, so the host-to-device
+    copy happens once per configuration and device."""
+    trials, underflowed = _ladder_values(initial_step, shrink, tol,
+                                         _np_dtype(dtype))
+    return torch.tensor(trials, device=device), underflowed
+
+
+def _ladder_len(cfg: LBFGSConfig, dtype: torch.dtype) -> int:
+    """The number of trials the backtracking loop can make: its trip
+    bound."""
+    return len(_ladder_values(cfg.initial_step, cfg.shrink,
+                              cfg.backtracking_tol, _np_dtype(dtype))[0])
 
 
 def _backtracking_ladder(cfg: LBFGSConfig, phi: Callable[[Tensor], Tensor],
                          f_x: Tensor, g_dot_d: Tensor) -> LineSearchResult:
-    """Armijo backtracking over the whole ladder at once; ``phi`` must take
-    a (K,) ladder of step sizes and return (..., K), one row per lane."""
+    """Armijo backtracking over the whole ladder at once; ``phi`` takes the
+    (..., K) ladder, the same K steps for every lane, and returns (..., K)."""
     alphas, underflowed = _ladder(cfg.initial_step, cfg.shrink,
                                   cfg.backtracking_tol, f_x.dtype, f_x.device)
-    accept = _armijo_accept(cfg, per_lane(f_x), phi(alphas), alphas,
+    trials = alphas.expand(f_x.shape + alphas.shape) if f_x.dim() else alphas
+    accept = _armijo_accept(cfg, per_lane(f_x), phi(trials), alphas,
                             per_lane(g_dot_d))
     accepted = torch.any(accept, dim=-1)
     first = torch.argmax(accept.to(torch.int32), dim=-1)
@@ -166,11 +215,12 @@ def _backtracking_ladder(cfg: LBFGSConfig, phi: Callable[[Tensor], Tensor],
                             torch.zeros_like(n_fev), rescued)
 
 
-def _backtracking_loop(cfg: LBFGSConfig, phi, f_x: Tensor,
-                       g_dot_d: Tensor) -> LineSearchResult:
+def _backtracking_loop(cfg: LBFGSConfig, phi, f_x: Tensor, g_dot_d: Tensor,
+                       bounded: bool) -> LineSearchResult:
     """The reference's loop (strategies.py:112-142): test alpha; accept and
     stop, or shrink it and stop untested once it underflows
-    backtracking_tol.  One trial, one pass over (x, d), per turn."""
+    backtracking_tol.  One trial, one pass over (x, d), per turn; the
+    ladder's length bounds the turns."""
     def cond(c):
         _, accepted, broke, _ = c
         return ~(accepted | broke)
@@ -183,9 +233,10 @@ def _backtracking_loop(cfg: LBFGSConfig, phi, f_x: Tensor,
         broke = ~accept & (alpha_next < cfg.backtracking_tol)
         return alpha_next, accept, broke, n_fev + 1
 
-    alpha, _, broke, n_fev = _while_loop(
+    alpha, _, broke, n_fev = _loop(
         cond, body, (_full(cfg.initial_step, f_x), _false(f_x), _false(f_x),
-                     _i32(0, f_x)), enter=True)
+                     _i32(0, f_x)), _ladder_len(cfg, f_x.dtype), bounded,
+        enter=True)
     if cfg.fidelity == "fixed" and cfg.alpha_rescue_floor is None:
         # Textbook semantics: a search that never satisfied Armijo fails
         # (alpha = 0, the solver bails) instead of stepping on the untested
@@ -196,21 +247,23 @@ def _backtracking_loop(cfg: LBFGSConfig, phi, f_x: Tensor,
 
 
 def backtracking(cfg: LBFGSConfig, phi, phi_dphi, f_x: Tensor,
-                 g_dot_d: Tensor) -> LineSearchResult:
+                 g_dot_d: Tensor, bounded: bool = False) -> LineSearchResult:
     """Armijo backtracking: the whole ladder at once under
-    ``ls_eval="polynomial"`` or for a batch of lanes (no host read), the
+    ``ls_eval="polynomial"`` or for a batch of lanes (no host read under
+    either loop: a batch's ladder is its fixed-trip form), the
     reference's loop for one instance under ``"direct"`` (one pass over
-    (x, d) per trial, not 27).  Both give the loop's result."""
+    (x, d) per trial, not 27).  All give the loop's result."""
     del phi_dphi
     if cfg.ls_eval == "polynomial" or f_x.dim():
         return _backtracking_ladder(cfg, phi, f_x, g_dot_d)
-    return _backtracking_loop(cfg, phi, f_x, g_dot_d)
+    return _backtracking_loop(cfg, phi, f_x, g_dot_d, bounded)
 
 
 # --- 1b. Speculative (batched-candidate) Armijo backtracking -----------------
 
 def backtracking_speculative(cfg: LBFGSConfig, phi, phi_dphi, f_x: Tensor,
-                             g_dot_d: Tensor) -> LineSearchResult:
+                             g_dot_d: Tensor,
+                             bounded: bool = False) -> LineSearchResult:
     """Armijo backtracking with each round's ladder alpha_base *
     shrink^[0..K) evaluated by one vector ``phi`` call: under
     ``ls_eval="direct"`` one pass over (x, d) for K trials
@@ -222,7 +275,8 @@ def backtracking_speculative(cfg: LBFGSConfig, phi, phi_dphi, f_x: Tensor,
     underflow exit is reproduced per candidate.  The ladder is the loop's
     own chain of multiplications in the working dtype (a pow-based ladder
     rounds differently for a shrink that is no power of two).  n_fev counts
-    the evaluations performed, K per round.
+    the evaluations performed, K per round; the rounds are at most the
+    sequential ladder's length over K.
     """
     del phi_dphi
     K = cfg.spec_width
@@ -233,28 +287,30 @@ def backtracking_speculative(cfg: LBFGSConfig, phi, phi_dphi, f_x: Tensor,
         for _ in range(K):
             alphas.append(base)
             base = base * shrink
-        return torch.stack(alphas)
+        return torch.stack(alphas, dim=-1)
 
     def cond(c):
         return ~c[1]
 
     def body(c):
         base, _, _, _, n_fev = c
-        alphas = ladder(base)                        # (K,)
+        alphas = ladder(base)                        # (..., K)
         fs = phi(alphas)                             # one batched pass
-        accepts = _armijo_accept(cfg, f_x, fs, alphas, g_dot_d)
+        accepts = _armijo_accept(cfg, per_lane(f_x), fs, alphas,
+                                 per_lane(g_dot_d))
         nexts = alphas * cfg.shrink
         breaks = ~accepts & (nexts < cfg.backtracking_tol)
         stop = accepts | breaks
         idx = _first(stop)
         accept_idx = _pick(accepts, idx)
         res = torch.where(accept_idx, _pick(alphas, idx), _pick(nexts, idx))
-        return nexts[K - 1], torch.any(stop), res, ~accept_idx, n_fev + K
+        return (nexts[..., K - 1], stop.any(-1), res, ~accept_idx,
+                n_fev + K)
 
     alpha0 = _full(cfg.initial_step, f_x)
-    _, _, alpha, broke, n_fev = _while_loop(
+    _, _, alpha, broke, n_fev = _loop(
         cond, body, (alpha0, _false(f_x), alpha0, _false(f_x), _i32(0, f_x)),
-        enter=True)
+        -(-_ladder_len(cfg, f_x.dtype) // K), bounded, enter=True)
     if cfg.fidelity == "fixed" and cfg.alpha_rescue_floor is None:
         # The same textbook break-means-fail semantics as `backtracking`.
         alpha = torch.where(broke, torch.zeros_like(alpha), alpha)
@@ -265,7 +321,8 @@ def backtracking_speculative(cfg: LBFGSConfig, phi, phi_dphi, f_x: Tensor,
 # --- 2. Backtracking-Wolfe (multiplicative shrink / grow) --------------------
 
 def backtracking_wolfe(cfg: LBFGSConfig, phi, phi_dphi, f_x: Tensor,
-                       g_dot_d: Tensor) -> LineSearchResult:
+                       g_dot_d: Tensor,
+                       bounded: bool = False) -> LineSearchResult:
     """Armijo fail -> alpha *= shrink; curvature fail -> alpha *= grow.  The
     reference's loop has no cap (line_search.cpp:39-52); cfg.ls_safety_cap
     bounds it."""
@@ -288,16 +345,18 @@ def backtracking_wolfe(cfg: LBFGSConfig, phi, phi_dphi, f_x: Tensor,
         return alpha_next, done, it + 1, n_fev + 1, n_gev + 1
 
     zero = _i32(0, f_x)
-    alpha, _, _, n_fev, n_gev = _while_loop(
+    alpha, _, _, n_fev, n_gev = _loop(
         cond, body, (_full(cfg.initial_step, f_x), _false(f_x), zero, zero,
-                     zero), enter=cfg.ls_safety_cap > 0)
+                     zero), cfg.ls_safety_cap, bounded,
+        enter=cfg.ls_safety_cap > 0)
     return LineSearchResult(alpha, n_fev, n_gev, zero)
 
 
 # --- 3. Backtracking-Wolfe by bisection (the parallel implementation) --------
 
 def backtracking_wolfe_bisect(cfg: LBFGSConfig, phi, phi_dphi, f_x: Tensor,
-                              g_dot_d: Tensor) -> LineSearchResult:
+                              g_dot_d: Tensor,
+                              bounded: bool = False) -> LineSearchResult:
     """Bisection on [alpha_lo, alpha_hi], doubling while no upper bound
     exists.  The reference's function hard-codes C2 = 0.9 (parallel
     line_search.cpp:54); pass cfg.c2 = 0.9 for that code path."""
@@ -325,17 +384,18 @@ def backtracking_wolfe_bisect(cfg: LBFGSConfig, phi, phi_dphi, f_x: Tensor,
                 n_gev + armijo_ok.to(torch.int32))
 
     zero = _i32(0, f_x)
-    alpha, _, _, _, _, n_fev, n_gev = _while_loop(
+    alpha, _, _, _, _, n_fev, n_gev = _loop(
         cond, body, (_full(cfg.initial_step, f_x), _full(0.0, f_x), big,
-                     _false(f_x), zero, zero, zero),
-        enter=cfg.ls_max_iters > 0)
+                     _false(f_x), zero, zero, zero), cfg.ls_max_iters,
+        bounded, enter=cfg.ls_max_iters > 0)
     return LineSearchResult(alpha, n_fev, n_gev, zero)
 
 
 # --- 4. Armijo with quadratic-then-cubic interpolation -----------------------
 
 def armijo_interpolation(cfg: LBFGSConfig, phi, phi_dphi, f_x: Tensor,
-                         g_dot_d: Tensor) -> LineSearchResult:
+                         g_dot_d: Tensor,
+                         bounded: bool = False) -> LineSearchResult:
     del phi_dphi
     dtype = f_x.dtype
 
@@ -394,9 +454,10 @@ def armijo_interpolation(cfg: LBFGSConfig, phi, phi_dphi, f_x: Tensor,
 
     alpha0 = _full(cfg.initial_step, f_x)
     zero = _i32(0, f_x)
-    alpha, _, _, done, result, _, n_fev = _while_loop(
+    alpha, _, _, done, result, _, n_fev = _loop(
         cond, body, (alpha0, _full(0.0, f_x), f_x, _false(f_x), alpha0, zero,
-                     zero), enter=cfg.ls_max_iters > 0)
+                     zero), cfg.ls_max_iters, bounded,
+        enter=cfg.ls_max_iters > 0)
     # On cap exhaustion the reference returns the current alpha
     # (line_search.cpp:120); only that path goes through the parallel
     # implementation's floor rescue (parallel line_search.cpp:223-227).
@@ -472,16 +533,17 @@ def _make_wolfe_zoom(cfg: LBFGSConfig, phi_dphi, f_x: Tensor,
 
 
 def wolfe_interpolation(cfg: LBFGSConfig, phi, phi_dphi, f_x: Tensor,
-                        g_dot_d: Tensor) -> LineSearchResult:
+                        g_dot_d: Tensor,
+                        bounded: bool = False) -> LineSearchResult:
     del phi
     cond, body = _make_wolfe_zoom(cfg, phi_dphi, f_x, g_dot_d,
                                   _wolfe_interp_fn(cfg))
     alpha0 = _full(cfg.initial_step, f_x)
     zero = _i32(0, f_x)
-    alpha, _, _, _, _, done, result, _, n_fev, n_gev = _while_loop(
+    alpha, _, _, _, _, done, result, _, n_fev, n_gev = _loop(
         cond, body, (alpha0, _full(0.0, f_x), _full(math.inf, f_x), f_x,
                      g_dot_d, _false(f_x), alpha0, zero, zero, zero),
-        enter=cfg.ls_max_iters > 0)
+        cfg.ls_max_iters, bounded, enter=cfg.ls_max_iters > 0)
     return LineSearchResult(torch.where(done, result, alpha), n_fev, n_gev,
                             zero)
 
@@ -489,8 +551,9 @@ def wolfe_interpolation(cfg: LBFGSConfig, phi, phi_dphi, f_x: Tensor,
 # --- 5b. Speculative strong Wolfe: K-wide bracketing ladder + the zoom -------
 
 def wolfe_interpolation_speculative(cfg: LBFGSConfig, phi, phi_dphi,
-                                    f_x: Tensor,
-                                    g_dot_d: Tensor) -> LineSearchResult:
+                                    f_x: Tensor, g_dot_d: Tensor,
+                                    bounded: bool = False
+                                    ) -> LineSearchResult:
     """Strong Wolfe with the bracketing phase speculated K trials at a
     time.
 
@@ -502,7 +565,9 @@ def wolfe_interpolation_speculative(cfg: LBFGSConfig, phi, phi_dphi,
     so the bracket, the zoom's entry state and the final alpha equal
     ``wolfe_interpolation``'s; phase B is the sequential zoom itself
     (``_make_wolfe_zoom``), one trial at a time.  n_fev / n_gev count the
-    evaluations performed, K per ladder.
+    evaluations performed, K per ladder.  Phase A takes at most
+    ceil(ls_max_iters / K) rounds (each round that does not stop advances
+    the trial count by K), phase B at most ls_max_iters turns.
     """
     del phi
     K = cfg.spec_width
@@ -510,6 +575,7 @@ def wolfe_interpolation_speculative(cfg: LBFGSConfig, phi, phi_dphi,
     interp = _wolfe_interp_fn(cfg)
     interp_min = _full(cfg.interp_min, f_x)
     t_idx = torch.arange(K, dtype=torch.int32, device=f_x.device)
+    f_x_l, g_dot_d_l = per_lane(f_x), per_lane(g_dot_d)
 
     def ladder(base):
         # Iterated doubling, exact in floating point.
@@ -517,7 +583,7 @@ def wolfe_interpolation_speculative(cfg: LBFGSConfig, phi, phi_dphi,
         for _ in range(K):
             alphas.append(base)
             base = base * 2.0
-        return torch.stack(alphas)
+        return torch.stack(alphas, dim=-1)
 
     # --- phase A: speculative bracketing -----------------------------------
     # carry: (base, bracketing, done, result, alpha_z, lo, hi, f_lo, dphi_lo,
@@ -531,18 +597,18 @@ def wolfe_interpolation_speculative(cfg: LBFGSConfig, phi, phi_dphi,
     def bodyA(c):
         (base, bracketing, done, result, alpha_z, lo, hi, f_lo, dphi_lo,
          it, n_fev, n_gev) = c
-        alphas = ladder(base)                      # (K,)
+        alphas = ladder(base)                      # (..., K)
         fs, dphis = phi_dphi(alphas)               # one K-trial pass
-        it_t = it + t_idx
+        it_t = per_lane(it) + t_idx
         # The previous node's values per ladder position (node 0 sees the
         # entering lo state).
-        f_prev = torch.cat([f_lo[None], fs[:-1]])
-        dphi_prev = torch.cat([dphi_lo[None], dphis[:-1]])
-        lo_prev = torch.cat([lo[None], alphas[:-1]])
+        f_prev = torch.cat([f_lo[..., None], fs[..., :-1]], -1)
+        dphi_prev = torch.cat([dphi_lo[..., None], dphis[..., :-1]], -1)
+        lo_prev = torch.cat([lo[..., None], alphas[..., :-1]], -1)
 
-        branch1 = ((fs > f_x + cfg.c1 * alphas * g_dot_d)
+        branch1 = ((fs > f_x_l + cfg.c1 * alphas * g_dot_d_l)
                    | ((fs >= f_prev) & (it_t > 0)))
-        accepted = ~branch1 & (torch.abs(dphis) <= -cfg.c2 * g_dot_d)
+        accepted = ~branch1 & (torch.abs(dphis) <= -cfg.c2 * g_dot_d_l)
         branch2 = ~branch1 & ~accepted & (dphis >= 0)
         # The sequential loop checks alpha_next (2 alpha while doubling)
         # against interp_min on every step off branch 1, so a doubling node
@@ -551,7 +617,7 @@ def wolfe_interpolation_speculative(cfg: LBFGSConfig, phi, phi_dphi,
                     & (alphas * 2.0 < cfg.interp_min))
         cap_hit = it_t >= cap        # the sequential loop stopped before it
         stop = branch1 | accepted | branch2 | b3_floor | cap_hit
-        any_stop = torch.any(stop)
+        any_stop = stop.any(-1)
         t = _first(stop)
 
         a_t, f_t, dphi_t = _pick(alphas, t), _pick(fs, t), _pick(dphis, t)
@@ -580,7 +646,8 @@ def wolfe_interpolation_speculative(cfg: LBFGSConfig, phi, phi_dphi,
         enter_zoom = any_stop & (b1 | b2) & ~floor_hit
 
         # No stop: the whole ladder was branch 3; the walk advances by K.
-        tail_a, tail_f, tail_d = alphas[K - 1], fs[K - 1], dphis[K - 1]
+        tail_a, tail_f, tail_d = (alphas[..., K - 1], fs[..., K - 1],
+                                  dphis[..., K - 1])
         base_next = torch.where(any_stop, base, tail_a * 2.0)
         lo_next = torch.where(any_stop, torch.where(enter_zoom, lo_t, lo),
                               tail_a)
@@ -603,21 +670,29 @@ def wolfe_interpolation_speculative(cfg: LBFGSConfig, phi, phi_dphi,
     c = (alpha0, _full(True, f_x, torch.bool), _false(f_x), alpha0, alpha0,
          _full(0.0, f_x), _full(math.inf, f_x), f_x, g_dot_d, zero, zero,
          zero)
-    # Each round reads phase A's condition and, for the exit, phase B's
-    # entry condition in the same transfer.
-    go_a = go_b = cap > 0
-    while go_a:
-        c = bodyA(c)
-        go_a, go_b = _read(condA(c), condB_entry(c))
+    go_b = None
+    if bounded:
+        c = _loop(condA, bodyA, c, -(-cap // K), True)
+    else:
+        # Each round reads phase A's condition and, for the exit, phase B's
+        # entry condition in the same transfer.
+        lanes = f_x.dim() > 0
+        go = condA(c) if lanes else None
+        go_a = go_b = cap > 0
+        while go_a:
+            new = bodyA(c)
+            c = _select(go, new, c) if lanes else new
+            go = condA(c)
+            go_a, go_b = _read(go, condB_entry(c))
     (_, _, done, result, alpha_z, lo, hi, f_lo, dphi_lo, it, n_fev,
      n_gev) = c
 
     # --- phase B: the sequential zoom from the speculated bracket ----------
     condB, bodyB = _make_wolfe_zoom(cfg, phi_dphi, f_x, g_dot_d, interp)
-    alpha, _, _, _, _, done, result, _, n_fev, n_gev = _while_loop(
+    alpha, _, _, _, _, done, result, _, n_fev, n_gev = _loop(
         condB, bodyB,
         (alpha_z, lo, hi, f_lo, dphi_lo, done, result, it, n_fev, n_gev),
-        enter=go_b)
+        cap, bounded, enter=go_b)
     return LineSearchResult(torch.where(done, result, alpha), n_fev, n_gev,
                             zero)
 
@@ -646,15 +721,18 @@ def _tree_tables(R: int, device: torch.device):
 
 
 def backtracking_wolfe_speculative(cfg: LBFGSConfig, phi, phi_dphi,
-                                   f_x: Tensor,
-                                   g_dot_d: Tensor) -> LineSearchResult:
+                                   f_x: Tensor, g_dot_d: Tensor,
+                                   bounded: bool = False
+                                   ) -> LineSearchResult:
     """``backtracking_wolfe`` with its multiplicative walk speculated.
 
     After R steps the walk's reachable states are base * shrink^i * grow^j
     with i + j <= R: a triangular tree of (R+1)(R+2)/2 nodes, 36 at the
     default R = spec_width - 1 = 7, whose (phi, phi') values come from one
     pass over (x, d).  The walk is then replayed on them with the
-    sequential rules, up to R + 1 real steps per pass.
+    sequential rules, up to R + 1 real steps per pass; a pass that does not
+    end the walk takes all R + 1 (its last step leaves the tree), so the
+    passes are at most ceil(ls_safety_cap / (R + 1)).
 
     The values are the walk's own only for a power-of-two shrink (the
     default 0.5): multiplying by it is exact, so every interleaving of
@@ -662,13 +740,14 @@ def backtracking_wolfe_speculative(cfg: LBFGSConfig, phi, phi_dphi,
     shrink this delegates to ``backtracking_wolfe``.
     """
     if math.frexp(cfg.shrink)[0] != 0.5:       # not a power of two
-        return backtracking_wolfe(cfg, phi, phi_dphi, f_x, g_dot_d)
+        return backtracking_wolfe(cfg, phi, phi_dphi, f_x, g_dot_d, bounded)
     del phi
     R = max(1, cfg.spec_width - 1)
     cap = cfg.ls_safety_cap
     (grid_idx, idx_shrink, idx_grow, can_shrink, can_grow,
      nodes) = _tree_tables(R, f_x.device)
     K = nodes.shape[0]
+    f_x_l, g_dot_d_l = per_lane(f_x), per_lane(g_dot_d)
 
     def tree(base):
         # The grow chain by iterated multiplication (base * grow * grow,
@@ -679,20 +758,22 @@ def backtracking_wolfe_speculative(cfg: LBFGSConfig, phi, phi_dphi,
         for _ in range(R + 1):
             grows.append(base)
             base = base * cfg.grow
-        levels = [torch.stack(grows)]
+        levels = [torch.stack(grows, dim=-1)]
         for _ in range(R):
             levels.append(levels[-1] * cfg.shrink)
-        return torch.stack(levels).reshape(-1).index_select(0, grid_idx)
+        grid = torch.stack(levels, dim=-2)
+        return grid.reshape(grid.shape[:-2] + (-1,)).index_select(-1,
+                                                                  grid_idx)
 
     def cond(c):
         return ~c[1] & (c[2] < cap)
 
     def body(c):
         base, _, it, alpha_cur, n_fev, n_gev = c
-        alphas = tree(base)                        # (K,)
+        alphas = tree(base)                        # (..., K)
         fs, dphis = phi_dphi(alphas)               # one K-trial pass
-        armijo_fail = fs > f_x + cfg.c1 * alphas * g_dot_d
-        curv_fail = dphis < cfg.c2 * g_dot_d
+        armijo_fail = fs > f_x_l + cfg.c1 * alphas * g_dot_d_l
+        curv_fail = dphis < cfg.c2 * g_dot_d_l
 
         # What one sequential step does at each node (it depends on the
         # node alone): accept, shrink or grow; its next alpha, whether it
@@ -712,7 +793,7 @@ def backtracking_wolfe_speculative(cfg: LBFGSConfig, phi, phi_dphi,
         # Replay the walk: each live step is one sequential iteration;
         # `repass` marks a move whose child lies outside the tree (resume
         # from its value next pass).
-        t = torch.zeros((), dtype=torch.int64, device=f_x.device)
+        t = torch.zeros(f_x.shape, dtype=torch.int64, device=f_x.device)
         done, repass = _false(f_x), _false(f_x)
         it_s, alpha_s, base_n = it, alpha_cur, base
         for _ in range(R + 1):
@@ -729,9 +810,9 @@ def backtracking_wolfe_speculative(cfg: LBFGSConfig, phi, phi_dphi,
 
     alpha0 = _full(cfg.initial_step, f_x)
     zero = _i32(0, f_x)
-    _, _, _, alpha, n_fev, n_gev = _while_loop(
+    _, _, _, alpha, n_fev, n_gev = _loop(
         cond, body, (alpha0, _false(f_x), zero, alpha0, zero, zero),
-        enter=cap > 0)
+        -(-cap // (R + 1)), bounded, enter=cap > 0)
     return LineSearchResult(alpha, n_fev, n_gev, zero)
 
 
