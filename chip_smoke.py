@@ -6,7 +6,7 @@ Run from the repository root, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from tpu_lbfgs_torch/csrc, holds each
-against its plain PyTorch version on the card, and drives seven paths,
+against its plain PyTorch version on the card, and drives eight paths,
 each solve with the kernels' launch counts set to 0 just before it and
 read just after:
 
@@ -19,6 +19,18 @@ read just after:
   tpu_lbfgs_torch.vmap_minimize, over the batched compact chain kernel,
   then a short solve of the same batch at m = 7 through the kernel and
   through its plain version;
+- the batch solve on the kernels ([batch-kernels]): the batched forms of
+  iteration_tail, fused_vg, the fused tail and combine_direction (the
+  reference's jax.vmap over its kernels) against their batched plain
+  versions at the batch cell, at 3 lanes of d = 2^20 + 37 and at 65,537
+  lanes of 64; then on the batch cell vmap_minimize with use_pallas=True
+  and the fused Rosenbrock value and gradient (200 iterations, over the
+  batched iteration_tail, vg and compact chain kernels, lane for lane as
+  the same solve through the plain versions; 20 iterations in float64),
+  solve_bounded over the batched state with the fused tail of each body
+  and form (its products on a float32 and a bfloat16 ring, without them,
+  compensated), the public combine entry on the states those leave, and
+  the command line's --batch 64 --dim 1024 --pallas;
 - direct evaluation (the reference protocol's f32 stack: REFERENCE_PARALLEL,
   compact_incremental, ls_eval="direct", no alpha rescue) under each of the
   8 line searches at d = 2^20 from U(-10, 10), over the value and gradient
@@ -1332,6 +1344,590 @@ def phase_batch_no_sync(state, cfg):
     check(state.f.shape == (BATCH,), "a batched state must stay batched")
     say("[sync] one batched iterate (B=4096) under "
         "torch.cuda.set_sync_debug_mode('error'): no host synchronisation")
+
+
+# [batch-kernels]: the batched forms of iteration_tail, fused_vg, the fused
+# tail and combine_direction (the reference's jax.vmap over its kernels).
+# Each against its batched plain version on the card at the batch cell, at
+# 3 lanes of the main path's ragged size (every row off 16 bytes, a
+# thousand tiles a lane) and at more lanes than a grid's y dimension takes:
+# vectors bit for bit, each lane's sums, t1 and t2 within TRIAL_SUM_RTOL of
+# that lane's sum|terms| beyond one ulp (the float64 partials add in
+# another order), the combine bit for bit (the same operations in the same
+# order).  Then the slice at full width: vmap_minimize under
+# cfg.use_pallas with the caller's fused vg (BATCH_ITERS iterations, and
+# BK_F64_ITERS in float64), solve_bounded over a batched state with the
+# fused tail (BK_TAIL_ITERS with the products on each ring, BK_SHORT_ITERS
+# for the other bodies and forms), the public combine entry on the states
+# those leave, and the command line's --batch --pallas.  Kernels against
+# plain versions over the first TRACE_ITERS iterations: alpha equal on
+# every lane and f within TRACE_F_RTOL, the main path's rule for float32
+# sums added in two orders (BATCH_TRACE_F_RTOL, 0, is for the chain, whose
+# kernel runs its plain version's operations in their order).  The
+# compensated float32 plain version forms its products in float32
+# (utils.accurate.compensated_dot), up to 2^-24 of sum|terms| from the
+# kernel's exact float64 products; so a compensated float32 form's dots are
+# held to the exact sum of the same float32 terms (their float64 products
+# are exact, summed in float64) rounded to float32, under the same rule.
+BK_SHAPES = ((BATCH, BATCH_D), (3, RAGGED), (65_537, 64))
+BK_TAIL_FORMS = ([(h, m, False) for h in ("f32", "bf16")
+                  for m in (0,) + TAIL_M + (7,)]
+                 + [("f32", 0, True), ("bf16", 10, True)])
+BK_COMBINE_M = TAIL_M + (7,)
+BK_F64_ITERS = 20
+BK_TAIL_ITERS = 50
+BK_SHORT_ITERS = 20
+BK_CLI = ["--batch", "64", "--dim", "1024", "--pallas", "--poly-ls",
+          "--max-iters", "50", "--json"]
+# tpu_lbfgs/cli.py's record of a --batch seed.
+BK_CLI_KEYS = {"seed", "batch", "converged", "mean_iterations", "mean_f",
+               "max_g_norm", "wall_s"}
+
+
+def _bk_inputs(gen, lanes, n, dev, dt=torch.float32):
+    """x ~ U(-2, 2), d, g, g_new ~ U(-1, 1) as (lanes, n) rows and one step
+    per lane, 2^U(-6, 2), made on the card; lane 0's step is 0 (a lane
+    whose search failed)."""
+    def uni(lo, hi, shape):
+        return (lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev,
+                                            dtype=torch.float64)).to(dt)
+    x, d, g, gn = (uni(lo, hi, (lanes, n))
+                   for lo, hi in ((-2.0, 2.0), (-1.0, 1.0), (-1.0, 1.0),
+                                  (-1.0, 1.0)))
+    alpha = torch.exp2(uni(-6.0, 2.0, (lanes,)).double()).to(dt)
+    alpha[0] = 0.0
+    return x, d, g, gn, alpha
+
+
+def _bk_over(got, want, scales):
+    """Largest per-lane |got - want| beyond one ulp of want, in units of the
+    lane's sum|terms|, over pairs of per-lane sums."""
+    return max(_beyond_ulp(a, b, s.clamp(min=1e-300))
+               for a, b, s in zip(got, want, scales))
+
+
+def _bk_exact_dots(pairs):
+    """Each a . b over the last axis from float64 products, which are exact
+    for float32 a and b, rounded once to float32."""
+    return [(a.double() * b.double()).sum(-1).float() for a, b in pairs]
+
+
+def _bk_tail_check(problem, out_k, out_p, d, g, S, Y, m, hdtype, where,
+                   alpha_rows=None):
+    """A batched fused tail against its plain version: x_new, g_new and the
+    two rows bit for bit, each lane's 7 sums and t1 / t2 within
+    TRIAL_SUM_RTOL of its sum|terms| beyond one ulp (given ``alpha_rows``,
+    the steps as a (B, 1) column, a compensated form: the six dots against
+    their exact sums, see BK_SHAPES).  Returns the largest of those
+    errors."""
+    same = all(torch.equal(out_k[i], out_p[i])
+               and out_k[i].dtype == out_p[i].dtype for i in (0, 2, 3, 4))
+    check(same and out_k[3].dtype == hdtype,
+          f"batched fused tail vectors differ from plain ({where})")
+    xn, gn, s, y = (out_p[i].double() for i in (0, 2, 3, 4))
+    dd, gg = d.double(), g.double()
+    scales = [_f_abs_terms(problem, xn), (s * y).abs().sum(-1),
+              (y * y).sum(-1), (gn * gn).sum(-1), (dd * gn).abs().sum(-1),
+              (gg * gn).abs().sum(-1), (y * gn).abs().sum(-1)]
+    want = list(out_p[5:11])
+    if alpha_rows is not None:
+        # The float32 s and y the sums are formed from (the rows may be
+        # bfloat16): s = alpha d and y = g_new - g, as the kernel rounds
+        # them.
+        gn32 = out_p[2]
+        s32, y32 = alpha_rows * d, gn32 - g
+        want = _bk_exact_dots([(s32, y32), (y32, y32), (gn32, gn32),
+                               (d, gn32), (g, gn32), (y32, gn32)])
+    over = _bk_over([out_k[1]] + list(out_k[5:11]), [out_p[1]] + want,
+                    scales)
+    if m:
+        ya = (out_p[2] - g).double().abs().unsqueeze(-1)
+        for i, ring in ((11, S), (12, Y)):
+            check(out_k[i].shape == (len(g), m)
+                  and out_k[i].dtype == torch.float32,
+                  f"t1/t2 must be (B, {m}) float32 ({where})")
+            scale = torch.bmm(ring.double().abs(), ya).squeeze(-1)
+            over = max(over, _beyond_ulp(out_k[i], out_p[i],
+                                         scale.clamp(min=1e-300)))
+    else:
+        check(out_k[11] is None and out_k[12] is None,
+              f"t1/t2 must be None ({where})")
+    check(over <= TRIAL_SUM_RTOL,
+          f"batched fused tail sums differ from plain ({where}): "
+          f"{over:.3e} of sum|terms| beyond 1 ulp")
+    return over
+
+
+def phase_batch_kernel_checks(dev):
+    """Each batched kernel against its batched plain version at BK_SHAPES,
+    then timed at the batch cell.  Returns the kernels line's records of
+    the batched forms."""
+    from tpu_lbfgs_torch.kernels import fused_ops as ops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    hist = {"f32": torch.float32, "bf16": torch.bfloat16}
+    rec = {}
+
+    def keep(name, err):
+        r = rec.setdefault(name, {"max_abs_err": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+
+    def max_abs(a, b):
+        return max((u.double() - v.double()).abs().max().item()
+                   for u, v in zip(a, b) if u is not None)
+
+    for lanes, n in BK_SHAPES:
+        where0 = f"B={lanes} d={n}"
+        # iteration_tail: float32 and float64, plain and compensated.
+        worst = 0.0
+        for dt in (torch.float32, torch.float64):
+            x, d, g, gn, alpha = _bk_inputs(gen, lanes, n, dev, dt)
+            for acc in (False, True):
+                out_k = ops.iteration_tail(x, d, alpha, g, gn, accurate=acc)
+                out_p = ops.iteration_tail_plain(x, d, alpha, g, gn, acc)
+                torch.cuda.synchronize()
+                where = f"{where0} {dt} accurate={acc}"
+                check(all(torch.equal(a, b) and a.dtype == dt
+                          for a, b in zip(out_k[:3], out_p[:3])),
+                      f"batched iteration_tail vectors differ ({where})")
+                check(all(a.shape == (lanes,) and a.dtype == dt
+                          for a in out_k[3:]),
+                      f"batched iteration_tail must return ({lanes},) sums")
+                s, y = out_p[1].double(), out_p[2].double()
+                dd, gg, gnn = d.double(), g.double(), gn.double()
+                scales = [(s * y).abs().sum(-1), (y * y).sum(-1),
+                          (gnn * gnn).sum(-1), (dd * gnn).abs().sum(-1),
+                          (gg * gnn).abs().sum(-1)]
+                want = out_p[3:]
+                if acc and dt == torch.float32:
+                    want = _bk_exact_dots([(out_p[1], out_p[2]),
+                                           (out_p[2], out_p[2]), (gn, gn),
+                                           (d, gn), (g, gn)])
+                over = _bk_over(out_k[3:], want, scales)
+                check(over <= TRIAL_SUM_RTOL,
+                      f"batched iteration_tail sums differ ({where}): "
+                      f"{over:.3e}")
+                worst = max(worst, over)
+                keep("iteration_tail_batched" if dt == torch.float32
+                     else "iteration_tail_batched[f64]",
+                     max_abs(out_k, out_p))
+        say(f"[batch-kernels] iteration_tail {where0}: f32 / f64, plain / "
+            f"compensated: x_new, s, y bit-equal, 5 sums per lane "
+            f"{worst:.3e} of sum|terms| beyond 1 ulp (tol {TRIAL_SUM_RTOL})")
+
+        x, d, g, _, alpha = _bk_inputs(gen, lanes, n, dev)
+        for problem in ops.BODY_IDS:
+            vg_plain = ops.VG_PLAIN[problem]
+            f_k, g_k = ops.fused_vg(problem, x)
+            f_p, g_p = vg_plain(x)
+            torch.cuda.synchronize()
+            over = _bk_over([f_k], [f_p], [_f_abs_terms(problem, x.double())])
+            check(torch.equal(g_k, g_p) and f_k.shape == (lanes,)
+                  and over <= TRIAL_SUM_RTOL,
+                  f"batched {problem}_vg differs from plain ({where0}): g "
+                  f"bit-equal {torch.equal(g_k, g_p)}, f {over:.3e}")
+            keep(f"{problem}_vg_batched", max_abs((f_k, g_k), (f_p, g_p)))
+            worst = 0.0
+            for h, m, acc in BK_TAIL_FORMS:
+                S, Y = ((2.0 * torch.rand((lanes, max(m, 1), n),
+                                          generator=gen, device=dev) - 1.0
+                         ).to(hist[h]) for _ in range(2))
+                tail = ops.make_fused_tail(problem, vg_plain,
+                                           with_matvec=m > 0,
+                                           accurate_dots=acc)
+                out_k = tail(x, d, alpha, g, S, Y)
+                again = tail(x, d, alpha, g, S, Y)
+                out_p = ops.fused_tail_plain(vg_plain, x, d, alpha, g, S, Y,
+                                             m > 0, acc)
+                torch.cuda.synchronize()
+                where = f"{problem} {where0} ring {h} m={m} compensated={acc}"
+                check(all(a is None and b is None or torch.equal(a, b)
+                          for a, b in zip(out_k, again)),
+                      f"two calls of the batched fused tail differ ({where})")
+                worst = max(worst, _bk_tail_check(problem, out_k, out_p, d,
+                                                  g, S, Y, m, hist[h], where,
+                                                  alpha[:, None] if acc
+                                                  else None))
+                form = {("f32", 0, False): "",
+                        ("f32", 10, False): "[ring f32, matvec m=10]",
+                        ("bf16", 10, False): "[ring bf16, matvec m=10]",
+                        ("f32", 0, True): "[compensated]"}.get((h, m, acc))
+                if form is not None and (problem == "rosenbrock"
+                                         or not form):
+                    keep(f"{problem}_fused_tail_batched{form}",
+                         max_abs(out_k, out_p))
+                del S, Y, out_k, again, out_p
+            say(f"[batch-kernels] {problem} {where0}: vg g bit-equal, f "
+                f"{over:.3e}; fused tail, {len(BK_TAIL_FORMS)} forms (ring "
+                f"f32/bf16, m=0,5,10,20,7, compensated): vectors and two "
+                f"calls bit-equal, 7 sums and t1/t2 per lane {worst:.3e} of "
+                f"sum|terms| beyond 1 ulp (tol {TRIAL_SUM_RTOL})")
+
+        # combine_direction: float32, float64 (m = 10) and a bfloat16 ring
+        # under float32, bit for bit.
+        for (dt, hd), m in itertools.product(
+                ((torch.float32, torch.float32),
+                 (torch.float64, torch.float64),
+                 (torch.float32, torch.bfloat16)), BK_COMBINE_M):
+            if dt == torch.float64 and m != 10:
+                continue
+            gv = x.to(dt)
+            S, Y = ((2.0 * torch.rand((lanes, m, n), generator=gen,
+                                      device=dev) - 1.0).to(hd)
+                    for _ in range(2))
+            v, u = ((2.0 * torch.rand((lanes, m), generator=gen, device=dev,
+                                      dtype=torch.float64) - 1.0).to(dt)
+                    for _ in range(2))
+            gamma = (0.5 + torch.rand(lanes, generator=gen, device=dev,
+                                      dtype=torch.float64)).to(dt)
+            r_k = ops.combine_direction(gv, S, Y, v, u, gamma)
+            r_p = ops.combine_direction_plain(gv, S, Y, v, u, gamma)
+            torch.cuda.synchronize()
+            check(r_k.dtype == dt and r_k.shape == (lanes, n)
+                  and torch.equal(r_k, r_p),
+                  f"batched combine_direction differs from plain ({where0} "
+                  f"m={m} {dt} ring {hd})")
+            if dt == torch.float32:
+                keep("combine_direction_batched" if hd == torch.float32
+                     else "combine_direction_batched[ring bf16]",
+                     (r_k - r_p).abs().max().item())
+            del S, Y
+        say(f"[batch-kernels] combine_direction {where0}: m=5,10,20,7 f32, "
+            f"m=10 f64, m=5,10,20,7 bf16 ring: bit-equal to plain")
+
+    # Times at the batch cell.  Bounds: each input read once, each output
+    # written once, at the card's memory rate (every form is bound by
+    # bytes); the operations as in [kernel].
+    lanes, n = BATCH, BATCH_D
+    bn = lanes * n
+    x, d, g, gn, alpha = _bk_inputs(gen, lanes, n, dev)
+
+    def timed(name, kernel, plain, bound, library=None, extra=""):
+        r = rec.setdefault(name, {"max_abs_err": 0.0})
+        r.update(ms=device_ms(kernel), plain_ms=device_ms(plain),
+                 bound=bound)
+        line = (f"[batch-kernels] {name} B={lanes} d={n}{extra}: "
+                f"{r['ms'] * 1e3:.2f} us on the card, plain version "
+                f"{r['plain_ms'] * 1e3:.2f} us")
+        if library is not None:
+            r["library_ms"] = device_ms(library)
+            line += f", the bmm route {r['library_ms'] * 1e3:.2f} us"
+        say(line + f", bound {bound[0] * 1e3:.2f} us by {bound[1]}")
+
+    for dt, name in ((torch.float32, "iteration_tail_batched"),
+                     (torch.float64, "iteration_tail_batched[f64]")):
+        xs, ds, gs, gns, als = (t.to(dt) for t in (x, d, g, gn, alpha))
+        size = xs.element_size()
+        bound = bound_ms(size * (7 * bn + 6 * lanes), 13 * bn)
+        timed(name, lambda: ops.iteration_tail(xs, ds, als, gs, gns),
+              lambda: ops.iteration_tail_plain(xs, ds, als, gs, gns), bound)
+        comp_ms = device_ms(lambda: ops.iteration_tail(xs, ds, als, gs, gns,
+                                                       accurate=True))
+        say(f"[batch-kernels] {name} B={lanes} d={n} compensated: "
+            f"{comp_ms * 1e3:.2f} us on the card")
+    body_ops = {"quadratic": 4, "rosenbrock": 18, "coupled_quadratic": 9}
+    for problem in ops.BODY_IDS:
+        vg_plain = ops.VG_PLAIN[problem]
+        timed(f"{problem}_vg_batched", lambda: ops.fused_vg(problem, x),
+              lambda: vg_plain(x),
+              bound_ms(8 * bn + 4 * lanes, body_ops[problem] * bn))
+        tail = ops.make_fused_tail(problem, vg_plain, with_matvec=False)
+        timed(f"{problem}_fused_tail_batched",
+              lambda: tail(x, d, alpha, g),
+              lambda: ops.fused_tail_plain(vg_plain, x, d, alpha, g),
+              bound_ms(28 * bn + 32 * lanes, (body_ops[problem] + 22) * bn))
+    vg_plain = ops.VG_PLAIN["rosenbrock"]
+    comp = ops.make_fused_tail("rosenbrock", vg_plain, with_matvec=False,
+                               accurate_dots=True)
+    timed("rosenbrock_fused_tail_batched[compensated]",
+          lambda: comp(x, d, alpha, g),
+          lambda: ops.fused_tail_plain(vg_plain, x, d, alpha, g,
+                                       accurate=True),
+          bound_ms(28 * bn + 32 * lanes, 40 * bn))
+    m = 10
+    for h in ("f32", "bf16"):
+        S, Y = ((2.0 * torch.rand((lanes, m, n), generator=gen, device=dev)
+                 - 1.0).to(hist[h]) for _ in range(2))
+        size = S.element_size()
+        tail = ops.make_fused_tail("rosenbrock", vg_plain, with_matvec=True)
+        timed(f"rosenbrock_fused_tail_batched[ring {h}, matvec m={m}]",
+              lambda: tail(x, d, alpha, g, S, Y),
+              lambda: ops.fused_tail_plain(vg_plain, x, d, alpha, g, S, Y,
+                                           True),
+              bound_ms(bn * (20 + 2 * size + 2 * m * size)
+                       + lanes * (32 + 8 * m), bn * (40 + 8 * m)))
+        v, u = (2.0 * torch.rand((lanes, m), generator=gen, device=dev) - 1.0
+                for _ in range(2))
+        gamma = 0.5 + torch.rand(lanes, generator=gen, device=dev)
+        name = ("combine_direction_batched" if h == "f32"
+                else "combine_direction_batched[ring bf16]")
+        # g, the ring, v, u and gamma in, r out; 4 m + 1 operations.
+        bound = bound_ms(4 * (2 * bn + 2 * m * lanes + lanes)
+                         + 2 * m * bn * size, (4 * m + 1) * bn)
+        args = (x, S, Y, v, u, gamma)
+        library = (lambda: ops.combine_direction_matmul(*args)) \
+            if h == "f32" else None
+        timed(name, lambda: ops.combine_direction(*args),
+              lambda: ops.combine_direction_plain(*args), bound, library,
+              f" m={m}")
+        if h == "bf16":
+            say(f"[batch-kernels] {name}: the solver's bmm route (bfloat16 "
+                f"coefficients, the ring widened) "
+                f"{device_ms(lambda: ops.combine_direction_matmul(*args)) * 1e3:.2f}"
+                " us")
+        del S, Y
+    return rec
+
+
+def _bk_trace(tt, cfg, p, x0, vg, tail=None):
+    """alpha and f of the first TRACE_ITERS bounded iterations from x0."""
+    s = tt.init_state(vg, x0, cfg.m, cfg.history_dtype)
+    alphas, fs = [], []
+    for _ in range(TRACE_ITERS):
+        s = tt.iterate(cfg, p.f, vg, s, p.dir_poly, tail, bounded=True)
+        alphas.append(s.alpha)
+        fs.append(s.f)
+    return torch.stack(alphas), torch.stack(fs), s
+
+
+def _bk_same_trace(label, kern, plain):
+    """Kernels against plain versions over TRACE_ITERS iterations: alpha
+    equal on every lane, f within TRACE_F_RTOL."""
+    (a_k, f_k, _), (a_p, f_p, _) = kern, plain
+    f_rel = ((f_k.double() - f_p.double()).abs()
+             / f_p.double().abs().clamp(min=1e-300)).max().item()
+    same = torch.equal(a_k, a_p)
+    say(f"[batch-kernels] {label}: first {TRACE_ITERS} iterations, kernels "
+        f"vs plain on the card: alpha equal on every lane {same}, f max rel "
+        f"err {f_rel:.3e} (tol {TRACE_F_RTOL})")
+    check(same and f_rel <= TRACE_F_RTOL,
+          f"{label}: the kernels and the plain versions part")
+
+
+def phase_batch_kernel_slice(dev):
+    """The batch solve on the kernels at the batch cell.  Returns the
+    launches of each batched form on these solves."""
+    import tpu_lbfgs_torch as tt
+    from tpu_lbfgs_torch import kernels
+    from tpu_lbfgs_torch.core.direction import compute_direction_with_aux
+    from tpu_lbfgs_torch.kernels import fused_ops as ops
+
+    launches = {}
+    rose = tt.get_problem("rosenbrock")
+    x0 = _batch_x0(dev)
+    mean0 = rose.f(x0).mean().item()
+
+    # (a) vmap_minimize under cfg.use_pallas with the caller's fused vg,
+    # timed in turns against the [batch] path (plain tail, the problem's f
+    # and gradient: its f sums float32 terms in float32, the vg's in
+    # float64, so it is another trajectory and only its time is compared);
+    # then the same solve through the kernels' plain versions, whose every
+    # lane must end as the kernels' does.
+    cfg = _batch_cfg(tt, BATCH_ITERS).replace(use_pallas=True)
+    plain_cfg = cfg.replace(use_pallas=False)
+    kw = {True: dict(value_and_grad=tt.fused_value_and_grad("rosenbrock")),
+          False: dict(grad=rose.grad)}
+    for on in (True, False):
+        tt.vmap_minimize(rose.f, x0, (cfg if on else plain_cfg).replace(
+            max_iters=GENERAL_WARMUP), dir_poly=rose.dir_poly,
+            lockstep="bounded", **kw[on])
+    walls = {True: [], False: []}
+    for on in (True, False, False, True):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        r = tt.vmap_minimize(rose.f, x0, cfg if on else plain_cfg,
+                             dir_poly=rose.dir_poly, lockstep="bounded",
+                             **kw[on])
+        torch.cuda.synchronize()
+        walls[on].append(time.perf_counter() - t0)
+        if on:
+            got, res = kernels.launch_counts(), r
+    r = res
+    ref = tt.vmap_minimize(
+        rose.f, x0, plain_cfg, dir_poly=rose.dir_poly, lockstep="bounded",
+        value_and_grad=tt.fused_value_and_grad("rosenbrock",
+                                               use_pallas=False))
+    ok = r.status != tt.Status.LINE_SEARCH_FAILED
+    mean1 = r.f.mean().item()
+    ms = [w / BATCH_ITERS * 1e3 for w in walls[True]]
+    ms_plain = [w / BATCH_ITERS * 1e3 for w in walls[False]]
+    counts = torch.bincount(r.status.long(), minlength=4).tolist()
+    status = {tt.Status.NAMES[i]: c for i, c in enumerate(counts) if c}
+    same_end = bool((r.status == ref.status).all()
+                    and (r.iterations == ref.iterations).all())
+    both = ok & (ref.status != tt.Status.LINE_SEARCH_FAILED)
+    f_rel = ((r.f - ref.f).double().abs()
+             / ref.f.double().abs().clamp(min=1e-300))[both]
+    say(f"[batch-kernels] vmap_minimize B={BATCH} d={BATCH_D} float32 "
+        f"bounded, use_pallas=True, fused vg, {BATCH_ITERS} iterations: "
+        f"mean f {mean0:.6e} -> {mean1:.6e}, status {status}, launches "
+        f"{ran(got)}; ms/iteration {[round(v, 3) for v in ms]} "
+        f"({BATCH * 1e3 / min(ms):.0f} instance-iterations/s), the [batch] "
+        f"path in the same turns {[round(v, 3) for v in ms_plain]} "
+        f"({BATCH * 1e3 / min(ms_plain):.0f})")
+    say(f"[batch-kernels] the same solve through the plain versions: every "
+        f"lane's status and iterations equal {same_end}, f max rel err "
+        f"{f_rel.max().item():.3e}, median {f_rel.median().item():.3e} on "
+        f"the {int(both.sum())} lanes that ran in both")
+    check(same_end, "the batch solve on the kernels ends a lane otherwise "
+          "than the same solve through the plain versions")
+    check(bool(((r.iterations == BATCH_ITERS) | ~ok).all()),
+          "every lane whose line search holds must run its 200 iterations")
+    check(got["iteration_tail_batched"] == BATCH_ITERS
+          and got["rosenbrock_vg_batched"] == BATCH_ITERS + 1
+          and got["compact_chain"] == BATCH_ITERS,
+          f"the batch solve must launch iteration_tail and compact_chain "
+          f"once per iteration and the vg once more: {ran(got)}")
+    check(not any(n for k, n in got.items()
+                  if k not in ("iteration_tail_batched",
+                               "rosenbrock_vg_batched", "compact_chain")),
+          f"the batch solve launched another kernel: {ran(got)}")
+    check(bool(torch.isfinite(r.f[ok]).all()) and mean1 < mean0,
+          "mean f must fall and f stay finite on every lane that ran")
+    launches["iteration_tail_batched"] = got["iteration_tail_batched"]
+    launches["rosenbrock_vg_batched"] = got["rosenbrock_vg_batched"]
+    traces = {on: _bk_trace(tt, cfg.replace(use_pallas=on), rose, x0,
+                            tt.fused_value_and_grad("rosenbrock",
+                                                    use_pallas=on))
+              for on in (True, False)}
+    _bk_same_trace("vmap_minimize use_pallas", traces[True], traces[False])
+    state = traces[True][2]
+    vg = tt.fused_value_and_grad("rosenbrock")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = tt.iterate(cfg, rose.f, vg, state, rose.dir_poly,
+                           bounded=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(state.f.shape == (BATCH,), "a batched state must stay batched")
+    say("[sync] one batched iterate on the kernels (B=4096) under "
+        "torch.cuda.set_sync_debug_mode('error'): no host synchronisation")
+
+    # float64: the iteration_tail kernel's float64 form on the same solve.
+    x64 = x0.double()
+    cfg64 = _batch_cfg(tt, BK_F64_ITERS).replace(use_pallas=True)
+    kernels.reset_launches()
+    r64 = tt.vmap_minimize(rose.f, x64, cfg64, grad=rose.grad,
+                           dir_poly=rose.dir_poly, lockstep="bounded")
+    torch.cuda.synchronize()
+    n64 = kernels.launch_counts()["iteration_tail_batched"]
+    vg64 = tt.make_value_and_grad(rose.f, rose.grad)
+    _bk_same_trace("vmap_minimize use_pallas float64",
+                   _bk_trace(tt, cfg64, rose, x64, vg64),
+                   _bk_trace(tt, cfg64.replace(use_pallas=False), rose, x64,
+                             vg64))
+    check(n64 == BK_F64_ITERS and bool((r64.iterations == BK_F64_ITERS).all())
+          and r64.f.mean().item() < mean0,
+          f"the float64 batch solve must launch iteration_tail once per "
+          f"iteration ({n64})")
+    launches["iteration_tail_batched[f64]"] = n64
+
+    # (b) solve_bounded over a batched state with the fused tail: the
+    # products on each ring, then the other bodies and forms, shorter.
+    runs = [("rosenbrock", "[ring f32, matvec m=10]", None, True, False,
+             BK_TAIL_ITERS),
+            ("rosenbrock", "[ring bf16, matvec m=10]", "bfloat16", True,
+             False, BK_TAIL_ITERS),
+            ("rosenbrock", "", None, False, False, BK_SHORT_ITERS),
+            ("rosenbrock", "[compensated]", None, False, True,
+             BK_SHORT_ITERS),
+            ("quadratic", "", None, False, False, BK_SHORT_ITERS),
+            ("coupled_quadratic", "", None, False, False, BK_SHORT_ITERS)]
+    ring_states = {}
+    for problem, form, hd, products, acc, iters in runs:
+        p = tt.get_problem(problem)
+        c = _batch_cfg(tt, iters).replace(history_dtype=hd,
+                                          accurate_dots=acc)
+        vg = tt.fused_value_and_grad(problem)
+        tail = tt.fused_tail_for(problem, with_matvec=products, m=c.m,
+                                 accurate_dots=acc)
+        label = f"solve_bounded {problem} fused tail{form or ' [m=0]'}"
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        st = tt.init_state(vg, x0, c.m, c.history_dtype)
+        out = tt.solve_bounded(c, p.f, vg, st, p.dir_poly, tail)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = kernels.launch_counts()
+        ok = out.status != tt.Status.LINE_SEARCH_FAILED
+        f0, f1 = p.f(x0).mean().item(), out.f.mean().item()
+        say(f"[batch-kernels] {label}: {iters} iterations in {wall:.3f} s "
+            f"({wall / iters * 1e3:.3f} ms/iteration), mean f {f0:.6e} -> "
+            f"{f1:.6e}, launches {ran(got)}")
+        tail_name = f"{problem}_fused_tail_batched"
+        check(got[tail_name] == iters and got[f"{problem}_vg_batched"] == 1
+              and got["compact_chain"] == iters
+              and bool(((out.k == iters) | ~ok).all()),
+              f"{label}: one fused tail per iteration, one vg, "
+              f"{ran(got)}")
+        check(bool(torch.isfinite(out.f[ok]).all()) and f1 < f0,
+              f"{label}: mean f must fall and f stay finite")
+        launches[tail_name + form] = got[tail_name]
+        launches[f"{problem}_vg_batched"] = max(
+            launches.get(f"{problem}_vg_batched", 0),
+            got[f"{problem}_vg_batched"])
+        if products:
+            plain_tail = tt.fused_tail_for(problem, with_matvec=True, m=c.m,
+                                           use_pallas=False)
+            _bk_same_trace(
+                label, _bk_trace(tt, c, p, x0, vg, tail),
+                _bk_trace(tt, c, p, x0, tt.fused_value_and_grad(
+                    problem, use_pallas=False), plain_tail))
+            ring_states[hd] = (c, out)
+
+    # (c) the public combine entry on the states (b) left, against the
+    # direction the solver takes (its bmm route), on the lanes without a
+    # fallback: a float32 ring within 1e-4 of each lane's max |d|; on the
+    # bfloat16 ring the bmm route rounds the coefficients to bfloat16, so
+    # within 2^-8 of each lane's sum |coefficient| max |row|.
+    for hd, (c, st) in ring_states.items():
+        d_ref, aux, fb = compute_direction_with_aux(
+            c.replace(direction="compact"), st)
+        kernels.reset_launches()
+        r_vec = ops.combine_direction(st.g, st.s_hist, st.y_hist, aux.v_phys,
+                                      aux.u_phys, aux.gamma)
+        name = ("combine_direction_batched" if hd is None
+                else "combine_direction_batched[ring bf16]")
+        n_comb = kernels.launch_counts()["combine_direction_batched"]
+        keep_lanes = ~fb
+        err = (r_vec + d_ref).abs().amax(-1)
+        if hd is None:
+            tol = 1e-4 * d_ref.abs().amax(-1).clamp(min=1e-30)
+        else:
+            s_max = st.s_hist.float().abs().amax(-1)
+            y_max = st.y_hist.float().abs().amax(-1)
+            tol = 2.0 ** -8 * ((aux.v_phys.abs() * s_max).sum(-1)
+                               + aux.gamma.abs()
+                               * (aux.u_phys.abs() * y_max).sum(-1)
+                               ).clamp(min=1e-30)
+        worst = (err / tol)[keep_lanes].max().item()
+        say(f"[batch-kernels] combine_direction(use_pallas=True) on the "
+            f"batched {'bfloat16' if hd else 'float32'} ring against the "
+            f"solver's direction: max err {worst:.3e} of each lane's "
+            f"tolerance, {int(keep_lanes.sum())} of {BATCH} lanes without a "
+            f"fallback, launches {n_comb}")
+        check(n_comb == 1 and int(keep_lanes.sum()) > 0 and worst <= 1.0,
+              f"{name} and the solver's direction part")
+        launches[name] = n_comb
+
+    # (d) the command line's --batch --pallas.
+    kernels.reset_launches()
+    doc = _cli_main(BK_CLI)
+    got = kernels.launch_counts()
+    rec = doc["results"][0]
+    say(f"[batch-kernels] python -m tpu_lbfgs_torch {' '.join(BK_CLI)}: "
+        f"{rec}, launches {ran(got)}")
+    n_tail = got["iteration_tail_batched"]
+    check(set(rec) == BK_CLI_KEYS and doc["config"]["pallas"]
+          and 1 <= n_tail <= 50 and rec["mean_iterations"] <= n_tail
+          and np.isfinite(rec["mean_f"]),
+          "--batch --pallas must run iteration_tail's batched kernel and "
+          "print the reference's batch record")
+    return launches
 
 
 def _direct_cfg(tt, strategy, iters):
@@ -2916,6 +3512,9 @@ def main():
     phase_batch_no_sync(state, cfg)
     launches["compact_chain"] = batch_launches["compact_chain"]
     lap("[main], [batch]")
+    rec.update(phase_batch_kernel_checks(dev))
+    launches.update(phase_batch_kernel_slice(dev))
+    lap("[batch-kernels]")
     launches.update(phase_direct(dev))
     lap("[direct]")
     search_jobs = phase_batch_search(dev, card)
@@ -2962,8 +3561,14 @@ def main():
             sources[f"{body}_{family}_local"] = (
                 sources[f"{body}_{family}"][0],
                 f"tpu_lbfgs/dist/pallas_sharded.py:{line}")
+        # The batched forms: the same sources, the reference's jax.vmap
+        # over the same Pallas kernels.
+        for family in ("vg", "fused_tail"):
+            sources[f"{body}_{family}_batched"] = sources[f"{body}_{family}"]
     for name in rec:
         if name.startswith("rosenbrock_fused_tail["):
+            sources[name] = sources["rosenbrock_fused_tail"]
+        if name.startswith("rosenbrock_fused_tail_batched["):
             sources[name] = sources["rosenbrock_fused_tail"]
     sources.update({
         "compact_chain": (csrc + "compact_chain.cu",
@@ -2973,6 +3578,11 @@ def main():
         "combine_direction[ring bf16]": (csrc + "combine_direction.cu",
                                          pallas + "224"),
     })
+    for name in ("iteration_tail", "combine_direction"):
+        sources[f"{name}_batched"] = sources[name]
+    sources["iteration_tail_batched[f64]"] = sources["iteration_tail"]
+    sources["combine_direction_batched[ring bf16]"] = \
+        sources["combine_direction"]
     check(set(rec) == set(sources),
           f"kernel forms measured and listed differ: "
           f"{sorted(set(rec) ^ set(sources))}")

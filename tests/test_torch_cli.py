@@ -92,6 +92,14 @@ F64_SETS = {
                                          "--lockstep bounded",
     "batch_direct_backtracking": "--batch 4 --problem rosenbrock --dim 32 "
                                  "--max-iters 20 --lockstep bounded",
+    # --batch --pallas: cfg.use_pallas over the batch, both lockstep modes
+    # (float64 warns and runs the plain tail, as the reference's
+    # iteration_tail takes its jnp route for float64)
+    "batch_pallas_poly": "--batch 4 --problem rosenbrock --dim 256 --pallas "
+                         "--poly-ls --direction compact_incremental "
+                         "--max-iters 30 --lockstep bounded",
+    "batch_pallas_direct": "--batch 4 --problem coupled_quadratic --dim 128 "
+                           "--pallas --max-iters 30 --tol 1e-8",
 }
 
 

@@ -252,8 +252,12 @@ def test_combine_direction_matmul_takes_a_batch():
             out[i].numpy(),
             combine_direction_matmul(gb[i], Sb[i], Yb[i], vb[i], ub[i],
                                      gammab[i]).numpy(), rtol=1e-13)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        combine_direction(gb, Sb, Yb, vb, ub, gammab, use_pallas=True)
+    # use_pallas=True on the CPU: the batched plain version, each lane's
+    # row equal to the one-instance call on it bit for bit.
+    out = combine_direction(gb, Sb, Yb, vb, ub, gammab, use_pallas=True)
+    for i in range(B):
+        assert torch.equal(out[i], combine_direction_plain(
+            gb[i], Sb[i], Yb[i], vb[i], ub[i], gammab[i]))
 
 
 def test_general_kernels_refuse_what_they_cannot_take():

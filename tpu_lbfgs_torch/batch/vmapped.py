@@ -14,6 +14,15 @@ its carry, as under the reference's vmapped ``while_loop``.  In direct mode
 a trial is one pass of f (or f and the gradient) over all B lanes, and K
 trials per lane are K such passes; the K-trial kernels of
 ``problems.suite`` take one instance.
+
+The kernels take the batch as the reference's take it under ``jax.vmap``,
+one launch over all lanes: on the card a (B, d) state runs the batched
+``iteration_tail`` kernel under ``cfg.use_pallas``, a caller's
+``value_and_grad=fused_value_and_grad(problem)`` launches the batched
+value-and-gradient kernel, and ``solve_bounded`` / ``iterate`` over a
+batched state take ``fused_tail=fused_tail_for(problem, ...)``'s batched
+tail (``kernels.fused_ops``).  The compact direction's small-matrix chain
+runs its batched kernel whatever ``use_pallas`` says, as before.
 """
 from __future__ import annotations
 

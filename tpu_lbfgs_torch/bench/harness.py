@@ -207,7 +207,11 @@ def bench_batch(problem: str = "rosenbrock", batch: int = 4096,
     current CUDA device (``solve_bounded`` over a (batch, d) state, as the
     reference's jitted vmap of it).  Reports instance-iterations/s = batch *
     iters / wall, best of ``repeats`` runs after one warm-up, each fenced by
-    ``torch.cuda.synchronize()``.  Raises when no CUDA device is present."""
+    ``torch.cuda.synchronize()``.  A ``cfg`` with ``use_pallas=True`` runs
+    each iteration's tail through the batched ``iteration_tail`` kernel, as
+    the reference's runs its Pallas tail under ``jax.vmap``; the default
+    configuration leaves it off, as the reference's does.  Raises when no
+    CUDA device is present."""
     device = _cuda_device("bench_batch")
     # fidelity="fixed" (a search that never satisfies Armijo fails instead
     # of stepping untested) and the pair skip keep every float32 lane

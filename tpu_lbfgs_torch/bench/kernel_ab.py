@@ -30,7 +30,12 @@ m = 5, 10, 20 (both trees) and m = 7 (the change only, held to
 m refuses it), on ring states with empty, partial and wrapped histories,
 zero pivots and NaN entries.  A
 chain's outputs are compared with NaN positions equal and the other values
-bit for bit.  ``--only`` keeps the calls whose label matches.
+bit for bit.  The batched entries (``tl_*_batched_*``, B = 4096 lanes of
+d = 1024) run in the change only, as a tree without them has none: each
+through its ``kernels.fused_ops`` wrapper on the change's library, held to
+its batched plain version on the card (vectors bit for bit, the sums'
+largest relative difference printed), and timed.  ``--only`` keeps the
+calls whose label matches.
 For each it prints
 
 - the registers per thread the compiler reports for every instantiation of
@@ -69,6 +74,12 @@ TAIL_M = (5, 10, 20)
 CHAIN_B = 4096              # bench.py's batch
 CHAIN_M = (5, 10, 20)       # both trees
 CHAIN_M_CHANGE = (7,)       # the change only
+BATCHED_D = 1024            # bench.py's batch cell, B = CHAIN_B
+BATCHED = ("tl_fused_vg_batched_f32", "tl_fused_tail_batched_f32",
+           "tl_iteration_tail_batched_f32", "tl_iteration_tail_batched_f64",
+           "tl_combine_direction_batched_f32",
+           "tl_combine_direction_batched_f64",
+           "tl_combine_direction_batched_f32_bf16")   # the change only
 _SIGS = {k: _build._SIGNATURES[k]
          for k in ("tl_max_blocks", "tl_fused_vg_f32", "tl_fused_tail_f32",
                    "tl_multi_phi_f32", "tl_multi_phi_dphi_f32",
@@ -320,6 +331,108 @@ def _chain_ab(parent, change, card, only) -> int:
     return bad
 
 
+def _pick(out, order):
+    """out's entries in ``order``, those that are None left out."""
+    return tuple(out[i] for i in order if out[i] is not None)
+
+
+def _batched_calls():
+    """{label: (kernel call, plain call, number of leading vectors)} of the
+    batched wrappers at B = CHAIN_B, d = BATCHED_D on fixed inputs; each
+    call returns the wrapper's tuple (vectors first, then sums)."""
+    from ..kernels import fused_ops as ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    shape = (CHAIN_B, BATCHED_D)
+    uniform = lambda *sh, dt=torch.float32: torch.empty(
+        *sh, device=dev, dtype=dt).uniform_(-1, 1, generator=gen)
+    out = {}
+    for dt, name in ((torch.float32, "f32"), (torch.float64, "f64")):
+        x, d, g, gn = (uniform(*shape, dt=dt) for _ in range(4))
+        alpha = 0.25 + uniform(CHAIN_B, dt=dt).abs()
+        for acc in (False, True):
+            args = (x, d, alpha, g, gn, acc)
+            out[f"iteration_tail {name} "
+                f"{'compensated' if acc else 'plain'}"] = (
+                lambda args=args: ops.iteration_tail(*args[:5],
+                                                     accurate=args[5]),
+                lambda args=args: ops.iteration_tail_plain(*args), 3)
+        for hd, ring in ((dt, name), (torch.bfloat16, "bf16")):
+            if hd == torch.bfloat16 and dt == torch.float64:
+                continue
+            S, Y = (uniform(CHAIN_B, 10, BATCHED_D).to(hd) for _ in range(2))
+            v, u = (uniform(CHAIN_B, 10, dt=dt) for _ in range(2))
+            gamma = 0.5 + uniform(CHAIN_B, dt=dt).abs()
+            cargs = (g, S, Y, v, u, gamma)
+            out[f"combine_direction {name} ring {ring} m=10"] = (
+                lambda a=cargs: (ops.combine_direction(*a),),
+                lambda a=cargs: (ops.combine_direction_plain(*a),), 1)
+    x, d, g = (2.0 * uniform(*shape) for _ in range(3))
+    alpha = 0.25 + uniform(CHAIN_B).abs()
+    for body in BODIES:
+        plain = ops.VG_PLAIN[body]
+        out[f"{body} fused_vg"] = (
+            lambda b=body: ops.fused_vg(b, x)[::-1],
+            lambda p=plain: p(x)[::-1], 1)
+        for m, hd, acc in ((0, torch.float32, False), (0, torch.float32, True),
+                           (10, torch.float32, False),
+                           (10, torch.bfloat16, False)):
+            S, Y = (uniform(CHAIN_B, max(m, 1), BATCHED_D).to(hd)
+                    for _ in range(2))
+            tail = ops.make_fused_tail(body, plain, with_matvec=m > 0,
+                                       accurate_dots=acc)
+            targs = (x, d, alpha, g, S, Y)
+            label = (f"{body} fused_tail m={m} ring "
+                     f"{'bf16' if hd == torch.bfloat16 else 'f32'}"
+                     + (" compensated" if acc else ""))
+            # (x_new, g_new, s_row, y_row, then the sums and t1, t2)
+            order = (0, 2, 3, 4, 1, 5, 6, 7, 8, 9, 10, 11, 12)
+            out[label] = (
+                lambda t=tail, a=targs: _pick(t(*a), order),
+                lambda p=plain, a=targs, mv=m > 0, c=acc: _pick(
+                    ops.fused_tail_plain(p, *a, mv, c), order), 4)
+    return out
+
+
+def _batched_ab(change, card, only) -> int:
+    """The batched entries, the change only: each wrapper on the change's
+    library against its batched plain version.  Returns the count whose
+    vectors differ or whose launch fails."""
+    for name in BATCHED:
+        fn = getattr(change, name)
+        fn.argtypes, fn.restype = _build._SIGNATURES[name]
+    real = _build.load
+    _build.load = lambda: change
+    bad = 0
+    try:
+        for label, (kernel, plain, n_vec) in _batched_calls().items():
+            label = f"batched {label} B={CHAIN_B} d={BATCHED_D}"
+            if only and not re.search(only, label):
+                continue
+            try:
+                got = kernel()
+            except RuntimeError as e:
+                print(f"{label}: a launch failed ({e})")
+                bad += 1
+                continue
+            want = plain()
+            torch.cuda.synchronize()
+            same = all(_same(a, b) for a, b in zip(got[:n_vec], want[:n_vec]))
+            bad += not same
+            rel = max((_sum_rel(a, b) for a, b in zip(got[n_vec:],
+                                                      want[n_vec:])),
+                      default=0.0)
+            tc = statistics.median(_time(kernel) for _ in range(2))
+            print(f"{label}: change only, vectors "
+                  f"{'bit-equal' if same else 'DIFFER'} to the plain "
+                  f"version, sums within {rel:.2e} relative; change "
+                  f"{tc:.2f} us on {card}")
+    finally:
+        _build.load = real
+    return bad
+
+
 def _same(a, b):
     return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
@@ -404,6 +517,7 @@ def main(argv) -> int:
             bad += _ab_call(f"{name} {label}", pcalls[label], ccalls[label],
                             moving, card)
     bad += _chain_ab(parent, change, card, args.only)
+    bad += _batched_ab(change, card, args.only)
     print(f"kernel_ab: {'ok' if not bad else f'{bad} kernels differ'}")
     return 1 if bad else 0
 

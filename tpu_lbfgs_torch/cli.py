@@ -29,9 +29,12 @@ mesh of one shard.  With ``--device cpu`` the group is gloo; on the card it
 is nccl, one device per process (``LOCAL_RANK``).
 
 ``--batch`` runs through ``vmap_minimize``: every ``--line-search``, with
-or without ``--poly-ls``, in either ``--lockstep``; the trials of a batch
-go through the problem's plain f and gradient, not the one-instance
-kernels of ``--pallas``.
+or without ``--poly-ls``, in either ``--lockstep``, with the problem's
+plain f and gradient, as the reference's does.  ``--batch --pallas`` sets
+``cfg.use_pallas`` as the reference's does: each iteration's tail is then
+the batched ``iteration_tail`` kernel on the card, one launch over all
+lanes (``resolve_use_pallas`` applies the reference's dtype rule, so
+``--dtype float64`` warns and runs its plain version).
 
 Not ported yet, each refused with the ROADMAP item that brings it:
 ``--shard`` with ``--batch`` (Queue 1 item 12, what is left),
@@ -210,6 +213,9 @@ def main(argv=None) -> int:
             -args.x0_range, args.x0_range, shape)).to(device, dtype)
 
     dir_poly = p.dir_poly if args.poly_ls else None
+    if args.batch and args.pallas:
+        cfg = cfg.replace(use_pallas=resolve_use_pallas(True, dtype,
+                                                        "--pallas"))
     if args.auto_speculative:
         from .linesearch.strategies import (
             SPECULATIVE_TWINS,

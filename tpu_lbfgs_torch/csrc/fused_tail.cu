@@ -73,6 +73,19 @@
 // packed float64 all-reduce.  The whole-vector form is the instantiation
 // without kShard.
 //
+// The batched form (kBatched, tl_fused_tail_batched_f32; the reference's
+// jax.vmap over _fused_tail_pallas, as solve_bounded / iterate run it over
+// a batched state with fused_tail_for) takes B lanes: x, d, g and the two
+// rows (B, n), the ring (B, m, n), one alpha per lane, and gives the
+// 7 + 2 m sums per lane.  It is the same kernel on a batched walk
+// (reduce.cuh): a block works on one lane's rows and that lane's own ring
+// only, so a lane's trial-point chain ends at its own row's ends by the
+// whole vector's index tests, and its products go to its own partials.
+// Stage 2 is one thread per (sum, lane) (reduce.cuh::finish_rows: the
+// seven sums by the Neumaier recurrence where compensated, t1 and t2
+// plain).  A row whose start is off 16 bytes (n not a multiple of 4)
+// takes the element path throughout, the ring's rows too.
+//
 // A bfloat16 row is rounded to nearest even, as Tensor.to(torch.bfloat16)
 // rounds.  The per-element arithmetic follows the plain PyTorch version
 // (tpu_lbfgs_torch/kernels/fused_ops.py::fused_tail_plain) op for op, and
@@ -222,7 +235,11 @@ __device__ __forceinline__ double row_dot(
 // t1 or t2 in global memory, tile after tile in a fixed order.  The seven
 // sums stay in double in each thread and reduce once per block by warp
 // shuffles.
-template <typename Body, typename H, bool kProducts, bool kShard>
+//
+// kBatched: the batched walk (reduce.cuh), lane w.lane's rows, ring and
+// alpha; one instance is lane 0 of a plain walk.
+template <typename Body, typename H, bool kProducts, bool kShard,
+          bool kBatched>
 __global__ void __launch_bounds__(tl::kThreads, 4)
     tail_tile_kernel(const float* __restrict__ x, const float* __restrict__ d,
                      const float* __restrict__ g,
@@ -232,9 +249,23 @@ __global__ void __launch_bounds__(tl::kThreads, 4)
                      float* __restrict__ g_new, H* __restrict__ s_row,
                      H* __restrict__ y_row, double* __restrict__ partials,
                      int64_t n, int m, bool vec, bool ring_vec,
-                     tl::Shard shard) {
+                     tl::Shard shard, int parts) {
+  static_assert(!(kShard && kBatched), "a shard is one instance");
   __shared__ double ysh[kProducts ? kTile : 1];
-  const float a = *alpha;
+  const tl::Walk w = tl::walk<kBatched>(parts);
+  if constexpr (kBatched) {
+    const int64_t row = w.lane * n;
+    x += row;
+    d += row;
+    g += row;
+    x_new += row;
+    g_new += row;
+    s_row += row;
+    y_row += row;
+    s_hist += row * m;
+    y_hist += row * m;
+  }
+  const float a = alpha[w.lane];
   const int lane = threadIdx.x & 31;
   // A shard's outer neighbours; the whole vector has none (a body reads
   // x_new[-1] and x_new[n] behind its index tests only).
@@ -244,9 +275,8 @@ __global__ void __launch_bounds__(tl::kThreads, 4)
     e_next = tl::trial_point(shard.edges[2], shard.edges[3], a);
   }
   double acc[kSums] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kTile;
-  for (int64_t base = first; base < n;
-       base += static_cast<int64_t>(gridDim.x) * kTile) {
+  const int64_t first = w.first * kTile;
+  for (int64_t base = first; base < n; base += w.step * kTile) {
     const int64_t i0 = base + static_cast<int64_t>(threadIdx.x) * kRun;
     float xs[kRun], ds[kRun], gs[kRun];
     load_run(x, i0, n, vec, xs);
@@ -337,6 +367,7 @@ struct Args {
   bool compensated;
   cudaStream_t stream;
   tl::Shard shard;
+  int64_t lanes = 1;  // the batched form's lanes
 };
 
 // T: the type of the sums, float (rounded once) or double (a shard's
@@ -358,6 +389,23 @@ void finish(const Args& p, int blocks, int m) {
   }
 }
 
+// The batched form's stage 2: the seven sums of every lane (Neumaier where
+// compensated), then t1 and t2 (plain), rows k * lanes + lane.
+void finish_batched(const Args& p, int blocks, int parts, int m) {
+  float* sums = static_cast<float*>(p.sums);
+  if (p.compensated && m > 0) {
+    tl::launch_finish_rows(p.partials, nullptr, parts, kSums * p.lanes, true,
+                           sums, p.stream);
+    tl::launch_finish_rows(p.partials + static_cast<int64_t>(kSums) * blocks,
+                           nullptr, parts, 2 * m * p.lanes, false,
+                           sums + kSums * p.lanes, p.stream);
+  } else {
+    tl::launch_finish_rows(p.partials, nullptr, parts,
+                           (kSums + 2 * m) * p.lanes, p.compensated, sums,
+                           p.stream);
+  }
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -375,15 +423,15 @@ void launch(const Args& p, int m) {
                         p.n * static_cast<int64_t>(sizeof(H)) % 16 == 0;
   const int blocks = tile_blocks(p.n);
   if (m == 0) {
-    tail_tile_kernel<Body, H, false, kShard>
+    tail_tile_kernel<Body, H, false, kShard, false>
         <<<blocks, tl::kThreads, 0, p.stream>>>(
             p.x, p.d, p.g, p.alpha, s_hist, y_hist, p.x_new, p.g_new, s_row,
-            y_row, p.partials, p.n, 0, vec, false, p.shard);
+            y_row, p.partials, p.n, 0, vec, false, p.shard, 0);
   } else {
-    tail_tile_kernel<Body, H, true, kShard>
+    tail_tile_kernel<Body, H, true, kShard, false>
         <<<blocks, tl::kThreads, 0, p.stream>>>(
             p.x, p.d, p.g, p.alpha, s_hist, y_hist, p.x_new, p.g_new, s_row,
-            y_row, p.partials, p.n, m, vec, ring_vec, p.shard);
+            y_row, p.partials, p.n, m, vec, ring_vec, p.shard, 0);
   }
   if (kShard) {
     finish<double>(p, blocks, m);
@@ -392,14 +440,56 @@ void launch(const Args& p, int m) {
   }
 }
 
-template <bool kShard>
+// The batched form: p.lanes rows of p.n, each lane's tiles walked by parts
+// blocks (about one kMaxBlocks grid in all, as the whole vector's).
+template <typename Body, typename H>
+void launch_batched(const Args& p, int m) {
+  const H* s_hist = static_cast<const H*>(p.s_hist);
+  const H* y_hist = static_cast<const H*>(p.y_hist);
+  H* s_row = static_cast<H*>(p.s_row);
+  H* y_row = static_cast<H*>(p.y_row);
+  // Every row starts 16-byte aligned (the bfloat16 rows 8-byte) only if n
+  // is a multiple of 4.
+  const bool rows4 = p.n % 4 == 0;
+  const bool vec = aligned16(p.x) && aligned16(p.d) && aligned16(p.g) &&
+                   aligned16(p.x_new) && aligned16(p.g_new) &&
+                   aligned16(s_row) && aligned16(y_row) && rows4;
+  const bool ring_vec = m > 0 && aligned16(s_hist) && aligned16(y_hist) &&
+                        p.n * static_cast<int64_t>(sizeof(H)) % 16 == 0;
+  const int parts = tl::lane_parts(p.lanes, (p.n + kTile - 1) / kTile,
+                                   tl::kMaxBlocks);
+  const int64_t blocks = p.lanes * parts;
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (m == 0) {
+    tail_tile_kernel<Body, H, false, false, true>
+        <<<grid, tl::kThreads, 0, p.stream>>>(
+            p.x, p.d, p.g, p.alpha, s_hist, y_hist, p.x_new, p.g_new, s_row,
+            y_row, p.partials, p.n, 0, vec, false, p.shard, parts);
+  } else {
+    tail_tile_kernel<Body, H, true, false, true>
+        <<<grid, tl::kThreads, 0, p.stream>>>(
+            p.x, p.d, p.g, p.alpha, s_hist, y_hist, p.x_new, p.g_new, s_row,
+            y_row, p.partials, p.n, m, vec, ring_vec, p.shard, parts);
+  }
+  finish_batched(p, static_cast<int>(blocks), parts, m);
+}
+
+template <bool kShard, bool kBatched = false>
 int run(int body, int hist_bf16, int m, const Args& p) {
-  if (p.n < 1 || m < 0 || m > kMaxDepth) {
+  if (p.n < 1 || m < 0 || m > kMaxDepth || p.lanes < 1 ||
+      p.lanes > tl::kMaxLanes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool known = TL_DISPATCH_BODY(
-      body, hist_bf16 ? launch<Body, __nv_bfloat16, kShard>(p, m)
-                      : launch<Body, float, kShard>(p, m));
+  bool known;
+  if constexpr (kBatched) {
+    known = TL_DISPATCH_BODY(
+        body, hist_bf16 ? launch_batched<Body, __nv_bfloat16>(p, m)
+                        : launch_batched<Body, float>(p, m));
+  } else {
+    known = TL_DISPATCH_BODY(
+        body, hist_bf16 ? launch<Body, __nv_bfloat16, kShard>(p, m)
+                        : launch<Body, float, kShard>(p, m));
+  }
   if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
@@ -451,6 +541,25 @@ extern "C" int tl_fused_tail_local_f32(
   return run<true>(body, hist_bf16, m, p);
 }
 
+// The batched form: the same arguments over lanes lanes (x, d, g, x_new,
+// g_new, s_row, y_row: (lanes, n) row-major; s_hist, y_hist: (lanes, m, n);
+// alpha: lanes floats), then lanes.  partials: (7 + 2 m) * (lanes +
+// tl_max_blocks()) doubles of scratch.  sums: (7 + 2 m) * lanes floats,
+// row-major (7 + 2 m, lanes) in the order above.  Returns
+// cudaErrorInvalidValue also for lanes outside [1, 2^31 - 1 -
+// tl_max_blocks()].
+extern "C" int tl_fused_tail_batched_f32(
+    int body, int hist_bf16, int m, int compensated, const float* x,
+    const float* d, const float* g, const float* alpha, const void* s_hist,
+    const void* y_hist, float* x_new, float* g_new, void* s_row, void* y_row,
+    double* partials, float* sums, long long lanes, long long n,
+    void* stream) {
+  const Args p{x, d, g, alpha, s_hist, y_hist, x_new, g_new, s_row, y_row,
+               partials, sums, n, compensated != 0,
+               static_cast<cudaStream_t>(stream), tl::Shard{}, lanes};
+  return run<false, true>(body, hist_bf16, m, p);
+}
+
 // Blocks of the products form (body, ring type) that fit on one SM of the
 // current device, by cudaOccupancyMaxActiveBlocksPerMultiprocessor; -1 for
 // an unknown body.
@@ -460,12 +569,13 @@ extern "C" int tl_fused_tail_blocks_per_sm(int body, int hist_bf16) {
       body,
       if (hist_bf16) {
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks, tail_tile_kernel<Body, __nv_bfloat16, true, false>,
+            &blocks,
+            tail_tile_kernel<Body, __nv_bfloat16, true, false, false>,
             tl::kThreads, 0);
       } else {
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks, tail_tile_kernel<Body, float, true, false>, tl::kThreads,
-            0);
+            &blocks, tail_tile_kernel<Body, float, true, false, false>,
+            tl::kThreads, 0);
       });
   return blocks;
 }

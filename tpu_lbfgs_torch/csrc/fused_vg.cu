@@ -49,6 +49,18 @@
 // unrounded: the caller adds the shards' partials in one float64
 // all-reduce and rounds once.  The whole-vector form is the instantiation
 // without kShard.
+//
+// The batched form (kBatched, tl_fused_vg_batched_f32; the reference's
+// jax.vmap over _run_vg, as vmap_minimize runs a caller's
+// fused_value_and_grad) takes B lanes of n elements, a (B, n) row-major x,
+// and gives f per lane.  It is the same kernel on a batched walk
+// (reduce.cuh): a block works on one lane's row only, so each lane's chain
+// starts and ends at its own row's ends by the same index tests as one
+// vector's (a lane's first element has no backward neighbour, its last no
+// forward one and, for Rosenbrock, no term), and the warp-edge loads stay
+// inside the row.  Stage 2 is one thread per lane
+// (reduce.cuh::finish_rows).  A row whose start is off 16 bytes (n not a
+// multiple of 4) takes the element path throughout.
 #include "bodies.cuh"
 #include "reduce.cuh"
 
@@ -72,12 +84,18 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <typename Body, bool kShard>
+template <typename Body, bool kShard, bool kBatched>
 __global__ void __launch_bounds__(tl::kThreads, kBlocksPerSM)
     vg_kernel(const float* __restrict__ x, float* __restrict__ g,
               double* __restrict__ partials, int64_t n, bool vec,
-              tl::Shard shard) {
+              tl::Shard shard, int parts) {
+  static_assert(!(kShard && kBatched), "a shard is one instance");
   tl::allow_dependents();
+  const tl::Walk w = tl::walk<kBatched>(parts);
+  if constexpr (kBatched) {
+    x += w.lane * n;
+    g += w.lane * n;
+  }
   double acc[1] = {0.0};
   const int lane = threadIdx.x & 31;
   const int64_t start = kShard ? shard.start : 0;
@@ -94,8 +112,7 @@ __global__ void __launch_bounds__(tl::kThreads, kBlocksPerSM)
       e_next = shard.edges[1];
     }
   }
-  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kTile; base < n;
-       base += static_cast<int64_t>(gridDim.x) * kTile) {
+  for (int64_t base = w.first * kTile; base < n; base += w.step * kTile) {
     const int64_t i0 = base + static_cast<int64_t>(threadIdx.x) * kRun;
     const bool whole = vec && i0 + kRun <= n;
     float xs[kRun];
@@ -168,11 +185,32 @@ int launch(int body, const float* x, float* g, double* partials, Out* f,
   const bool vec = aligned16(x) && aligned16(g);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool known = TL_DISPATCH_BODY(
-      body, vg_kernel<Body, kShard><<<blocks, tl::kThreads, 0, s>>>(
-                x, g, partials, n, vec, shard));
+      body, vg_kernel<Body, kShard, false><<<blocks, tl::kThreads, 0, s>>>(
+                x, g, partials, n, vec, shard, 0));
   if (!known) return static_cast<int>(cudaErrorInvalidValue);
   tl::launch_after(tl::finish_sums_lanes<Out>, 1, tl::kLanes, s, partials,
                    blocks, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The batched form: lanes rows of n, each lane's tiles walked by parts
+// blocks, then finish_rows over the lanes.
+int launch_batched(int body, const float* x, float* g, double* partials,
+                   float* f, long long lanes, long long n, void* stream) {
+  if (n < 1 || lanes < 1 || lanes > tl::kMaxLanes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int parts = tl::lane_parts(lanes, (n + kTile - 1) / kTile,
+                                   kBlocksPerSM * kSMs);
+  const unsigned grid = static_cast<unsigned>(lanes * parts);
+  // Every row starts 16-byte aligned only if n floats fill whole 16 bytes.
+  const bool vec = aligned16(x) && aligned16(g) && n % 4 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool known = TL_DISPATCH_BODY(
+      body, vg_kernel<Body, false, true><<<grid, tl::kThreads, 0, s>>>(
+                x, g, partials, n, vec, tl::Shard{}, parts));
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
+  tl::launch_finish_rows<float>(partials, nullptr, parts, lanes, false, f, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -198,4 +236,15 @@ extern "C" int tl_fused_vg_local_f32(int body, const float* x, float* g,
   if (start < 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch<true>(body, x, g, partials, f, n, stream,
                       tl::Shard{n_global, start, edges});
+}
+
+// The batched form.  x, g: lanes * n floats, row-major (lanes, n).
+// partials: lanes + tl_max_blocks() doubles of scratch.  f: lanes floats.
+// Returns the cudaError_t of the launches (cudaErrorInvalidValue for n < 1,
+// an unknown body, or lanes outside [1, 2^31 - 1 - tl_max_blocks()]).
+extern "C" int tl_fused_vg_batched_f32(int body, const float* x, float* g,
+                                       double* partials, float* f,
+                                       long long lanes, long long n,
+                                       void* stream) {
+  return launch_batched(body, x, g, partials, f, lanes, n, stream);
 }

@@ -46,6 +46,19 @@
 // float32 the float64 partials are already 2^-29 of a float32 unit apart
 // from the exact sum.)
 //
+// The batched form (tl_iteration_tail_batched_*; the reference's jax.vmap
+// over _iteration_tail_pallas, as vmap_minimize runs it under
+// cfg.use_pallas) takes B lanes of n elements, a (B, n) row-major tensor
+// each, one alpha per lane and gives five sums per lane.  It is the same
+// kernel on a batched walk (reduce.cuh): block b works on lane b / parts,
+// with parts blocks a lane chosen so that the grid holds about one wave,
+// and stage 2 is one thread per (sum, lane) adding that lane's parts
+// partials in block order (reduce.cuh::finish_rows; Neumaier where
+// compensated).  At bench.py's batch cell, 4096 lanes of 1024, a lane is
+// one tile and one block, and 35.05 us of bytes in float32 bound it.  A
+// row whose start is off 16 bytes (n not a multiple of 4 elements in
+// float32, of 2 in float64) takes the element path throughout.
+//
 // The kernel is a template on the scalar type, float or double.  The
 // per-element arithmetic follows the plain PyTorch version
 // (tpu_lbfgs_torch/kernels/fused_ops.py::iteration_tail_plain) op for op,
@@ -156,7 +169,9 @@ __device__ __forceinline__ void block_sum_compensated(
 // compensation; six operations where the Neumaier step's compare and select
 // take eight), and the compensated block fold (the float64 compensated
 // form).
-template <typename T, bool kComp>
+// kBatched: the batched walk (reduce.cuh), lane w.lane's row of each
+// vector and its alpha; one instance is lane 0 of a plain walk.
+template <typename T, bool kComp, bool kBatched>
 __global__ void __launch_bounds__(tl::kThreads, kBlocksPerSM)
     iteration_tail_kernel(const T* __restrict__ x, const T* __restrict__ d,
                           const T* __restrict__ g,
@@ -164,13 +179,23 @@ __global__ void __launch_bounds__(tl::kThreads, kBlocksPerSM)
                           const T* __restrict__ alpha, T* __restrict__ x_new,
                           T* __restrict__ s_row, T* __restrict__ y_row,
                           double* __restrict__ partials, int64_t n,
-                          bool vec) {
+                          bool vec, int parts) {
   tl::allow_dependents();
-  const T a = *alpha;
+  const tl::Walk w = tl::walk<kBatched>(parts);
+  if constexpr (kBatched) {
+    const int64_t row = w.lane * n;
+    x += row;
+    d += row;
+    g += row;
+    g_new += row;
+    x_new += row;
+    s_row += row;
+    y_row += row;
+  }
+  const T a = alpha[w.lane];
   double acc[kSums] = {0.0, 0.0, 0.0, 0.0, 0.0};
   double cmp[kSums] = {0.0, 0.0, 0.0, 0.0, 0.0};
-  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kTile; base < n;
-       base += static_cast<int64_t>(gridDim.x) * kTile) {
+  for (int64_t base = w.first * kTile; base < n; base += w.step * kTile) {
     const int64_t i0 = base + static_cast<int64_t>(threadIdx.x) * kRun;
     T xs[kRun], ds[kRun], gs[kRun], gn[kRun];
     load_run(x, i0, n, vec, xs);
@@ -227,11 +252,12 @@ int launch(const T* x, const T* d, const T* g, const T* g_new, const T* alpha,
   // The float64 compensated form compensates stage 1 as well.
   constexpr bool kCompStage1 = sizeof(T) == 8;
   if (compensated && kCompStage1) {
-    iteration_tail_kernel<T, kCompStage1><<<blocks, tl::kThreads, 0, s>>>(
-        x, d, g, g_new, alpha, x_new, s_row, y_row, partials, n, vec);
+    iteration_tail_kernel<T, kCompStage1, false>
+        <<<blocks, tl::kThreads, 0, s>>>(x, d, g, g_new, alpha, x_new, s_row,
+                                         y_row, partials, n, vec, 0);
   } else {
-    iteration_tail_kernel<T, false><<<blocks, tl::kThreads, 0, s>>>(
-        x, d, g, g_new, alpha, x_new, s_row, y_row, partials, n, vec);
+    iteration_tail_kernel<T, false, false><<<blocks, tl::kThreads, 0, s>>>(
+        x, d, g, g_new, alpha, x_new, s_row, y_row, partials, n, vec, 0);
   }
   if (compensated) {
     tl::launch_finish_compensated<T>(
@@ -243,6 +269,40 @@ int launch(const T* x, const T* d, const T* g, const T* g_new, const T* alpha,
     tl::launch_after(tl::finish_sums_lanes<T>, kSums, tl::kLanes, s,
                      partials, blocks, sums);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The batched form: lanes rows of n, each lane's tiles walked by parts
+// blocks, then finish_rows over the kSums * lanes rows.
+template <typename T>
+int launch_batched(const T* x, const T* d, const T* g, const T* g_new,
+                   const T* alpha, T* x_new, T* s_row, T* y_row,
+                   double* partials, T* sums, long long lanes, long long n,
+                   int compensated, void* stream) {
+  if (n < 1 || lanes < 1 || lanes > tl::kMaxLanes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int parts = tl::lane_parts(lanes, (n + kTile - 1) / kTile,
+                                   kBlocksPerSM * kSMs);
+  const int64_t blocks = lanes * parts;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // Every row starts 16-byte aligned only if n values fill whole 16 bytes.
+  const bool vec = aligned16(x) && aligned16(d) && aligned16(g) &&
+                   aligned16(g_new) && aligned16(x_new) && aligned16(s_row) &&
+                   aligned16(y_row) && n * sizeof(T) % 16 == 0;
+  constexpr bool kCompStage1 = sizeof(T) == 8;
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (compensated && kCompStage1) {
+    iteration_tail_kernel<T, kCompStage1, true><<<grid, tl::kThreads, 0, s>>>(
+        x, d, g, g_new, alpha, x_new, s_row, y_row, partials, n, vec, parts);
+  } else {
+    iteration_tail_kernel<T, false, true><<<grid, tl::kThreads, 0, s>>>(
+        x, d, g, g_new, alpha, x_new, s_row, y_row, partials, n, vec, parts);
+  }
+  tl::launch_finish_rows<T>(
+      partials,
+      compensated && kCompStage1 ? partials + kSums * blocks : nullptr,
+      parts, kSums * lanes, compensated != 0, sums, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -265,3 +325,21 @@ int launch(const T* x, const T* d, const T* g, const T* g_new, const T* alpha,
 
 TL_ITERATION_TAIL_ENTRY(tl_iteration_tail_f32, float)
 TL_ITERATION_TAIL_ENTRY(tl_iteration_tail_f64, double)
+
+// The batched form.  x, d, g, g_new, x_new, s_row, y_row: lanes * n values,
+// row-major (lanes, n).  alpha: lanes values.  partials: 10 * (lanes +
+// tl_max_blocks()) doubles of scratch.  sums: 5 * lanes values, row-major
+// (5, lanes) in the order above.  Returns the cudaError_t of the launches
+// (cudaErrorInvalidValue for n < 1, or lanes outside [1, 2^31 - 1 -
+// tl_max_blocks()]).
+#define TL_ITERATION_TAIL_BATCHED_ENTRY(NAME, T)                             \
+  extern "C" int NAME(const T* x, const T* d, const T* g, const T* g_new,    \
+                      const T* alpha, T* x_new, T* s_row, T* y_row,          \
+                      double* partials, T* sums, long long lanes,            \
+                      long long n, int compensated, void* stream) {          \
+    return launch_batched<T>(x, d, g, g_new, alpha, x_new, s_row, y_row,     \
+                             partials, sums, lanes, n, compensated, stream); \
+  }
+
+TL_ITERATION_TAIL_BATCHED_ENTRY(tl_iteration_tail_batched_f32, float)
+TL_ITERATION_TAIL_BATCHED_ENTRY(tl_iteration_tail_batched_f64, double)

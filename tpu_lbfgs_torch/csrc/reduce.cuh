@@ -10,9 +10,18 @@
 // Stage 2 may be launched behind stage 1 by programmatic dependent launch
 // (launch_after): stage 1 calls allow_dependents() as it starts, so the
 // stage-2 grid is put on the card while stage 1 runs, and stage 2
-// (finish_sums_lanes, finish_sums_compensated) waits in
+// (finish_sums_lanes, finish_sums_compensated, finish_rows) waits in
 // wait_for_prerequisites() until stage 1 has finished and its partials are
 // visible.
+//
+// The batched forms (the reference's jax.vmap over a kernel) take B lanes
+// of n contiguous elements each, a row-major (B, n) tensor, and give every
+// lane its own sums.  Block b of a batched grid of B * parts blocks works
+// on lane b / parts, on that lane's tiles b % parts, b % parts + parts, ...
+// (walk), so no tile straddles two lanes and a lane's chain neighbours stay
+// inside its own row.  A block's partial of sum k still lands at
+// partials[k * gridDim.x + blockIdx.x], which is row k * B + lane of parts
+// partials; stage 2 (finish_rows) adds each row in block order.
 #pragma once
 
 #include <cstdint>
@@ -25,13 +34,47 @@ constexpr int kThreads = 256;
 // Cap on stage-1 blocks.  1024 blocks of 256 threads fill an H100's 132
 // SMs about eight blocks deep; more blocks would only lengthen stage 2.
 constexpr int kMaxBlocks = 1024;
+// The most lanes a batched launch takes: its grid of lanes * parts <
+// lanes + kMaxBlocks blocks must fit gridDim.x.
+constexpr int64_t kMaxLanes = 2147483647LL - kMaxBlocks;
 
 inline int blocks_for(int64_t n) {
   const int64_t b = (n + kThreads - 1) / kThreads;
   return static_cast<int>(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
+// Blocks per lane of a batched launch over lanes of `tiles` tiles: enough
+// that the grid holds about `target` blocks (target <= kMaxBlocks), at most
+// one per tile, at least one.  So lanes * parts < lanes + target, and at
+// bench.py's batch cell (4096 lanes of one tile) a block per lane.
+inline int lane_parts(int64_t lanes, int64_t tiles, int target) {
+  int64_t p = (target + lanes - 1) / lanes;
+  if (p > tiles) p = tiles;
+  return p < 1 ? 1 : static_cast<int>(p);
+}
+
+// Where a block works: its lane (0 for one instance), its first tile and
+// the step between its tiles.
+struct Walk {
+  int64_t lane;
+  int64_t first;
+  int64_t step;
+};
+
 namespace {
+
+// The walk of this block: one instance walks tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ...; a batched grid as the header says.
+template <bool kBatched>
+__device__ __forceinline__ Walk walk(int parts) {
+  if constexpr (kBatched) {
+    const int64_t b = blockIdx.x;
+    return {b / parts, b % parts, parts};
+  } else {
+    return {0, static_cast<int64_t>(blockIdx.x),
+            static_cast<int64_t>(gridDim.x)};
+  }
+}
 
 // Lets the grids launched behind this one by launch_after start now.
 __device__ __forceinline__ void allow_dependents() {
@@ -271,6 +314,48 @@ inline void launch_finish_compensated(const double* partials,
                                       int count, T* out, cudaStream_t s) {
   launch_after(finish_sums_compensated<T>, count, kLanes, s, partials, comps,
                nblocks, out);
+}
+
+// Stage 2 of a batched launch, one thread per row r < rows (a (sum, lane)
+// pair, r = k * B + lane): out[r] = the sum of partials[r * parts ..
+// r * parts + parts) in block order, rounded once to T.  Compensated, the
+// row goes through the Neumaier recurrence, and where stage 1 kept a
+// compensation per partial (comps not null, the same layout) it is added
+// to the compensation after its partial.  With one part per lane, as at
+// bench.py's batch cell, out[r] is that partial (plus its compensation)
+// rounded once: 0 + p is exact and the recurrence adds nothing.  A lane's
+// parts are few (lane_parts: about kMaxBlocks / B), so one thread adds
+// them serially, the serial Neumaier sum where compensated.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    finish_rows(const double* __restrict__ partials,
+                const double* __restrict__ comps, int parts, int64_t rows,
+                bool compensated, T* __restrict__ out) {
+  wait_for_prerequisites();
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (r >= rows) return;
+  const int64_t at = r * parts;
+  double sum = 0.0, comp = 0.0;
+  for (int j = 0; j < parts; ++j) {
+    if (compensated) {
+      neumaier_add(sum, comp, partials[at + j]);
+      if (comps != nullptr) comp += comps[at + j];
+    } else {
+      sum += partials[at + j];
+    }
+  }
+  out[r] = static_cast<T>(sum + comp);
+}
+
+// Launches finish_rows for `rows` rows of `parts` partials behind the
+// stage-1 kernel on s (launch_after).
+template <typename T>
+inline void launch_finish_rows(const double* partials, const double* comps,
+                               int parts, int64_t rows, bool compensated,
+                               T* out, cudaStream_t s) {
+  const int64_t blocks = (rows + kThreads - 1) / kThreads;
+  launch_after(finish_rows<T>, static_cast<int>(blocks), kThreads, s,
+               partials, comps, parts, rows, compensated, out);
 }
 
 }  // namespace

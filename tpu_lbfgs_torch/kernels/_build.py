@@ -72,6 +72,20 @@ _SIGNATURES = {
                                  + [ctypes.c_longlong, ctypes.c_int, _P],
                                  ctypes.c_int)
        for t, c_thr in (("f32", ctypes.c_float), ("f64", ctypes.c_double))},
+    # The batched forms: the one-instance arguments with lanes before n.
+    "tl_fused_vg_batched_f32": ([ctypes.c_int] + [_P] * 4
+                                + [ctypes.c_longlong] * 2 + [_P],
+                                ctypes.c_int),
+    "tl_fused_tail_batched_f32": ([ctypes.c_int] * 4 + [_P] * 12
+                                  + [ctypes.c_longlong] * 2 + [_P],
+                                  ctypes.c_int),
+    **{f"tl_iteration_tail_batched_{t}": ([_P] * 10 + [ctypes.c_longlong] * 2
+                                          + [ctypes.c_int, _P], ctypes.c_int)
+       for t in ("f32", "f64")},
+    **{f"tl_combine_direction_batched_{t}": (
+        [_P] * 7 + [ctypes.c_int] + [ctypes.c_longlong] * 2 + [_P],
+        ctypes.c_int)
+       for t in ("f32", "f64", "f32_bf16")},
 }
 
 

@@ -29,10 +29,18 @@ A kernel and its plain version form each sum from the same terms in the
 working dtype, accumulate in float64 and round once to the working dtype,
 so the two differ only by the order of float64 additions.
 
-The plain versions take an optional leading batch axis, ``(..., d)`` with
-every sum over the last axis, for the batch solve (which, like the
-reference's, runs them and never the kernels).  The kernels take one
-contiguous ``(d,)`` vector.
+The four whole-vector families take one instance or a batch, as the
+reference's kernels take one vector or, under ``jax.vmap``, a grid axis
+per lane (the shard-local forms take one instance): one
+contiguous ``(d,)`` vector, or a leading lane axis of contiguous rows,
+``(B, d)`` (a ring ``(B, m, d)``, ``v`` and ``u`` ``(B, m)``), with one
+``alpha`` or ``gamma`` per lane and every sum per lane, ``(B,)`` (``t1``,
+``t2`` ``(B, m)``).  A batch launches the kernel's batched form
+(``tl_*_batched_*``): each lane is a row of its own, its chain ends at its
+row's ends, and each lane's sums are added from that lane's block partials
+alone.  The plain versions take the same ``(..., d)`` shapes with every
+sum over the last axis, and a batch's rows equal the same call on each row
+alone bit for bit.
 
 A wrapper takes its plain version only for tensors on the CPU, where the
 tests run (or where the caller passes ``use_pallas=False``, the
@@ -74,7 +82,10 @@ launches = {**{f"{name}_vg": 0 for name in BODY_IDS},
             **{f"{name}_fused_tail": 0 for name in BODY_IDS},
             **{f"{name}_vg_local": 0 for name in BODY_IDS},
             **{f"{name}_fused_tail_local": 0 for name in BODY_IDS},
-            "iteration_tail": 0, "combine_direction": 0}
+            "iteration_tail": 0, "combine_direction": 0,
+            **{f"{name}_vg_batched": 0 for name in BODY_IDS},
+            **{f"{name}_fused_tail_batched": 0 for name in BODY_IDS},
+            "iteration_tail_batched": 0, "combine_direction_batched": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -84,8 +95,10 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _check_vec(name: str, t: Tensor, n: int, dtype=torch.float32,
+def _check_vec(name: str, t: Tensor, shape: tuple, dtype=torch.float32,
                like: Tensor = None) -> None:
+    """Raise unless t is a contiguous CUDA tensor of ``shape`` and
+    ``dtype``, on like's device where like is given."""
     if t.device.type != "cuda" or (like is not None
                                    and t.device != like.device):
         raise ValueError(f"{name}: expected a CUDA tensor"
@@ -94,9 +107,32 @@ def _check_vec(name: str, t: Tensor, n: int, dtype=torch.float32,
     if t.dtype != dtype:
         raise TypeError(
             f"{name}: the CUDA kernel takes {dtype} here, got {t.dtype}")
-    if t.dim() != 1 or t.numel() != n or not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous ({n},) vector, got "
-                         f"shape {tuple(t.shape)}, strides {t.stride()}")
+    if t.shape != shape or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {tuple(shape)} "
+                         f"tensor, got shape {tuple(t.shape)}, strides "
+                         f"{t.stride()}")
+
+
+def _lanes(x: Tensor):
+    """None for one instance, a (d,) vector; B for a batch, (B, d) rows;
+    raises for any other rank."""
+    if x.dim() == 1:
+        return None
+    if x.dim() == 2:
+        return x.shape[0]
+    raise ValueError(f"x: the kernels take a (d,) vector or (B, d) rows, got "
+                     f"shape {tuple(x.shape)}")
+
+
+def _check_per_lane(name: str, t: Tensor, lanes, like: Tensor) -> None:
+    """Raise unless t holds one ``like.dtype`` value per lane (one for one
+    instance), contiguous, on like's device."""
+    count = 1 if lanes is None else lanes
+    if (t.device != like.device or t.dtype != like.dtype
+            or t.numel() != count or not t.is_contiguous()):
+        raise ValueError(f"{name}: expected {count} contiguous {like.dtype} "
+                         f"value(s) on {like.device}, one per lane, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def pallas_ok(dtype) -> bool:
@@ -217,25 +253,31 @@ VG_PLAIN = {"quadratic": quadratic_vg_plain,
 def fused_vg(problem: str, x: Tensor,
              use_pallas: bool = True) -> tuple[Tensor, Tensor]:
     """(f, g) of a suite problem with a kernel body: the CUDA kernel for a
-    float32 CUDA tensor (any other tensor on the card raises), the plain
-    version for a CPU tensor or under ``use_pallas=False``."""
+    float32 CUDA tensor, a (d,) vector or (B, d) rows with f (B,) (any
+    other tensor on the card raises), the plain version for a CPU tensor or
+    under ``use_pallas=False``."""
     if not use_pallas or x.device.type == "cpu":
         return VG_PLAIN[problem](x)
-    n = x.numel()
-    _check_vec("x", x, n)
+    _check_vec("x", x, x.shape)
+    lanes, n = _lanes(x), x.shape[-1]
     lib = _build.load()
     g = torch.empty_like(x)
-    partials = torch.empty(lib.tl_max_blocks(), dtype=torch.float64,
-                           device=x.device)
-    f = torch.empty(1, dtype=torch.float32, device=x.device)
+    partials = torch.empty(lib.tl_max_blocks() + (lanes or 0),
+                           dtype=torch.float64, device=x.device)
+    f = torch.empty(lanes or 1, dtype=torch.float32, device=x.device)
+    head = (BODY_IDS[problem], x.data_ptr(), g.data_ptr(),
+            partials.data_ptr(), f.data_ptr())
     with torch.cuda.device(x.device):
-        err = lib.tl_fused_vg_f32(
-            BODY_IDS[problem], x.data_ptr(), g.data_ptr(),
-            partials.data_ptr(), f.data_ptr(), n,
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, f"{problem}_vg")
-    launches[f"{problem}_vg"] += 1
-    return f[0], g
+        stream = torch.cuda.current_stream().cuda_stream
+        if lanes is None:
+            name = f"{problem}_vg"
+            err = lib.tl_fused_vg_f32(*head, n, stream)
+        else:
+            name = f"{problem}_vg_batched"
+            err = lib.tl_fused_vg_batched_f32(*head, lanes, n, stream)
+    _build.check(lib, err, name)
+    launches[name] += 1
+    return (f[0] if lanes is None else f), g
 
 
 def _check_edges(edges: Tensor, count: int, x: Tensor) -> None:
@@ -261,7 +303,7 @@ def local_fused_vg(problem: str, x_local: Tensor, n: int, start: int,
         from ..dist.shardmap_vg import local_vg_plain
         return local_vg_plain(problem, x_local, n, start, edges)
     n_local = x_local.numel()
-    _check_vec("x_local", x_local, n_local)
+    _check_vec("x_local", x_local, (n_local,))
     _check_edges(edges, 2, x_local)
     lib = _build.load()
     g = torch.empty_like(x_local)
@@ -351,15 +393,15 @@ def _fused_tail_kernel(problem: str, x: Tensor, d: Tensor, alpha: Tensor,
                        accurate: bool, shard=None):
     """Launch csrc/fused_tail.cu for CUDA tensors, or raise.  ``shard`` is
     None for the whole vector, else ``(n, start, edges)`` for one shard's
-    block: the sums then come back as one float64 vector, unrounded."""
-    n = x.numel()
+    block: the sums then come back as one float64 vector, unrounded.  A
+    batch, (B, d) rows with a (B, m, d) ring and one alpha per lane,
+    launches the batched form (no shard)."""
     for name, t in (("x", x), ("d", d), ("g", g)):
-        _check_vec(name, t, n, like=x)
-    if (alpha.device != x.device or alpha.dtype != torch.float32
-            or alpha.numel() != 1):
-        raise ValueError("alpha: expected one float32 element on "
-                         f"{x.device}, got {alpha.dtype} {tuple(alpha.shape)} "
-                         f"on {alpha.device}")
+        _check_vec(name, t, x.shape, like=x)
+    lanes, n = _lanes(x), x.shape[-1]
+    if lanes is not None and shard is not None:
+        raise ValueError("the shard-local tail takes one instance")
+    _check_per_lane("alpha", alpha, lanes, x)
     hdtype = torch.float32 if s_hist is None else s_hist.dtype
     if hdtype not in _HIST_DTYPES:
         raise TypeError("s_hist: the fused tail kernel takes a float32 or "
@@ -368,50 +410,58 @@ def _fused_tail_kernel(problem: str, x: Tensor, d: Tensor, alpha: Tensor,
     if with_matvec:
         if s_hist is None or y_hist is None:
             raise ValueError("with_matvec needs the history ring")
-        m = s_hist.shape[0]
+        m = s_hist.shape[-2]
         if m < 1:
             raise ValueError("with_matvec needs a ring of at least one row")
+        ring = x.shape[:-1] + (m, n)
         for name, t in (("s_hist", s_hist), ("y_hist", y_hist)):
             if (t.device != x.device or t.dtype != hdtype
-                    or t.shape != (m, n) or not t.is_contiguous()):
+                    or t.shape != ring or not t.is_contiguous()):
                 raise ValueError(
-                    f"{name}: expected a contiguous ({m}, {n}) {hdtype} "
+                    f"{name}: expected a contiguous {tuple(ring)} {hdtype} "
                     f"tensor on {x.device}, got {t.dtype} shape "
                     f"{tuple(t.shape)}, strides {t.stride()} on {t.device}")
     lib = _build.load()
     x_new, g_new = torch.empty_like(x), torch.empty_like(x)
-    s_row, y_row = (torch.empty(n, dtype=hdtype, device=x.device)
+    s_row, y_row = (torch.empty(x.shape, dtype=hdtype, device=x.device)
                     for _ in range(2))
     n_sums = 7 + 2 * m
-    partials = torch.empty(n_sums * lib.tl_max_blocks(), dtype=torch.float64,
-                           device=x.device)
-    sums = torch.empty(n_sums, device=x.device,
+    partials = torch.empty(n_sums * (lib.tl_max_blocks() + (lanes or 0)),
+                           dtype=torch.float64, device=x.device)
+    sums = torch.empty((n_sums,) if lanes is None else (n_sums, lanes),
+                       device=x.device,
                        dtype=torch.float32 if shard is None else torch.float64)
-    args = (BODY_IDS[problem], int(hdtype == torch.bfloat16), m,
+    head = (BODY_IDS[problem], int(hdtype == torch.bfloat16), m,
             int(accurate), x.data_ptr(), d.data_ptr(), g.data_ptr(),
             alpha.data_ptr(), s_hist.data_ptr() if m else None,
             y_hist.data_ptr() if m else None, x_new.data_ptr(),
             g_new.data_ptr(), s_row.data_ptr(), y_row.data_ptr(),
-            partials.data_ptr(), sums.data_ptr(), n)
+            partials.data_ptr(), sums.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if shard is None:
+        if lanes is not None:
+            name = f"{problem}_fused_tail_batched"
+            err = lib.tl_fused_tail_batched_f32(*head, lanes, n, stream)
+        elif shard is None:
             name = f"{problem}_fused_tail"
-            err = lib.tl_fused_tail_f32(*args, stream)
+            err = lib.tl_fused_tail_f32(*head, n, stream)
         else:
             name = f"{problem}_fused_tail_local"
             n_global, start, edges = shard
             _check_edges(edges, 4, x)
-            err = lib.tl_fused_tail_local_f32(*args, n_global, start,
+            err = lib.tl_fused_tail_local_f32(*head, n, n_global, start,
                                               edges.data_ptr(), stream)
     _build.check(lib, err, name)
     launches[name] += 1
     if shard is not None:
         return x_new, g_new, s_row, y_row, sums
-    if m:
+    t1 = t2 = None
+    if m and lanes is None:
         sums, t1, t2 = sums.split((7, m, m))
-    else:
-        t1 = t2 = None
+    elif m:
+        # Rows (t1 or t2, k, lane), seen as (B, m) per product.
+        t1, t2 = sums[7:].view(2, m, lanes).transpose(1, 2).unbind(0)
+        sums = sums[:7]
     f_new, sy, yy, gg, dgn, ggn, ygn = sums.unbind(0)
     return (x_new, f_new, g_new, s_row, y_row, sy, yy, gg, dgn, ggn, ygn,
             t1, t2)
@@ -481,8 +531,10 @@ def make_fused_tail(problem: str, vg_fallback, with_matvec: bool = True,
     raises (another dtype than float32), and a CPU tensor takes the plain
     version; otherwise the tail is the plain composition around
     ``vg_fallback`` on any device, which is the reference's dispatch.
-    ``alpha`` is a one-element tensor on x's device; it is never read to
-    the host.
+    ``alpha`` holds one value per lane (one element for one instance) on
+    x's device; it is never read to the host.  A batch, (B, d) rows and a
+    (B, m, d) ring, launches the kernel's batched form and returns every
+    sum per lane, t1 and t2 as (B, m).
 
     ``accurate_dots`` compensates the seven sums (a Neumaier sum over the
     block partials in the kernel, ``compensated_dot`` in the plain
@@ -531,43 +583,43 @@ def iteration_tail(x: Tensor, d: Tensor, alpha: Tensor, g: Tensor,
     """(x_new, s, y, s.y, y.y, g_new.g_new, d.g_new, g.g_new) in one pass
     over x, d, g and g_new, with the reference's signature and return
     tuple.  ``use_pallas=True`` launches the CUDA kernel for CUDA tensors
-    (float32 or float64, one instance) and takes the plain version for CPU
-    tensors; False is the plain version anywhere.  ``accurate``
-    compensates the cross-block accumulation of the five sums (a Neumaier
-    sum over the block partials in the kernel, ``compensated_dot`` in the
-    plain version).  ``alpha`` is a one-element tensor on x's device; it is
-    never read to the host."""
+    (float32 or float64, a (d,) vector or (B, d) rows with one alpha and
+    five sums per lane) and takes the plain version for CPU tensors; False
+    is the plain version anywhere.  ``accurate`` compensates the
+    cross-block accumulation of the five sums (a Neumaier sum over the
+    block partials in the kernel, ``compensated_dot`` in the plain
+    version).  ``alpha`` holds one value per lane (one element for one
+    instance) on x's device; it is never read to the host."""
     if not use_pallas or x.device.type == "cpu":
         return iteration_tail_plain(x, d, alpha, g, g_new, accurate)
-    if x.dim() != 1:
-        raise NotImplementedError(
-            "the iteration_tail kernel takes one instance; a batched form "
-            "is not ported to tpu_lbfgs_torch yet (ROADMAP.md Queue 2 item "
-            "1); pass use_pallas=False for the plain PyTorch version")
     suffix = _kernel_dtype("x", x)
-    n = x.numel()
     for name, t in (("x", x), ("d", d), ("g", g), ("g_new", g_new)):
-        _check_vec(name, t, n, x.dtype, x)
-    if (alpha.device != x.device or alpha.dtype != x.dtype
-            or alpha.numel() != 1):
-        raise ValueError(f"alpha: expected one {x.dtype} element on "
-                         f"{x.device}, got {alpha.dtype} "
-                         f"{tuple(alpha.shape)} on {alpha.device}")
+        _check_vec(name, t, x.shape, x.dtype, x)
+    lanes, n = _lanes(x), x.shape[-1]
+    _check_per_lane("alpha", alpha, lanes, x)
     lib = _build.load()
     x_new, s_row, y_row = (torch.empty_like(x) for _ in range(3))
     # Five partials per block, and in float64 compensated form five
     # compensations beside them.
-    partials = torch.empty(10 * lib.tl_max_blocks(), dtype=torch.float64,
-                           device=x.device)
-    sums = torch.empty(5, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = getattr(lib, f"tl_iteration_tail_{suffix}")(
-            x.data_ptr(), d.data_ptr(), g.data_ptr(), g_new.data_ptr(),
+    partials = torch.empty(10 * (lib.tl_max_blocks() + (lanes or 0)),
+                           dtype=torch.float64, device=x.device)
+    sums = torch.empty((5,) if lanes is None else (5, lanes), dtype=x.dtype,
+                       device=x.device)
+    ptrs = (x.data_ptr(), d.data_ptr(), g.data_ptr(), g_new.data_ptr(),
             alpha.data_ptr(), x_new.data_ptr(), s_row.data_ptr(),
-            y_row.data_ptr(), partials.data_ptr(), sums.data_ptr(), n,
-            int(accurate), torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "iteration_tail")
-    launches["iteration_tail"] += 1
+            y_row.data_ptr(), partials.data_ptr(), sums.data_ptr())
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if lanes is None:
+            name = "iteration_tail"
+            err = getattr(lib, f"tl_iteration_tail_{suffix}")(
+                *ptrs, n, int(accurate), stream)
+        else:
+            name = "iteration_tail_batched"
+            err = getattr(lib, f"tl_iteration_tail_batched_{suffix}")(
+                *ptrs, lanes, n, int(accurate), stream)
+    _build.check(lib, err, name)
+    launches[name] += 1
     return (x_new, s_row, y_row, *sums.unbind(0))
 
 
@@ -611,12 +663,16 @@ def combine_direction_plain(g: Tensor, s_hist: Tensor, y_hist: Tensor,
     order of the reference's Pallas kernel and of the CUDA kernel, which
     therefore equals this bit for bit.  A ring in another dtype (bfloat16)
     is widened to g's as it is read, the coefficients stay as they are.
-    One instance, (m, d) history."""
-    acc = gamma * g
-    for k, (s_k, y_k) in enumerate(zip(s_hist.unbind(0), y_hist.unbind(0))):
+    One instance ((m, d) history, (m,) v and u, one gamma) or a batch
+    ((B, m, d), (B, m), (B,)), each lane in the same order, so a lane's row
+    equals the one-instance call on it bit for bit."""
+    lane = per_lane if g.dim() > 1 else (lambda t: t)
+    acc = lane(gamma) * g
+    for k in range(s_hist.shape[-2]):
+        s_k, y_k = s_hist[..., k, :], y_hist[..., k, :]
         if s_k.dtype != g.dtype:
             s_k, y_k = s_k.to(g.dtype), y_k.to(g.dtype)
-        acc = acc + v[k] * s_k - (gamma * u[k]) * y_k
+        acc = acc + lane(v[..., k]) * s_k - lane(gamma * u[..., k]) * y_k
     return acc
 
 
@@ -649,22 +705,18 @@ def combine_direction(g: Tensor, s_hist: Tensor, y_hist: Tensor, v: Tensor,
                       use_pallas: bool = True) -> Tensor:
     """The compact representation's second pass over the history, with the
     reference's signature.  ``use_pallas=True`` launches the CUDA kernel
-    for CUDA tensors (float32 or float64, one instance, the history in the
-    iterate's dtype or bfloat16 under float32) and takes its plain version
-    for CPU tensors; False is the matrix-vector route anywhere.  ``v``,
-    ``u`` and ``gamma`` stay on the device."""
+    for CUDA tensors (float32 or float64, one instance or a batch of (B, d)
+    rows with a (B, m, d) ring, (B, m) v and u and (B,) gamma, the history
+    in the iterate's dtype or bfloat16 under float32) and takes its plain
+    version for CPU tensors; False is the matrix-vector route anywhere.
+    ``v``, ``u`` and ``gamma`` stay on the device."""
     if not use_pallas:
         return combine_direction_matmul(g, s_hist, y_hist, v, u, gamma)
-    if g.dim() != 1 or s_hist.dim() != 2:
-        raise NotImplementedError(
-            "the combine_direction kernel takes one instance; a batched "
-            "form is not ported to tpu_lbfgs_torch yet (ROADMAP.md Queue 2 "
-            "item 3); pass use_pallas=False for the matrix-vector route")
     if g.device.type == "cpu":
         return combine_direction_plain(g, s_hist, y_hist, v, u, gamma)
     suffix = _kernel_dtype("g", g)
-    n, m = g.numel(), s_hist.shape[0]
-    _check_vec("g", g, n, g.dtype)
+    _check_vec("g", g, g.shape, g.dtype)
+    lanes, n, m = _lanes(g), g.shape[-1], s_hist.shape[-2]
     if s_hist.dtype == torch.bfloat16 and g.dtype == torch.float32:
         suffix = "f32_bf16"
     elif s_hist.dtype != g.dtype:
@@ -672,27 +724,31 @@ def combine_direction(g: Tensor, s_hist: Tensor, y_hist: Tensor, v: Tensor,
             f"s_hist: the combine_direction kernel takes a {g.dtype} "
             "history, or a bfloat16 one for float32 iterates, got "
             f"{s_hist.dtype}")
+    ring = g.shape[:-1] + (m, n)
     for name, t in (("s_hist", s_hist), ("y_hist", y_hist)):
         if (t.device != g.device or t.dtype != s_hist.dtype
-                or t.shape != (m, n) or not t.is_contiguous()):
-            raise ValueError(f"{name}: expected a contiguous ({m}, {n}) "
+                or t.shape != ring or not t.is_contiguous()):
+            raise ValueError(f"{name}: expected a contiguous {tuple(ring)} "
                              f"{s_hist.dtype} tensor on {g.device}, got "
                              f"{t.dtype} shape {tuple(t.shape)}, strides "
                              f"{t.stride()} on {t.device}")
     for name, t in (("v", v), ("u", u)):
-        _check_vec(name, t, m, g.dtype, g)
-    if (gamma.device != g.device or gamma.dtype != g.dtype
-            or gamma.numel() != 1):
-        raise ValueError(f"gamma: expected one {g.dtype} element on "
-                         f"{g.device}, got {gamma.dtype} "
-                         f"{tuple(gamma.shape)} on {gamma.device}")
+        _check_vec(name, t, g.shape[:-1] + (m,), g.dtype, g)
+    _check_per_lane("gamma", gamma, lanes, g)
     lib = _build.load()
     r = torch.empty_like(g)
+    ptrs = (g.data_ptr(), s_hist.data_ptr(), y_hist.data_ptr(), v.data_ptr(),
+            u.data_ptr(), gamma.data_ptr(), r.data_ptr(), m)
     with torch.cuda.device(g.device):
-        err = getattr(lib, f"tl_combine_direction_{suffix}")(
-            g.data_ptr(), s_hist.data_ptr(), y_hist.data_ptr(), v.data_ptr(),
-            u.data_ptr(), gamma.data_ptr(), r.data_ptr(), m, n,
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "combine_direction")
-    launches["combine_direction"] += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        if lanes is None:
+            name = "combine_direction"
+            err = getattr(lib, f"tl_combine_direction_{suffix}")(
+                *ptrs, n, stream)
+        else:
+            name = "combine_direction_batched"
+            err = getattr(lib, f"tl_combine_direction_batched_{suffix}")(
+                *ptrs, lanes, n, stream)
+    _build.check(lib, err, name)
+    launches[name] += 1
     return r

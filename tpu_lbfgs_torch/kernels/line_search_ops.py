@@ -102,8 +102,8 @@ def _launch(kernel: str, problem: str, x: Tensor, d: Tensor, alphas: Tensor,
     (tl_<kernel>_local_f32, counted as <problem>_<kernel>_local), whose
     sums are float64, unrounded."""
     n = x.numel()
-    _check_vec("x", x, n)
-    _check_vec("d", d, n, like=x)
+    _check_vec("x", x, (n,))
+    _check_vec("d", d, (n,), like=x)
     k = _check_alphas(x, alphas)
     lib = _build.load()
     partials = torch.empty(outputs * k * lib.tl_max_blocks(),

@@ -11,10 +11,12 @@ is ``(...)``, and ``dir_poly`` returns its coefficients on the last axis,
 and ``kernels.line_search_ops`` for the problems that have a kernel body
 (``quadratic``, ``rosenbrock``, ``coupled_quadratic``), or with
 ``use_pallas=False`` their plain PyTorch versions, as the reference hands
-out its Pallas kernels or their jnp fallbacks.  ``sphere`` has no kernel
-body in the reference (its FUSED_VG, TAIL_BODIES and F_BODIES lack it) and
-none here: under ``use_pallas=True`` it takes the plain composition on any
-device, which is the reference's dispatch.
+out its Pallas kernels or their jnp fallbacks.  The value and gradient and
+the tail take one instance or a batch of (B, d) rows, as the reference's
+do under ``jax.vmap``; the K-trial evaluators take one instance.
+``sphere`` has no kernel body in the reference (its FUSED_VG, TAIL_BODIES
+and F_BODIES lack it) and none here: under ``use_pallas=True`` it takes
+the plain composition on any device, which is the reference's dispatch.
 
 The kernels are float32 programs, and a wrapper raises for any other tensor
 on the card.  A caller that knows the iterate's dtype asks
@@ -211,7 +213,8 @@ def fused_value_and_grad(name: str, use_pallas: bool = True):
     """Objective and analytic gradient in one pass: the CUDA kernel of a
     problem with a kernel body (``kernels.fused_ops.FUSED_VG``; its plain
     version under ``use_pallas=False``), else the problem's plain
-    ``value_and_grad``."""
+    ``value_and_grad``.  x is (d,) or a batch of (B, d) rows (f (B,)): pass
+    it as ``value_and_grad=`` to minimize or to vmap_minimize."""
     if name not in FUSED_VG:
         return get_problem(name).value_and_grad
     return FUSED_VG[name] if use_pallas else VG_PLAIN[name]
@@ -263,8 +266,9 @@ def auto_with_matvec(m: int, d: int, history_dtype=None,
     So True for one instance at any m >= 1 from d = 2^16 on, for a float32
     or bfloat16 ring (None is the iterate's dtype); below 2^16 nothing was
     measured, so it stays False there, as it does for a float64 ring (the
-    kernel's rings are float32 and bfloat16) and for a batch (the kernel
-    takes one instance)."""
+    kernel's rings are float32 and bfloat16) and for a batch: the batched
+    kernel takes the products too, but the rule was measured for one
+    instance only."""
     if history_dtype in ("float64", torch.float64):
         return False
     return bool(batch == 1 and m >= 1 and d >= _MATVEC_MEASURED_FROM)
@@ -284,7 +288,10 @@ def fused_tail_for(name: str, with_matvec="auto", use_pallas: bool = True,
     applies ``auto_with_matvec(m, d, history_dtype, batch)`` and needs
     ``d`` (without it: False).  The kernel's products take any history
     depth, as the reference's do.  ``accurate_dots`` builds the compensated tail, which
-    ``cfg.accurate_dots`` requires (the solver rejects a plain one)."""
+    ``cfg.accurate_dots`` requires (the solver rejects a plain one).  The
+    tail takes one instance or a batched state, (B, d) rows with a
+    (B, m, d) ring and one alpha per lane: pass it to ``solve_bounded`` /
+    ``iterate`` over a state from ``init_state`` on a (B, d) x0."""
     if with_matvec == "auto":
         with_matvec = (auto_with_matvec(m, d, history_dtype, batch=batch)
                        if d is not None else False)
