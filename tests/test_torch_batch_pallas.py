@@ -202,3 +202,46 @@ def test_solve_bounded_fused_tail_matches_vmapped_pallas_f32(with_matvec):
     assert got.f.dtype == torch.float32
     np.testing.assert_allclose(got.f.numpy(), np.asarray(ref.f), rtol=5e-3,
                                atol=1e-4)
+
+
+# ROADMAP Queue 3, F11: the polynomial search compares trial values
+# polyval(c, alpha), whose c0 is dir_poly's float32 sum of f's terms at x,
+# with f(x) from the value and gradient.  The problem's f is that same
+# float32 sum, so the two agree bit for bit; a kernel's f is summed apart
+# (the reference's Pallas vg in float32 by blocks, pallas_ops.py:481; the
+# port's in float64, csrc/fused_vg.cu), and where a lane's decrease is as
+# small as the gap, its backtracking search fails.  Rows of bench.py's
+# batch cell (bench_batch's x0) on which it shows within 40 iterations.
+F11_ROWS = [280, 942, 1747, 3497]
+
+
+def test_kernel_vg_apart_from_dir_poly_fails_lanes_in_both_packages():
+    """Four lanes of the batch cell, 40 bounded iterations, float32: with
+    the problem's f and gradient no lane fails in either package; with the
+    fused value and gradient (the reference's interpreted Pallas kernel,
+    the port's plain version of its kernel) lanes fail in both; and in the
+    port with c0 taken from the value and gradient's own f, none does."""
+    x0 = np.random.default_rng(42).uniform(
+        -2.0, 2.0, (4096, 1024)).astype(np.float32)[F11_ROWS]
+    kw = dict(BATCH, m=10, max_iters=40, tol=0.0)
+    pt, pj = tt.get_problem("rosenbrock"), tl.get_problem("rosenbrock")
+
+    def port(dir_poly=pt.dir_poly, **vg):
+        r = tt.vmap_minimize(pt.f, torch.from_numpy(x0), tt.LBFGSConfig(**kw),
+                             dir_poly=dir_poly, lockstep="bounded", **vg)
+        return (r.status == tt.Status.LINE_SEARCH_FAILED).tolist()
+
+    def ref(**vg):
+        r = jax_vmap_minimize(pj.f, jnp.asarray(x0), tl.LBFGSConfig(**kw),
+                              dir_poly=pj.dir_poly, lockstep="bounded", **vg)
+        return (np.asarray(r.status) == tl.Status.LINE_SEARCH_FAILED).tolist()
+
+    def dir_poly_vg_c0(x, d):
+        c0 = fused_ops.VG_PLAIN["rosenbrock"](x)[0]
+        return torch.cat([c0.unsqueeze(-1), pt.dir_poly(x, d)[..., 1:]], -1)
+
+    assert not any(port(grad=pt.grad)) and not any(ref(grad=pj.grad))
+    assert any(ref(value_and_grad=tl.fused_value_and_grad("rosenbrock")))
+    vg = tt.fused_value_and_grad("rosenbrock")
+    assert all(port(value_and_grad=vg))
+    assert not any(port(dir_poly=dir_poly_vg_c0, value_and_grad=vg))

@@ -93,8 +93,8 @@ F64_SETS = {
     "batch_direct_backtracking": "--batch 4 --problem rosenbrock --dim 32 "
                                  "--max-iters 20 --lockstep bounded",
     # --batch --pallas: cfg.use_pallas over the batch, both lockstep modes
-    # (float64 warns and runs the plain tail, as the reference's
-    # iteration_tail takes its jnp route for float64)
+    # (on the CPU iteration_tail runs its plain version, the counterpart of
+    # the reference's jnp route for float64; on the card, its kernel)
     "batch_pallas_poly": "--batch 4 --problem rosenbrock --dim 256 --pallas "
                          "--poly-ls --direction compact_incremental "
                          "--max-iters 30 --lockstep bounded",

@@ -23,7 +23,8 @@ the middle of a d of 2^22):
   their ``_local_f32`` forms at K = 8 and 36;
 
 each for the three bodies; ``tl_iteration_tail_f32`` and
-``tl_iteration_tail_f64``, plain and compensated; and
+``tl_iteration_tail_f64``, plain and compensated;
+``tl_combine_direction_f32``, ``_f64`` and ``_f32_bf16`` at m = 10; and
 ``tl_compact_chain_f32`` and ``tl_compact_chain_f64`` at B = 4096 and
 m = 5, 10, 20 (both trees) and m = 7 (the change only, held to
 ``chain_batched_plain`` on the card: a tree older than the chain's runtime
@@ -86,7 +87,9 @@ _SIGS = {k: _build._SIGNATURES[k]
                    "tl_fused_vg_local_f32", "tl_fused_tail_local_f32",
                    "tl_multi_phi_local_f32", "tl_multi_phi_dphi_local_f32",
                    "tl_compact_chain_f32", "tl_compact_chain_f64",
-                   "tl_iteration_tail_f32", "tl_iteration_tail_f64")}
+                   "tl_iteration_tail_f32", "tl_iteration_tail_f64",
+                   "tl_combine_direction_f32", "tl_combine_direction_f64",
+                   "tl_combine_direction_f32_bf16")}
 
 
 def _load(csrc: Path):
@@ -219,7 +222,7 @@ def _general_calls(lib):
     """{label: (callable, output vectors, output sums)} of
     tl_iteration_tail_f32 / _f64, plain and compensated, on fixed inputs
     (g_new near 1, so the sum of its squares loses bits in a float32 running
-    sum)."""
+    sum), and of tl_combine_direction_f32 / _f64 / _f32_bf16 at m = 10."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
     stream = torch.cuda.current_stream().cuda_stream
@@ -244,6 +247,23 @@ def _general_calls(lib):
                     *(t.data_ptr() for t in ins),
                     *(v.data_ptr() for v in vecs), part.data_ptr(),
                     sums.data_ptr(), N, comp, stream), tuple(vecs), (sums,))
+    m = 10
+    for dt, hdt, name in ((torch.float32, torch.float32, "f32"),
+                          (torch.float64, torch.float64, "f64"),
+                          (torch.float32, torch.bfloat16, "f32_bf16")):
+        g = torch.empty(N, device=dev, dtype=dt).uniform_(-2, 2,
+                                                          generator=gen)
+        ring = [torch.empty(m, N, device=dev, dtype=dt).uniform_(
+            -2, 2, generator=gen).to(hdt) for _ in range(2)]
+        v, u = (torch.empty(m, device=dev, dtype=dt).uniform_(
+            -1, 1, generator=gen) for _ in range(2))
+        gamma = torch.full((1,), 0.37, device=dev, dtype=dt)
+        r = torch.empty(N, device=dev, dtype=dt)
+        fn = getattr(lib, f"tl_combine_direction_{name}")
+        out[f"combine_direction {name} m={m}"] = (
+            lambda fn=fn, ins=(g, *ring, v, u, gamma), r=r: fn(
+                *(t.data_ptr() for t in ins), r.data_ptr(), m, N, stream),
+            (r,), ())
     return out
 
 

@@ -33,8 +33,8 @@ or without ``--poly-ls``, in either ``--lockstep``, with the problem's
 plain f and gradient, as the reference's does.  ``--batch --pallas`` sets
 ``cfg.use_pallas`` as the reference's does: each iteration's tail is then
 the batched ``iteration_tail`` kernel on the card, one launch over all
-lanes (``resolve_use_pallas`` applies the reference's dtype rule, so
-``--dtype float64`` warns and runs its plain version).
+lanes, in float32 or float64 (that kernel is built for both, so
+``--dtype float64`` takes no plain version here).
 
 Not ported yet, each refused with the ROADMAP item that brings it:
 ``--shard`` with ``--batch`` (Queue 1 item 12, what is left),
@@ -213,9 +213,6 @@ def main(argv=None) -> int:
             -args.x0_range, args.x0_range, shape)).to(device, dtype)
 
     dir_poly = p.dir_poly if args.poly_ls else None
-    if args.batch and args.pallas:
-        cfg = cfg.replace(use_pallas=resolve_use_pallas(True, dtype,
-                                                        "--pallas"))
     if args.auto_speculative:
         from .linesearch.strategies import (
             SPECULATIVE_TWINS,

@@ -31,7 +31,12 @@
 // element of the flattened (B, n) r, finds its lane by division, and walks
 // that lane's m rows at its column with that lane's coefficients, in the
 // same order, so r equals the batched plain version bit for bit.  The grid
-// is one-dimensional over B * n elements, so any B fits.
+// is one-dimensional over B * n elements, so any B fits.  One instance is
+// the kBatched = false copy and not a batch of one lane: the lane
+// arithmetic, even behind a branch taken only for a batch, made the
+// one-instance kernel 1-2% slower on a float32 or float64 ring and 10% on a
+// bfloat16 one (bench/kernel_ab.py against the copy without it, NVIDIA
+// H100 80GB HBM3, 700 W).
 #include <cstdint>
 
 #include <cuda_bf16.h>
