@@ -6,7 +6,7 @@ Run from the repository root, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from tpu_lbfgs_torch/csrc, holds each
-against its plain PyTorch version on the card, and drives eight paths,
+against its plain PyTorch version on the card, and drives nine paths,
 each solve with the kernels' launch counts set to 0 just before it and
 read just after:
 
@@ -77,7 +77,20 @@ read just after:
   joined, against the whole-vector kernel, at d = 2^20, 2^20 + 37 and 293
   and at the shapes this phase hands them (d = 2^22 and 2^22 + 37 in 4
   shards).  Four ranks on one card share it, so the phase's times are a
-  correctness run's cost and no scaling number.
+  correctness run's cost and no scaling number;
+- the batched, sharded solve ([dist-batch]),
+  tpu_lbfgs_torch.dist.sharded_vmap_minimize on 4 spawned processes laid
+  out as a 2 x 2 (b, d) mesh on the one card (gloo): 8 instances of d =
+  2^21 in float32, 4 lanes of d_local = 2^20 a rank, on bench.py's
+  configuration in both lockstep modes, under the speculative Armijo and
+  Wolfe searches in direct mode for each problem, with t1 and t2 in the
+  tail on a bfloat16 ring, and for the coupled quadratic at an unaligned
+  d; over the batched shard-local forms of the four fused kernel
+  families, one launch for all of a rank's lanes, every lane against the
+  same batch on one device.  Before it, in one process, each batched
+  shard-local kernel is held against its batched plain version and, lane
+  by lane, against the one-instance shard-local kernel, at 4 lanes of
+  2^20 and of 2^20 + 10 and at 4096 lanes of 512 per shard.
 
 Between the command line and the sharded solve, [route] checks on the card
 that no wrapper of a problem-specific kernel takes its plain version by
@@ -3215,6 +3228,562 @@ def phase_dist(dev, card):
     return launches
 
 
+# --- the batch on the 2-D mesh ([dist-batch]) ------------------------------
+# sharded_vmap_minimize on DB_RANKS processes laid out as a DB_ROWS x
+# (DB_RANKS / DB_ROWS) (b, d) mesh on the one card (gloo), DB_BATCH instances
+# of DB_D: each rank holds DB_LANES lanes of d_local = 2^20, the width every
+# kernel is timed at.  First the batched shard-local kernels in one process,
+# shards emulated by start and edges, at DB_KERNEL_SHAPES (lanes, global d)
+# in DB_SHARDS shards: DB_LANES lanes of 2^21, of DB_RAGGED (d_local = 2^20
+# + 10, shard 1 ending in padding) and the batch cell cut in two (4096 lanes
+# of d_local = 512).  Each against its batched plain version (vectors bit
+# for bit, float64 sums within TRIAL_SUM_RTOL of the lane's sum|terms|),
+# every lane against the one-instance shard-local kernel on that lane alone
+# (the same rule), and lane 0 bit for bit, sums included, when every other
+# lane's inputs are replaced (no value crosses a lane).  Then the solves,
+# each lane against the same batch on one device under [dist]'s rule: the
+# single-device port's batch solve on the batched kernels (vmap_minimize's
+# state and solve with the batched fused tail, whose products t1, t2 are
+# added in float64 and rounded once, as the sharded solve's partials are).
+# vmap_minimize itself forms the history products in float32, and its f
+# parts from the sharded solve's beyond DIST_F_RTOL within TRACE_ITERS
+# iterations (PERF.md, PR 13), so its numbers are printed beside the check,
+# not held to it.
+DB_RANKS = 4
+DB_ROWS = 2
+DB_SHARDS = DB_RANKS // DB_ROWS
+DB_BATCH = 8
+DB_LANES = DB_BATCH // DB_ROWS
+DB_D = 1 << 21
+DB_RAGGED = 2 * (D + 10) - 3
+DB_ITERS = 40
+DB_KERNEL_SHAPES = ((DB_LANES, DB_D), (DB_LANES, DB_RAGGED),
+                    (BATCH, 2 * 512))
+# The fused tail's forms checked: (ring dtype, products, compensated).
+# The main path's form comes first.
+DB_TAIL_FORMS = (("float32", False, False), ("float32", True, False),
+                 ("bfloat16", True, False), ("float32", False, True))
+
+
+def _db_inputs(lanes, n, dev, seed):
+    """(lanes, n) rows of x ~ U(-2, 2), d, g ~ U(-1, 1) and two (lanes,
+    SHARD_M, n) rings zero-padded to a multiple of DB_SHARDS, as the solver
+    pads them; one step per lane and K per lane, 2^U(-6, 2); made on the
+    card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def uni(lo, hi, shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev,
+                                           dtype=torch.float32)
+
+    pad = (-n) % DB_SHARDS
+    x, d, g = (torch.nn.functional.pad(uni(lo, hi, (lanes, n)), (0, pad))
+               for lo, hi in ((-2.0, 2.0), (-1.0, 1.0), (-1.0, 1.0)))
+    S, Y = (torch.nn.functional.pad(uni(-1.0, 1.0, (lanes, SHARD_M, n)),
+                                    (0, pad)) for _ in range(2))
+    alpha = torch.exp2(uni(-6.0, 2.0, (lanes,)))
+    alphas = {k: torch.exp2(uni(-6.0, 2.0, (lanes, k))) for k in TRIALS}
+    return x, d, g, S, Y, alpha, alphas
+
+
+def _db_edges(x, d, r, d_local):
+    """Each lane's four boundary values of shard r, (lanes, 4) = [prev x,
+    prev d, next x, next d], wrapping around as the exchange does."""
+    lo, hi = r * d_local - 1, ((r + 1) * d_local) % x.shape[-1]
+    return torch.stack([x[:, lo], d[:, lo], x[:, hi], d[:, hi]],
+                       dim=-1).contiguous()
+
+
+def _db_rel(a, b, scale):
+    """Largest |a - b| in units of scale (per lane and sum), float64."""
+    return ((a.double() - b.double()).abs()
+            / scale.double().clamp(min=1e-300)).max().item()
+
+
+def _db_tail_scales(problem, out, d, g, S, Y, m):
+    """Per lane, sum|terms| of each of the tail's 7 + 2 m sums over the
+    block, from the plain version's outputs: (lanes, 7 + 2 m)."""
+    xn, gn, s, y = (out[i].double() for i in range(4))
+    dd, gg = d.double(), g.double()
+    cols = [_f_abs_terms(problem, xn), (s * y).abs().sum(-1),
+            (y * y).sum(-1), (gn * gn).sum(-1), (dd * gn).abs().sum(-1),
+            (gg * gn).abs().sum(-1), (y * gn).abs().sum(-1)]
+    scales = torch.stack(cols, dim=-1)
+    if m:
+        ya = y.abs()
+        rings = [(ring.double().abs() * ya[:, None, :]).sum(-1)
+                 for ring in (S, Y)]
+        scales = torch.cat([scales] + rings, dim=-1)
+    return scales
+
+
+def _db_trial_scales(problem, x, d, alphas):
+    """Per lane and trial, sum |f terms| and sum |g_i d_i| over the block
+    at the float32 trial points: (lanes, K) each."""
+    from tpu_lbfgs_torch.kernels.fused_ops import VG_PLAIN
+
+    f_abs, g_abs = [], []
+    for a in alphas.unbind(-1):
+        u = (x + a[:, None] * d).double()
+        f_abs.append(_f_abs_terms(problem, u))
+        g_abs.append((VG_PLAIN[problem](u)[1] * d.double()).abs().sum(-1))
+    return torch.stack(f_abs, dim=-1), torch.stack(g_abs, dim=-1)
+
+
+def _db_families(problem, xl, dl, gl, Sl, Yl, alpha, alphas, n, start, e4):
+    """Each batched shard-local kernel's call and its plain version's, by
+    family and form: {name: (kernel call, plain call)}."""
+    from tpu_lbfgs_torch.dist.shardmap_vg import local_vg_plain
+    from tpu_lbfgs_torch.kernels import fused_ops as ops
+    from tpu_lbfgs_torch.kernels import line_search_ops as ls
+
+    e_vg, e_phi = e4[:, [0, 2]].contiguous(), e4[:, 2:].contiguous()
+    calls = {"vg": (lambda: ops.local_fused_vg(problem, xl, n, start, e_vg),
+                    lambda: local_vg_plain(problem, xl, n, start, e_vg))}
+    for hname, products, comp in DB_TAIL_FORMS:
+        hd = getattr(torch, hname)
+        S, Y = (Sl.to(hd), Yl.to(hd)) if products else (None, None)
+        form = f"tail[{hname}{' m=' + str(SHARD_M) if products else ''}" \
+            f"{' compensated' if comp else ''}]"
+
+        def tail(fn, S=S, Y=Y, products=products, comp=comp):
+            return lambda: fn(problem, xl, dl, alpha, gl, S, Y, products, n,
+                              start, e4, comp)
+
+        calls[form] = (tail(ops.local_fused_tail),
+                       tail(ops.fused_tail_local_plain))
+    for k, a in alphas.items():
+        calls[f"multi_phi[K={k}]"] = (
+            lambda a=a: ls.local_multi_phi(problem, xl, dl, a, n, start,
+                                           e_phi),
+            lambda a=a: ls.multi_phi_local_plain(problem, xl, dl, a, n,
+                                                 start, e_phi))
+        calls[f"multi_phi_dphi[K={k}]"] = (
+            lambda a=a: ls.local_multi_phi_dphi(problem, xl, dl, a, n, start,
+                                                e4),
+            lambda a=a: ls.multi_phi_dphi_local_plain(problem, xl, dl, a, n,
+                                                      start, e4))
+    return calls
+
+
+def _db_form(name):
+    """(products, compensated, ring dtype) of a tail form's name."""
+    hd = torch.bfloat16 if "bfloat16" in name else torch.float32
+    return "m=" in name, "compensated" in name, hd
+
+
+def _db_one_instance(problem, name, xl, dl, gl, Sl, Yl, alpha, alphas, n,
+                     start, e4):
+    """``lane(j)``: the one-instance shard-local kernel of a family and form
+    on lane j of the batched inputs alone."""
+    from tpu_lbfgs_torch.kernels import fused_ops as ops
+    from tpu_lbfgs_torch.kernels import line_search_ops as ls
+
+    if name == "vg":
+        e_vg = e4[:, [0, 2]].contiguous()
+        return lambda j: ops.local_fused_vg(problem, xl[j], n, start,
+                                            e_vg[j])
+    if name.startswith("tail"):
+        products, comp, hd = _db_form(name)
+        S, Y = (Sl.to(hd), Yl.to(hd)) if products else (None, None)
+        return lambda j: ops.local_fused_tail(
+            problem, xl[j], dl[j], alpha[j], gl[j],
+            S[j] if products else None, Y[j] if products else None,
+            products, n, start, e4[j], comp)
+    a = alphas[int(name.split("K=")[1].rstrip("]"))]
+    if name.startswith("multi_phi_dphi"):
+        return lambda j: ls.local_multi_phi_dphi(problem, xl[j], dl[j], a[j],
+                                                 n, start, e4[j])
+    e_phi = e4[:, 2:].contiguous()
+    return lambda j: ls.local_multi_phi(problem, xl[j], dl[j], a[j], n, start,
+                                        e_phi[j])
+
+
+def _db_split(name, out):
+    """A family's outputs as (vectors, float64 sums), the sums of a batch
+    (lanes, count), of one instance (count,)."""
+    if name == "vg":
+        return [out[1]], out[0].unsqueeze(-1)
+    if name.startswith("tail"):
+        return list(out[:4]), out[4]
+    if name.startswith("multi_phi_dphi"):
+        return [], torch.cat(out, dim=-1)
+    return [], out
+
+
+def phase_dist_batch_kernels(dev):
+    """The batched shard-local forms of the four kernel families, in one
+    process (the header of this section)."""
+    from tpu_lbfgs_torch.kernels import fused_ops as ops
+    from tpu_lbfgs_torch.kernels import line_search_ops as ls
+
+    worst = {}      # largest |kernel - plain| per (problem, family)
+    for problem, (lanes, n) in itertools.product(ops.BODY_IDS,
+                                                 DB_KERNEL_SHAPES):
+        x, d, g, S, Y, alpha, alphas = _db_inputs(lanes, n, dev, SEED + n)
+        d_local = x.shape[-1] // DB_SHARDS
+        for r in range(DB_SHARDS):
+            start = r * d_local
+            xl, dl, gl, Sl, Yl = (_block(t, r, d_local)
+                                  for t in (x, d, g, S, Y))
+            e4 = _db_edges(x, d, r, d_local)
+            calls = _db_families(problem, xl, dl, gl, Sl, Yl, alpha, alphas,
+                                 n, start, e4)
+            # The same lanes with every lane but 0 replaced.
+            swap = [t.clone() for t in (xl, dl, gl, Sl, Yl)]
+            for t in swap:
+                t[1:] = t[1:].flip(0) * 0.5
+            alt = {k: a.clone() for k, a in alphas.items()}
+            for a in alt.values():
+                a[1:] = a[1:].flip(0)
+            alt_alpha = alpha.clone()
+            alt_alpha[1:] = alt_alpha[1:].flip(0)
+            calls_alt = _db_families(problem, *swap, alt_alpha, alt, n,
+                                     start, e4.clone())
+            f_scale = _f_abs_terms(problem, xl.double())[:, None]
+            trial_scales = {k: _db_trial_scales(problem, xl, dl, a)
+                            for k, a in alphas.items()}
+            errs, lane_errs, same, lane_same, isolated = {}, {}, True, True, True
+            for name, (kern, plain) in calls.items():
+                out_k, out_p = kern(), plain()
+                vec_k, sum_k = _db_split(name, out_k)
+                vec_p, sum_p = _db_split(name, out_p)
+                if name == "vg":
+                    scale = f_scale
+                elif name.startswith("tail"):
+                    products, _, hd = _db_form(name)
+                    scale = _db_tail_scales(problem, out_p, dl, gl,
+                                            Sl.to(hd), Yl.to(hd),
+                                            SHARD_M if products else 0)
+                else:
+                    k = int(name.split("K=")[1].rstrip("]"))
+                    f_abs, g_abs = trial_scales[k]
+                    scale = f_abs if name.startswith("multi_phi[") \
+                        else torch.cat([f_abs, g_abs], dim=-1)
+                same &= all(torch.equal(a, b) and a.dtype == b.dtype
+                            for a, b in zip(vec_k, vec_p))
+                errs[name] = _db_rel(sum_k, sum_p, scale)
+                # As the one-instance shard-local rows: the vectors' largest
+                # |kernel - plain|, the sums' where there is no vector.
+                family = name.split("[")[0]
+                abs_err = max((a.float() - b.float()).abs().max().item()
+                              for a, b in zip(vec_k, vec_p)) if vec_k \
+                    else (sum_k - sum_p).abs().max().item()
+                worst[problem, family] = max(worst.get((problem, family), 0.0),
+                                             abs_err)
+                # Lane 0 with the other lanes replaced.
+                vec_a, sum_a = _db_split(name, calls_alt[name][0]())
+                isolated &= torch.equal(sum_a[0], sum_k[0]) and all(
+                    torch.equal(a[0], b[0]) for a, b in zip(vec_a, vec_k))
+                # Every lane against the one-instance shard-local kernel.
+                one = _db_one_instance(problem, name, xl, dl, gl, Sl, Yl,
+                                       alpha, alphas, n, start, e4)
+                outs = [_db_split(name, one(j)) for j in range(lanes)]
+                vec_1 = [torch.stack([o[0][i] for o in outs])
+                         for i in range(len(vec_k))]
+                sum_1 = torch.stack([o[1] for o in outs])
+                lane_same &= all(torch.equal(a, b)
+                                 for a, b in zip(vec_k, vec_1))
+                lane_errs[name] = _db_rel(sum_k, sum_1, scale)
+            torch.cuda.synchronize()
+            say(f"[dist-batch] kernels {problem} {lanes} lanes of d={n}, "
+                f"shard {r} of {DB_SHARDS} (d_local {d_local}): vectors "
+                f"bit-equal to the batched plain versions {same}, to the "
+                f"one-instance shard-local kernel lane by lane {lane_same}; "
+                f"lane 0 bit-equal with the other lanes replaced {isolated}; "
+                f"float64 sums against plain "
+                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                + f"; lane by lane against the one-instance kernel at most "
+                f"{max(lane_errs.values()):.2e} of sum|terms| (tol "
+                f"{TRIAL_SUM_RTOL})")
+            check(same and lane_same and isolated,
+                  f"[dist-batch] {problem} batched shard-local vectors differ "
+                  f"({lanes} x {n}, shard {r})")
+            check(max(errs.values()) <= TRIAL_SUM_RTOL
+                  and max(lane_errs.values()) <= TRIAL_SUM_RTOL,
+                  f"[dist-batch] {problem} batched shard-local sums differ "
+                  f"({lanes} x {n}, shard {r})")
+
+    # Times at the solve's shape: DB_LANES lanes of shard 1 of a global
+    # 2^21, d_local = 2^20.
+    rec = {}
+    x, d, g, S, Y, alpha, alphas = _db_inputs(DB_LANES, DB_D, dev, SEED)
+    d_local = DB_D // DB_SHARDS
+    xl, dl, gl, Sl, Yl = (_block(t, 1, d_local) for t in (x, d, g, S, Y))
+    e4 = _db_edges(x, d, 1, d_local)
+    elems = DB_LANES * d_local
+    lanes = DB_LANES
+    for problem in ops.BODY_IDS:
+        body_ops = {"quadratic": 4, "rosenbrock": 18,
+                    "coupled_quadratic": 9}[problem]
+        per_trial = {"quadratic": (6, 9), "rosenbrock": (13, 28),
+                     "coupled_quadratic": (10, 19)}[problem]
+        calls = _db_families(problem, xl, dl, gl, Sl, Yl, alpha, alphas,
+                             DB_D, d_local, e4)
+        tail_ops = (body_ops + 22) * elems
+        bounds = {
+            "vg": bound_ms(8 * elems + 16 * lanes, body_ops * elems),
+            "tail[float32]": bound_ms(28 * elems + 76 * lanes, tail_ops),
+            f"tail[float32 m={SHARD_M}]": bound_ms(
+                (28 + 8 * SHARD_M) * elems + 76 * lanes + 16 * SHARD_M * lanes,
+                tail_ops + 4 * SHARD_M * elems),
+            f"tail[bfloat16 m={SHARD_M}]": bound_ms(
+                (24 + 4 * SHARD_M) * elems + 76 * lanes
+                + 16 * SHARD_M * lanes, tail_ops + 4 * SHARD_M * elems),
+            "tail[float32 compensated]": bound_ms(28 * elems + 76 * lanes,
+                                                  tail_ops),
+            **{f"multi_phi[K={k}]": bound_ms(
+                8 * elems + 16 * lanes + 12 * k * lanes,
+                per_trial[0] * elems * k) for k in TRIALS},
+            **{f"multi_phi_dphi[K={k}]": bound_ms(
+                8 * elems + 16 * lanes + 20 * k * lanes,
+                per_trial[1] * elems * k) for k in TRIALS},
+        }
+        for name, (kern, plain) in calls.items():
+            ms, plain_ms = device_ms(kern), device_ms(plain)
+            bound = bounds[name]
+            say(f"[dist-batch] {problem} {name} local batched, {lanes} lanes "
+                f"of d_local={d_local} (of d={DB_D}): {ms * 1e3:.2f} us on "
+                f"the card, plain version {plain_ms * 1e3:.2f} us, bound "
+                f"{bound[0] * 1e3:.2f} us by {bound[1]}")
+            # The kernels line: the main path's tail, multi_phi at K = 8
+            # and multi_phi_dphi at K = 36, as the one-instance rows.
+            family = {"vg": "vg", "tail[float32]": "tail",
+                      "multi_phi[K=8]": "multi_phi",
+                      "multi_phi_dphi[K=36]": "multi_phi_dphi"}.get(name)
+            if family is not None:
+                key = family.replace("tail", "fused_tail") \
+                    if family == "tail" else family
+                rec[f"{problem}_{key}_local_batched"] = {
+                    "max_abs_err": worst[problem, family], "ms": ms,
+                    "plain_ms": plain_ms, "bound": bound}
+    return rec
+
+
+def _db_jobs():
+    """The solves of [dist-batch]: (label, problem, d, lockstep, config
+    keywords, sharded_vmap_minimize keywords)."""
+    poly = dict(line_search="backtracking", direction="compact_incremental",
+                ls_eval="polynomial")
+    spec = dict(direction="compact_incremental", ls_eval="direct")
+    jobs = [(f"main, {lockstep}", "rosenbrock", DB_D, lockstep, poly, {})
+            for lockstep in ("bounded", "while")]
+    for problem in ("rosenbrock", "coupled_quadratic", "quadratic"):
+        for search in ("backtracking_speculative",
+                       "wolfe_interpolation_speculative"):
+            jobs.append((f"{problem} {search}", problem, DB_D, "while",
+                         dict(spec, line_search=search), {}))
+    jobs += [
+        ("t1, t2 in the tail on a bf16 ring", "rosenbrock", DB_D, "while",
+         dict(poly, history_dtype="bfloat16"), dict(with_matvec=True)),
+        ("unaligned d", "coupled_quadratic", DB_D + 37, "while", poly, {}),
+    ]
+    return jobs
+
+
+def _db_cfg_kw(problem, lockstep, cfg_kw):
+    # [dist]'s rule: Rosenbrock at tol = 0, the quadratics to 1e-5; a
+    # trace where the lockstep allows one.
+    kw = _dist_cfg_kw(problem, DB_ITERS, cfg_kw)
+    kw["record_trace"] = lockstep == "while"
+    return kw
+
+
+def _db_x0(d, dev, dtype=torch.float32):
+    rng = np.random.default_rng(SEED)
+    return torch.from_numpy(rng.uniform(-2.0, 2.0, (DB_BATCH, d))).to(
+        device=dev, dtype=dtype)
+
+
+def phase_dist_batch(dev, card):
+    """sharded_vmap_minimize at full width: DB_RANKS processes on the one
+    card as a DB_ROWS x DB_SHARDS (b, d) mesh (gloo), DB_BATCH instances of
+    DB_D, every lane against the same batch on one device on the batched
+    kernels, and the single-device vmap_minimize printed beside it."""
+    import tpu_lbfgs_torch as tt
+    from tpu_lbfgs_torch.core.solver import solve_to_result
+    from tpu_lbfgs_torch.dist.launch import solve_cases, spawn_ranks
+
+    jobs = _db_jobs()
+    cases = [dict(problem=problem, d=d, dtype="float32", seed=SEED, box=2.0,
+                  batch=DB_BATCH, batch_size=DB_ROWS, lockstep=lockstep,
+                  cfg=_db_cfg_kw(problem, lockstep, cfg_kw), kw=kw,
+                  gather=False)
+             for _, problem, d, lockstep, cfg_kw, kw in jobs]
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(solve_cases, DB_RANKS, cases, "cuda:0",
+                        backend="gloo", timeout_s=DIST_TIMEOUT_S,
+                        threads=None)
+    say(f"[dist-batch] {DB_RANKS} ranks on {card} as a {DB_ROWS} x "
+        f"{DB_SHARDS} (b, d) mesh (gloo, one process each, all on cuda:0), "
+        f"{DB_BATCH} instances, {len(jobs)} solves in "
+        f"{time.perf_counter() - t0:.1f} s with start-up.  The ranks share "
+        "one card and every collective goes through the host, so the times "
+        "below are a correctness run's cost, not a scaling number.")
+    launches = {}
+    # A bounded solve is held to the same batch's read-driven one: with no
+    # lane converging early (tol = 0) the two give the same iterates.
+    twin = {lockstep: j for j, (label, _, _, lockstep, _, _) in enumerate(jobs)
+            if label.startswith("main")}
+    for j, (label, problem, d, lockstep, cfg_kw, kw) in enumerate(jobs):
+        per_rank = [r[j] for r in ranks]
+        r0 = per_rank[0]
+        for key in ("f", "status", "iterations", "n_fev"):
+            check(all(np.array_equal(r[key], r0[key]) for r in per_rank),
+                  f"[dist-batch] {label}: the ranks disagree on {key}")
+        if "trace" in r0:
+            check(all(np.array_equal(r["trace"]["alpha"], r0["trace"]["alpha"])
+                      for r in per_rank),
+                  f"[dist-batch] {label}: the ranks disagree on alphas")
+        d_local = -(-d // DB_SHARDS)
+        check(all(r["x_local_shape"] == (DB_LANES, d_local)
+                  and r["x_local_finite"] for r in per_rank)
+              and np.isfinite(r0["f"]).all(),
+              f"[dist-batch] {label}: each rank must hold finite "
+              f"({DB_LANES}, {d_local}) lanes and finite f")
+        # The same batch on one device, the whole vectors, on the batched
+        # kernels: vmap_minimize's state and solve with the batched fused
+        # tail, its products t1, t2 added in float64 and rounded once, as
+        # the sharded solve adds its products' partials, and f from the
+        # batched vg kernel for the trials.  vmap_minimize itself (its
+        # history products in float32) is printed beside it.
+        p = tt.get_problem(problem)
+        cfg = tt.LBFGSConfig(**_db_cfg_kw(problem, lockstep, cfg_kw))
+        poly = p.dir_poly if cfg.ls_eval == "polynomial" else None
+        x0 = _db_x0(d, dev)
+        vg = tt.fused_value_and_grad(problem)
+        single = solve_to_result(
+            cfg, lambda x: vg(x)[0], vg,
+            tt.init_state(vg, x0, cfg.m, cfg.history_dtype), poly,
+            fused_tail=tt.fused_tail_for(problem, with_matvec=True),
+            bounded=lockstep == "bounded")
+        vmapped = tt.vmap_minimize(p.f, x0, cfg, value_and_grad=vg,
+                                   dir_poly=poly, lockstep=lockstep)
+        v_f, v_status = vmapped.f.cpu().numpy(), vmapped.status.cpu().numpy()
+        s_status = single.status.cpu().numpy()
+        s_iters = single.iterations.cpu().numpy()
+        s_f = single.f.cpu().numpy()
+        f0 = np.abs(p.f(x0).double().cpu().numpy())
+        floor = 1e-9 * f0
+        n_cmp, f_err, parted = [], 0.0, []
+        for lane in range(DB_BATCH):
+            if "trace" in r0:
+                fs = r0["trace"]["f"][lane].tolist()
+                f_s = single.trace.f[lane].tolist()
+                a_r = r0["trace"]["alpha"][lane].tolist()
+                a_s = single.trace.alpha[lane].tolist()
+                k_l = min(TRACE_ITERS, int(r0["iterations"][lane]),
+                          int(s_iters[lane]))
+                n = 0
+                while (n < k_l and min(([f0[lane]] + fs)[n],
+                                       ([f0[lane]] + f_s)[n]) > floor[lane]):
+                    n += 1
+                err = max((abs(a - b) / max(abs(b), floor[lane])
+                           for a, b in zip(fs[:n], f_s[:n])), default=0.0)
+                ok = n >= 1 and a_r[:n] == a_s[:n]
+                ok &= err <= DIST_F_RTOL
+            else:
+                n = 0
+                err = abs(r0["f"][lane] - s_f[lane]) / max(abs(s_f[lane]),
+                                                           floor[lane])
+                read_driven = ranks[0][twin["while"]]
+                ok = (int(r0["iterations"][lane]) == int(s_iters[lane])
+                      and r0["f"][lane] == read_driven["f"][lane]
+                      and r0["status"][lane] == read_driven["status"][lane])
+            ok &= int(r0["status"][lane]) == int(s_status[lane])
+            n_cmp.append(n)
+            f_err = max(f_err, err)
+            if not ok or err > DIST_F_WITNESS or n < min(
+                    TRACE_ITERS, int(s_iters[lane])):
+                parted.append(lane)
+            check(ok, f"[dist-batch] {label}: lane {lane} parts from the "
+                      f"single-device port (status {r0['status'][lane]} / "
+                      f"{s_status[lane]}, f within {err:.2e}, first {n} "
+                      "alphas compared)")
+        # Per rank: its row's lanes, their iterations, its kernels.
+        lines = []
+        for rank, r in enumerate(per_rank):
+            row = rank // DB_SHARDS
+            k_row = int(np.max(r["iterations"][row * DB_LANES:
+                                               (row + 1) * DB_LANES]))
+            got = r["launches"]
+            tail = got.get(f"{problem}_fused_tail_local_batched", 0)
+            vg = got.get(f"{problem}_vg_local_batched", 0)
+            check(tail == k_row and vg >= 1
+                  and (vg == 1 or cfg.ls_eval == "direct"),
+                  f"[dist-batch] {label}: rank {rank} must launch the "
+                  f"batched shard-local tail once per iteration of its row "
+                  f"({k_row}) and vg once per solve, got {got}")
+            check(all(name == "compact_chain"
+                      or name.endswith("_local_batched") for name in got),
+                  f"[dist-batch] {label}: rank {rank} ran a whole-vector or "
+                  f"one-instance kernel on its lanes: {got}")
+            if cfg.ls_eval == "direct":
+                own = (f"{problem}_multi_phi_local_batched"
+                       if cfg.line_search == "backtracking_speculative"
+                       else f"{problem}_multi_phi_dphi_local_batched")
+                check(got.get(own, 0) >= k_row,
+                      f"[dist-batch] {label}: rank {rank}: {own} must "
+                      f"launch at least once per iteration, got {got}")
+            if problem == "quadratic":
+                check(r["edge_exchanges"] == 0,
+                      "[dist-batch] the quadratic exchanges no edges")
+            else:
+                check(r["edge_exchanges"] >= k_row,
+                      f"[dist-batch] {label}: a chain problem exchanges "
+                      "its edges")
+            lines.append(f"rank {rank} (row {row}, {k_row} iterations): "
+                         f"{r['wall_s'] / max(k_row, 1) * 1e3:.2f} ms, "
+                         f"{r['all_reduces'] / max(k_row, 1):.2f} "
+                         f"all-reduces, "
+                         f"{r['edge_exchanges'] / max(k_row, 1):.2f} edge "
+                         f"exchanges per iteration")
+            for name, count in got.items():
+                launches.setdefault(name, count)
+        v_err = float(np.max(np.abs(r0["f"] - v_f) / np.maximum(
+            np.abs(v_f), floor)))
+        v_trace = ""
+        if "trace" in r0:
+            # f over the first TRACE_ITERS iterations against vmap_minimize.
+            k_v = min(TRACE_ITERS, int(np.min(r0["iterations"])))
+            v_fs = vmapped.trace.f[:, :k_v].double().cpu().numpy()
+            off = np.abs(r0["trace"]["f"][:, :k_v] - v_fs) / np.maximum(
+                np.abs(v_fs), floor[:, None])
+            v_trace = (f", f over the first {k_v} iterations within "
+                       f"{float(np.max(off)):.2e}")
+        held = (f"alphas equal over the first {min(n_cmp)}-{max(n_cmp)} "
+                f"iterations of each lane, f within {f_err:.2e} (tol "
+                f"{DIST_F_RTOL})" if "trace" in r0 else
+                f"iterations equal, final f within {f_err:.2e}; f and "
+                f"statuses bit-equal to the same batch under lockstep while")
+        say(f"[dist-batch] {label}: {problem} {DB_BATCH} x d={d} (lanes of "
+            f"{DB_LANES} x d_local {d_local} a rank) {cfg.line_search}/"
+            f"{cfg.ls_eval}, lockstep {lockstep}, statuses "
+            f"{[tt.Status.NAMES[int(s)] for s in r0['status']]}, iterations "
+            f"{r0['iterations'].tolist()}; rank 0 launches {r0['launches']}; "
+            + "; ".join(lines) + " (4 ranks sharing the card over gloo: a "
+            "correctness run, not a scaling number); against the same "
+            f"batch on one device on the batched kernels: statuses equal, "
+            f"{held}; against vmap_minimize (float32 history products): "
+            f"statuses equal {np.array_equal(r0['status'], v_status)}"
+            f"{v_trace}, final f within {v_err:.2e}")
+        if parted:
+            # Where the two float32 solves part (f beyond DIST_F_WITNESS,
+            # or alphas compared over fewer iterations than ran), the
+            # witness is the same batch in float64 on one device.
+            wide = tt.vmap_minimize(p.f, x0.double(),
+                                    cfg.replace(use_pallas=False),
+                                    grad=p.grad, dir_poly=poly,
+                                    lockstep=lockstep)
+            w_f = wide.f.cpu().numpy()
+            say(f"[dist-batch] {label}: witness, float64 on one device, "
+                f"lanes {parted}: final f sharded float32 "
+                f"{[float(r0['f'][i]) for i in parted]}, single-device "
+                f"float32 {[float(s_f[i]) for i in parted]}, float64 "
+                f"{[float(w_f[i]) for i in parted]}")
+    return launches
+
+
 # --- checkpoints, the giant cell, time to tolerance, the protocol ----------
 # [checkpoint]: the main path's configuration at d = D in float32, two
 # make_solve_segment segments of CKPT_ITERS iterations, cut between them by
@@ -3543,6 +4112,9 @@ def main():
     lap("[kernel] shard-local forms")
     launches.update(phase_dist(dev, card))
     lap("[dist]")
+    rec.update(phase_dist_batch_kernels(dev))
+    launches.update(phase_dist_batch(dev, card))
+    lap("[dist-batch]")
     with tempfile.TemporaryDirectory(dir=".") as tmp:
         phase_checkpoint(dev, pathlib.Path(tmp))
     lap("[checkpoint]")
@@ -3572,6 +4144,10 @@ def main():
             sources[f"{body}_{family}_local"] = (
                 sources[f"{body}_{family}"][0],
                 f"tpu_lbfgs/dist/pallas_sharded.py:{line}")
+            # The reference's jax.vmap(..., spmd_axis_name=...) over the
+            # same shard_map wrappers (tpu_lbfgs/dist/sharded.py:327).
+            sources[f"{body}_{family}_local_batched"] = \
+                sources[f"{body}_{family}_local"]
         # The batched forms: the same sources, the reference's jax.vmap
         # over the same Pallas kernels.
         for family in ("vg", "fused_tail"):

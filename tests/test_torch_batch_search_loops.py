@@ -204,8 +204,9 @@ def test_fixed_trip_loop_under_a_small_cap(strategy, cap_field):
 
 def test_make_phi_lane_rule():
     """make_phi in direct mode over a batch: a (B,) step is one f pass
-    over every lane, a (B, K) step K passes; a K-trial evaluator is
-    refused for a batch (it takes one instance)."""
+    over every lane, a (B, K) step K passes; a K-trial evaluator given for
+    a batch takes the (B, K) step whole and gives (B, K), and a (B,) step
+    still goes through f."""
     p = tt.get_problem("rosenbrock")
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.uniform(-2, 2, (5, 16)))
@@ -225,6 +226,14 @@ def test_make_phi_lane_rule():
     assert torch.equal(phi(a), fs)
     assert torch.equal(phi(a[:, 1]), fs[:, 1])
     assert torch.equal(phi_dphi(a[:, 2])[1], dphis[:, 2])
-    with pytest.raises(ValueError, match="one instance"):
-        make_phi(cfg, p.f, None, x, d,
-                 phi_batch=tt.multi_phi_for("rosenbrock"))
+    seen = []
+
+    def phi_batch(xx, dd, aa):
+        seen.append(aa)
+        return torch.stack([p.f(xx + aa[:, k, None] * dd)
+                            for k in range(aa.shape[-1])], dim=-1)
+
+    phi_b, _ = make_phi(cfg, p.f, None, x, d, phi_batch=phi_batch)
+    assert torch.equal(phi_b(a), fs)
+    assert len(seen) == 1 and seen[0] is a
+    assert torch.equal(phi_b(a[:, 1]), fs[:, 1]) and len(seen) == 1

@@ -100,6 +100,10 @@ F64_SETS = {
                          "--max-iters 30 --lockstep bounded",
     "batch_pallas_direct": "--batch 4 --problem coupled_quadratic --dim 128 "
                            "--pallas --max-iters 30 --tol 1e-8",
+    # --shard with --batch: the batch branch runs and --shard is ignored
+    # there, in both command lines
+    "shard_batch_poly": "--shard --batch 4 --poly-ls --problem rosenbrock "
+                        "--dim 64 --max-iters 30 --lockstep bounded",
 }
 
 
@@ -209,7 +213,6 @@ def test_multi_seed_summary_and_damped_guards(capsys):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--shard", "--batch", "4", "--poly-ls"], "Queue 1 item 12"),
     (["--backend", "native"], "Queue 1 item 10"),
     (["--debug-nans"], "Queue 1 item 10"),
     (["--line-search", "nope"], "invalid choice"),

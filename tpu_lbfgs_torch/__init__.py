@@ -21,15 +21,17 @@ kernels of the quadratic and the coupled quadratic beside Rosenbrock's,
 the fused tail's in-kernel history products and compensated sums, and a
 history ring in bfloat16; and the sharded solve (``tpu_lbfgs_torch.dist``:
 ``sharded_minimize`` with one process per shard of the vector axis over
-``torch.distributed``, ``--shard`` on the command line, the shard-local
-forms of the four fused kernel families); checkpoints (``io.save_state`` /
+``torch.distributed``, ``--shard`` on the command line, and
+``sharded_vmap_minimize``, a batch over the rows of a 2-D ``(b, d)`` mesh,
+with the shard-local forms of the four fused kernel families for one
+instance and for a batch); checkpoints (``io.save_state`` /
 ``load_state``, the reference's file); and the experiment harnesses
 (``bench``: time to tolerance, the giant-instance cell, the reference
 protocol, the sweep; ``utils.roofline``: the traffic model on the H100).
-What is left (a batch or a caller's own objective on the sharded path)
-raises ``NotImplementedError`` naming the ROADMAP item
-that brings it; sharded checkpoints and the scaling sweep are not here
-yet (ROADMAP Queue 1 item 12).
+What is left (a caller's own objective on the sharded path) raises
+``NotImplementedError`` naming the ROADMAP item that brings it; sharded
+checkpoints and the scaling sweep are not here yet (ROADMAP Queue 1 item
+12).
 
 Where it runs: ``minimize`` and ``vmap_minimize`` solve on the device of
 the tensor they are given, so a CPU tensor is the caller asking for the

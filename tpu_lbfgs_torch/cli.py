@@ -34,10 +34,12 @@ plain f and gradient, as the reference's does.  ``--batch --pallas`` sets
 ``cfg.use_pallas`` as the reference's does: each iteration's tail is then
 the batched ``iteration_tail`` kernel on the card, one launch over all
 lanes, in float32 or float64 (that kernel is built for both, so
-``--dtype float64`` takes no plain version here).
+``--dtype float64`` takes no plain version here).  ``--shard`` with
+``--batch`` runs the batch branch and ignores ``--shard`` there, as the
+reference's command line does (its batch branch comes first); under a
+launcher each rank solves the whole batch and rank 0 prints the record.
 
 Not ported yet, each refused with the ROADMAP item that brings it:
-``--shard`` with ``--batch`` (Queue 1 item 12, what is left),
 ``--backend native`` and ``--debug-nans`` (Queue 1 item 10).
 """
 from __future__ import annotations
@@ -152,10 +154,6 @@ def _profiled(solve, out_dir: str):
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.shard and args.batch:
-        ap.error("--shard with --batch (sharded_vmap_minimize) is not ported "
-                 "to tpu_lbfgs_torch yet (ROADMAP.md Queue 1 item 12, what "
-                 "is left)")
     if args.backend == "native":
         ap.error("--backend native is not ported to tpu_lbfgs_torch "
                  "(ROADMAP.md Queue 1 item 10): the C++ oracle belongs to "

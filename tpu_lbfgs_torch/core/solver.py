@@ -28,14 +28,15 @@ B instances in lockstep, as ``jax.vmap`` of the reference's functions does.
 Each lane takes its own decisions; a lane that has finished is left as it
 is (``iterate`` is idempotent on finished lanes).
 
-``comm`` (``dist.comm.ShardComm``; one instance only) makes the same code
-one shard of a sharded solve: x, g and the ring hold this process's block
-of the vector axis, every scalar and the small ring metadata are
-replicated, and every reduction over d is a float64 local partial finished
-by one all-reduce over the group (``fused_ops._rdot``, ``reduce_parts``).
-The objective callables are then shard-local ones that finish their own
-sums (``dist.sharded``).  All control flow reads replicated scalars, so the
-ranks take the same branches.  Without a comm none of this runs.
+``comm`` (``dist.comm.ShardComm``) makes the same code one shard of a
+sharded solve: x, g and the ring hold this process's block of the vector
+axis, one instance's or a batch's lanes, every scalar and the small ring
+metadata are replicated, and every reduction over d is a float64 local
+partial finished by one all-reduce over the group, for all lanes at once
+(``fused_ops._rdot``, ``reduce_parts``).  The objective callables are then
+shard-local ones that finish their own sums (``dist.sharded``).  All
+control flow reads replicated scalars, so the ranks take the same
+branches.  Without a comm none of this runs.
 """
 from __future__ import annotations
 
@@ -157,9 +158,10 @@ def make_phi(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, x: Tensor,
     ``ls_eval="direct"``: a trial is f(x + a d), a Wolfe trial vg(x + a d)
     and g_new . d, each a full pass, over every lane at once.  K trials per
     lane, which the speculative searches ask for, go through ``phi_batch``
-    / ``phi_dphi_batch`` (``problems.suite.multi_phi_for`` /
-    ``multi_phi_dphi_for``: one pass for all K; one instance only) when
-    given, else trial by trial, as the reference's vmap does."""
+    / ``phi_dphi_batch`` when given (one pass for all K: x, d and the
+    alphas of x's lane shape plus K; ``problems.suite.multi_phi_for`` /
+    ``multi_phi_dphi_for`` for one instance, ``dist.pallas_sharded``'s for
+    a shard's lanes), else trial by trial, as the reference's vmap does."""
     lanes = x.dim() - 1
     if cfg.ls_eval == "polynomial":
         if dir_poly is None:
@@ -180,11 +182,6 @@ def make_phi(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, x: Tensor,
             return _polyval(c, a), _polyval(_polyder(c), a)
 
         return phi, phi_dphi
-
-    if lanes and (phi_batch is not None or phi_dphi_batch is not None):
-        raise ValueError("phi_batch / phi_dphi_batch evaluate K trials of "
-                         "one instance; a batch evaluates its trials "
-                         "through f and value_and_grad")
 
     def one_dphi(a):
         f_new, g_new = vg(x + per_lane(a) * d)
@@ -214,8 +211,9 @@ def _sharded_tail(x, d, alpha, g, g_new, accurate: bool, damped: bool,
     """``iteration_tail_plain`` and the two sums beside it for one shard:
     (x_new, s, y, s.y, y.y, g_new.g_new, d.g_new, g.g_new, y.g_new, s.s or
     None), the sums as float64 partials (compensated locally under
-    ``accurate``) finished by one packed all-reduce."""
-    s = alpha * d
+    ``accurate``) finished by one packed all-reduce, each lane's for a
+    batch."""
+    s = per_lane(alpha) * d
     y = g_new - g
     a, b = [s, y, g_new, d, g, y], [y, y, g_new, g_new, g_new, g_new]
     if damped:
@@ -323,7 +321,7 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
         ss = alpha * alpha * _rdot(comm, d, d) if damped else None
     elif comm is not None:
         t1 = t2 = None
-        f_new, g_new = vg(x + alpha * d)
+        f_new, g_new = vg(x + per_lane(alpha) * d)
         (x_new, s_h, y_raw, sy, yy, gg_new, dgn, _ggn, ygn,
          ss) = _sharded_tail(x, d, alpha, g, g_new, cfg.accurate_dots,
                              damped, comm)

@@ -86,6 +86,13 @@
 // plain).  A row whose start is off 16 bytes (n not a multiple of 4)
 // takes the element path throughout, the ring's rows too.
 //
+// The batched shard-local form (kShard and kBatched,
+// tl_fused_tail_local_batched_f32; the reference's jax.vmap over
+// shardmap_fused_tail, as sharded_vmap_minimize runs it) is the batched
+// form on B lanes of one shard's blocks: the lanes share start and
+// n_global, each lane has its own alpha and its own edges row of (B, 4),
+// and its 7 + 2 m sums come back as float64 partials, unrounded.
+//
 // A bfloat16 row is rounded to nearest even, as Tensor.to(torch.bfloat16)
 // rounds.  The per-element arithmetic follows the plain PyTorch version
 // (tpu_lbfgs_torch/kernels/fused_ops.py::fused_tail_plain) op for op, and
@@ -250,7 +257,6 @@ __global__ void __launch_bounds__(tl::kThreads, 4)
                      H* __restrict__ y_row, double* __restrict__ partials,
                      int64_t n, int m, bool vec, bool ring_vec,
                      tl::Shard shard, int parts) {
-  static_assert(!(kShard && kBatched), "a shard is one instance");
   __shared__ double ysh[kProducts ? kTile : 1];
   const tl::Walk w = tl::walk<kBatched>(parts);
   if constexpr (kBatched) {
@@ -271,8 +277,9 @@ __global__ void __launch_bounds__(tl::kThreads, 4)
   // x_new[-1] and x_new[n] behind its index tests only).
   float e_prev = 0.0f, e_next = 0.0f;
   if constexpr (kShard && Body::kNeighbours) {
-    e_prev = tl::trial_point(shard.edges[0], shard.edges[1], a);
-    e_next = tl::trial_point(shard.edges[2], shard.edges[3], a);
+    const float* edges = shard.edges + (kBatched ? 4 * w.lane : 0);
+    e_prev = tl::trial_point(edges[0], edges[1], a);
+    e_next = tl::trial_point(edges[2], edges[3], a);
   }
   double acc[kSums] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
   const int64_t first = w.first * kTile;
@@ -389,10 +396,12 @@ void finish(const Args& p, int blocks, int m) {
   }
 }
 
-// The batched form's stage 2: the seven sums of every lane (Neumaier where
-// compensated), then t1 and t2 (plain), rows k * lanes + lane.
+// The batched forms' stage 2: the seven sums of every lane (Neumaier where
+// compensated), then t1 and t2 (plain), rows k * lanes + lane; T as in
+// finish.
+template <typename T>
 void finish_batched(const Args& p, int blocks, int parts, int m) {
-  float* sums = static_cast<float*>(p.sums);
+  T* sums = static_cast<T*>(p.sums);
   if (p.compensated && m > 0) {
     tl::launch_finish_rows(p.partials, nullptr, parts, kSums * p.lanes, true,
                            sums, p.stream);
@@ -440,9 +449,9 @@ void launch(const Args& p, int m) {
   }
 }
 
-// The batched form: p.lanes rows of p.n, each lane's tiles walked by parts
+// The batched forms: p.lanes rows of p.n, each lane's tiles walked by parts
 // blocks (about one kMaxBlocks grid in all, as the whole vector's).
-template <typename Body, typename H>
+template <typename Body, typename H, bool kShard>
 void launch_batched(const Args& p, int m) {
   const H* s_hist = static_cast<const H*>(p.s_hist);
   const H* y_hist = static_cast<const H*>(p.y_hist);
@@ -461,17 +470,21 @@ void launch_batched(const Args& p, int m) {
   const int64_t blocks = p.lanes * parts;
   const unsigned grid = static_cast<unsigned>(blocks);
   if (m == 0) {
-    tail_tile_kernel<Body, H, false, false, true>
+    tail_tile_kernel<Body, H, false, kShard, true>
         <<<grid, tl::kThreads, 0, p.stream>>>(
             p.x, p.d, p.g, p.alpha, s_hist, y_hist, p.x_new, p.g_new, s_row,
             y_row, p.partials, p.n, 0, vec, false, p.shard, parts);
   } else {
-    tail_tile_kernel<Body, H, true, false, true>
+    tail_tile_kernel<Body, H, true, kShard, true>
         <<<grid, tl::kThreads, 0, p.stream>>>(
             p.x, p.d, p.g, p.alpha, s_hist, y_hist, p.x_new, p.g_new, s_row,
             y_row, p.partials, p.n, m, vec, ring_vec, p.shard, parts);
   }
-  finish_batched(p, static_cast<int>(blocks), parts, m);
+  if (kShard) {
+    finish_batched<double>(p, static_cast<int>(blocks), parts, m);
+  } else {
+    finish_batched<float>(p, static_cast<int>(blocks), parts, m);
+  }
 }
 
 template <bool kShard, bool kBatched = false>
@@ -483,8 +496,8 @@ int run(int body, int hist_bf16, int m, const Args& p) {
   bool known;
   if constexpr (kBatched) {
     known = TL_DISPATCH_BODY(
-        body, hist_bf16 ? launch_batched<Body, __nv_bfloat16>(p, m)
-                        : launch_batched<Body, float>(p, m));
+        body, hist_bf16 ? launch_batched<Body, __nv_bfloat16, kShard>(p, m)
+                        : launch_batched<Body, float, kShard>(p, m));
   } else {
     known = TL_DISPATCH_BODY(
         body, hist_bf16 ? launch<Body, __nv_bfloat16, kShard>(p, m)
@@ -558,6 +571,27 @@ extern "C" int tl_fused_tail_batched_f32(
                partials, sums, n, compensated != 0,
                static_cast<cudaStream_t>(stream), tl::Shard{}, lanes};
   return run<false, true>(body, hist_bf16, m, p);
+}
+
+// The batched shard-local form: the batched form's arguments over lanes
+// lanes of one shard's blocks (n elements a row; s_hist, y_hist (lanes, m,
+// n)), then n_global and start, shared by the lanes, and edges, 4 * lanes
+// floats on the device, row-major (lanes, 4), each lane's [previous shard's
+// last x, its last d, next shard's first x, its first d].  sums: (7 + 2 m)
+// * lanes doubles, row-major (7 + 2 m, lanes), each lane's partials in the
+// order above.
+extern "C" int tl_fused_tail_local_batched_f32(
+    int body, int hist_bf16, int m, int compensated, const float* x,
+    const float* d, const float* g, const float* alpha, const void* s_hist,
+    const void* y_hist, float* x_new, float* g_new, void* s_row, void* y_row,
+    double* partials, double* sums, long long lanes, long long n,
+    long long n_global, long long start, const float* edges, void* stream) {
+  if (start < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Args p{x, d, g, alpha, s_hist, y_hist, x_new, g_new, s_row, y_row,
+               partials, sums, n, compensated != 0,
+               static_cast<cudaStream_t>(stream),
+               tl::Shard{n_global, start, edges}, lanes};
+  return run<true, true>(body, hist_bf16, m, p);
 }
 
 // Blocks of the products form (body, ring type) that fit on one SM of the

@@ -61,6 +61,16 @@
 // inside the row.  Stage 2 is one thread per lane
 // (reduce.cuh::finish_rows).  A row whose start is off 16 bytes (n not a
 // multiple of 4) takes the element path throughout.
+//
+// The batched shard-local form (kShard and kBatched,
+// tl_fused_vg_local_batched_f32; the reference's jax.vmap over
+// shardmap_fused_vg, as sharded_vmap_minimize runs it) takes B lanes of one
+// shard's block, (B, n) rows that share start and n_global, and edges as
+// (B, 2) rows, each lane's [previous shard's last x, next shard's first x].
+// It is the batched walk with the shard's index tests: the block that
+// walks a lane's first tile reads that lane's first edge, the block that
+// walks its last tile its second, and each lane's f comes back as its
+// float64 partial, unrounded.
 #include "bodies.cuh"
 #include "reduce.cuh"
 
@@ -89,7 +99,6 @@ __global__ void __launch_bounds__(tl::kThreads, kBlocksPerSM)
     vg_kernel(const float* __restrict__ x, float* __restrict__ g,
               double* __restrict__ partials, int64_t n, bool vec,
               tl::Shard shard, int parts) {
-  static_assert(!(kShard && kBatched), "a shard is one instance");
   tl::allow_dependents();
   const tl::Walk w = tl::walk<kBatched>(parts);
   if constexpr (kBatched) {
@@ -103,13 +112,16 @@ __global__ void __launch_bounds__(tl::kThreads, kBlocksPerSM)
   // A shard's outer neighbours: only the threads that will hold its first
   // and its last element read them, here, so that the loads overlap the
   // run's own (loaded where they are used, they held up those two warps).
+  // A lane's first tile is its walk's tile 0, its last tile the one its
+  // walk reaches at (last / kTile) mod step.
   float e_prev = 0.0f, e_next = 0.0f;
   if constexpr (kShard && Body::kNeighbours) {
+    const float* edges = shard.edges + (kBatched ? 2 * w.lane : 0);
     const int64_t last = n - 1;
-    if (blockIdx.x == 0 && threadIdx.x == 0) e_prev = shard.edges[0];
-    if ((last / kTile) % gridDim.x == blockIdx.x &&
+    if (w.first == 0 && threadIdx.x == 0) e_prev = edges[0];
+    if ((last / kTile) % w.step == w.first &&
         (last % kTile) / kRun == threadIdx.x) {
-      e_next = shard.edges[1];
+      e_next = edges[1];
     }
   }
   for (int64_t base = w.first * kTile; base < n; base += w.step * kTile) {
@@ -193,10 +205,13 @@ int launch(int body, const float* x, float* g, double* partials, Out* f,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The batched form: lanes rows of n, each lane's tiles walked by parts
-// blocks, then finish_rows over the lanes.
+// The batched forms: lanes rows of n, each lane's tiles walked by parts
+// blocks, then finish_rows over the lanes (f in float, or a shard's float64
+// partials).
+template <bool kShard, typename Out>
 int launch_batched(int body, const float* x, float* g, double* partials,
-                   float* f, long long lanes, long long n, void* stream) {
+                   Out* f, long long lanes, long long n, void* stream,
+                   const tl::Shard& shard) {
   if (n < 1 || lanes < 1 || lanes > tl::kMaxLanes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -207,10 +222,10 @@ int launch_batched(int body, const float* x, float* g, double* partials,
   const bool vec = aligned16(x) && aligned16(g) && n % 4 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool known = TL_DISPATCH_BODY(
-      body, vg_kernel<Body, false, true><<<grid, tl::kThreads, 0, s>>>(
-                x, g, partials, n, vec, tl::Shard{}, parts));
+      body, vg_kernel<Body, kShard, true><<<grid, tl::kThreads, 0, s>>>(
+                x, g, partials, n, vec, shard, parts));
   if (!known) return static_cast<int>(cudaErrorInvalidValue);
-  tl::launch_finish_rows<float>(partials, nullptr, parts, lanes, false, f, s);
+  tl::launch_finish_rows<Out>(partials, nullptr, parts, lanes, false, f, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -246,5 +261,21 @@ extern "C" int tl_fused_vg_batched_f32(int body, const float* x, float* g,
                                        double* partials, float* f,
                                        long long lanes, long long n,
                                        void* stream) {
-  return launch_batched(body, x, g, partials, f, lanes, n, stream);
+  return launch_batched<false>(body, x, g, partials, f, lanes, n, stream,
+                               tl::Shard{});
+}
+
+// The batched shard-local form.  x, g: lanes * n floats, row-major (lanes,
+// n), each row one lane's block of one shard.  n_global, start: as the
+// shard-local form's, shared by the lanes.  edges: 2 * lanes floats on the
+// device, row-major (lanes, 2), each lane's [previous shard's last x, next
+// shard's first x].  partials: lanes + tl_max_blocks() doubles of scratch.
+// f: lanes doubles, each lane's partial.
+extern "C" int tl_fused_vg_local_batched_f32(
+    int body, const float* x, float* g, double* partials, double* f,
+    long long lanes, long long n, long long n_global, long long start,
+    const float* edges, void* stream) {
+  if (start < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_batched<true>(body, x, g, partials, f, lanes, n, stream,
+                              tl::Shard{n_global, start, edges});
 }

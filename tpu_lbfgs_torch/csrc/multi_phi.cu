@@ -54,6 +54,16 @@
 // sums come back as float64, unrounded, for the caller's one float64
 // all-reduce.  The whole-vector form is the instantiation without kShard.
 //
+// The batched shard-local form (kShard and kBatched,
+// tl_multi_phi_local_batched_f32; the reference's jax.vmap over
+// shardmap_multi_phi, as sharded_vmap_minimize runs it) takes B lanes of
+// one shard's blocks, (B, n) rows of x and d, each lane with its own K
+// alphas, (B, K), and its own edges row of (B, 2); the lanes share start
+// and n_global.  Each row of blocks takes its trials of every lane on the
+// batched walk (reduce.cuh: block b on lane b / parts), so a lane's terms
+// and its next edge stay its own, and stage 2 is one thread per (trial,
+// lane) (reduce.cuh::finish_rows): (K, B) float64 partials, unrounded.
+//
 // The terms are those of the plain PyTorch version
 // (tpu_lbfgs_torch/kernels/line_search_ops.py::multi_phi_plain with
 // fused_ops.F_PLAIN), op for op, and the library is built with
@@ -167,14 +177,23 @@ __device__ __forceinline__ void add_run(const float (&xs)[kRun + 1],
 
 // Row blockIdx.y takes trials k0 .. k0 + kTrials of the K; each thread
 // keeps the sum of each in double over every run it owns, and the block
-// sums them once, at the end, by warp shuffles.
-template <typename Body, bool kShard, int kTrials>
+// sums them once, at the end, by warp shuffles.  kBatched: the batched walk
+// over lanes of x, d, alphas and edges (the header); one instance is lane 0
+// of a plain walk.
+template <typename Body, bool kShard, bool kBatched, int kTrials>
 __global__ void __launch_bounds__(tl::kThreads, kBlocksPerSM<kTrials>)
     multi_phi_kernel(const float* __restrict__ x, const float* __restrict__ d,
                      const float* __restrict__ alphas, int num_trials,
                      double* __restrict__ partials, int64_t n, bool vec,
-                     tl::Shard shard) {
+                     tl::Shard shard, int parts) {
   __shared__ float a[kTrials];
+  const tl::Walk w = tl::walk<kBatched>(parts);
+  if constexpr (kBatched) {
+    x += w.lane * n;
+    d += w.lane * n;
+    alphas += w.lane * num_trials;
+    if constexpr (kShard) shard.edges += 2 * w.lane;
+  }
   const int k0 = blockIdx.y * kTrials;
   const int count = min(kTrials, num_trials - k0);
   const int t = threadIdx.x;
@@ -190,8 +209,7 @@ __global__ void __launch_bounds__(tl::kThreads, kBlocksPerSM<kTrials>)
              : Body::terms(n);
   const int64_t start = kShard ? shard.start : 0;
   const int64_t n_total = kShard ? shard.n_global : n;
-  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kTile; base < terms;
-       base += static_cast<int64_t>(gridDim.x) * kTile) {
+  for (int64_t base = w.first * kTile; base < terms; base += w.step * kTile) {
     const int64_t i0 = base + static_cast<int64_t>(threadIdx.x) * kRun;
     float xs[kRun + 1], ds[kRun + 1];
     load_run<Body, kShard>(x, d, i0, n, vec, shard, xs, ds);
@@ -225,11 +243,41 @@ int launch_rows(int body, const float* x, const float* d,
   const int blocks = row_blocks<kTrials>(n, rows);
   const bool vec = aligned16(x) && aligned16(d);
   const bool known = TL_DISPATCH_BODY(
-      body, multi_phi_kernel<Body, kShard, kTrials>
-      <<<dim3(blocks, rows), tl::kThreads, 0, s>>>(x, d, alphas, num_trials,
-                                                   partials, n, vec, shard));
+      body, multi_phi_kernel<Body, kShard, false, kTrials>
+      <<<dim3(blocks, rows), tl::kThreads, 0, s>>>(
+          x, d, alphas, num_trials, partials, n, vec, shard, 0));
   if (!known) return static_cast<int>(cudaErrorInvalidValue);
   tl::finish_sums<<<num_trials, tl::kThreads, 0, s>>>(partials, blocks, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The batched shard-local form at kTrials trials a row: each row of blocks
+// walks every lane, parts blocks a lane, its row's share of one wave
+// between them; then finish_rows over the (trial, lane) rows.
+template <int kTrials>
+int launch_rows_batched(int body, const float* x, const float* d,
+                        const float* alphas, int num_trials,
+                        double* partials, double* out, long long lanes,
+                        long long n, cudaStream_t s, const tl::Shard& shard) {
+  const int rows = (num_trials + kTrials - 1) / kTrials;
+  if (n < 1 || num_trials < 1 || rows > kMaxRows || lanes < 1 ||
+      lanes > tl::kMaxLanes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int budget = kBlocksPerSM<kTrials> * kSMs / rows;
+  const int parts = tl::lane_parts(lanes, (n + kTile - 1) / kTile,
+                                   budget > 1 ? budget : 1);
+  const unsigned grid = static_cast<unsigned>(lanes * parts);
+  // Every row starts 16-byte aligned only if n floats fill whole 16 bytes.
+  const bool vec = aligned16(x) && aligned16(d) && n % 4 == 0;
+  const bool known = TL_DISPATCH_BODY(
+      body, multi_phi_kernel<Body, true, true, kTrials>
+      <<<dim3(grid, rows), tl::kThreads, 0, s>>>(
+          x, d, alphas, num_trials, partials, n, vec, shard, parts));
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
+  tl::launch_finish_rows<double>(partials, nullptr, parts,
+                                 static_cast<int64_t>(num_trials) * lanes,
+                                 false, out, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -274,4 +322,26 @@ extern "C" int tl_multi_phi_local_f32(int body, const float* x, const float* d,
   if (start < 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch<true>(body, x, d, alphas, num_trials, partials, out, n,
                       stream, tl::Shard{n_global, start, edges});
+}
+
+// The batched shard-local form: x, d are lanes rows of one shard's n
+// elements, row-major (lanes, n); alphas: lanes * num_trials floats,
+// row-major (lanes, num_trials), each lane's own trials; n_global, start:
+// shared by the lanes; edges: 2 * lanes floats, row-major (lanes, 2), each
+// lane's [next shard's first x, its first d].  partials: num_trials *
+// (lanes + tl_max_blocks()) doubles of scratch.  out: num_trials * lanes
+// doubles, row-major (num_trials, lanes), each lane's partials.
+extern "C" int tl_multi_phi_local_batched_f32(
+    int body, const float* x, const float* d, const float* alphas,
+    int num_trials, double* partials, double* out, long long lanes,
+    long long n, long long n_global, long long start, const float* edges,
+    void* stream) {
+  if (start < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const tl::Shard shard{n_global, start, edges};
+  return num_trials <= 8
+             ? launch_rows_batched<8>(body, x, d, alphas, num_trials,
+                                      partials, out, lanes, n, s, shard)
+             : launch_rows_batched<kWide>(body, x, d, alphas, num_trials,
+                                          partials, out, lanes, n, s, shard);
 }

@@ -60,6 +60,16 @@
 // unrounded, for the caller's one float64 all-reduce.  The whole-vector
 // form is the instantiation without kShard.
 //
+// The batched shard-local form (kShard and kBatched,
+// tl_multi_phi_dphi_local_batched_f32; the reference's jax.vmap over
+// shardmap_multi_phi_dphi, as sharded_vmap_minimize runs it) takes B lanes
+// of one shard's blocks, (B, n) rows of x and d, each lane with its own K
+// alphas, (B, K), and its own edges row of (B, 4); the lanes share start
+// and n_global.  Each row of blocks walks every lane on the batched walk
+// (reduce.cuh: block b on lane b / parts), and stage 2 is one thread per
+// (sum, trial, lane) (reduce.cuh::finish_rows): (2, K, B) float64
+// partials, unrounded.
+//
 // The gradient terms are those of the plain PyTorch version
 // (tpu_lbfgs_torch/kernels/line_search_ops.py::multi_phi_dphi_plain with
 // fused_ops.VG_PLAIN), op for op, and the library is built with
@@ -190,15 +200,24 @@ __device__ __forceinline__ void add_run(
 
 // Row blockIdx.y takes trials k0 .. k0 + kTrialsPerRow of the K; each
 // thread keeps f and g . d of each in double over every run it owns, and
-// the block sums them once, at the end, by warp shuffles.
-template <typename Body, bool kShard>
+// the block sums them once, at the end, by warp shuffles.  kBatched: the
+// batched walk over lanes of x, d, alphas and edges (the header); one
+// instance is lane 0 of a plain walk.
+template <typename Body, bool kShard, bool kBatched>
 __global__ void __launch_bounds__(tl::kThreads, 2)
     multi_phi_dphi_kernel(const float* __restrict__ x,
                           const float* __restrict__ d,
                           const float* __restrict__ alphas, int num_trials,
                           double* __restrict__ partials, int64_t n, bool vec,
-                          tl::Shard shard) {
+                          tl::Shard shard, int parts) {
   __shared__ float a[kTrialsPerRow];
+  const tl::Walk w = tl::walk<kBatched>(parts);
+  if constexpr (kBatched) {
+    x += w.lane * n;
+    d += w.lane * n;
+    alphas += w.lane * num_trials;
+    if constexpr (kShard) shard.edges += 4 * w.lane;
+  }
   const int k0 = blockIdx.y * kTrialsPerRow;
   const int count = min(kTrialsPerRow, num_trials - k0);
   const int t = threadIdx.x;
@@ -209,8 +228,7 @@ __global__ void __launch_bounds__(tl::kThreads, 2)
   for (int j = 0; j < kTrialsPerRow; ++j) f_acc[j] = g_acc[j] = 0.0;
   const int64_t start = kShard ? shard.start : 0;
   const int64_t n_total = kShard ? shard.n_global : n;
-  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kTile; base < n;
-       base += static_cast<int64_t>(gridDim.x) * kTile) {
+  for (int64_t base = w.first * kTile; base < n; base += w.step * kTile) {
     const int64_t i0 = base + static_cast<int64_t>(threadIdx.x) * kRun;
     float xs[kRun + 2], ds[kRun + 2];
     load_window<Body, kShard>(x, d, i0, n, vec, shard, xs, ds);
@@ -249,11 +267,41 @@ int launch(int body, const float* x, const float* d, const float* alphas,
   const bool vec = aligned16(x) && aligned16(d);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool known = TL_DISPATCH_BODY(
-      body, multi_phi_dphi_kernel<Body, kShard>
-      <<<dim3(blocks, rows), tl::kThreads, 0, s>>>(x, d, alphas, num_trials,
-                                                   partials, n, vec, shard));
+      body, multi_phi_dphi_kernel<Body, kShard, false>
+      <<<dim3(blocks, rows), tl::kThreads, 0, s>>>(
+          x, d, alphas, num_trials, partials, n, vec, shard, 0));
   if (!known) return -static_cast<int>(cudaErrorInvalidValue);
   return blocks;
+}
+
+// The batched shard-local form: each row of blocks walks every lane, parts
+// blocks a lane, its row's share of one wave between them; then
+// finish_rows over the (sum, trial, lane) rows.
+int launch_batched(int body, const float* x, const float* d,
+                   const float* alphas, int num_trials, double* partials,
+                   double* out, long long lanes, long long n, void* stream,
+                   const tl::Shard& shard) {
+  const int rows = (num_trials + kTrialsPerRow - 1) / kTrialsPerRow;
+  if (n < 1 || num_trials < 1 || rows > kMaxRows || lanes < 1 ||
+      lanes > tl::kMaxLanes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int budget = kBlockBudget / rows;
+  const int parts = tl::lane_parts(lanes, (n + kTile - 1) / kTile,
+                                   budget > 1 ? budget : 1);
+  const unsigned grid = static_cast<unsigned>(lanes * parts);
+  // Every row starts 16-byte aligned only if n floats fill whole 16 bytes.
+  const bool vec = aligned16(x) && aligned16(d) && n % 4 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool known = TL_DISPATCH_BODY(
+      body, multi_phi_dphi_kernel<Body, true, true>
+      <<<dim3(grid, rows), tl::kThreads, 0, s>>>(
+          x, d, alphas, num_trials, partials, n, vec, shard, parts));
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
+  tl::launch_finish_rows<double>(partials, nullptr, parts,
+                                 2 * static_cast<int64_t>(num_trials) * lanes,
+                                 false, out, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -297,12 +345,31 @@ extern "C" int tl_multi_phi_dphi_local_f32(
   return static_cast<int>(cudaGetLastError());
 }
 
+// The batched shard-local form: x, d are lanes rows of one shard's n
+// elements, row-major (lanes, n); alphas: lanes * num_trials floats,
+// row-major (lanes, num_trials), each lane's own trials; n_global, start:
+// shared by the lanes; edges: 4 * lanes floats, row-major (lanes, 4), each
+// lane's [previous shard's last x, its last d, next shard's first x, its
+// first d].  partials: 2 * num_trials * (lanes + tl_max_blocks()) doubles
+// of scratch.  out: 2 * num_trials * lanes doubles, row-major (2,
+// num_trials, lanes): each lane's partials of phi, then of dphi.
+extern "C" int tl_multi_phi_dphi_local_batched_f32(
+    int body, const float* x, const float* d, const float* alphas,
+    int num_trials, double* partials, double* out, long long lanes,
+    long long n, long long n_global, long long start, const float* edges,
+    void* stream) {
+  if (start < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_batched(body, x, d, alphas, num_trials, partials, out, lanes,
+                        n, stream, tl::Shard{n_global, start, edges});
+}
+
 // Blocks of the kernel (body) that fit on one SM of the current device, by
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor; -1 for an unknown body.
 extern "C" int tl_multi_phi_dphi_blocks_per_sm(int body) {
   int blocks = -1;
   TL_DISPATCH_BODY(body, cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                             &blocks, multi_phi_dphi_kernel<Body, false>,
+                             &blocks,
+                             multi_phi_dphi_kernel<Body, false, false>,
                              tl::kThreads, 0));
   return blocks;
 }

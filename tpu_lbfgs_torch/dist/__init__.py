@@ -1,7 +1,8 @@
-"""The sharded solve: one process per shard of the vector axis over
-``torch.distributed`` (``tpu_lbfgs.dist``)."""
+"""The sharded solves: one process per shard of the vector axis, and on a
+2-D mesh per (instance row, shard), over ``torch.distributed``
+(``tpu_lbfgs.dist``)."""
 from .comm import ShardComm
-from .mesh import Mesh, make_mesh, pad_for_mesh, shard_alignment
+from .mesh import Mesh, make_mesh, make_mesh_2d, pad_for_mesh, shard_alignment
 from .multihost import initialize, is_coordinator, process_count, shutdown
 from .pallas_sharded import (
     SHARDED_PALLAS_PROBLEMS,
@@ -10,7 +11,7 @@ from .pallas_sharded import (
     shardmap_multi_phi,
     shardmap_multi_phi_dphi,
 )
-from .sharded import gather_result, sharded_minimize
+from .sharded import gather_result, sharded_minimize, sharded_vmap_minimize
 from .shardmap_vg import (
     shardmap_dir_poly,
     shardmap_value,
@@ -19,8 +20,9 @@ from .shardmap_vg import (
 
 __all__ = [
     "Mesh", "ShardComm", "SHARDED_PALLAS_PROBLEMS", "gather_result",
-    "initialize", "is_coordinator", "make_mesh", "pad_for_mesh",
-    "process_count", "shard_alignment", "sharded_minimize", "shutdown",
+    "initialize", "is_coordinator", "make_mesh", "make_mesh_2d",
+    "pad_for_mesh", "process_count", "shard_alignment", "sharded_minimize",
+    "sharded_vmap_minimize", "shutdown",
     "shardmap_dir_poly", "shardmap_fused_tail", "shardmap_fused_vg",
     "shardmap_multi_phi", "shardmap_multi_phi_dphi", "shardmap_value",
     "shardmap_value_and_grad",

@@ -77,14 +77,19 @@ class ShardComm:
         return self.all_reduce_sum(flag.double()) > 0
 
     def edge_pair(self, *vs: Tensor):
-        """For each local vector v: (the previous shard's last element, the
-        next shard's first), 0-d tensors on v's device, all vectors in one
-        exchange.  The values wrap around at the two ends of the global
-        vector; the kernels' and chunks' index masks discard them there."""
+        """For each local block v: (the previous shard's last element, the
+        next shard's first), on v's device, all blocks in one exchange.  A
+        (d_local,) vector gives 0-d tensors; (B, d_local) rows give each
+        lane's own, (B,) tensors, so a batch exchanges 2 k B values in the
+        same one collective.  The values wrap around at the two ends of the
+        global vector; the kernels' and chunks' index masks discard them
+        there."""
         v0 = vs[0]
         k = len(vs)
-        buf = torch.zeros(self.size, 2 * k, dtype=v0.dtype, device=v0.device)
-        buf[self.rank] = torch.stack([v[0] for v in vs] + [v[-1] for v in vs])
+        buf = torch.zeros((self.size, 2 * k) + tuple(v0.shape[:-1]),
+                          dtype=v0.dtype, device=v0.device)
+        buf[self.rank] = torch.stack([v[..., 0] for v in vs]
+                                     + [v[..., -1] for v in vs])
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group)
         self.edge_exchanges += 1
         firsts = buf[(self.rank + 1) % self.size, :k]

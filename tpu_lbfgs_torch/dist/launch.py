@@ -118,7 +118,15 @@ def solve_cases(rank: int, size: int, cases: list, device=None):
     command line draws it), ``cfg`` (``LBFGSConfig`` keywords), ``kw``
     (``sharded_minimize`` keywords), and optionally ``kernels``: True or
     False calls ``solve_shard`` with that path whatever the dtype, where
-    ``sharded_minimize`` chooses by ``cfg.use_pallas`` and a float32 x0."""
+    ``sharded_minimize`` chooses by ``cfg.use_pallas`` and a float32 x0.
+
+    A case with a ``batch_size`` key is a batch on the 2-D mesh
+    ``make_mesh_2d(batch_size)`` (made once per row count and kept for the
+    later cases): ``batch`` instances, x0 (batch, d), through
+    ``sharded_vmap_minimize`` with ``lockstep`` (default "while"), or with
+    ``kernels`` set through ``solve_shard`` on the rank's lanes; its
+    scalars, trace and x come back gathered, (batch, ...), and its
+    all-reduces and edge exchanges are those of the rank's d group."""
     import time
     import warnings
 
@@ -127,53 +135,91 @@ def solve_cases(rank: int, size: int, cases: list, device=None):
 
     from .. import LBFGSConfig, get_problem, kernels
     from ..types import resolve_device
-    from .mesh import local_block, make_mesh, pad_for_mesh
-    from .sharded import gather_result, sharded_minimize, solve_shard
+    from .mesh import (
+        local_block,
+        local_lanes,
+        make_mesh,
+        make_mesh_2d,
+        pad_for_mesh,
+    )
+    from .sharded import (
+        gather_result,
+        sharded_minimize,
+        sharded_vmap_minimize,
+        solve_shard,
+    )
 
-    mesh = make_mesh()
+    meshes = {None: make_mesh()}    # by row count; None: the 1-D mesh
     dev = resolve_device(device)
     outs = []
     for case in cases:
+        rows = case.get("batch_size")
+        batched = rows is not None
+        if rows not in meshes:
+            meshes[rows] = make_mesh_2d(rows)
+        mesh = meshes[rows]
         p = get_problem(case["problem"])
         cfg = LBFGSConfig(**case["cfg"])
         rng = np.random.default_rng(case.get("seed", 0))
         box = case.get("box", 2.0)
-        x0 = torch.from_numpy(rng.uniform(-box, box, case["d"])).to(
+        shape = (case["batch"], case["d"]) if batched else case["d"]
+        x0 = torch.from_numpy(rng.uniform(-box, box, shape)).to(
             dev, getattr(torch, case["dtype"]))
+        lockstep = case.get("lockstep", "while")
         kernels.reset_launches()
-        mesh.comm.reset_counts()
+        if mesh.comm is not None:
+            mesh.comm.reset_counts()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            if case.get("kernels") is None:
+            if case.get("kernels") is None and batched:
+                res = sharded_vmap_minimize(p.f, x0, cfg, mesh,
+                                            grad=p.grad,
+                                            problem=case["problem"],
+                                            dir_poly=p.dir_poly,
+                                            lockstep=lockstep,
+                                            **case.get("kw", {}))
+            elif case.get("kernels") is None:
                 res = sharded_minimize(p.f, x0, cfg, mesh,
                                        problem=case["problem"],
                                        dir_poly=p.dir_poly,
                                        **case.get("kw", {}))
             else:
-                x0_pad, n = pad_for_mesh(x0, size)
+                rows_x0 = local_lanes(x0, mesh) if batched else x0
+                x0_pad, n = pad_for_mesh(rows_x0, mesh.size)
                 res = solve_shard(case["problem"], local_block(x0_pad, mesh),
                                   n, cfg, mesh, kernels=case["kernels"],
+                                  bounded=lockstep == "bounded",
                                   **case.get("kw", {}))
-        f_final = res.f.item()       # waits for the device
+        res.f.sum().item()           # waits for the device
         wall = time.perf_counter() - t0
-        out = {"f": f_final, "g_norm": res.g_norm.item(),
-               "status": int(res.status), "iterations": int(res.iterations),
-               "n_fev": int(res.n_fev), "n_gev": int(res.n_gev),
-               "guards": res.guards.tolist(), "wall_s": wall,
+        whole = gather_result(res, mesh, case["d"],
+                              with_x=case.get("gather", True))
+        out = {"wall_s": wall,
                "launches": {k: v for k, v in kernels.launch_counts().items()
                             if v},
-               "all_reduces": mesh.comm.all_reduces,
-               "edge_exchanges": mesh.comm.edge_exchanges,
+               "all_reduces": mesh.comm.all_reduces if mesh.comm else 0,
+               "edge_exchanges": (mesh.comm.edge_exchanges if mesh.comm
+                                  else 0),
                "warnings": [str(w.message) for w in caught],
                "x_local_shape": tuple(res.x.shape),
                "x_local_finite": bool(torch.isfinite(res.x).all()),
-               "x": gather_result(res, mesh, case["d"]).x.cpu().numpy()
+               "x": whole.x.cpu().numpy()
                if case.get("gather", True) else None}
-        if res.trace is not None:
-            out["trace"] = {name: getattr(res.trace, name).cpu().numpy()
-                            for name in res.trace._fields}
+        if batched:
+            out.update({name: getattr(whole, name).cpu().numpy()
+                        for name in ("f", "g_norm", "status", "iterations",
+                                     "n_fev", "n_gev", "guards")})
+        else:
+            out.update({"f": res.f.item(), "g_norm": res.g_norm.item(),
+                        "status": int(res.status),
+                        "iterations": int(res.iterations),
+                        "n_fev": int(res.n_fev), "n_gev": int(res.n_gev),
+                        "guards": res.guards.tolist()})
+        if whole.trace is not None:
+            out["trace"] = {name: getattr(whole.trace, name).cpu().numpy()
+                            for name in whole.trace._fields}
         outs.append(out)
     return outs

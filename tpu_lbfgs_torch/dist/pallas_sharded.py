@@ -21,6 +21,13 @@ and one all-reduce of the packed sums.  A problem without chain terms
 (``quadratic``) skips the exchange and pays the all-reduce only
 (``_needs_halo``).
 
+Each wrapper also takes a batch, a shard's (B, d_local) lanes
+(``sharded_vmap_minimize``, the reference's ``jax.vmap(...,
+spmd_axis_name=...)`` over these wrappers): the edges become (B, count)
+rows, every sum one per lane, and a call still makes one edge exchange
+and one all-reduce for all lanes and launches the batched shard-local
+kernel once.
+
 On the CPU, where the tests run, the wrappers take the kernels' plain
 shard-local versions (``dist.shardmap_vg``'s chunks), so the same
 functions run there; ``use_pallas=False`` takes them on any device.
@@ -48,21 +55,23 @@ def _needs_halo(problem: str) -> bool:
 
 
 def _edges(mesh: Mesh, problem: str, order: str, x, d=None):
-    """The kernels' ``edges`` tensor on x's device.  ``order`` is "pn"
-    (previous, next) for each vector in turn, or "n" (next only)."""
+    """The kernels' ``edges`` tensor on x's device, (count,) or for (B,
+    d_local) rows (B, count).  ``order`` is "pn" (previous, next) for each
+    vector in turn, or "n" (next only)."""
     count = (1 if d is None else 2) * len(order)
     if not _needs_halo(problem):
-        return torch.zeros(count, dtype=x.dtype, device=x.device)
+        return torch.zeros(x.shape[:-1] + (count,), dtype=x.dtype,
+                           device=x.device)
     pairs = mesh.comm.edge_pair(*((x,) if d is None else (x, d)))
     prevs = [p for p, _ in pairs] if "p" in order else []
-    return torch.stack(prevs + [nx for _, nx in pairs])
+    return torch.stack(prevs + [nx for _, nx in pairs], dim=-1)
 
 
 def shardmap_fused_vg(problem: str, mesh: Mesh, n: int,
                       use_pallas: bool = True) -> Callable:
     """vg(x_local) -> (f replicated, g local): the fused value-and-gradient
-    kernel on this rank's block, one all-reduce for the value.  ``n`` is the
-    global unpadded length."""
+    kernel on this rank's block, one all-reduce for the value (one per lane
+    for (B, d_local) rows).  ``n`` is the global unpadded length."""
 
     def vg(x_local):
         start = mesh.rank * x_local.shape[-1]
@@ -96,9 +105,9 @@ def shardmap_fused_tail(problem: str, mesh: Mesh, n: int,
         (sums,) = mesh.comm.reduce_parts([sums], x.dtype)
         t1 = t2 = None
         if with_matvec:
-            m = s_hist.shape[0]
-            sums, t1, t2 = sums.split((7, m, m))
-        f_new, sy, yy, gg, dgn, ggn, ygn = sums.unbind(0)
+            m = s_hist.shape[-2]
+            sums, t1, t2 = sums.split((7, m, m), dim=-1)
+        f_new, sy, yy, gg, dgn, ggn, ygn = sums.unbind(-1)
         return (x_new, f_new, g_new, s_row, y_row, sy, yy, gg, dgn, ggn,
                 ygn, t1, t2)
 
@@ -110,7 +119,7 @@ def shardmap_multi_phi(problem: str, mesh: Mesh, n: int,
                        use_pallas: bool = True) -> Callable:
     """phi_batch(x_local, d_local, alphas) -> (K,): all K trial values in
     one pass per shard, finished with one all-reduce of the (K,)
-    partials."""
+    partials; (B, K) for (B, d_local) rows and (B, K) alphas."""
 
     def phi_batch(x, d, alphas):
         start = mesh.rank * x.shape[-1]
@@ -127,7 +136,7 @@ def shardmap_multi_phi_dphi(problem: str, mesh: Mesh, n: int,
                             use_pallas: bool = True) -> Callable:
     """phi_dphi_batch(x_local, d_local, alphas) -> ((K,), (K,)): all K trial
     (phi, phi') pairs in one pass per shard, finished with ONE all-reduce of
-    the stacked (2, K) partials."""
+    the stacked (2, K) partials; (B, K) each for a batch."""
 
     def phi_dphi_batch(x, d, alphas):
         start = mesh.rank * x.shape[-1]

@@ -1,5 +1,6 @@
 """Sharded solves: the parameter vector and the curvature history split
-over the processes of a d-axis group (``tpu_lbfgs.dist.sharded``).
+over the processes of a d-axis group, and a batch of instances split over
+the rows of a 2-D ``(b, d)`` mesh (``tpu_lbfgs.dist.sharded``).
 
 The reference writes its solver once on whole arrays and lets XLA's SPMD
 partitioner turn every dot into a local partial and an all-reduce.  PyTorch
@@ -12,7 +13,8 @@ ONE packed (2m, m + 1) block per iteration, as in the reference.
 
 Differences from the reference that follow from that design:
 
-- ``res.x`` is this process's block of the zero-padded vector;
+- ``res.x`` is this process's block of the zero-padded vector (for a
+  batch, its row's lanes of that block, and the scalars its row's lanes);
   ``gather_result`` assembles the unpadded whole on every rank.
 - d is padded to a multiple of the group's size only (``mesh``).
 - The objective is a suite problem, by name: the shard-local forms of its
@@ -20,6 +22,13 @@ Differences from the reference that follow from that design:
   ``cfg.use_pallas`` and a float32 x0 the shard-local CUDA kernels
   (``pallas_sharded``).  A caller's own objective would have to be
   shard-local too and is not taken on more than one shard.
+- ``sharded_vmap_minimize`` is the same solver over a batched state: each
+  rank holds its row's B / b lanes of its d block, every reduction over d
+  finishes with one packed all-reduce over the rank's d group for all its
+  lanes at once, and each row of the mesh loops until its own lanes end
+  (a frozen lane is idempotent, so every lane's result is the one the
+  reference's single vmapped loop gives).  The rows never communicate
+  during the solve.
 """
 from __future__ import annotations
 
@@ -39,7 +48,7 @@ from ..core.solver import (
 )
 from ..kernels.fused_ops import pallas_ok
 from ..types import SolveResult
-from .mesh import Mesh, local_block, make_mesh, pad_for_mesh
+from .mesh import Mesh, local_block, local_lanes, make_mesh, pad_for_mesh
 from .pallas_sharded import (
     SHARDED_PALLAS_PROBLEMS,
     shardmap_fused_tail,
@@ -56,23 +65,55 @@ from .shardmap_vg import (
 
 
 def _resolve_shard_local(cfg: LBFGSConfig, d_pad: int, n_shards: int,
-                         dtype, with_matvec):
+                         dtype, with_matvec, batch_local: int = 1):
     """Resolve ``history_dtype="auto"`` and ``with_matvec="auto"`` on what
-    one process holds, d_local = d_pad / n_shards: a shard's kernels stream
-    its own (m, d_local) ring, so the port's measured rules
+    one process holds, d_local = d_pad / n_shards times ``batch_local``
+    lanes (a batch over the b rows of a 2-D mesh): a shard's kernels stream
+    its own (batch_local, m, d_local) ring, so the port's measured rules
     (``resolve_history_dtype``, ``problems.suite.auto_with_matvec``) are
     asked about that, not about the global d.  Returns (cfg with a concrete
     history dtype, with_matvec as a bool)."""
     from ..problems.suite import auto_with_matvec
 
     d_local = d_pad // n_shards
-    hdtype = resolve_history_dtype(cfg.history_dtype, cfg.m, d_local, dtype)
+    hdtype = resolve_history_dtype(cfg.history_dtype, cfg.m, d_local, dtype,
+                                   batch=batch_local)
     cfg = cfg.replace(history_dtype=hdtype)
     if with_matvec == "auto":
         # t1 = S y and t2 = Y y are read only by the incremental direction.
         with_matvec = (cfg.direction == "compact_incremental"
-                       and auto_with_matvec(cfg.m, d_local, hdtype))
+                       and auto_with_matvec(cfg.m, d_local, hdtype,
+                                            batch=batch_local))
     return cfg, bool(with_matvec)
+
+
+def _pallas_shard(fn: str, cfg: LBFGSConfig, n_shards: int, problem, dtype):
+    """The reference's rule for the shard-local kernel path: with
+    ``cfg.use_pallas``, more than one shard, a problem with kernel bodies
+    and a float32 iterate.  Returns (whether it is taken, cfg): where
+    Pallas was asked for on several shards and cannot compose, a warning,
+    and cfg without ``use_pallas``, for the plain shard-local path."""
+    pallas_shard = (cfg.use_pallas and n_shards > 1
+                    and problem in SHARDED_PALLAS_PROBLEMS
+                    and pallas_ok(dtype))
+    if n_shards > 1 and cfg.use_pallas and not pallas_shard:
+        warnings.warn(
+            f"{fn}: use_pallas=True has no shard-composable kernels for this "
+            "objective (pass problem=<a suite problem with a kernel body> "
+            "with a float32 x0 to enable the shard-local kernel path); "
+            "falling back to the plain shard-local path.", stacklevel=3)
+        cfg = cfg.replace(use_pallas=False)
+    return pallas_shard, cfg
+
+
+def _refuse_own_objective(fn: str, problem) -> None:
+    if problem not in CHUNKS:
+        raise NotImplementedError(
+            f"{fn} on more than one shard takes a suite problem by name "
+            f"(problem= one of {sorted(CHUNKS)}): a caller's own objective "
+            "would have to be shard-local and is not ported to "
+            "tpu_lbfgs_torch yet (ROADMAP.md Queue 1 item 12, what is "
+            "left)")
 
 
 def sharded_minimize(f: Callable, x0: Tensor,
@@ -109,25 +150,12 @@ def sharded_minimize(f: Callable, x0: Tensor,
         vg = make_value_and_grad(f, grad, value_and_grad)
         cfg, _ = _resolve_shard_local(cfg, x0.shape[-1], 1, x0.dtype, False)
         return minimize(f, x0, cfg, value_and_grad=vg, dir_poly=dir_poly)
-    if problem not in CHUNKS:
-        raise NotImplementedError(
-            "sharded_minimize on more than one shard takes a suite problem "
-            f"by name (problem= one of {sorted(CHUNKS)}): a caller's own "
-            "objective would have to be shard-local and is not ported to "
-            "tpu_lbfgs_torch yet (ROADMAP.md Queue 1 item 12, what is "
-            "left)")
+    _refuse_own_objective("sharded_minimize", problem)
     if x0.dim() != 1:
         raise ValueError(f"x0 must be (d,), got {tuple(x0.shape)}")
 
-    pallas_shard = (cfg.use_pallas and problem in SHARDED_PALLAS_PROBLEMS
-                    and pallas_ok(x0.dtype))
-    if cfg.use_pallas and not pallas_shard:
-        warnings.warn(
-            "sharded_minimize: use_pallas=True has no shard-composable "
-            "kernels for this objective (pass problem=<a suite problem with "
-            "a kernel body> with a float32 x0 to enable the shard-local "
-            "kernel path); falling back to the plain shard-local path.",
-            stacklevel=2)
+    pallas_shard, cfg = _pallas_shard("sharded_minimize", cfg, n_shards,
+                                      problem, x0.dtype)
 
     x0_pad, n = pad_for_mesh(x0, n_shards)
     cfg, wm = _resolve_shard_local(cfg, x0_pad.shape[-1], n_shards, x0.dtype,
@@ -136,17 +164,96 @@ def sharded_minimize(f: Callable, x0: Tensor,
                        kernels=pallas_shard, with_matvec=wm)
 
 
+def sharded_vmap_minimize(f: Callable, x0_batch: Tensor,
+                          cfg: LBFGSConfig = LBFGSConfig(),
+                          mesh: Optional[Mesh] = None, grad=None,
+                          value_and_grad=None, batch_axis: str = "b",
+                          d_axis: str = "d", dir_poly=None,
+                          problem: Optional[str] = None,
+                          with_matvec="auto",
+                          lockstep: str = "while") -> SolveResult:
+    """Batched and sharded: the B instances of ``x0_batch`` (B, d) split
+    over the b rows of a 2-D mesh (``make_mesh_2d``), each instance's
+    vector over the row's d group.  Every rank calls it with the same
+    global (B, d) ``x0_batch`` (on the device it solves on) and takes its
+    row's B / b lanes of its d block, zero-padded as ``pad_for_mesh`` pads.
+    The result holds those lanes: its ``x`` (B / b, d_local), its scalars
+    (B / b,); ``gather_result`` assembles the unpadded (B, d) and the (B,)
+    scalars on every rank.
+
+    ``lockstep``: "while" (default) freezes lanes as they finish, and each
+    row of the mesh reads its own loop condition; "bounded" runs every lane
+    for ``cfg.max_iters`` with no read (``vmap_minimize``'s two modes).
+    ``problem``, ``dir_poly``, ``with_matvec`` and the fallback with a
+    warning where ``cfg.use_pallas`` cannot compose are
+    ``sharded_minimize``'s, with the residency rules asked about the B / b
+    lanes a rank holds; with the shard-local kernels every call of the
+    fused value and gradient, the fused tail and the K-trial evaluators of
+    the speculative searches launches the batched shard-local kernel once
+    for all the rank's lanes.  On a mesh of one d shard a row solves its
+    lanes with ``vmap_minimize`` and the caller's own callables.
+    ``batch_axis`` and ``d_axis`` name the reference's mesh axes; the
+    port's mesh knows its two axes by position and ignores them.
+
+    Raises ``ValueError`` as the reference does: without a mesh, for a
+    ``lockstep`` other than "while" or "bounded", and for "bounded" with
+    ``cfg.record_trace``; also for a B that the mesh's rows do not divide
+    (which the reference's device placement refuses)."""
+    del batch_axis, d_axis
+    if mesh is None:
+        raise ValueError("sharded_vmap_minimize requires an explicit 2-D mesh "
+                         "(make_mesh_2d)")
+    if lockstep not in ("while", "bounded"):
+        raise ValueError(f"lockstep must be 'while' or 'bounded', "
+                         f"got {lockstep!r}")
+    if lockstep == "bounded" and cfg.record_trace:
+        raise ValueError("lockstep='bounded' is incompatible with "
+                         "cfg.record_trace (the traced scan freezes "
+                         "finished lanes); trace with lockstep='while'")
+    if x0_batch.dim() != 2:
+        raise ValueError(f"x0_batch must be (B, d), got "
+                         f"{tuple(x0_batch.shape)}")
+    if x0_batch.shape[0] % mesh.batch_size:
+        raise ValueError(f"a batch of {x0_batch.shape[0]} instances does not "
+                         f"divide over the mesh's {mesh.batch_size} rows")
+    n_shards = mesh.size
+    batch_local = x0_batch.shape[0] // mesh.batch_size
+    x_rows = local_lanes(x0_batch, mesh)
+    pallas_shard, cfg = _pallas_shard("sharded_vmap_minimize", cfg, n_shards,
+                                      problem, x0_batch.dtype)
+    if n_shards == 1:
+        from ..batch.vmapped import vmap_minimize
+
+        cfg, _ = _resolve_shard_local(cfg, x0_batch.shape[-1], 1,
+                                      x0_batch.dtype, False, batch_local)
+        return vmap_minimize(f, x_rows, cfg, grad=grad,
+                             value_and_grad=value_and_grad,
+                             dir_poly=dir_poly, lockstep=lockstep)
+    _refuse_own_objective("sharded_vmap_minimize", problem)
+    x_pad, n = pad_for_mesh(x_rows, n_shards)
+    cfg, wm = _resolve_shard_local(cfg, x_pad.shape[-1], n_shards,
+                                   x0_batch.dtype,
+                                   with_matvec if pallas_shard else False,
+                                   batch_local)
+    return solve_shard(problem, local_block(x_pad, mesh), n, cfg, mesh,
+                       kernels=pallas_shard, with_matvec=wm,
+                       bounded=lockstep == "bounded")
+
+
 def solve_shard(problem: str, x_local: Tensor, n: int, cfg: LBFGSConfig,
-                mesh: Mesh, kernels: bool,
-                with_matvec: bool = False) -> SolveResult:
+                mesh: Mesh, kernels: bool, with_matvec: bool = False,
+                bounded: bool = False) -> SolveResult:
     """This rank's part of the sharded solve from its block ``x_local`` of
     the zero-padded start, ``n`` the global unpadded length:
-    ``sharded_minimize`` after its argument handling.  ``kernels`` selects
-    the shard-local kernel path (``pallas_sharded``: the fused value and
-    gradient, the fused tail, the K-trial evaluators of the speculative
-    searches in direct mode) or the plain shard-local objective
+    ``sharded_minimize`` (a (d_local,) block) and ``sharded_vmap_minimize``
+    (a row's (B / b, d_local) lanes) after their argument handling.
+    ``kernels`` selects the shard-local kernel path (``pallas_sharded``: the
+    fused value and gradient, the fused tail, the K-trial evaluators of the
+    speculative searches in direct mode) or the plain shard-local objective
     (``shardmap_vg``).  The kernel path's wrappers take any dtype on the
-    CPU (their plain versions), which the tests use in float64."""
+    CPU (their plain versions), which the tests use in float64.
+    ``bounded``: ``solve_bounded``, every lane for ``cfg.max_iters`` with no
+    read, else ``solve_from_state`` (or the traced solve)."""
     fused_tail = phi_batch = phi_dphi_batch = None
     if kernels:
         vg = shardmap_fused_vg(problem, mesh, n)
@@ -171,12 +278,47 @@ def solve_shard(problem: str, x_local: Tensor, n: int, cfg: LBFGSConfig,
     comm = mesh.comm
     state = init_state(vg, x_local, cfg.m, cfg.history_dtype, comm=comm)
     return solve_to_result(cfg, f_local, vg, state, poly, fused_tail,
-                           phi_batch, phi_dphi_batch, comm=comm)
+                           phi_batch, phi_dphi_batch, bounded=bounded,
+                           comm=comm)
 
 
-def gather_result(res: SolveResult, mesh: Mesh, d: int) -> SolveResult:
+def _gather_lanes(t: Tensor, mesh: Mesh) -> Tensor:
+    """(B, ...) on every rank from each row's (B / b, ...) lanes, which are
+    the same on every rank of the row: the mesh's blocks gathered, one
+    rank of each row kept."""
+    rows = mesh.grid.all_gather_vec(t.unsqueeze(0))[::mesh.size]
+    return rows.reshape((-1,) + tuple(t.shape[1:]))
+
+
+def gather_result(res: SolveResult, mesh: Mesh, d: int,
+                  with_x: bool = True) -> SolveResult:
     """The result with ``x`` as the whole unpadded (d,) vector, on every
-    rank (one collective; the reference slices its global array instead)."""
-    if mesh.comm is None:
+    rank (one collective; the reference slices its global array instead).
+    A batch's result from ``sharded_vmap_minimize`` becomes the (B, d)
+    ``x`` and every other field's (B, ...), on every rank of the 2-D
+    mesh.  ``with_x=False`` leaves ``x`` the rank's block and gathers the
+    rest only."""
+    if res.x.dim() == 1:
+        # One instance, over the rank's d group.
+        if mesh.comm is None or not with_x:
+            return res
+        return res._replace(x=mesh.comm.all_gather_vec(res.x)[:d])
+    if mesh.grid is None:
         return res
-    return res._replace(x=mesh.comm.all_gather_vec(res.x)[:d])
+    out = {}
+    x = res.x
+    if with_x:
+        # The mesh's (B / b, d_local) blocks, row-major (b, d): each row's
+        # lanes with their d blocks side by side.
+        blocks = mesh.grid.all_gather_vec(x.unsqueeze(0)).reshape(
+            mesh.batch_size, mesh.size, x.shape[0], x.shape[-1])
+        out["x"] = blocks.permute(0, 2, 1, 3).reshape(
+            -1, mesh.size * x.shape[-1])[:, :d]
+    if mesh.batch_size > 1:
+        for name in ("f", "g_norm", "iterations", "status", "n_fev", "n_gev",
+                     "guards"):
+            out[name] = _gather_lanes(getattr(res, name), mesh)
+        if res.trace is not None:
+            out["trace"] = type(res.trace)(*(_gather_lanes(t, mesh)
+                                             for t in res.trace))
+    return res._replace(**out)

@@ -25,8 +25,12 @@ The reference gets the sharded ``dir_poly`` from XLA's partitioner; here
 coefficients as float64 partials over the owned terms (forward halos of x
 and d), finished by one packed all-reduce.
 
-Every function takes an optional leading batch axis (the K trial points of
-a speculative line search); the halo values then carry that axis too.
+Every function takes optional leading batch axes (the lanes of a batch,
+each lane's K trial points of a speculative line search); the halo values
+then carry those axes too, one per lane (and trial), from the lane-aware
+edge exchange (``comm.ShardComm.edge_pair``).  So the objectives over the
+mesh below take one shard's (d_local,) block or a batch's (B, d_local)
+rows and give a value per lane.
 """
 from __future__ import annotations
 
@@ -210,8 +214,9 @@ DIR_POLY_CHUNKS = {
 def local_vg_plain(problem: str, x: Tensor, n: int, start: int,
                    edges: Tensor) -> tuple[Tensor, Tensor]:
     """(float64 partial of f, local gradient); ``edges`` = [previous
-    shard's last x, next shard's first x]."""
-    return CHUNKS[problem](x, edges[0], edges[1], n, start)
+    shard's last x, next shard's first x], (2,), or for (B, d_local) rows
+    one such pair per lane, (B, 2), with a partial per lane."""
+    return CHUNKS[problem](x, edges[..., 0], edges[..., 1], n, start)
 
 
 # --- objectives over the mesh ------------------------------------------------

@@ -86,6 +86,19 @@ _SIGNATURES = {
         [_P] * 7 + [ctypes.c_int] + [ctypes.c_longlong] * 2 + [_P],
         ctypes.c_int)
        for t in ("f32", "f64", "f32_bf16")},
+    # The batched shard-local forms: the batched arguments, lanes and n,
+    # then n_global, start, edges.
+    "tl_fused_vg_local_batched_f32": ([ctypes.c_int] + [_P] * 4
+                                      + [ctypes.c_longlong] * 4 + [_P, _P],
+                                      ctypes.c_int),
+    "tl_fused_tail_local_batched_f32": ([ctypes.c_int] * 4 + [_P] * 12
+                                        + [ctypes.c_longlong] * 4
+                                        + [_P, _P], ctypes.c_int),
+    **{f"tl_{k}_local_batched_f32": ([ctypes.c_int] + [_P] * 3
+                                     + [ctypes.c_int, _P, _P]
+                                     + [ctypes.c_longlong] * 4 + [_P, _P],
+                                     ctypes.c_int)
+       for k in ("multi_phi", "multi_phi_dphi")},
 }
 
 

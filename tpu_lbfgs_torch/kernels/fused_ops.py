@@ -31,7 +31,7 @@ so the two differ only by the order of float64 additions.
 
 The four whole-vector families take one instance or a batch, as the
 reference's kernels take one vector or, under ``jax.vmap``, a grid axis
-per lane (the shard-local forms take one instance): one
+per lane (the shard-local forms too, below): one
 contiguous ``(d,)`` vector, or a leading lane axis of contiguous rows,
 ``(B, d)`` (a ring ``(B, m, d)``, ``v`` and ``u`` ``(B, m)``), with one
 ``alpha`` or ``gamma`` per lane and every sum per lane, ``(B,)`` (``t1``,
@@ -63,7 +63,14 @@ block with the global unpadded length ``n``, the shard's global offset
 device tensor), owning terms by global index and returning their sums as
 float64, unrounded, for one packed all-reduce.  ``local_fused_vg`` and
 ``local_fused_tail`` are their wrappers here, beside the plain versions
-``dist.shardmap_vg.local_vg_plain`` and ``fused_tail_local_plain``.
+``dist.shardmap_vg.local_vg_plain`` and ``fused_tail_local_plain``.  A
+shard-local form takes a batch as well (``sharded_vmap_minimize``): (B,
+d_local) rows of one shard that share ``n`` and ``start``, ``edges`` as
+(B, count) rows, one per lane, and every sum per lane; on the card it
+launches the batched shard-local kernel (``tl_*_local_batched_f32``), once
+for all lanes.  The plain versions form their float64 sums as products
+summed over the last axis, never through a BLAS call, so a batch's rows
+equal the same call on each row alone bit for bit.
 """
 from __future__ import annotations
 
@@ -85,7 +92,9 @@ launches = {**{f"{name}_vg": 0 for name in BODY_IDS},
             "iteration_tail": 0, "combine_direction": 0,
             **{f"{name}_vg_batched": 0 for name in BODY_IDS},
             **{f"{name}_fused_tail_batched": 0 for name in BODY_IDS},
-            "iteration_tail_batched": 0, "combine_direction_batched": 0}
+            "iteration_tail_batched": 0, "combine_direction_batched": 0,
+            **{f"{name}_vg_local_batched": 0 for name in BODY_IDS},
+            **{f"{name}_fused_tail_local_batched": 0 for name in BODY_IDS}}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -164,11 +173,12 @@ def _vdot(a: Tensor, b: Tensor) -> Tensor:
 
 def _rdot(comm, a: Tensor, b: Tensor) -> Tensor:
     """a . b over the whole vector axis: ``_vdot`` without a comm; with one
-    (``dist.comm.ShardComm``, one instance), this shard's float64 partial
-    summed over the group and rounded once to a's dtype."""
+    (``dist.comm.ShardComm``), this shard's float64 partial summed over the
+    group and rounded once to a's dtype, a lane's each for a batch, all in
+    one all-reduce."""
     if comm is None:
         return _vdot(a, b)
-    return comm.reduce_parts([torch.dot(a.double(), b.double())], a.dtype)[0]
+    return comm.reduce_parts([_vdot(a.double(), b.double())], a.dtype)[0]
 
 
 def _dot(a: Tensor, b: Tensor) -> Tensor:
@@ -280,11 +290,14 @@ def fused_vg(problem: str, x: Tensor,
     return (f[0] if lanes is None else f), g
 
 
-def _check_edges(edges: Tensor, count: int, x: Tensor) -> None:
+def _check_edges(edges: Tensor, count: int, x: Tensor, lanes=None) -> None:
+    """Raise unless edges holds ``count`` float32 values, (count,) for one
+    instance or (lanes, count) for a batch, contiguous on x's device."""
+    shape = (count,) if lanes is None else (lanes, count)
     if (edges.device != x.device or edges.dtype != torch.float32
-            or edges.shape != (count,) or not edges.is_contiguous()):
-        raise ValueError(f"edges: expected a contiguous ({count},) float32 "
-                         f"vector on {x.device}, got {edges.dtype} "
+            or edges.shape != shape or not edges.is_contiguous()):
+        raise ValueError(f"edges: expected a contiguous {shape} float32 "
+                         f"tensor on {x.device}, got {edges.dtype} "
                          f"{tuple(edges.shape)} on {edges.device}")
 
 
@@ -295,30 +308,37 @@ def local_fused_vg(problem: str, x_local: Tensor, n: int, start: int,
     signature: (float64 partial of f, for the caller's all-reduce; the
     local gradient block).  ``n`` is the global unpadded length, ``start``
     this shard's global offset, ``edges`` = [previous shard's last x, next
-    shard's first x] on x's device.  The CUDA kernel for a float32 CUDA
-    block (any other block on the card raises), the plain version
+    shard's first x] on x's device.  A batch, (B, d_local) rows with (B, 2)
+    edges, gives a partial per lane, (B,).  The CUDA kernel for a float32
+    CUDA block (any other block on the card raises), the plain version
     (``dist.shardmap_vg.local_vg_plain``) for a CPU tensor or under
     ``use_pallas=False``."""
     if not use_pallas or x_local.device.type == "cpu":
         from ..dist.shardmap_vg import local_vg_plain
         return local_vg_plain(problem, x_local, n, start, edges)
-    n_local = x_local.numel()
-    _check_vec("x_local", x_local, (n_local,))
-    _check_edges(edges, 2, x_local)
+    lanes, n_local = _lanes(x_local), x_local.shape[-1]
+    _check_vec("x_local", x_local, x_local.shape)
+    _check_edges(edges, 2, x_local, lanes)
     lib = _build.load()
     g = torch.empty_like(x_local)
-    partials = torch.empty(lib.tl_max_blocks(), dtype=torch.float64,
-                           device=x_local.device)
-    f = torch.empty(1, dtype=torch.float64, device=x_local.device)
+    partials = torch.empty(lib.tl_max_blocks() + (lanes or 0),
+                           dtype=torch.float64, device=x_local.device)
+    f = torch.empty(lanes or 1, dtype=torch.float64, device=x_local.device)
+    head = (BODY_IDS[problem], x_local.data_ptr(), g.data_ptr(),
+            partials.data_ptr(), f.data_ptr())
+    tail = (n, start, edges.data_ptr())
     with torch.cuda.device(x_local.device):
-        err = lib.tl_fused_vg_local_f32(
-            BODY_IDS[problem], x_local.data_ptr(), g.data_ptr(),
-            partials.data_ptr(), f.data_ptr(), n_local, n, start,
-            edges.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    name = f"{problem}_vg_local"
+        stream = torch.cuda.current_stream().cuda_stream
+        if lanes is None:
+            name = f"{problem}_vg_local"
+            err = lib.tl_fused_vg_local_f32(*head, n_local, *tail, stream)
+        else:
+            name = f"{problem}_vg_local_batched"
+            err = lib.tl_fused_vg_local_batched_f32(*head, lanes, n_local,
+                                                    *tail, stream)
     _build.check(lib, err, name)
     launches[name] += 1
-    return f[0], g
+    return (f[0] if lanes is None else f), g
 
 
 def fused_vg_quadratic(x: Tensor, use_pallas: bool = True):
@@ -393,14 +413,12 @@ def _fused_tail_kernel(problem: str, x: Tensor, d: Tensor, alpha: Tensor,
                        accurate: bool, shard=None):
     """Launch csrc/fused_tail.cu for CUDA tensors, or raise.  ``shard`` is
     None for the whole vector, else ``(n, start, edges)`` for one shard's
-    block: the sums then come back as one float64 vector, unrounded.  A
-    batch, (B, d) rows with a (B, m, d) ring and one alpha per lane,
-    launches the batched form (no shard)."""
+    block: the sums then come back as float64, unrounded, (7 + 2 m,) or
+    for a batch (B, 7 + 2 m).  A batch, (B, d) rows with a (B, m, d) ring
+    and one alpha per lane, launches the batched form."""
     for name, t in (("x", x), ("d", d), ("g", g)):
         _check_vec(name, t, x.shape, like=x)
     lanes, n = _lanes(x), x.shape[-1]
-    if lanes is not None and shard is not None:
-        raise ValueError("the shard-local tail takes one instance")
     _check_per_lane("alpha", alpha, lanes, x)
     hdtype = torch.float32 if s_hist is None else s_hist.dtype
     if hdtype not in _HIST_DTYPES:
@@ -437,24 +455,31 @@ def _fused_tail_kernel(problem: str, x: Tensor, d: Tensor, alpha: Tensor,
             y_hist.data_ptr() if m else None, x_new.data_ptr(),
             g_new.data_ptr(), s_row.data_ptr(), y_row.data_ptr(),
             partials.data_ptr(), sums.data_ptr())
+    if shard is not None:
+        n_global, start, edges = shard
+        _check_edges(edges, 4, x, lanes)
+        where = (n_global, start, edges.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if lanes is not None:
+        if lanes is not None and shard is None:
             name = f"{problem}_fused_tail_batched"
             err = lib.tl_fused_tail_batched_f32(*head, lanes, n, stream)
+        elif lanes is not None:
+            name = f"{problem}_fused_tail_local_batched"
+            err = lib.tl_fused_tail_local_batched_f32(*head, lanes, n, *where,
+                                                      stream)
         elif shard is None:
             name = f"{problem}_fused_tail"
             err = lib.tl_fused_tail_f32(*head, n, stream)
         else:
             name = f"{problem}_fused_tail_local"
-            n_global, start, edges = shard
-            _check_edges(edges, 4, x)
-            err = lib.tl_fused_tail_local_f32(*head, n, n_global, start,
-                                              edges.data_ptr(), stream)
+            err = lib.tl_fused_tail_local_f32(*head, n, *where, stream)
     _build.check(lib, err, name)
     launches[name] += 1
     if shard is not None:
-        return x_new, g_new, s_row, y_row, sums
+        # A batch's rows (sum, lane), seen as (lane, sum).
+        return x_new, g_new, s_row, y_row, (sums if lanes is None
+                                            else sums.t())
     t1 = t2 = None
     if m and lanes is None:
         sums, t1, t2 = sums.split((7, m, m))
@@ -465,6 +490,14 @@ def _fused_tail_kernel(problem: str, x: Tensor, d: Tensor, alpha: Tensor,
     f_new, sy, yy, gg, dgn, ggn, ygn = sums.unbind(0)
     return (x_new, f_new, g_new, s_row, y_row, sy, yy, gg, dgn, ggn, ygn,
             t1, t2)
+
+
+def _rows_dot64(rows: Tensor, v: Tensor) -> Tensor:
+    """rows (..., k, d) against v (..., d) in float64, each product formed
+    and the row summed over the last axis: the same order for a lane of a
+    batch as for that lane alone (a BLAS matrix-vector product would not
+    keep it)."""
+    return torch.sum(rows.double() * v.double().unsqueeze(-2), dim=-1)
 
 
 def fused_tail_local_plain(problem: str, x: Tensor, d: Tensor, alpha: Tensor,
@@ -478,26 +511,28 @@ def fused_tail_local_plain(problem: str, x: Tensor, d: Tensor, alpha: Tensor,
     ``edges`` = [previous shard's last x and d, next shard's first x and
     d]: the trial point's halos are rebuilt from them as every element's
     is.  ``accurate`` compensates the six dots' local partials
-    (``utils.accurate.compensated_dot`` over float64 products)."""
+    (``utils.accurate.compensated_dot`` over float64 products).  A batch:
+    (B, d_local) rows, a (B, m, d_local) ring, alpha (B,), edges (B, 4),
+    sums (B, 7 + 2 m)."""
     from ..dist.shardmap_vg import CHUNKS
 
-    s = alpha * d
+    alpha = alpha.reshape(x.shape[:-1])     # one step per lane
+    s = alpha.unsqueeze(-1) * d
     x_new = x + s
-    prev = edges[0] + alpha * edges[1]
-    nxt = edges[2] + alpha * edges[3]
+    prev = edges[..., 0] + alpha * edges[..., 1]
+    nxt = edges[..., 2] + alpha * edges[..., 3]
     f_part, g_new = CHUNKS[problem](x_new, prev, nxt, n, start)
     y = g_new - g
-    a = torch.stack([s, y, g_new, d, g, y]).double()
-    b = torch.stack([y, y, g_new, g_new, g_new, g_new]).double()
+    a = torch.stack([s, y, g_new, d, g, y], dim=-2).double()
+    b = torch.stack([y, y, g_new, g_new, g_new, g_new], dim=-2).double()
     dots = compensated_dot(a, b) if accurate else torch.sum(a * b, dim=-1)
-    parts = [f_part.reshape(1), dots]
+    parts = [f_part.unsqueeze(-1), dots]
     if with_matvec:
-        yd = y.double()
-        parts += [torch.mv(s_hist.double(), yd), torch.mv(y_hist.double(), yd)]
+        parts += [_rows_dot64(s_hist, y), _rows_dot64(y_hist, y)]
     s_row, y_row = s, y
     if s_hist is not None and s_hist.dtype != x.dtype:
         s_row, y_row = s.to(s_hist.dtype), y.to(s_hist.dtype)
-    return x_new, g_new, s_row, y_row, torch.cat(parts)
+    return x_new, g_new, s_row, y_row, torch.cat(parts, dim=-1)
 
 
 def local_fused_tail(problem: str, x: Tensor, d: Tensor, alpha: Tensor,
@@ -508,10 +543,12 @@ def local_fused_tail(problem: str, x: Tensor, d: Tensor, alpha: Tensor,
     with ``n``, ``start``, ``edges``): the CUDA kernel for float32 CUDA
     blocks (anything else on the card raises), ``fused_tail_local_plain``
     for CPU tensors or under ``use_pallas=False``.  Returns (x_new, g_new,
-    s_row, y_row, float64 sums)."""
+    s_row, y_row, float64 sums); a batch takes (B, d_local) rows, a (B, m,
+    d_local) ring, one alpha per lane and (B, 4) edges, and gives the sums
+    as (B, 7 + 2 m), launching the batched shard-local kernel once."""
     if use_pallas and x.device.type != "cpu":
-        return _fused_tail_kernel(problem, x, d, alpha.reshape(1), g, s_hist,
-                                  y_hist, with_matvec, accurate,
+        return _fused_tail_kernel(problem, x, d, alpha.reshape(-1), g,
+                                  s_hist, y_hist, with_matvec, accurate,
                                   shard=(n, start, edges))
     return fused_tail_local_plain(problem, x, d, alpha, g, s_hist, y_hist,
                                   with_matvec, n, start, edges, accurate)
