@@ -124,6 +124,29 @@ the checkpoints at the sizes their users run:
   reference records as line_search_failed at iteration 1 end so here, and
   a float64 cell on the quadratic converges.
 
+After [checkpoint], six phases drive what the port added last:
+
+- [dist-own]: a caller's own objectives through sharded_minimize on 4
+  spawned ranks sharing the card over gloo, d = 2^22 in float64,
+  partitioned by DTensor: chained Rosenbrock written out, against the
+  suite's Rosenbrock by name and the single-device minimize of the same f
+  (f to 1e-10 over 40 iterations, alphas equal), and a pseudo-Huber
+  objective outside the suite against its single-device solve; the
+  collectives of one evaluation and the ms per iteration, which is a
+  correctness run's cost;
+- [checkpoint-sharded], in the same job: the [dist] configuration on the
+  kernel path in float32 saved at iteration 20 by save_state_sharded on
+  the 4 ranks, loaded onto 4, 2 and 1 rank(s) and resumed to 40 by
+  solve_shard_from_state, against the uncut solve (bit for bit on 4);
+- [scaling]: bench.scaling.scaling_sweep at 1, 2 and 4 ranks on the one
+  card, each row with its stack label, which is no scaling number;
+- [profile]: utils.profiling.profile_solve on the main path writes a
+  torch.profiler trace that names the fused tail kernel once per iteration;
+- [debug-nans]: a gradient that turns NaN raises FloatingPointError under
+  core.solver.set_debug_nans, and the main path with the check gives the
+  iterates it gives without;
+- [examples]: each examples/torch_*.py at its defaults on the card.
+
 It checks that each solve went through its kernels, that its output is
 sound and equals the plain versions' over the first iterations, and that
 one iteration of each polynomial path never waits on the device; then it
@@ -140,6 +163,7 @@ it exits with an error and prints no record.
 import itertools
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -1621,7 +1645,8 @@ def phase_batch_kernel_checks(dev):
     bn = lanes * n
     x, d, g, gn, alpha = _bk_inputs(gen, lanes, n, dev)
 
-    def timed(name, kernel, plain, bound, library=None, extra=""):
+    def timed(name, kernel, plain, bound, library=None, extra="",
+              library_label="the bmm route"):
         r = rec.setdefault(name, {"max_abs_err": 0.0})
         r.update(ms=device_ms(kernel), plain_ms=device_ms(plain),
                  bound=bound)
@@ -1630,7 +1655,7 @@ def phase_batch_kernel_checks(dev):
                 f"{r['plain_ms'] * 1e3:.2f} us")
         if library is not None:
             r["library_ms"] = device_ms(library)
-            line += f", the bmm route {r['library_ms'] * 1e3:.2f} us"
+            line += f", {library_label} {r['library_ms'] * 1e3:.2f} us"
         say(line + f", bound {bound[0] * 1e3:.2f} us by {bound[1]}")
 
     for dt, name in ((torch.float32, "iteration_tail_batched"),
@@ -1669,12 +1694,18 @@ def phase_batch_kernel_checks(dev):
                  - 1.0).to(hist[h]) for _ in range(2))
         size = S.element_size()
         tail = ops.make_fused_tail("rosenbrock", vg_plain, with_matvec=True)
+        # The library call: t1 = S y and t2 = Y y alone, two torch.bmm on
+        # the ring as it is stored (on a bf16 ring y is rounded to bf16:
+        # another function).
+        y_col = g.unsqueeze(-1).to(S.dtype)
         timed(f"rosenbrock_fused_tail_batched[ring {h}, matvec m={m}]",
               lambda: tail(x, d, alpha, g, S, Y),
               lambda: ops.fused_tail_plain(vg_plain, x, d, alpha, g, S, Y,
                                            True),
               bound_ms(bn * (20 + 2 * size + 2 * m * size)
-                       + lanes * (32 + 8 * m), bn * (40 + 8 * m)))
+                       + lanes * (32 + 8 * m), bn * (40 + 8 * m)),
+              lambda: (torch.bmm(S, y_col), torch.bmm(Y, y_col)),
+              library_label="t1, t2 by two torch.bmm")
         v, u = (2.0 * torch.rand((lanes, m), generator=gen, device=dev) - 1.0
                 for _ in range(2))
         gamma = 0.5 + torch.rand(lanes, generator=gen, device=dev)
@@ -2205,7 +2236,7 @@ def phase_batch_search(dev, card):
     return jobs
 
 
-def _launches_per_iteration(step, state, iters=5):
+def _launches_per_iteration(step, state, iters=2):
     """Device kernels (and copies) launched per call of ``step``, counted
     by torch.profiler over ``iters`` calls; None where the profiler sees no
     device activity."""
@@ -2287,7 +2318,7 @@ def phase_launch_counts(jobs):
 
     for label, x0, vg, m, step in jobs:
         state = tt.init_state(vg, x0, m)
-        for _ in range(3):
+        for _ in range(2):
             state = step(state)
         per_it = _launches_per_iteration(step, state)
         tag = "" if label.startswith("[") else "[general] "
@@ -3542,10 +3573,20 @@ def phase_dist_batch_kernels(dev):
         for name, (kern, plain) in calls.items():
             ms, plain_ms = device_ms(kern), device_ms(plain)
             bound = bounds[name]
+            library = ""
+            if "m=" in name:
+                # t1, t2 alone by two torch.bmm on the ring as stored.
+                hd = _db_form(name)[2]
+                S_h, Y_h = Sl.to(hd), Yl.to(hd)
+                y_col = gl.unsqueeze(-1).to(hd)
+                lib_ms = device_ms(lambda: (torch.bmm(S_h, y_col),
+                                            torch.bmm(Y_h, y_col)))
+                library = (f", t1, t2 by two torch.bmm "
+                           f"{lib_ms * 1e3:.2f} us")
             say(f"[dist-batch] {problem} {name} local batched, {lanes} lanes "
                 f"of d_local={d_local} (of d={DB_D}): {ms * 1e3:.2f} us on "
-                f"the card, plain version {plain_ms * 1e3:.2f} us, bound "
-                f"{bound[0] * 1e3:.2f} us by {bound[1]}")
+                f"the card, plain version {plain_ms * 1e3:.2f} us{library}, "
+                f"bound {bound[0] * 1e3:.2f} us by {bound[1]}")
             # The kernels line: the main path's tail, multi_phi at K = 8
             # and multi_phi_dphi at K = 36, as the one-instance rows.
             family = {"vg": "vg", "tail[float32]": "tail",
@@ -4060,6 +4101,386 @@ def phase_protocol(card):
         say(f"[protocol] {line}")
 
 
+# [dist-own] and [checkpoint-sharded], in one job of DIST_RANKS processes on
+# the one card (gloo).  [dist-own]: a caller's own objectives through
+# sharded_minimize at the [dist] width in float64, partitioned by DTensor:
+# chained Rosenbrock written out (not the suite's), against the suite's
+# Rosenbrock by name on the plain shard-local path, and a pseudo-Huber
+# objective outside the suite; both against the single-device minimize of
+# the same f (autograd), f to OWN_F_RTOL at every one of OWN_ITERS
+# iterations, alphas equal.  [checkpoint-sharded]: [dist]'s config on the
+# kernel path, float32, saved at CKS_ITERS by save_state_sharded on the 4
+# ranks, loaded onto 4, 2 (a subgroup) and 1 rank (rank 0 alone) and
+# resumed to 2 * CKS_ITERS, against the uncut solve: bit for bit on 4 ranks,
+# x within CKS_X_TOL and f within CKS_F_RTOL on the other meshes.
+OWN_ITERS = 40
+OWN_F_RTOL = 1e-10
+CKS_ITERS = 20
+CKS_X_TOL = 1e-5
+CKS_F_RTOL = 1e-6
+# [scaling]: scaling_sweep at 1, 2 and 4 ranks on the one card.
+SCALE_COUNTS = (1, 2, 4)
+SCALE_ITERS = 20
+# [profile] and [debug-nans]: the main path for PROFILE_ITERS iterations.
+PROFILE_ITERS = 20
+# [examples]: each examples/torch_*.py at its defaults, side by side.
+EXAMPLES_TIMEOUT_S = 300
+
+
+def own_rosenbrock(x):
+    """Chained Rosenbrock written out by a caller: torch operations on the
+    whole (d,) vector, nothing of the suite."""
+    t = x[..., 1:] - x[..., :-1] ** 2
+    return torch.sum(100.0 * t * t + (1.0 - x[..., :-1]) ** 2, dim=-1)
+
+
+def pseudo_huber(x):
+    """An objective outside the suite: elementwise terms and a sum, which
+    DTensor keeps sharded (one all-reduce of the value)."""
+    r = x - 1.0
+    return torch.sum(torch.sqrt(1.0 + r * r) - 1.0 + 0.01 * x * x, dim=-1)
+
+
+# (label, f, the suite problem it equals, tol): the pseudo-Huber solve
+# converges within OWN_ITERS, and past that its line searches are decided
+# by rounding, so it stops at a tolerance.
+OWN_OBJECTIVES = (("chained rosenbrock", own_rosenbrock, "rosenbrock", 0.0),
+                  ("pseudo-huber", pseudo_huber, None, 1e-6))
+
+
+def _own_cfg(tt, tol=0.0):
+    return tt.LBFGSConfig(line_search="backtracking",
+                          direction="compact_incremental", ls_eval="direct",
+                          max_iters=OWN_ITERS, tol=tol, record_trace=True)
+
+
+def _own_ckpt_rank(rank, size, ck_dir):
+    """One rank of the [dist-own] / [checkpoint-sharded] job."""
+    import torch.distributed as torch_dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    import tpu_lbfgs_torch as tt
+    from tpu_lbfgs_torch import dist
+    from tpu_lbfgs_torch.dist.mesh import Mesh, local_block, pad_for_mesh
+    from tpu_lbfgs_torch.dist.partitioned import partitioned_value_and_grad
+    from tpu_lbfgs_torch.dist.sharded import (
+        gather_result,
+        solve_shard,
+        solve_shard_from_state,
+    )
+    from tpu_lbfgs_torch.io import load_state_sharded, save_state_sharded
+
+    dev = torch.device("cuda", 0)
+    mesh = dist.make_mesh()
+    out = {"own": {}}
+
+    def trace(res):
+        return {"f": res.trace.f.tolist(), "alpha": res.trace.alpha.tolist(),
+                "status": int(res.status), "k": int(res.iterations)}
+
+    x0 = _dist_x0(DIST_D, dev).double()
+    for label, f, named, tol in OWN_OBJECTIVES:
+        cfg = _own_cfg(tt, tol)
+        x_local = local_block(pad_for_mesh(x0, size)[0], mesh)
+        vg = partitioned_value_and_grad(f, mesh, DIST_D)
+        vg(x_local)                             # builds the DeviceMesh
+        comm = CommDebugMode()
+        with comm:
+            vg(x_local)
+        counts = {str(k).split(".")[-1]: n
+                  for k, n in comm.get_comm_counts().items()}
+        torch.cuda.synchronize()
+        torch_dist.barrier()
+        t0 = time.perf_counter()
+        res = dist.sharded_minimize(f, x0, cfg, mesh)
+        float(res.f)
+        wall = time.perf_counter() - t0
+        rec = {"counts": counts, "ms": wall / max(int(res.iterations), 1)
+               * 1e3, "own": trace(res)}
+        if named is not None:
+            p = tt.get_problem(named)
+            rec["named"] = trace(dist.sharded_minimize(
+                p.f, x0, cfg, mesh, problem=named))
+        out["own"][label] = rec
+
+    # [checkpoint-sharded]
+    x0 = _dist_x0(DIST_D, dev)
+    cfg = tt.LBFGSConfig(**_dist_cfg_kw("rosenbrock", CKS_ITERS, dict(
+        line_search="backtracking", direction="compact_incremental",
+        ls_eval="polynomial"))).replace(record_trace=False)
+    x_pad, n = pad_for_mesh(x0, size)
+    _, state = solve_shard("rosenbrock", local_block(x_pad, mesh), n, cfg,
+                           mesh, kernels=True, return_state=True)
+    torch.cuda.synchronize()
+    torch_dist.barrier()
+    t0 = time.perf_counter()
+    save_state_sharded(ck_dir, state, mesh, n)
+    save_s = time.perf_counter() - t0
+    cfg40 = cfg.replace(max_iters=2 * CKS_ITERS)
+
+    def resume(st, on, with_matvec=False):
+        res, _ = solve_shard_from_state(st, n, cfg40, on, "rosenbrock",
+                                        kernels=True, with_matvec=with_matvec)
+        return res
+
+    uncut = resume(state, mesh)
+    torch_dist.barrier()
+    t0 = time.perf_counter()
+    loaded = load_state_sharded(ck_dir, mesh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    on4 = resume(loaded, mesh)
+    same = torch.equal(on4.x, uncut.x) and torch.equal(on4.f, uncut.f) \
+        and int(on4.iterations) == int(uncut.iterations)
+    differ4 = bool(mesh.comm.any_flag(torch.tensor(not same, device=dev)))
+    whole = gather_result(uncut, mesh, n).x
+    pair = torch_dist.new_group([0, 1])
+    on2 = None
+    if rank < 2:
+        mesh2 = dist.make_mesh(pair)
+        res2 = resume(load_state_sharded(ck_dir, mesh2), mesh2)
+        on2 = (gather_result(res2, mesh2, n).x, res2)
+    ck = {"save_s": save_s, "load_s": load_s, "same4": not differ4,
+          "bytes": sum(p.stat().st_size for p in pathlib.Path(ck_dir).iterdir()),
+          "files": sorted(p.name for p in pathlib.Path(ck_dir).iterdir()),
+          "f_uncut": float(uncut.f), "k_uncut": int(uncut.iterations)}
+    if rank == 0:
+        # One process runs the whole-vector kernels; the sharded solve
+        # forms S y and Y y from float64 partials, the one-device solver in
+        # float32 unless the tail forms them (in float64, rounded once).
+        res1 = resume(load_state_sharded(ck_dir, Mesh(None)), Mesh(None),
+                      with_matvec=True)
+        for label, (x, res) in (("2 ranks", on2), ("1 rank", (res1.x, res1))):
+            ck[label] = {"x_err": (x - whole).abs().max().item(),
+                         "f": float(res.f), "k": int(res.iterations)}
+    torch_dist.barrier()
+    out["ckpt"] = ck
+    return out
+
+
+def phase_dist_own_and_ckpt(dev, card, tmp):
+    """[dist-own] and [checkpoint-sharded] (the header of this section)."""
+    import tpu_lbfgs_torch as tt
+    from tpu_lbfgs_torch.dist.launch import spawn_ranks
+
+    ck_dir = tmp / "sharded_ckpt"
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_own_ckpt_rank, DIST_RANKS, str(ck_dir),
+                        backend="gloo", timeout_s=DIST_TIMEOUT_S,
+                        threads=None)
+    say(f"[dist-own] {DIST_RANKS} ranks on {card} (gloo, all on cuda:0), "
+        f"the job with [checkpoint-sharded] in "
+        f"{time.perf_counter() - t0:.1f} s with start-up")
+    own = ranks[0]["own"]
+    for r in ranks[1:]:
+        for label in own:
+            check(r["own"][label]["own"] == own[label]["own"],
+                  f"[dist-own] {label}: the ranks disagree")
+    x0 = _dist_x0(DIST_D, dev).double()
+    for label, f, named, tol in OWN_OBJECTIVES:
+        rec = own[label]
+        single = tt.minimize(f, x0.clone(), _own_cfg(tt, tol))
+        solves = {"sharded": rec["own"],
+                  "single-device": {"f": single.trace.f.tolist(),
+                                    "alpha": single.trace.alpha.tolist(),
+                                    "status": int(single.status),
+                                    "k": int(single.iterations)}}
+        if named is not None:
+            solves[f"sharded problem={named!r}"] = rec["named"]
+        names = list(solves)
+        worst = {}
+        for i, a in enumerate(names):
+            for b in names[i + 1:]:
+                fa, fb = solves[a]["f"], solves[b]["f"]
+                rel = max(abs(u - v) / abs(v) for u, v in zip(fa, fb))
+                worst[f"{a} / {b}"] = (
+                    rel, solves[a]["alpha"] == solves[b]["alpha"]
+                    and solves[a]["k"] == solves[b]["k"]
+                    and solves[a]["status"] == solves[b]["status"])
+        got = rec["own"]
+        say(f"[dist-own] {label}, d={DIST_D} float64, {got['k']} iterations "
+            f"(status {tt.Status.NAMES[got['status']]}): f {got['f'][0]:.9e}"
+            f" -> {got['f'][-1]:.9e}; "
+            + "; ".join(f"{k}: f max rel {v[0]:.2e}, alphas, k and status "
+                        f"equal {v[1]}" for k, v in worst.items())
+            + f" (tol {OWN_F_RTOL}); collectives of one evaluation "
+            f"{rec['counts']}; {rec['ms']:.1f} ms per iteration: a "
+            "correctness run over gloo on one card, not a scaling number")
+        check((got["k"] == OWN_ITERS if tol == 0.0
+               else got["status"] == tt.Status.CONVERGED)
+              and np.isfinite(got["f"][-1]) and got["f"][-1] < got["f"][0],
+              f"[dist-own] {label}: {OWN_ITERS} iterations or convergence, "
+              "f finite and decreasing")
+        check(all(v[0] <= OWN_F_RTOL and v[1] for v in worst.values()),
+              f"[dist-own] {label}: the solves differ: {worst}")
+    ck = ranks[0]["ckpt"]
+    say(f"[checkpoint-sharded] d={DIST_D} float32, kernel path, saved at "
+        f"{CKS_ITERS} on {DIST_RANKS} ranks ({ck['files']}, "
+        f"{ck['bytes'] / 1e6:.1f} MB; save {ck['save_s']:.3f} s, load on 4 "
+        f"ranks {ck['load_s']:.3f} s, rank 0), resumed to {2 * CKS_ITERS}: "
+        f"4 ranks bit-equal to the uncut solve {ck['same4']}; "
+        + "; ".join(f"{m}: max |x - uncut| {ck[m]['x_err']:.2e}, f "
+                    f"{ck[m]['f']:.6e} against {ck['f_uncut']:.6e}, k "
+                    f"{ck[m]['k']}" for m in ("2 ranks", "1 rank"))
+        + f" (tol x {CKS_X_TOL}, f {CKS_F_RTOL})")
+    check(ck["same4"] and ck["k_uncut"] == 2 * CKS_ITERS,
+          "[checkpoint-sharded] the 4-rank resume must equal the uncut solve "
+          "bit for bit")
+    for m in ("2 ranks", "1 rank"):
+        check(ck[m]["k"] == 2 * CKS_ITERS and ck[m]["x_err"] <= CKS_X_TOL
+              and abs(ck[m]["f"] - ck["f_uncut"])
+              <= CKS_F_RTOL * abs(ck["f_uncut"]),
+              f"[checkpoint-sharded] the resume on {m} differs from the "
+              "uncut solve")
+
+
+def phase_scaling(card):
+    """scaling_sweep at SCALE_COUNTS ranks on the one card."""
+    from tpu_lbfgs_torch.bench.scaling import scaling_sweep
+
+    t0 = time.perf_counter()
+    rows = scaling_sweep("rosenbrock", d=DIST_D, iters=SCALE_ITERS,
+                         device_counts=SCALE_COUNTS, repeats=2)
+    for r in rows:
+        say(f"[scaling] {json.dumps(r)}")
+    say(f"[scaling] {len(rows)} rows in {time.perf_counter() - t0:.1f} s on "
+        f"{card}; one card: not a scaling number")
+    check([r["n_devices"] for r in rows] == list(SCALE_COUNTS)
+          and all(np.isfinite(r["final_f"]) and r["iters_per_s"] > 0
+                  for r in rows)
+          and all(r["stack"].startswith("kernels") for r in rows)
+          and not any(r["scaling"] for r in rows),
+          "[scaling] every count must run the kernel path and no row may "
+          "claim scaling on one card")
+    check(len({r["final_f"] for r in rows}) == 1 or max(
+        abs(r["final_f"] - rows[0]["final_f"]) for r in rows)
+        <= DIST_F_RTOL * abs(rows[0]["final_f"]),
+        "[scaling] the counts must solve the same problem")
+
+
+def _main_path_solve(tt, dev, iters):
+    p = tt.get_problem("rosenbrock")
+    from tpu_lbfgs_torch.bench.harness import _x0
+
+    x0 = _x0(D, SEED, torch.float32, dev)
+    vg = tt.fused_value_and_grad("rosenbrock")
+    tail = tt.fused_tail_for("rosenbrock")
+    cfg = _bench_cfg(tt, iters).replace(record_trace=True)
+    return lambda: tt.minimize(p.f, x0.clone(), cfg, value_and_grad=vg,
+                               dir_poly=p.dir_poly, fused_tail=tail)
+
+
+def phase_profile(dev, card, tmp):
+    """profile_solve on the main path: a trace that names the fused tail
+    kernel, with device time."""
+    import tpu_lbfgs_torch as tt
+    from tpu_lbfgs_torch import kernels
+    from tpu_lbfgs_torch.utils.profiling import profile_solve
+
+    trace_dir = tmp / "profile"
+    kernels.reset_launches()
+    out = profile_solve(_main_path_solve(tt, dev, PROFILE_ITERS),
+                        trace_dir=str(trace_dir))
+    text = (trace_dir / "trace.json").read_text()
+    events = json.loads(text)["traceEvents"]
+    tails = [e for e in events if e.get("cat") == "kernel"
+             and "tail_tile_kernel" in e.get("name", "")]
+    got = kernels.launch_counts()
+    say(f"[profile] profile_solve, main path d={D}, {PROFILE_ITERS} "
+        f"iterations: {out['wall_s']:.3f} s traced on {card}; trace "
+        f"{len(text) / 1e6:.1f} MB, {len(events)} events, "
+        f"{len(tails)} tail_tile_kernel launches on the card "
+        f"(device {sum(e.get('dur', 0) for e in tails) / len(tails):.2f} us "
+        f"each), fused tail launches {got['rosenbrock_fused_tail']}"
+        if tails else "[profile] no tail kernel in the trace")
+    check(len(tails) == PROFILE_ITERS
+          and got["rosenbrock_fused_tail"] == 2 * PROFILE_ITERS,
+          "[profile] the trace must name the fused tail kernel once per "
+          "traced iteration")
+
+
+def phase_debug_nans(dev):
+    """set_debug_nans: an objective whose gradient turns NaN raises
+    FloatingPointError; the main path with the check equals it without."""
+    import tpu_lbfgs_torch as tt
+    from tpu_lbfgs_torch.core.solver import set_debug_nans
+
+    calls = [0]
+    p = tt.get_problem("rosenbrock")
+
+    def grad(x):
+        calls[0] += 1
+        g = p.grad(x)
+        return g * float("nan") if calls[0] > 5 else g
+
+    f = p.f
+    x0 = _dist_x0(D, dev)
+    cfg = tt.LBFGSConfig(max_iters=50, tol=0.0)
+    set_debug_nans(True)
+    try:
+        try:
+            tt.minimize(f, x0, cfg, grad=grad)
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+        plain_calls = calls[0]
+        solve = _main_path_solve(tt, dev, PROFILE_ITERS)
+        checked = solve()
+    finally:
+        set_debug_nans(False)
+    quiet = solve()
+    same = torch.equal(checked.x, quiet.x) and torch.equal(
+        checked.trace.f, quiet.trace.f) and torch.equal(
+        checked.trace.alpha, quiet.trace.alpha)
+    say(f"[debug-nans] a gradient that turns NaN at its call {plain_calls}: "
+        f"FloatingPointError {raised!r}; the main path, {PROFILE_ITERS} "
+        f"iterations, with the check equal to without it: {same}")
+    check(raised is not None and "vg" in raised,
+          "[debug-nans] the NaN gradient must raise FloatingPointError "
+          "naming the value and gradient")
+    check(same, "[debug-nans] the check must not change the iterates")
+
+
+def phase_examples(card):
+    """Each examples/torch_*.py at its defaults on the card, side by side
+    (times they print were taken with the others running)."""
+    paths = sorted(pathlib.Path("examples").glob("torch_*.py"))
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    t0 = time.perf_counter()
+
+    def start(p):
+        return p, subprocess.Popen(
+            [sys.executable, "-X", "faulthandler", "-u", str(p)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish(p, proc):
+        try:
+            text, _ = proc.communicate(timeout=EXAMPLES_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+        tail = "\n".join(line for line in text.splitlines()
+                         if "Warning" not in line and "warn" not in line)
+        say(f"[examples] {p.name}: exit {proc.returncode}\n{tail[-1500:]}")
+        if proc.returncode != 0:
+            failed.append(p.name)
+
+    # The examples that start ranks of their own run one at a time, the
+    # others side by side beside the first of them.
+    spawning = [p for p in paths if "nproc" in p.read_text()]
+    failed = []
+    procs = [start(p) for p in paths if p not in spawning]
+    for p in spawning:
+        finish(*start(p))
+    for job in procs:
+        finish(*job)
+    say(f"[examples] {len(paths)} examples on {card} in "
+        f"{time.perf_counter() - t0:.1f} s ({len(spawning)} with ranks of "
+        f"their own one at a time, beside the others)")
+    check(len(paths) == 8 and not failed,
+          f"[examples] failed: {failed} (of {[p.name for p in paths]})")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -4117,7 +4538,16 @@ def main():
     lap("[dist-batch]")
     with tempfile.TemporaryDirectory(dir=".") as tmp:
         phase_checkpoint(dev, pathlib.Path(tmp))
-    lap("[checkpoint]")
+        lap("[checkpoint]")
+        phase_dist_own_and_ckpt(dev, card, pathlib.Path(tmp))
+        lap("[dist-own], [checkpoint-sharded]")
+        phase_scaling(card)
+        lap("[scaling]")
+        phase_profile(dev, card, pathlib.Path(tmp))
+        phase_debug_nans(dev)
+        lap("[profile], [debug-nans]")
+        phase_examples(card)
+        lap("[examples]")
     phase_giant(dev, card)
     lap("[giant]")
     phase_tol(card)

@@ -229,10 +229,13 @@ def test_giant_profile_needs_the_card(capsys):
 
 
 def test_sweep_refuses_scaling_and_runs_on_the_card_only():
-    with pytest.raises(SystemExit, match="Queue 1 item 12"):
-        bench_main(["--scaling"])
+    """--scaling (bench.scaling.scaling_sweep) and the sweep
+    run on the card only; without one they raise (tests/test_torch_tools.py
+    runs the scaling sweep on gloo CPU ranks)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; chip runs measure the sweep")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_main(["--scaling"])
     with pytest.raises(RuntimeError, match="CUDA"):
         bench_main(["--quick", "--iters", "2"])
     with pytest.raises(RuntimeError, match="CUDA"):

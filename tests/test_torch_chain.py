@@ -7,6 +7,7 @@ kernel in interpret mode (``jax.vmap`` of ``make_compact_chain`` at a batch
 of 1024 lanes, float32).  The CUDA kernel is held to the plain version bit
 for bit by chip_smoke.py on the card.  Inputs come from numpy.
 """
+import itertools
 from functools import lru_cache
 
 import jax
@@ -154,3 +155,60 @@ def test_wrapper_refuses_other_devices():
         chain_inputs(np.random.default_rng(5), 8, m), torch.float32)]
     with pytest.raises(ValueError, match="CUDA"):
         compact_chain_batched(*args, m=m, skip_thr=None)
+
+
+def _damaged_lanes(m):
+    """float64 chain inputs, one lane per damage: each product and each
+    scalar ring in turn holds a NaN, a +inf or a -inf, on a valid slot, an
+    invalid one, the diagonal or off it, over full and partial rings."""
+    rng = np.random.default_rng(23)
+    lanes = []
+    targets = [("SY", (0, 1)), ("SY", (1, 1)), ("SY", (m - 1, m - 1)),
+               ("YY", (0, 0)), ("YY", (2, 1)), ("Sg", (1,)), ("Yg", (0,)),
+               ("syh", (1,)), ("syh", (m - 1,)), ("yyh", (0,))]
+    for (name, at), value, n_pairs in itertools.product(
+            targets, (np.nan, np.inf, -np.inf), (m + 3, 2)):
+        SY, YY, Sg, Yg, syh, yyh, _, gn = chain_inputs(rng, 1, m)
+        arrays = dict(SY=SY[0], YY=YY[0], Sg=Sg[0], Yg=Yg[0], syh=syh[0],
+                      yyh=yyh[0])
+        arrays[name][at] = value
+        lanes.append((arrays, n_pairs, gn[0]))
+    # Two damaged entries, and an undamaged lane.
+    SY, YY, Sg, Yg, syh, yyh, _, gn = chain_inputs(rng, 1, m)
+    SY[0, 1, 1], SY[0, 2, 0] = np.inf, np.nan
+    lanes.append((dict(SY=SY[0], YY=YY[0], Sg=Sg[0], Yg=Yg[0], syh=syh[0],
+                       yyh=yyh[0]), m, gn[0]))
+    SY, YY, Sg, Yg, syh, yyh, _, gn = chain_inputs(rng, 1, m)
+    lanes.append((dict(SY=SY[0], YY=YY[0], Sg=Sg[0], Yg=Yg[0], syh=syh[0],
+                       yyh=yyh[0]), m + 1, gn[0]))
+    keys = ("SY", "YY", "Sg", "Yg", "syh", "yyh")
+    out = [np.stack([lane[0][k] for lane in lanes]) for k in keys]
+    out.append(np.array([lane[1] for lane in lanes], np.int32))
+    out.append(np.array([lane[2] for lane in lanes]))
+    return out
+
+
+@pytest.mark.parametrize("skip_thr", [None, 1e-10])
+def test_damaged_products_spread_as_the_reference(skip_thr):
+    """Non-finite products and scalars, float64, where the reference runs
+    its vmapped one-hot chain: the fallback flag of every lane equal to
+    ``jax.vmap`` of the reference's chain, batched and lane by lane
+    (``chain_torch``), and the other outputs on the lanes that do not fall
+    back (those whose damage the pair skip or the newest pair masks)
+    within 1e-11."""
+    m = 5
+    arrays = _damaged_lanes(m)
+    want = _jax_chain(m, skip_thr)(*(
+        jnp.asarray(a, jnp.int32 if a.dtype == np.int32 else jnp.float64)
+        for a in arrays))
+    args = _torch_args(arrays, torch.float64)
+    got = chain_batched_plain(*args, m=m, skip_thr=skip_thr)
+    fb = np.asarray(want[4])
+    np.testing.assert_array_equal(got[4].numpy(), fb)
+    assert fb.sum() >= 10 and (~fb).sum() >= 10
+    for name, a, b in zip(NAMES[:4], got, want):
+        np.testing.assert_allclose(a.numpy()[~fb], np.asarray(b)[~fb],
+                                   rtol=1e-11, atol=1e-12, err_msg=name)
+    for b in range(len(fb)):
+        one = chain_torch(*(a[b] for a in args), m=m, skip_thr=skip_thr)
+        assert bool(one[4]) == bool(fb[b]), b

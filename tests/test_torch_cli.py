@@ -113,8 +113,11 @@ def test_cli_matches_jax_f64(name, capsys):
     ref = _run(jax_cli, argv, capsys)
     out = _run(torch_cli, argv, capsys)
     assert len(out["results"]) == len(ref["results"]) >= 1
-    assert {k: v for k, v in out["config"].items() if k != "backend"} == \
-        {k: v for k, v in ref["config"].items() if k != "backend"}
+    # --backend's first value and --nproc (which starts the ranks of
+    # --shard) are the port's own.
+    own = ("backend", "nproc")
+    assert {k: v for k, v in out["config"].items() if k not in own} == \
+        {k: v for k, v in ref["config"].items() if k not in own}
     for a, b in zip(out["results"], ref["results"]):
         assert a.keys() == b.keys()
         # A --batch record has counts and means over its lanes instead.
@@ -213,8 +216,8 @@ def test_multi_seed_summary_and_damped_guards(capsys):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--backend", "native"], "Queue 1 item 10"),
-    (["--debug-nans"], "Queue 1 item 10"),
+    (["--backend", "native"], "belongs to tpu_lbfgs"),
+    (["--nproc", "2"], "give --shard too"),
     (["--line-search", "nope"], "invalid choice"),
 ])
 def test_unported_flags_exit_through_the_parser(argv, message, capsys):
@@ -226,10 +229,12 @@ def test_unported_flags_exit_through_the_parser(argv, message, capsys):
 
 def test_parser_surface_matches_the_reference():
     """Every flag of the reference's parser, with the same defaults and
-    choices, apart from --backend's first value."""
+    choices, apart from --backend's first value; and --nproc, which starts
+    the ranks of --shard where the reference's single controller needs
+    none."""
     ours = {a.dest: a for a in torch_cli.build_parser()._actions}
     theirs = {a.dest: a for a in jax_cli.build_parser()._actions}
-    assert ours.keys() == theirs.keys()
+    assert ours.keys() == theirs.keys() | {"nproc"}
     for dest, act in theirs.items():
         assert ours[dest].option_strings == act.option_strings, dest
         if dest == "backend":

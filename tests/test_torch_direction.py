@@ -51,13 +51,21 @@ def _both(arrays):
 
 
 def _damage(arrays, how, m):
-    """Damage the newest or an older stored pair's s.y in place."""
+    """Damage the newest or an older stored pair's s.y in place (or y.y,
+    or an unfilled slot's s.y on a partial ring)."""
     n = int(arrays["n_pairs"])
     newest, older = (n - 1) % m, (n - 2) % m
     if how == "zero_sy":            # rho = inf on an older pair
         arrays["sy_hist"][older] = 0.0
     elif how == "nan_sy":
         arrays["sy_hist"][older] = np.nan
+    elif how == "inf_sy":
+        arrays["sy_hist"][older] = np.inf
+    elif how == "nan_sy_invalid":   # a slot no pair has filled yet
+        assert n < m
+        arrays["sy_hist"][n % m] = np.nan
+    elif how == "nan_yy":
+        arrays["yy_hist"][older] = np.nan
     elif how == "tiny_sy":          # below the pair-skip threshold
         arrays["sy_hist"][older] = 1e-14
     elif how == "negative_gamma":
@@ -99,53 +107,49 @@ def test_direction_matches_jax(m, fill, skip, direction):
 @pytest.mark.parametrize("direction", ["two_loop", "compact"])
 @pytest.mark.parametrize("skip", [None, 1e-10])
 @pytest.mark.parametrize("how", ["zero_sy", "nan_sy", "tiny_sy",
-                                 "negative_gamma"])
+                                 "negative_gamma", "inf_sy",
+                                 "nan_sy_invalid", "nan_yy"])
 def test_damaged_pairs_take_the_reference_guards(how, skip, direction):
     """A non-finite rho falls back to -g without the pair skip and skips
     the pair with it; a non-positive gamma always falls back; a pair below
-    the threshold is skipped.  Flag and direction equal the reference's.
+    the threshold is skipped.  Flag and direction equal the reference's
+    compiled direction (its solvers run it under jit) in every case.
 
-    One known difference: a NaN s.y under the pair skip.  The reference's
-    one-hot sums (gamma, the chain's reorderings) multiply the NaN by zero
-    and so spread it to every entry, and it falls back to -g; the port's
-    index gathers keep the NaN in its slot, where the pair skip drops it
-    (NaN > threshold is false), and it returns the direction of the other
-    pairs: the one it gives with that pair below the threshold."""
+    The compact chain's one-hot matmuls (tpu_lbfgs/kernels/chain.py:67-80)
+    spread a non-finite product to every entry of SY, YY, Sg, Yg, and the
+    port spreads it the same way (``kernels.chain.onehot_spread``): a NaN
+    s.y under the pair skip then masks every pair, where the port's index
+    gathers used to mask that pair only.  gamma's one-hot sums
+    (tpu_lbfgs/core/direction.py:79-97) compile to selects and spread
+    nothing, as the port's gather; the two-loop reads s.y by a gather in
+    both packages."""
     m = 5
-    arrays = _damage(_jax_state(m, FILL["wrapped"]), how, m)
+    fill = FILL["partial" if how == "nan_sy_invalid" else "wrapped"]
+    arrays = _damage(_jax_state(m, fill), how, m)
+    n = int(arrays["n_pairs"])
+    slot = n % m if how == "nan_sy_invalid" else (n - 2) % m
     if direction == "compact":
-        # compact reads s.y from its own contraction: damage that too.
+        # compact reads s.y and y.y from its own contraction: damage those
+        # too.
         sj0, _ = _both(arrays)
-        SY = np.array(jdir.history_products(sj0)[0])
+        SY, YY = (np.array(a) for a in jdir.history_products(sj0)[:2])
     sj, st = _both(arrays)
     cj = tl.LBFGSConfig(m=m, direction=direction, pair_skip_threshold=skip)
     ct = tt.LBFGSConfig(m=m, direction=direction, pair_skip_threshold=skip)
     if direction == "two_loop":
-        dj, fbj = jdir._two_loop_core(cj, sj)
+        dj, fbj = jax.jit(lambda s: jdir._two_loop_core(cj, s))(sj)
         dt, fbt = tdir._two_loop_core(ct, st)
         expect = (how == "negative_gamma"
                   or (skip is None and how in ("zero_sy", "nan_sy")))
         assert bool(fbt) == expect
     else:
-        n = int(arrays["n_pairs"])
-        older = (n - 2) % m
-        SY[older, older] = arrays["sy_hist"][older]
-        YY, Sg, Yg = (np.array(a) for a in jdir.history_products(sj)[1:])
-        dj, _, fbj = jdir._compact_core(cj, sj, *map(jnp.asarray,
-                                                     (SY, YY, Sg, Yg)))
+        SY[slot, slot] = arrays["sy_hist"][slot]
+        YY[slot, slot] = arrays["yy_hist"][slot]
+        Sg, Yg = (np.array(a) for a in jdir.history_products(sj)[2:])
+        dj, _, fbj = jax.jit(lambda s, *p: jdir._compact_core(cj, s, *p))(
+            sj, *map(jnp.asarray, (SY, YY, Sg, Yg)))
         dt, _, fbt = tdir._compact_core(ct, st, *map(torch.from_numpy,
                                                      (SY, YY, Sg, Yg)))
-    if how == "nan_sy" and skip is not None:
-        assert bool(fbj) and not bool(fbt)
-        _, tiny = _both(_damage(_jax_state(m, FILL["wrapped"]), "tiny_sy", m))
-        if direction == "two_loop":
-            skipped = tdir._two_loop_core(ct, tiny)[0]
-        else:
-            SY[older, older] = 1e-14
-            skipped = tdir._compact_core(ct, tiny, *map(
-                torch.from_numpy, (SY, YY, Sg, Yg)))[0]
-        assert torch.isfinite(dt).all() and torch.equal(dt, skipped)
-        return
     assert bool(fbt) == bool(fbj)
     if bool(fbj):
         assert torch.equal(dt, -st.g)
@@ -193,6 +197,48 @@ def test_batched_direction_matches_vmap(direction, skip):
     dt, _, fbt = tdir.compute_direction_with_aux(ct, st)
     np.testing.assert_array_equal(fbt.numpy(), np.asarray(fbj))
     for lane in range(4):
+        _assert_direction(dt[lane], dj[lane])
+
+
+@pytest.mark.parametrize("direction", ["two_loop", "compact"])
+@pytest.mark.parametrize("skip", [None, 1e-10])
+def test_batched_damaged_lanes_match_jax(direction, skip):
+    """The damaged states of ``test_damaged_pairs_take_the_reference_guards``
+    as lanes of one batch (a NaN and an inf s.y, a NaN y.y, a NaN in an
+    unfilled slot, one lane undamaged), with the compact direction's
+    products damaged alike, against ``jax.jit(jax.vmap(...))`` of the
+    reference's direction: equal fallback flags and directions."""
+    m = 5
+    hows = ["nan_sy", "inf_sy", "nan_yy", "nan_sy_invalid", None]
+    lanes = [_damage(_jax_state(m, FILL["partial" if how == "nan_sy_invalid"
+                                       else "wrapped"]), how, m)
+             if how else _jax_state(m, FILL["wrapped"]) for how in hows]
+    arrays = {k: np.stack([lane[k] for lane in lanes]) for k in lanes[0]}
+    sj, st = _both(arrays)
+    prods = None
+    if direction == "compact":
+        prods = [np.array(a) for a in jax.vmap(jdir.history_products)(sj)]
+        for i, how in enumerate(hows):
+            if how is None:
+                continue
+            n = int(arrays["n_pairs"][i])
+            slot = n % m if how == "nan_sy_invalid" else (n - 2) % m
+            prods[0][i, slot, slot] = arrays["sy_hist"][i, slot]
+            prods[1][i, slot, slot] = arrays["yy_hist"][i, slot]
+    cj = tl.LBFGSConfig(m=m, direction=direction, pair_skip_threshold=skip)
+    ct = tt.LBFGSConfig(m=m, direction=direction, pair_skip_threshold=skip)
+    if direction == "two_loop":
+        dj, fbj = jax.jit(jax.vmap(lambda s: jdir._two_loop_core(cj, s)))(sj)
+        dt, fbt = tdir._two_loop_core(ct, st)
+    else:
+        dj, _, fbj = jax.jit(jax.vmap(
+            lambda s, *p: jdir._compact_core(cj, s, *p)))(
+                sj, *map(jnp.asarray, prods))
+        dt, _, fbt = tdir._compact_core(ct, st, *map(torch.from_numpy,
+                                                     prods))
+    np.testing.assert_array_equal(fbt.numpy(), np.asarray(fbj))
+    assert not bool(fbt[-1])
+    for lane in range(len(hows)):
         _assert_direction(dt[lane], dj[lane])
 
 

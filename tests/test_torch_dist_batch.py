@@ -177,8 +177,8 @@ def _extras(rank, size):
             "own-objective": lambda: tdist.sharded_vmap_minimize(
                 p.f, x0, cfg, mesh, grad=p.grad)}.items():
         try:
-            call()
-            refusals[key] = None
+            res = call()
+            refusals[key] = f"taken: {tuple(res.x.shape)}"
         except (ValueError, NotImplementedError) as e:
             refusals[key] = f"{type(e).__name__}: {e}"
     per_lane = {name: _per_lane(mesh, BY_NAME[name]) for name in PER_LANE}
@@ -476,11 +476,13 @@ def test_mesh_2d_layout_and_edge_exchange(ranks):
 @pytest.mark.parametrize("key,kind", [
     ("no-mesh", "ValueError"), ("lockstep", "ValueError"),
     ("bounded-trace", "ValueError"), ("rows", "ValueError"),
-    ("own-objective", "NotImplementedError")])
+    ("own-objective", "taken")])
 def test_refusals(ranks, key, kind):
     """The reference's ValueErrors with its messages (a missing mesh, a bad
-    lockstep, bounded with a trace), a batch the rows do not divide, and a
-    caller's own objective on more than one shard."""
+    lockstep, bounded with a trace) and a batch the rows do not divide; a
+    caller's own objective on more than one shard is taken (partitioned
+    by DTensor), and each rank holds its row's 2 lanes of its 19 + 19
+    columns."""
     for out in ranks:
         assert out["extras"]["refusals"][key].startswith(kind + ": ")
     msg = ranks[0]["extras"]["refusals"][key].split(": ", 1)[1]
@@ -500,7 +502,7 @@ def test_refusals(ranks, key, kind):
                               "bounded-trace": "bounded"}.get(key, "while"))
         assert str(exc.value) == msg
     elif key == "own-objective":
-        assert "Queue 1 item 12" in msg
+        assert msg == "(2, 19)"
 
 
 def test_one_process_mesh_is_vmap_minimize():

@@ -1,0 +1,308 @@
+"""A caller's own objective on the sharded solves of tpu_lbfgs_torch
+(``sharded_minimize``, and ``sharded_vmap_minimize`` on a 2 x 2 (b, d)
+mesh), on 4 CPU processes (gloo), partitioned by DTensor
+(``dist.partitioned``), against the JAX package's ``sharded_minimize`` /
+``sharded_vmap_minimize`` of the same objective written in jnp (its
+auto-partitioned path on 4 of its 8 virtual CPU devices), against the
+port's single-device ``minimize`` / ``vmap_minimize`` of the same torch
+objective, and against the named suite problem's sharded solve.
+
+One spawn of 4 ranks runs every case (``dist.launch.spawn_ranks``); a
+module-scoped fixture holds the results.  Tolerances are
+tests/test_torch_dist.py's: alpha, status, the counters and the guard
+counters equal at every iteration, f and ||g|| to RTOL = 1e-10 over the
+first TIGHT = 25 iterations and LATE_RTOL = 1e-7 after; a bounded batch
+keeps no trace and its final fields are held to LATE_RTOL.
+
+The ranks import this module to find their functions, so it imports JAX and
+the JAX package only inside the tests that compare with them.
+"""
+import numpy as np
+import pytest
+import torch
+
+import tpu_lbfgs_torch as tt
+from tpu_lbfgs_torch import dist as tdist
+from tpu_lbfgs_torch.dist.launch import spawn_ranks
+
+torch.set_num_threads(1)
+
+RANKS = 4
+ROWS = 2
+B = 4
+D = 256
+RAGGED = 261
+ITERS = 40
+TIGHT = 25
+RTOL = 1e-10
+LATE_RTOL = 1e-7
+FIELDS = ("f", "g_norm", "status", "iterations", "n_fev", "n_gev", "guards")
+TRACED = ("f", "g_norm", "alpha", "n_fev", "n_gev", "guards")
+
+
+def torch_rosenbrock(x):
+    """Chained Rosenbrock as a caller writes it, on (d,) or (B, d)."""
+    t = x[..., 1:] - x[..., :-1] ** 2
+    return torch.sum(100.0 * t * t + (1.0 - x[..., :-1]) ** 2, dim=-1)
+
+
+def torch_huber(x):
+    """A pseudo-Huber objective: elementwise terms and one sum."""
+    r = x - 1.0
+    return torch.sum(torch.sqrt(1.0 + r * r) - 1.0 + 0.01 * x * x, dim=-1)
+
+
+def jax_objective(name):
+    import jax.numpy as jnp
+
+    if name == "rosenbrock":
+        def f(x):
+            t = x[1:] - x[:-1] ** 2
+            return jnp.sum(100.0 * t * t + (1.0 - x[:-1]) ** 2)
+    else:
+        def f(x):
+            r = x - 1.0
+            return jnp.sum(jnp.sqrt(1.0 + r * r) - 1.0 + 0.01 * x * x)
+    return f
+
+
+OBJECTIVES = {"rosenbrock": torch_rosenbrock, "huber": torch_huber}
+DIRECT = dict(direction="compact_incremental", line_search="backtracking",
+              ls_eval="direct")
+
+
+def _case(name, objective="rosenbrock", d=D, batch=False,
+          lockstep="while", kw=None, iters=ITERS, **cfg):
+    cfg = dict(dict(DIRECT, max_iters=iters, tol=0.0,
+                    record_trace=lockstep == "while"), **cfg)
+    return dict(name=name, objective=objective, d=d, batch=batch,
+                lockstep=lockstep, cfg=cfg, kw=kw or {})
+
+
+CASES = (
+    [_case(f"rosenbrock-{d}", d=d) for d in (D, RAGGED)]
+    # The pseudo-Huber solve converges within the iterations; past that
+    # its line searches are decided by rounding, so it stops at a
+    # tolerance.
+    + [_case("huber-261", "huber", d=RAGGED, tol=1e-8),
+       _case("rosenbrock-two-loop", d=RAGGED, direction="two_loop"),
+       _case("rosenbrock-polynomial", d=RAGGED, ls_eval="polynomial",
+             kw=dict(dir_poly=True)),
+       _case("rosenbrock-grad", d=RAGGED, kw=dict(grad=True))]
+    + [_case(f"batch-rosenbrock-{lockstep}-{d}", d=d, batch=True,
+             lockstep=lockstep, iters=ITERS if lockstep == "while" else 20)
+       for lockstep in ("while", "bounded") for d in (D, RAGGED)]
+)
+NAMES = [c["name"] for c in CASES]
+BY_NAME = {c["name"]: c for c in CASES}
+
+
+def _x0(case):
+    shape = (B, case["d"]) if case["batch"] else case["d"]
+    return np.random.default_rng(0).uniform(-2.0, 2.0, shape)
+
+
+def _result(res, mesh, d):
+    whole = tdist.gather_result(res, mesh, d)
+    out = {name: getattr(whole, name).numpy() for name in FIELDS}
+    out["x"] = whole.x.numpy()
+    if whole.trace is not None:
+        out["trace"] = {name: getattr(whole.trace, name).numpy()
+                        for name in TRACED}
+    return out
+
+
+def _solve(case, meshes):
+    cfg = tt.LBFGSConfig(**case["cfg"])
+    x0 = torch.from_numpy(_x0(case))
+    p = tt.get_problem("rosenbrock")
+    kw = {}
+    if case["kw"].get("dir_poly"):
+        kw["dir_poly"] = p.dir_poly
+    if case["kw"].get("grad"):
+        kw["grad"] = p.grad
+    f = OBJECTIVES[case["objective"]]
+    if case["batch"]:
+        mesh = meshes["2d"]
+        res = tdist.sharded_vmap_minimize(f, x0, cfg, mesh,
+                                          lockstep=case["lockstep"], **kw)
+    else:
+        mesh = meshes["1d"]
+        res = tdist.sharded_minimize(f, x0, cfg, mesh, **kw)
+    return _result(res, mesh, case["d"])
+
+
+def _rank(rank, size, cases):
+    """Every case with the caller's objective; the named problem's solve
+    beside the Rosenbrock cases; the collectives of one evaluation; one
+    case again through the functional collectives as registered for the
+    card (``_c10d_api_collectives``, here on CPU tensors)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from tpu_lbfgs_torch.dist.mesh import local_block, pad_for_mesh
+    from tpu_lbfgs_torch.dist.partitioned import (
+        _c10d_api_collectives,
+        partitioned_value_and_grad,
+    )
+
+    meshes = {"1d": tdist.make_mesh(), "2d": tdist.make_mesh_2d(ROWS)}
+    out = {"cases": [_solve(c, meshes) for c in cases], "named": {}}
+    for c in cases:
+        if c["objective"] == "rosenbrock" and not c["batch"] \
+                and not c["kw"]:
+            cfg = tt.LBFGSConfig(**c["cfg"])
+            res = tdist.sharded_minimize(
+                None, torch.from_numpy(_x0(c)), cfg, meshes["1d"],
+                problem="rosenbrock")
+            out["named"][c["name"]] = _result(res, meshes["1d"], c["d"])
+    counts = {}
+    x = torch.from_numpy(_x0(BY_NAME["rosenbrock-261"]))
+    x_local = local_block(pad_for_mesh(x, size)[0], meshes["1d"])
+    for name, f in OBJECTIVES.items():
+        vg = partitioned_value_and_grad(f, meshes["1d"], RAGGED)
+        comm = CommDebugMode()
+        with comm:
+            vg(x_local)
+        counts[name] = {str(k).split(".")[-1]: n
+                        for k, n in comm.get_comm_counts().items()}
+    out["counts"] = counts
+    _c10d_api_collectives("CPU")
+    out["c10d_api"] = _solve(BY_NAME["rosenbrock-261"], meshes)
+    return out
+
+
+@pytest.fixture(scope="module")
+def ranks():
+    return spawn_ranks(_rank, RANKS, CASES, backend="gloo", timeout_s=180.0,
+                       threads=1)
+
+
+def _close(got, want, name, early, late, batch):
+    got, want = np.asarray(got), np.asarray(want)
+    if not batch:
+        got, want = got[None], want[None]
+    atol = 1e-14 * float(np.abs(want).max())
+    np.testing.assert_allclose(got[:, :TIGHT], want[:, :TIGHT], rtol=early,
+                               atol=atol, err_msg=name)
+    np.testing.assert_allclose(got[:, TIGHT:], want[:, TIGHT:], rtol=late,
+                               atol=atol, err_msg=name + ", late")
+
+
+def _compare(got, want, case):
+    """A case's gathered result against another solve's (dicts of numpy):
+    every iteration of the trace where there is one, the final fields."""
+    batch = case["batch"]
+    if "trace" in got:
+        t, w = got["trace"], want["trace"]
+        np.testing.assert_array_equal(t["alpha"], w["alpha"])
+        for name in ("n_fev", "n_gev", "guards"):
+            np.testing.assert_array_equal(t[name], w[name], err_msg=name)
+        _close(t["f"], w["f"], "f", RTOL, LATE_RTOL, batch)
+        _close(t["g_norm"], w["g_norm"], "g_norm", RTOL, LATE_RTOL, batch)
+    for name in ("status", "iterations", "n_fev", "n_gev", "guards"):
+        np.testing.assert_array_equal(np.asarray(got[name]),
+                                      np.asarray(want[name]), err_msg=name)
+    for name in ("f", "g_norm"):
+        np.testing.assert_allclose(got[name], np.asarray(want[name]),
+                                   rtol=LATE_RTOL, err_msg=name)
+    np.testing.assert_allclose(got["x"], np.asarray(want["x"]), rtol=1e-8,
+                               atol=1e-9)
+
+
+def _as_dict(res):
+    out = {name: np.asarray(getattr(res, name)) for name in FIELDS}
+    out["x"] = np.asarray(res.x)
+    if res.trace is not None:
+        out["trace"] = {name: np.asarray(getattr(res.trace, name))
+                        for name in TRACED}
+    return out
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_own_objective_equals_jax(ranks, name):
+    """The same objective written in jnp through the JAX package's sharded
+    solve on 4 virtual CPU devices: the reference hands it to XLA's
+    partitioner, the port to DTensor."""
+    import jax
+    import jax.numpy as jnp
+
+    import tpu_lbfgs as tl
+    from tpu_lbfgs.dist import make_mesh, make_mesh_2d
+    from tpu_lbfgs.dist import sharded_minimize as jax_sm
+    from tpu_lbfgs.dist import sharded_vmap_minimize as jax_svm
+
+    case = BY_NAME[name]
+    got = ranks[0]["cases"][NAMES.index(name)]
+    cfg = tl.LBFGSConfig(**case["cfg"])
+    f = jax_objective(case["objective"])
+    p = tl.get_problem("rosenbrock")
+    kw = {}
+    if case["kw"].get("dir_poly"):
+        kw["dir_poly"] = p.dir_poly
+    if case["kw"].get("grad"):
+        kw["grad"] = p.grad
+    devices = jax.devices()[:RANKS]
+    x0 = jnp.asarray(_x0(case))
+    if case["batch"]:
+        res = jax_svm(f, x0, cfg, mesh=make_mesh_2d(ROWS, devices=devices),
+                      lockstep=case["lockstep"], **kw)
+    else:
+        res = jax_sm(f, x0, cfg, mesh=make_mesh(devices=devices), **kw)
+    _compare(got, _as_dict(res), case)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_own_objective_equals_the_single_device_port(ranks, name):
+    """The same torch objective through ``minimize`` / ``vmap_minimize``
+    on one process (autograd's gradient there too); every rank holds the
+    same gathered bits."""
+    case = BY_NAME[name]
+    i = NAMES.index(name)
+    got = ranks[0]["cases"][i]
+    cfg = tt.LBFGSConfig(**case["cfg"])
+    p = tt.get_problem("rosenbrock")
+    kw = {}
+    if case["kw"].get("dir_poly"):
+        kw["dir_poly"] = p.dir_poly
+    if case["kw"].get("grad"):
+        kw["grad"] = p.grad
+    f = OBJECTIVES[case["objective"]]
+    x0 = torch.from_numpy(_x0(case))
+    if case["batch"]:
+        want = tt.vmap_minimize(f, x0, cfg, lockstep=case["lockstep"], **kw)
+    else:
+        want = tt.minimize(f, x0, cfg, **kw)
+    _compare(got, _as_dict(want), case)
+    for other in ranks[1:]:
+        np.testing.assert_array_equal(other["cases"][i]["x"], got["x"])
+        np.testing.assert_array_equal(other["cases"][i]["f"], got["f"])
+
+
+@pytest.mark.parametrize("name", ["rosenbrock-256", "rosenbrock-261",
+                                  "rosenbrock-two-loop"])
+def test_own_objective_equals_the_named_problem(ranks, name):
+    """Chained Rosenbrock written out by the caller against the suite's by
+    name (its shard-local value, gradient and edge exchanges)."""
+    case = BY_NAME[name]
+    _compare(ranks[0]["cases"][NAMES.index(name)], ranks[0]["named"][name],
+             case)
+
+
+def test_collectives_of_one_evaluation(ranks):
+    """Shifted slices all-gather x (forward) and the gradient's pieces;
+    an elementwise objective and its sum cross as one all-reduce."""
+    for out in ranks:
+        rosen, huber = out["counts"]["rosenbrock"], out["counts"]["huber"]
+        assert set(rosen) == {"all_gather_into_tensor"}, rosen
+        assert 1 <= rosen["all_gather_into_tensor"] <= 4, rosen
+        assert huber == {"all_reduce": 1}, huber
+
+
+def test_c10d_api_collectives_give_the_same_solve(ranks):
+    """The functional collectives as registered for CUDA tensors (gloo on
+    one card), here over CPU tensors: the same solve bit for bit."""
+    for out in ranks:
+        want = out["cases"][NAMES.index("rosenbrock-261")]
+        got = out["c10d_api"]
+        np.testing.assert_array_equal(got["x"], want["x"])
+        np.testing.assert_array_equal(got["trace"]["f"], want["trace"]["f"])

@@ -27,11 +27,13 @@ with the shard-local forms of the four fused kernel families for one
 instance and for a batch); checkpoints (``io.save_state`` /
 ``load_state``, the reference's file); and the experiment harnesses
 (``bench``: time to tolerance, the giant-instance cell, the reference
-protocol, the sweep; ``utils.roofline``: the traffic model on the H100).
-What is left (a caller's own objective on the sharded path) raises
-``NotImplementedError`` naming the ROADMAP item that brings it; sharded
-checkpoints and the scaling sweep are not here yet (ROADMAP Queue 1 item
-12).
+protocol, the sweep, strong scaling; ``utils.roofline``: the traffic model
+on the H100; ``utils.profiling``: device traces).  A caller's own objective
+runs on the sharded path too (``dist.partitioned``, DTensor), a sharded
+solve resumes from its per-rank checkpoint on another mesh
+(``io.save_state_sharded`` / ``load_state_sharded``,
+``dist.solve_shard_from_state``), and ``--debug-nans`` checks a solve for
+non-finite values.
 
 Where it runs: ``minimize`` and ``vmap_minimize`` solve on the device of
 the tensor they are given, so a CPU tensor is the caller asking for the

@@ -12,9 +12,11 @@ runs ``reference_protocol.run_protocol`` instead.  A configuration that
 fails or overruns ``--per-config-timeout`` is recorded in its row and the
 sweep goes on.
 
-Not ported: the reference's cpu-native row (the C++ oracle belongs to
-``tpu_lbfgs``; the sweep prints a line saying so) and ``--scaling``
-(ROADMAP Queue 1 item 12), which exits with a message.
+``--scaling`` runs ``scaling.scaling_sweep`` (strong scaling over 1, 2,
+4, ... ranks, up to the cards present) and writes
+``torch_scaling_results.json``; where ranks share a card the record says
+it is no scaling number.  Not ported: the reference's cpu-native row (the
+C++ oracle belongs to ``tpu_lbfgs``; the sweep prints a line saying so).
 """
 from __future__ import annotations
 
@@ -113,14 +115,29 @@ def main(argv=None) -> int:
                          "on the one card; above 1 the cells' walls include "
                          "the sharing and the report keeps no rate")
     ap.add_argument("--scaling", action="store_true",
-                    help="not ported: strong scaling over several cards")
+                    help="strong scaling of the sharded solve over 1, 2, "
+                         "4, ... ranks, a card each (bench.scaling)")
     args = ap.parse_args(argv)
 
     if args.scaling:
-        raise SystemExit(
-            "--scaling is not ported to tpu_lbfgs_torch yet (ROADMAP.md "
-            "Queue 1 item 12): a scaling number needs one card per rank "
-            "over NCCL")
+        from ..types import resolve_device
+        from .scaling import SHARED_NOTE, scaling_sweep
+
+        resolve_device(None)                # the card, or RuntimeError
+        rows = scaling_sweep(d=args.d, iters=min(args.iters, 50))
+        for r in rows:
+            print(f"n={r['n_devices']:3d}  {r['iters_per_s']:9.1f} it/s  "
+                  f"speedup {r['speedup']:.2f}  eff {r['efficiency']:.2f}  "
+                  f"{r['stack']}, {r['backend']}")
+        record = {"device": rows[0].get("device_name"), "d": args.d,
+                  "rows": rows}
+        if not rows[-1]["scaling"]:
+            record["evidence"] = SHARED_NOTE
+        out = args.out or "torch_scaling_results.json"
+        with open(out, "w") as fh:
+            json.dump(record, fh, indent=1)
+        print(f"wrote {out}")
+        return 0
 
     if args.reference_protocol:
         from .reference_protocol import DIMS, run_protocol

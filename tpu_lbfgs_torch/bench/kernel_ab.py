@@ -298,8 +298,10 @@ def _chain_call(lib, m: int, dt, args):
     outs.append(torch.empty(CHAIN_B, dtype=torch.bool, device=dev))
     fn = getattr(lib, entry)
     stream = torch.cuda.current_stream().cuda_stream
+    spread = int(chain.reference_spreads(args[0]))
     return (lambda: fn(*(t.data_ptr() for t in args), c_scalar(1e-10), 1,
-                       *(o.data_ptr() for o in outs), CHAIN_B, m, stream),
+                       spread, *(o.data_ptr() for o in outs), CHAIN_B, m,
+                       stream),
             outs)
 
 

@@ -23,10 +23,19 @@ hands the solver their plain versions, on either device
 
 ``--shard`` splits the vector axis over the processes of the job
 (``dist.sharded_minimize``): launch one process per shard, with
-``torchrun`` or after ``dist.initialize``; every process draws the same x0
-and takes its block, and rank 0 prints the record.  A single process is a
-mesh of one shard.  With ``--device cpu`` the group is gloo; on the card it
-is nccl, one device per process (``LOCAL_RANK``).
+``torchrun`` or after ``dist.initialize``, or give ``--nproc N`` and the
+command starts its N ranks itself (``dist.launch.spawn_ranks``), as the
+reference's one-process ``--shard`` needs no launcher; every process
+draws the same x0 and takes its block, and rank 0 prints the record.  A
+single process is a mesh of one shard.  With ``--device cpu`` the group is
+gloo; on the card it is nccl, one device per process (``LOCAL_RANK``), or
+under ``--nproc`` gloo where the ranks outnumber the cards and share them.
+
+``--debug-nans`` checks the solver's state after every iteration and
+each output of the objective's callables as it returns, and raises
+``FloatingPointError`` at the first non-finite field or NaN output
+(``core.solver.set_debug_nans``), where the reference sets
+``jax_debug_nans``; a host read each, on every path.
 
 ``--batch`` runs through ``vmap_minimize``: every ``--line-search``, with
 or without ``--poly-ls``, in either ``--lockstep``, with the problem's
@@ -39,8 +48,7 @@ lanes, in float32 or float64 (that kernel is built for both, so
 reference's command line does (its batch branch comes first); under a
 launcher each rank solves the whole batch and rank 0 prints the record.
 
-Not ported yet, each refused with the ROADMAP item that brings it:
-``--backend native`` and ``--debug-nans`` (Queue 1 item 10).
+``--backend native`` is refused: the C++ oracle belongs to ``tpu_lbfgs``.
 """
 from __future__ import annotations
 
@@ -109,10 +117,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "with no read of the loop condition")
     ap.add_argument("--shard", action="store_true",
                     help="shard the vector axis over the job's processes "
-                         "(launch with torchrun, one process per shard)")
+                         "(launch with torchrun, one process per shard, or "
+                         "give --nproc)")
+    ap.add_argument("--nproc", type=int, default=0,
+                    help="with --shard: start this many ranks from this "
+                         "command (no launcher needed)")
     ap.add_argument("--backend", default="torch", choices=["torch", "native"],
-                    help="native (the C++ CPU oracle) is not ported "
-                         "(ROADMAP.md Queue 1 item 10)")
+                    help="native (the C++ CPU oracle) belongs to tpu_lbfgs "
+                         "and is refused")
     ap.add_argument("--trace", action="store_true",
                     help="record per-iteration metrics")
     ap.add_argument("--verbose", action="store_true",
@@ -128,40 +140,57 @@ def build_parser() -> argparse.ArgumentParser:
                     help="default is the current CUDA device; cpu asks for "
                          "the CPU")
     ap.add_argument("--debug-nans", action="store_true",
-                    help="not ported yet (ROADMAP.md Queue 1 item 10)")
+                    help="check the solver state after every iteration "
+                         "and the objective's outputs as they return; raise "
+                         "FloatingPointError at the first non-finite value "
+                         "(a host read each)")
     return ap
 
 
-def _profiled(solve, out_dir: str):
-    """Run ``solve`` under torch.profiler and write its Chrome trace to
-    ``out_dir/trace.json``."""
-    import os
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    os.makedirs(out_dir, exist_ok=True)
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        res = solve()
-        float(res.f)
-    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
-    return res
+def _rank_main(rank: int, size: int, argv: list) -> int:
+    """One rank of ``--shard --nproc N``: the command line inside the group
+    ``dist.launch.spawn_ranks`` made."""
+    return main(argv)
 
 
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.backend == "native":
-        ap.error("--backend native is not ported to tpu_lbfgs_torch "
-                 "(ROADMAP.md Queue 1 item 10): the C++ oracle belongs to "
-                 "tpu_lbfgs")
-    if args.debug_nans:
-        ap.error("--debug-nans is not ported to tpu_lbfgs_torch yet "
-                 "(ROADMAP.md Queue 1 item 10)")
+        ap.error("--backend native is not ported to tpu_lbfgs_torch: the "
+                 "C++ oracle belongs to tpu_lbfgs")
+    if args.nproc and not args.shard:
+        ap.error("--nproc starts the ranks of --shard; give --shard too")
+    if args.nproc > 1:
+        return _spawn(args, sys.argv[1:] if argv is None else list(argv))
 
+    from .core.solver import set_debug_nans
+
+    set_debug_nans(args.debug_nans)
+    try:
+        return _run(args)
+    finally:
+        set_debug_nans(False)
+
+
+def _spawn(args, argv: list) -> int:
+    """``--shard --nproc N``: N ranks of this command line on this host,
+    gloo on the CPU or where the ranks outnumber the cards (they share
+    them), else nccl with a card per rank."""
+    import torch
+
+    from .dist.launch import spawn_ranks
+
+    cards = torch.cuda.device_count() if args.device != "cpu" else 0
+    backend = "nccl" if 0 < args.nproc <= cards else "gloo"
+    # Each rank runs the same command line; the last --nproc is the one
+    # argparse keeps.
+    codes = spawn_ranks(_rank_main, args.nproc, list(argv) + ["--nproc=0"],
+                        backend=backend, timeout_s=600.0, threads=None)
+    return max(codes)
+
+
+def _run(args) -> int:
     import numpy as np
     import torch
 
@@ -187,7 +216,7 @@ def main(argv=None) -> int:
         # A group this call brings up is taken down before it returns.
         own_group = not torch.distributed.is_initialized()
         on_cpu = args.device == "cpu"
-        if not on_cpu and torch.cuda.is_available():
+        if own_group and not on_cpu and torch.cuda.is_available():
             torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0))
                                   % torch.cuda.device_count())
         initialize(backend="gloo" if on_cpu else None)
@@ -284,13 +313,16 @@ def main(argv=None) -> int:
                                 phi_dphi_batch=phi_dphi_batch)
 
             if args.profile:
-                res = solve()           # warm-up outside the trace
-                t0 = time.perf_counter()
-                res = _profiled(solve, args.profile)
+                from .utils.profiling import profile_solve
+
+                out = profile_solve(solve, trace_dir=args.profile,
+                                    device=device)
+                res, wall_profiled = out["result"], out["wall_s"]
             else:
                 res = solve()
             f_final = float(res.f)      # waits for the device
-            wall = time.perf_counter() - t0
+            wall = wall_profiled if args.profile \
+                else time.perf_counter() - t0
             if args.verbose and res.trace is not None \
                     and (mesh is None or mesh.rank == 0):
                 k = int(res.iterations)

@@ -59,7 +59,10 @@ def _newest_ratio(sy_hist: Tensor, yy_hist: Tensor, n_pairs: Tensor,
                   m: int) -> Tensor:
     """sy_hist / yy_hist at slot (n_pairs - 1) mod m of each lane, by an
     index gather (an index tensor with a dimension: a 0-d index would be
-    read on the host)."""
+    read on the host).  The reference takes them as one-hot sums
+    (tpu_lbfgs/core/direction.py:79-97), which XLA compiles to selects: a
+    non-finite entry in another slot stays there, as with the gather (run
+    eagerly, op by op, its 0 * NaN would spread)."""
     newest = ((n_pairs - 1) % m).long()[..., None]
     return (sy_hist.gather(-1, newest) / yy_hist.gather(-1, newest))[..., 0]
 

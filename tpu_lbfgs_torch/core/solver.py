@@ -103,7 +103,7 @@ def init_state(vg: ValGradFn, x0: Tensor, m: int,
         return torch.full(lead + shape, v, dtype=dt, device=dev)
 
     i32 = torch.int32
-    return LBFGSState(
+    state = LBFGSState(
         x=x0,
         f=f0,
         g=g0,
@@ -124,6 +124,9 @@ def init_state(vg: ValGradFn, x0: Tensor, m: int,
         n_gev=full((), 1, i32),
         guards=full((Guard.N,), 0, i32),
     )
+    if _DEBUG_NANS:
+        check_finite(state, comm)
+    return state
 
 
 def _polyval(coeffs: Tensor, a: Tensor) -> Tensor:
@@ -554,14 +557,86 @@ def refresh_products(state: LBFGSState, comm=None) -> LBFGSState:
     return state.replace(SY=SY, YY=YY, Sg=Sg, Yg=Yg)
 
 
+#: Whether every solve checks its state and its objective's outputs for
+#: non-finite values (``set_debug_nans``).
+_DEBUG_NANS = False
+
+
+def set_debug_nans(enabled: bool) -> None:
+    """``--debug-nans``, the counterpart of the reference's
+    ``jax_debug_nans`` (``tpu_lbfgs/cli.py:127-128``), which raises where
+    an operation makes a NaN.  While enabled, every solve checks its state
+    as ``init_state`` makes it and after every iteration, and raises
+    ``FloatingPointError`` at the first non-finite field
+    (``check_finite``); and it checks every output of the objective's
+    callables (f, the value and gradient, the directional polynomial, the
+    fused tail, the K-trial evaluators) for NaN as they return, since the
+    solver's guards keep a NaN trial or gradient out of the state (a failed
+    step keeps the last one).  That costs a host read per iteration and per
+    evaluation (in a sharded solve an all-reduce of the flags, so that
+    every rank raises); disabled, nothing is read."""
+    global _DEBUG_NANS
+    _DEBUG_NANS = bool(enabled)
+
+
+def _nan_checked(fn, name: str, comm=None):
+    """``fn`` raising ``FloatingPointError`` when an output holds a NaN."""
+    def checked(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        flat = [t for t in (out if isinstance(out, (tuple, list)) else (out,))
+                if isinstance(t, Tensor)]
+        bad = torch.stack([torch.isnan(t).any() for t in flat]).any()
+        if comm is not None:
+            bad = comm.any_flag(bad)
+        if bool(bad):
+            raise FloatingPointError(f"debug-nans: NaN in the output of {name}")
+        return out
+
+    return checked
+
+
+def check_finite(state: LBFGSState, comm=None) -> None:
+    """Raise ``FloatingPointError`` naming the first floating field of
+    ``state`` (in ``LBFGSState``'s order) that holds a NaN or an infinity
+    on any lane or, with ``comm``, on any rank of the group."""
+    names = [fl.name for fl in dataclasses.fields(LBFGSState)
+             if getattr(state, fl.name).is_floating_point()]
+    bad = torch.stack([~torch.isfinite(getattr(state, name)).all()
+                       for name in names])
+    if comm is not None:
+        bad = comm.any_flag(bad)
+    bad = bad.tolist()
+    if any(bad):
+        raise FloatingPointError(
+            f"debug-nans: non-finite {names[bad.index(True)]} in the solver "
+            f"state at iteration {int(state.k.max())}")
+
+
 def _stepper(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, *callables,
              comm=None, bounded: bool = False):
     """``step(state, lanes=None)``: one ``iterate`` of this solve, its line
-    search on the fixed-trip loop under ``bounded``."""
+    search on the fixed-trip loop under ``bounded``; under
+    ``set_debug_nans(True)`` the callables' outputs are checked as they
+    return and the state after each step (``check_finite``)."""
+    if _DEBUG_NANS:
+        names = ("dir_poly", "fused_tail", "phi_batch", "phi_dphi_batch")
+        f, vg = _nan_checked(f, "f", comm), _nan_checked(vg, "vg", comm)
+        callables = [c if c is None else _nan_checked(c, name, comm)
+                     for c, name in zip(callables, names)]
+
     def step(state, lanes=None):
         return iterate(cfg, f, vg, state, *callables, lanes=lanes, comm=comm,
                        bounded=bounded)
-    return step
+
+    if not _DEBUG_NANS:
+        return step
+
+    def checked(state, lanes=None):
+        state = step(state, lanes)
+        check_finite(state, comm)
+        return state
+
+    return checked
 
 
 def _run_segment(cfg: LBFGSConfig, step, state: LBFGSState,

@@ -7,6 +7,10 @@
 //   rotate SY, YY, Sg, Yg to logical order, l <-> slot (base + l) % m,
 //       base = (n_pairs - min(n_pairs, m)) % m;
 //   valid[l] = l < min(n_pairs, m) [and SY_ll > skip_thr];
+//   with `spread`, non-finite products as the reference's one-hot matmuls
+//   spread them (chain.py::onehot_spread): SY_ll NaN unless every
+//   non-finite entry of SY is SY_ll itself, and a fallback where a valid
+//   pair meets a non-finite SY, YY, Sg or Yg;
 //   R = triu(SY) on valid pairs, 1 on the diagonal of invalid ones;
 //   gamma = sy_hist / yy_hist at the newest slot (n_pairs - 1) % m;
 //   R u = p1 (back substitution), t = D u + gamma YYm u - gamma p2,
@@ -144,7 +148,7 @@ __global__ void __launch_bounds__(kBlockThreads)
                          const T* __restrict__ yy_hist,
                          const int* __restrict__ n_pairs,
                          const T* __restrict__ g_norm, T skip_thr,
-                         int use_thr, T* __restrict__ v_phys,
+                         int use_thr, int spread, T* __restrict__ v_phys,
                          T* __restrict__ u_phys, T* __restrict__ gamma_out,
                          T* __restrict__ gdd_out,
                          bool* __restrict__ fallback_out, int64_t B,
@@ -184,6 +188,22 @@ __global__ void __launch_bounds__(kBlockThreads)
   int* valid_s = st.valid + k * m;
   const T zero = T(0), one = T(1);
 
+  // The instance's non-finite products, counted by its group: of SY, and
+  // of YY, Sg and Yg.
+  int bad_sy = 0, bad_rest = 0;
+  if (spread) {
+    for (int e = lane; e < mm; e += lanes) {
+      bad_sy += !isfinite(SY[e]);
+      bad_rest += !isfinite(YY[e]);
+    }
+    for (int e = lane; e < m; e += lanes) {
+      bad_rest += !isfinite(st.Sg[k * m + e]) + !isfinite(st.Yg[k * m + e]);
+    }
+    for (int off = lanes / 2; off > 0; off >>= 1) {
+      bad_sy += __shfl_xor_sync(kFull, bad_sy, off, lanes);
+      bad_rest += __shfl_xor_sync(kFull, bad_rest, off, lanes);
+    }
+  }
   const int np = n_pairs[b];
   const int hist = np < m ? np : m;
   const int base = floor_mod(np - hist, m);
@@ -203,7 +223,8 @@ __global__ void __launch_bounds__(kBlockThreads)
     const int i = lane + r * lanes;
     const bool own = i < m;
     sl[r] = own ? slot(i) : 0;
-    const T dg = SY[sl[r] * m + sl[r]];
+    T dg = SY[sl[r] * m + sl[r]];
+    if (bad_sy && !(bad_sy == 1 && !isfinite(dg))) dg = T(NAN);
     valid[r] = own && i < hist && (!use_thr || dg > skip_thr);
     d_diag[r] = valid[r] ? dg : one;
     p1[r] = valid[r] ? st.Sg[k * m + sl[r]] : zero;
@@ -337,7 +358,7 @@ __global__ void __launch_bounds__(kBlockThreads)
     }
   }
 
-  int small_ok = 1, bad_rho = 0;
+  int small_ok = 1, bad_rho = 0, any_valid = 0;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int i = lane + r * lanes;
@@ -346,6 +367,7 @@ __global__ void __launch_bounds__(kBlockThreads)
       const T uz = valid[r] ? u[r] : zero;
       small_ok &= isfinite(vz) && isfinite(uz);
       bad_rho |= valid[r] && !isfinite(one / d_diag[r]);
+      any_valid |= valid[r];
       if (live) {
         v_phys[b * m + sl[r]] = vz;
         u_phys[b * m + sl[r]] = uz;
@@ -359,6 +381,7 @@ __global__ void __launch_bounds__(kBlockThreads)
   for (int off = lanes / 2; off > 0; off >>= 1) {
     small_ok &= __shfl_xor_sync(kFull, small_ok, off, lanes);
     bad_rho |= __shfl_xor_sync(kFull, bad_rho, off, lanes);
+    any_valid |= __shfl_xor_sync(kFull, any_valid, off, lanes);
   }
   __syncwarp();
   if (lane == 0 && live) {
@@ -386,7 +409,8 @@ __global__ void __launch_bounds__(kBlockThreads)
     const T gn = g_norm[b];
     gamma_out[b] = gamma;
     gdd_out[b] = -(gamma * (gn * gn) + vdp1 - gamma * udp2);
-    fallback_out[b] = bad_rho || bad_gamma || hist == 0 || !small_ok;
+    fallback_out[b] = bad_rho || bad_gamma || hist == 0 || !small_ok ||
+                      (any_valid && (bad_sy || bad_rest));
   }
 }
 
@@ -396,8 +420,9 @@ template <typename T, int kM>
 cudaError_t launch_m(const T* SY_p, const T* YY_p, const T* Sg_p,
                      const T* Yg_p, const T* sy_hist, const T* yy_hist,
                      const int* n_pairs, const T* g_norm, T skip_thr,
-                     int use_thr, T* v_phys, T* u_phys, T* gamma, T* g_dot_d,
-                     bool* fallback, long long B, int m, cudaStream_t s) {
+                     int use_thr, int spread, T* v_phys, T* u_phys, T* gamma,
+                     T* g_dot_d, bool* fallback, long long B, int m,
+                     cudaStream_t s) {
   const int bits = lane_bits_for(m);
   int ipb = kBlockThreads >> bits;
   while (ipb > 1 && carve<T>(m, ipb, nullptr, nullptr) > kSmemCap) --ipb;
@@ -410,16 +435,16 @@ cudaError_t launch_m(const T* SY_p, const T* YY_p, const T* Sg_p,
   compact_chain_kernel<T, kM><<<static_cast<unsigned>(blocks), ipb << bits,
                                 smem, s>>>(
       SY_p, YY_p, Sg_p, Yg_p, sy_hist, yy_hist, n_pairs, g_norm, skip_thr,
-      use_thr, v_phys, u_phys, gamma, g_dot_d, fallback, B, m, bits);
+      use_thr, spread, v_phys, u_phys, gamma, g_dot_d, fallback, B, m, bits);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch(const T* SY_p, const T* YY_p, const T* Sg_p, const T* Yg_p,
            const T* sy_hist, const T* yy_hist, const int* n_pairs,
-           const T* g_norm, T skip_thr, int use_thr, T* v_phys, T* u_phys,
-           T* gamma, T* g_dot_d, bool* fallback, long long B, int m,
-           void* stream) {
+           const T* g_norm, T skip_thr, int use_thr, int spread, T* v_phys,
+           T* u_phys, T* gamma, T* g_dot_d, bool* fallback, long long B,
+           int m, void* stream) {
   if (B < 1 || m < 1 || m > kMaxM) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -429,7 +454,7 @@ int launch(const T* SY_p, const T* YY_p, const T* Sg_p, const T* Yg_p,
   case M:                                                                   \
     return static_cast<int>(launch_m<T, M>(                                 \
         SY_p, YY_p, Sg_p, Yg_p, sy_hist, yy_hist, n_pairs, g_norm, skip_thr, \
-        use_thr, v_phys, u_phys, gamma, g_dot_d, fallback, B, m, s));
+        use_thr, spread, v_phys, u_phys, gamma, g_dot_d, fallback, B, m, s));
     TL_CHAIN_CASE(5)
     TL_CHAIN_CASE(10)
     TL_CHAIN_CASE(20)
@@ -437,8 +462,8 @@ int launch(const T* SY_p, const T* YY_p, const T* Sg_p, const T* Yg_p,
     default:
       return static_cast<int>(launch_m<T, 0>(
           SY_p, YY_p, Sg_p, Yg_p, sy_hist, yy_hist, n_pairs, g_norm,
-          skip_thr, use_thr, v_phys, u_phys, gamma, g_dot_d, fallback, B, m,
-          s));
+          skip_thr, use_thr, spread, v_phys, u_phys, gamma, g_dot_d,
+          fallback, B, m, s));
   }
 }
 
@@ -448,18 +473,19 @@ int launch(const T* SY_p, const T* YY_p, const T* Sg_p, const T* Yg_p,
 // n_pairs: B ints; g_norm: B values; all row-major and on the device, in
 // float (_f32) or double (_f64).  Outputs v_phys, u_phys: B * m values;
 // gamma, g_dot_d: B values; fallback: B bools.  skip_thr is read only when
-// use_thr is nonzero.  m is 1 to 64.  Returns the cudaError_t of the
+// use_thr is nonzero; spread nonzero spreads non-finite entries as the
+// reference's one-hot products do.  m is 1 to 64.  Returns the cudaError_t of the
 // launch (cudaErrorInvalidValue for B < 1 or m outside [1, 64]).
 #define TL_CHAIN_ENTRY(NAME, T)                                              \
   extern "C" int NAME(const T* SY_p, const T* YY_p, const T* Sg_p,           \
                       const T* Yg_p, const T* sy_hist, const T* yy_hist,     \
                       const int* n_pairs, const T* g_norm, T skip_thr,       \
-                      int use_thr, T* v_phys, T* u_phys, T* gamma,           \
-                      T* g_dot_d, bool* fallback, long long B, int m,        \
-                      void* stream) {                                        \
+                      int use_thr, int spread, T* v_phys, T* u_phys,         \
+                      T* gamma, T* g_dot_d, bool* fallback, long long B,     \
+                      int m, void* stream) {                                 \
     return launch<T>(SY_p, YY_p, Sg_p, Yg_p, sy_hist, yy_hist, n_pairs,      \
-                     g_norm, skip_thr, use_thr, v_phys, u_phys, gamma,       \
-                     g_dot_d, fallback, B, m, stream);                       \
+                     g_norm, skip_thr, use_thr, spread, v_phys, u_phys,      \
+                     gamma, g_dot_d, fallback, B, m, stream);                \
   }
 
 TL_CHAIN_ENTRY(tl_compact_chain_f32, float)

@@ -36,19 +36,25 @@ from torch import Tensor
 class ShardComm:
     """Rank, size and the two collectives of one d-axis group.  ``group`` is
     a ``torch.distributed`` process group, None for the default one.
+    ``order``: the group's ranks in mesh order (default: the group's own);
+    ``rank`` is this process's place in it, which the edge exchange and the
+    gathers follow.
 
     ``all_reduces`` and ``edge_exchanges`` count the calls since the last
     ``reset_counts()``, so a run can state its communication per
     iteration."""
 
-    def __init__(self, group: Optional[dist.ProcessGroup] = None):
+    def __init__(self, group: Optional[dist.ProcessGroup] = None,
+                 order: Optional[Sequence[int]] = None):
         if not dist.is_initialized():
             raise RuntimeError(
                 "ShardComm needs an initialized torch.distributed process "
                 "group (dist.multihost.initialize, or torchrun)")
         self.group = group
-        self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
+        self.order = list(order) if order is not None \
+            else list(range(self.size))
+        self.rank = self.order.index(dist.get_rank(group))
         self.all_reduces = 0
         self.edge_exchanges = 0
 

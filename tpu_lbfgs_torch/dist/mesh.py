@@ -48,55 +48,62 @@ class Mesh:
         return self.rank * d_local, (self.rank + 1) * d_local
 
 
-def make_mesh(group=None) -> Mesh:
+def make_mesh(group=None, order=None) -> Mesh:
     """The 1-D mesh over ``group`` (a ``torch.distributed`` process group,
-    None for the default one).  Where ``torch.distributed`` is not
-    initialized the mesh has one shard: a single process is the whole
-    vector."""
+    None for the default one), its ranks in ``order`` (the group's ranks in
+    mesh order; default the group's own, ``multihost.global_mesh`` gives
+    another).  Where ``torch.distributed`` is not initialized the mesh has
+    one shard: a single process is the whole vector."""
     import torch.distributed as dist
 
     if not (dist.is_available() and dist.is_initialized()):
         return Mesh(None)
-    comm = ShardComm(group)
+    comm = ShardComm(group, order)
     if comm.size == 1:
         return Mesh(None)
     return Mesh(comm, comm.size, comm.rank)
 
 
-def make_mesh_2d(batch_size: int, group=None) -> Mesh:
+def make_mesh_2d(batch_size: int, group=None, order=None) -> Mesh:
     """The 2-D ``(b, d)`` mesh over ``group`` (None for the default one):
     ``batch_size`` rows on the instance axis, the rest of the ranks on the
     vector axis, laid out row-major as the reference's
-    ``reshape(batch_size, n // batch_size)``: rank r sits at (r // n_d,
-    r % n_d).  Every rank creates every row's d group, in the same order,
-    as ``torch.distributed.new_group`` requires; a row of one rank has no
-    d comm.  Raises ``ValueError`` when the ranks do not divide into
+    ``reshape(batch_size, n // batch_size)``: the rank at place r of
+    ``order`` (default the group's own order) sits at (r // n_d, r % n_d).
+    Every rank creates every row's d group, in the same order, as
+    ``torch.distributed.new_group`` requires; a row of one rank has no d
+    comm.  Raises ``ValueError`` when the ranks do not divide into
     ``batch_size`` rows.  Where ``torch.distributed`` is not initialized
     the mesh is the one process, and only ``batch_size=1`` divides it."""
     import torch.distributed as dist
 
     if not (dist.is_available() and dist.is_initialized()):
-        n, rank = 1, 0
+        n = 1
     else:
-        n, rank = dist.get_world_size(group), dist.get_rank(group)
+        n = dist.get_world_size(group)
     if batch_size < 1 or n % batch_size != 0:
         raise ValueError(f"{n} devices not divisible by batch axis "
                          f"{batch_size}")
     n_d = n // batch_size
     if n == 1:
         return Mesh(None)
-    grid = ShardComm(group)
+    grid = ShardComm(group, order)
+    row, col = divmod(grid.rank, n_d)
     comm = None
     if n_d > 1:
         def global_rank(r):
             return r if group is None else dist.get_global_rank(group, r)
 
-        for row in range(batch_size):
-            members = [global_rank(row * n_d + j) for j in range(n_d)]
+        for r in range(batch_size):
+            members = [global_rank(q)
+                       for q in grid.order[r * n_d:(r + 1) * n_d]]
             row_group = dist.new_group(members)
-            if row == rank // n_d:
-                comm = ShardComm(row_group)
-    return Mesh(comm, n_d, rank % n_d, batch_size, rank // n_d, grid)
+            if r == row:
+                # A new group orders its ranks by global rank; the row's
+                # mesh order is the members' order.
+                ranks = sorted(members)
+                comm = ShardComm(row_group, [ranks.index(g) for g in members])
+    return Mesh(comm, n_d, col, batch_size, row, grid)
 
 
 def shard_alignment(n_shards: int) -> int:

@@ -72,3 +72,50 @@ def is_coordinator() -> bool:
 
 def process_count() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _host_order(group, host: Optional[str]) -> list:
+    """The group's ranks in mesh order: the hosts in the order of their
+    lowest rank, each host's ranks together in rank order.  ``host`` names
+    this process's host (default ``socket.gethostname()``); every rank
+    learns every rank's by one ``all_gather_object``."""
+    import socket
+
+    hosts = [None] * dist.get_world_size(group)
+    dist.all_gather_object(hosts, host or socket.gethostname(), group=group)
+    first = {}
+    for h in hosts:
+        first.setdefault(h, len(first))
+    return sorted(range(len(hosts)), key=lambda r: (first[hosts[r]], r))
+
+
+def global_mesh(group=None, host: Optional[str] = None):
+    """The 1-D mesh over every process of the job (``group``, None for the
+    default one) with the ranks of one host adjacent, so that a rank's two
+    neighbours on the vector axis, whose edges it exchanges, are on its
+    own host where they can be: the explicit-SPMD counterpart of the
+    reference's ICI-aware device order
+    (``tpu_lbfgs/dist/multihost.py:132``).  ``host`` overrides this
+    process's host name.  A single process is a mesh of one shard."""
+    from .mesh import Mesh, make_mesh
+
+    if not dist.is_initialized():
+        return Mesh(None)
+    return make_mesh(group, _host_order(group, host))
+
+
+def global_mesh_2d(batch_size: int, group=None, host: Optional[str] = None):
+    """The 2-D ``(b, d)`` mesh over every process of the job, ranks of one
+    host adjacent in row-major order, so that a row's d group stays on one
+    host where it fits (``tpu_lbfgs/dist/multihost.py:149``).  Raises the
+    reference's ``ValueError`` when the processes do not divide into
+    ``batch_size`` rows."""
+    from .mesh import make_mesh_2d
+
+    if not dist.is_initialized():
+        return make_mesh_2d(batch_size)
+    n = dist.get_world_size(group)
+    if batch_size < 1 or n % batch_size != 0:
+        raise ValueError(f"{n} devices not divisible by batch axis "
+                         f"{batch_size}")
+    return make_mesh_2d(batch_size, group, _host_order(group, host))

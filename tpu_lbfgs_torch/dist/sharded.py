@@ -17,11 +17,12 @@ Differences from the reference that follow from that design:
   batch, its row's lanes of that block, and the scalars its row's lanes);
   ``gather_result`` assembles the unpadded whole on every rank.
 - d is padded to a multiple of the group's size only (``mesh``).
-- The objective is a suite problem, by name: the shard-local forms of its
-  value, gradient and directional polynomial (``shardmap_vg``), or with
+- A suite problem, by name, runs the shard-local forms of its value,
+  gradient and directional polynomial (``shardmap_vg``), or with
   ``cfg.use_pallas`` and a float32 x0 the shard-local CUDA kernels
-  (``pallas_sharded``).  A caller's own objective would have to be
-  shard-local too and is not taken on more than one shard.
+  (``pallas_sharded``).  A caller's own whole-vector objective runs on the
+  DTensor of the rank's block (``partitioned``), which partitions it as
+  XLA partitions the reference's.
 - ``sharded_vmap_minimize`` is the same solver over a batched state: each
   rank holds its row's B / b lanes of its d block, every reduction over d
   finishes with one packed all-reduce over the rank's d group for all its
@@ -33,22 +34,30 @@ Differences from the reference that follow from that design:
 from __future__ import annotations
 
 import warnings
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch import Tensor
 
 from ..config import LBFGSConfig
 from ..core.solver import (
+    _solve_traced,
+    _state_to_result,
     init_state,
     make_value_and_grad,
     minimize,
     resolve_history_dtype,
-    solve_to_result,
+    solve_bounded,
+    solve_from_state,
 )
 from ..kernels.fused_ops import pallas_ok
-from ..types import SolveResult
+from ..types import LBFGSState, SolveResult, Status
 from .mesh import Mesh, local_block, local_lanes, make_mesh, pad_for_mesh
+from .partitioned import (
+    partitioned_dir_poly,
+    partitioned_value,
+    partitioned_value_and_grad,
+)
 from .pallas_sharded import (
     SHARDED_PALLAS_PROBLEMS,
     shardmap_fused_tail,
@@ -106,16 +115,6 @@ def _pallas_shard(fn: str, cfg: LBFGSConfig, n_shards: int, problem, dtype):
     return pallas_shard, cfg
 
 
-def _refuse_own_objective(fn: str, problem) -> None:
-    if problem not in CHUNKS:
-        raise NotImplementedError(
-            f"{fn} on more than one shard takes a suite problem by name "
-            f"(problem= one of {sorted(CHUNKS)}): a caller's own objective "
-            "would have to be shard-local and is not ported to "
-            "tpu_lbfgs_torch yet (ROADMAP.md Queue 1 item 12, what is "
-            "left)")
-
-
 def sharded_minimize(f: Callable, x0: Tensor,
                      cfg: LBFGSConfig = LBFGSConfig(),
                      mesh: Optional[Mesh] = None, grad=None,
@@ -130,16 +129,18 @@ def sharded_minimize(f: Callable, x0: Tensor,
     (``mesh.pad_for_mesh``).  The result's scalars are replicated and its
     ``x`` is this rank's block of the padded vector (``gather_result``).
 
-    ``problem``: the suite problem's name, which selects the shard-local
-    objective.  With ``cfg.use_pallas`` and a float32 x0 the solve runs the
+    ``problem``: a suite problem's name selects its shard-local objective.
+    With ``cfg.use_pallas`` and a float32 x0 the solve runs the
     shard-local CUDA kernels (``pallas_sharded``); with ``cfg.use_pallas``
-    but no such kernels (a problem without a kernel body, another dtype) it
-    warns and runs the plain shard-local path, as the reference falls back
-    to its auto-partitioned path.  On a mesh of more than one shard the
-    objective must be a suite problem: ``f``, ``grad``, ``value_and_grad``
-    and ``dir_poly`` are whole-vector callables and are used on a mesh of
-    one shard only, where this is ``minimize``.  ``dir_poly`` not None asks
-    for the problem's sharded polynomial under ``cfg.ls_eval="polynomial"``.
+    but no such kernels (no problem, a problem without a kernel body,
+    another dtype) it warns and runs the plain path, as the reference falls
+    back to its auto-partitioned path.  Without a suite problem ``f`` and
+    the ``grad``, ``value_and_grad`` and ``dir_poly`` given are the
+    caller's whole-vector callables, called on DTensors of the rank's
+    block (``partitioned``; autograd's gradient without ``grad``), which
+    never see the padding; on a mesh of one shard this is ``minimize``.
+    ``dir_poly`` not None asks for the problem's sharded polynomial under
+    ``cfg.ls_eval="polynomial"``.
 
     ``with_matvec``: "auto" applies the port's rule to one shard's ring
     (``_resolve_shard_local``); True / False force the tail's in-kernel
@@ -150,7 +151,6 @@ def sharded_minimize(f: Callable, x0: Tensor,
         vg = make_value_and_grad(f, grad, value_and_grad)
         cfg, _ = _resolve_shard_local(cfg, x0.shape[-1], 1, x0.dtype, False)
         return minimize(f, x0, cfg, value_and_grad=vg, dir_poly=dir_poly)
-    _refuse_own_objective("sharded_minimize", problem)
     if x0.dim() != 1:
         raise ValueError(f"x0 must be (d,), got {tuple(x0.shape)}")
 
@@ -161,7 +161,8 @@ def sharded_minimize(f: Callable, x0: Tensor,
     cfg, wm = _resolve_shard_local(cfg, x0_pad.shape[-1], n_shards, x0.dtype,
                                    with_matvec if pallas_shard else False)
     return solve_shard(problem, local_block(x0_pad, mesh), n, cfg, mesh,
-                       kernels=pallas_shard, with_matvec=wm)
+                       kernels=pallas_shard, with_matvec=wm, f=f, grad=grad,
+                       value_and_grad=value_and_grad, dir_poly=dir_poly)
 
 
 def sharded_vmap_minimize(f: Callable, x0_batch: Tensor,
@@ -190,8 +191,11 @@ def sharded_vmap_minimize(f: Callable, x0_batch: Tensor,
     lanes a rank holds; with the shard-local kernels every call of the
     fused value and gradient, the fused tail and the K-trial evaluators of
     the speculative searches launches the batched shard-local kernel once
-    for all the rank's lanes.  On a mesh of one d shard a row solves its
-    lanes with ``vmap_minimize`` and the caller's own callables.
+    for all the rank's lanes.  A caller's own callables take the batch
+    whole, as ``vmap_minimize``'s do: ``f`` gets the row's (B / b, d)
+    lanes as a DTensor sharded on d and returns (B / b,).  On a mesh of
+    one d shard a row solves its lanes with ``vmap_minimize`` and the
+    caller's own callables.
     ``batch_axis`` and ``d_axis`` name the reference's mesh axes; the
     port's mesh knows its two axes by position and ignores them.
 
@@ -229,7 +233,6 @@ def sharded_vmap_minimize(f: Callable, x0_batch: Tensor,
         return vmap_minimize(f, x_rows, cfg, grad=grad,
                              value_and_grad=value_and_grad,
                              dir_poly=dir_poly, lockstep=lockstep)
-    _refuse_own_objective("sharded_vmap_minimize", problem)
     x_pad, n = pad_for_mesh(x_rows, n_shards)
     cfg, wm = _resolve_shard_local(cfg, x_pad.shape[-1], n_shards,
                                    x0_batch.dtype,
@@ -237,49 +240,149 @@ def sharded_vmap_minimize(f: Callable, x0_batch: Tensor,
                                    batch_local)
     return solve_shard(problem, local_block(x_pad, mesh), n, cfg, mesh,
                        kernels=pallas_shard, with_matvec=wm,
-                       bounded=lockstep == "bounded")
+                       bounded=lockstep == "bounded", f=f, grad=grad,
+                       value_and_grad=value_and_grad, dir_poly=dir_poly)
 
 
-def solve_shard(problem: str, x_local: Tensor, n: int, cfg: LBFGSConfig,
-                mesh: Mesh, kernels: bool, with_matvec: bool = False,
-                bounded: bool = False) -> SolveResult:
+class ShardObjective(NamedTuple):
+    """The callables of one rank's solve, on its block (``f(x_local)``,
+    ``vg(x_local)``, ``dir_poly(x_local, d_local)``, the fused tail and the
+    K-trial evaluators), and ``cfg`` as the loop runs it."""
+    cfg: LBFGSConfig
+    f: Callable
+    vg: Callable
+    dir_poly: Optional[Callable] = None
+    fused_tail: Optional[Callable] = None
+    phi_batch: Optional[Callable] = None
+    phi_dphi_batch: Optional[Callable] = None
+
+
+def shard_objective(problem: Optional[str], n: int, cfg: LBFGSConfig,
+                    mesh: Mesh, kernels: bool = False,
+                    with_matvec: bool = False, f: Optional[Callable] = None,
+                    grad=None, value_and_grad=None,
+                    dir_poly=None) -> ShardObjective:
+    """What a rank's solve runs, ``n`` the global unpadded length.
+
+    A suite ``problem`` (by name): ``kernels`` selects the shard-local
+    kernel path (``pallas_sharded``: the fused value and gradient, the
+    fused tail, the K-trial evaluators of the speculative searches in
+    direct mode) or the plain shard-local objective (``shardmap_vg``), and
+    the problem's sharded polynomial serves ``ls_eval="polynomial"``.  The
+    kernel path's wrappers take any dtype on the CPU (their plain
+    versions), which the tests use in float64.  Otherwise ``f``, ``grad``,
+    ``value_and_grad`` and ``dir_poly`` are the caller's whole-vector
+    callables, partitioned by DTensor (``partitioned``); there is no
+    kernel path for them.  On a mesh of one shard (no comm) the
+    whole-vector forms run: the problem's kernels or callables, or the
+    caller's."""
+    if kernels and problem not in SHARDED_PALLAS_PROBLEMS:
+        raise ValueError(f"no shard-local kernels for problem={problem!r} "
+                         f"(one of {sorted(SHARDED_PALLAS_PROBLEMS)})")
+    # The shard-local kernels replace the objective and the tail; inside
+    # the loop nothing else may launch a whole-vector kernel on a shard.
+    loop_cfg = cfg.replace(use_pallas=False)
+    poly = cfg.ls_eval == "polynomial"
+    if problem not in CHUNKS:
+        if f is None:
+            raise ValueError(f"problem={problem!r} is no suite problem "
+                             f"({sorted(CHUNKS)}) and no f was given")
+        if mesh.comm is None:
+            return ShardObjective(loop_cfg, f, make_value_and_grad(
+                f, grad, value_and_grad), dir_poly if poly else None)
+        return ShardObjective(
+            loop_cfg, partitioned_value(f, mesh, n),
+            partitioned_value_and_grad(f, mesh, n, grad, value_and_grad),
+            partitioned_dir_poly(dir_poly, mesh, n) if poly else None)
+    if mesh.comm is None:
+        # One shard: the problem's whole-vector forms and kernels.
+        from ..problems import suite
+
+        p = suite.get_problem(problem)
+        plain = (p.f, p.value_and_grad, p.dir_poly)
+        fused = (suite.fused_value_and_grad, suite.fused_tail_for,
+                 suite.multi_phi_for, suite.multi_phi_dphi_for)
+    else:
+        plain = (shardmap_value(problem, mesh, n),
+                 shardmap_value_and_grad(problem, mesh, n),
+                 shardmap_dir_poly(problem, mesh, n))
+        fused = tuple(
+            lambda name, _k=k, **kw: _k(name, mesh, n, **kw)
+            for k in (shardmap_fused_vg, shardmap_fused_tail,
+                      shardmap_multi_phi, shardmap_multi_phi_dphi))
+    obj = ShardObjective(loop_cfg, plain[0], plain[1],
+                         plain[2] if poly else None)
+    if not kernels:
+        return obj
+    vg, tail, phi, phi_dphi = fused
+    speculative = cfg.ls_eval == "direct" and cfg.line_search in (
+        "backtracking_speculative", "wolfe_interpolation_speculative",
+        "backtracking_wolfe_speculative")
+    armijo = cfg.line_search == "backtracking_speculative"
+    return obj._replace(
+        vg=vg(problem),
+        fused_tail=tail(problem, with_matvec=with_matvec,
+                        accurate_dots=cfg.accurate_dots),
+        phi_batch=phi(problem) if speculative and armijo else None,
+        phi_dphi_batch=phi_dphi(problem)
+        if speculative and not armijo else None)
+
+
+def solve_shard(problem: Optional[str], x_local: Tensor, n: int,
+                cfg: LBFGSConfig, mesh: Mesh, kernels: bool,
+                with_matvec: bool = False, bounded: bool = False,
+                return_state: bool = False, **own):
     """This rank's part of the sharded solve from its block ``x_local`` of
     the zero-padded start, ``n`` the global unpadded length:
     ``sharded_minimize`` (a (d_local,) block) and ``sharded_vmap_minimize``
     (a row's (B / b, d_local) lanes) after their argument handling.
-    ``kernels`` selects the shard-local kernel path (``pallas_sharded``: the
-    fused value and gradient, the fused tail, the K-trial evaluators of the
-    speculative searches in direct mode) or the plain shard-local objective
-    (``shardmap_vg``).  The kernel path's wrappers take any dtype on the
-    CPU (their plain versions), which the tests use in float64.
-    ``bounded``: ``solve_bounded``, every lane for ``cfg.max_iters`` with no
-    read, else ``solve_from_state`` (or the traced solve)."""
-    fused_tail = phi_batch = phi_dphi_batch = None
-    if kernels:
-        vg = shardmap_fused_vg(problem, mesh, n)
-        fused_tail = shardmap_fused_tail(problem, mesh, n,
-                                         with_matvec=with_matvec,
-                                         accurate_dots=cfg.accurate_dots)
-        if cfg.ls_eval == "direct":
-            if cfg.line_search == "backtracking_speculative":
-                phi_batch = shardmap_multi_phi(problem, mesh, n)
-            if cfg.line_search in ("wolfe_interpolation_speculative",
-                                   "backtracking_wolfe_speculative"):
-                phi_dphi_batch = shardmap_multi_phi_dphi(problem, mesh, n)
-    else:
-        vg = shardmap_value_and_grad(problem, mesh, n)
-    # The shard-local kernels replace the objective and the tail; inside
-    # the loop nothing else may launch a whole-vector kernel on a shard.
-    cfg = cfg.replace(use_pallas=False)
-    f_local = shardmap_value(problem, mesh, n)
-    poly = shardmap_dir_poly(problem, mesh, n) \
-        if cfg.ls_eval == "polynomial" else None
+    ``problem``, ``kernels``, ``with_matvec`` and ``own`` (the caller's
+    ``f``, ``grad``, ``value_and_grad``, ``dir_poly``) as in
+    ``shard_objective``; ``bounded`` as in ``solve_shard_from_state``.
+    Returns the ``SolveResult``, and with ``return_state`` also the
+    rank's final state, which ``solve_shard_from_state`` and
+    ``io.save_state_sharded`` take."""
+    obj = shard_objective(problem, n, cfg, mesh, kernels, with_matvec, **own)
+    state = init_state(obj.vg, x_local, cfg.m, cfg.history_dtype,
+                       comm=mesh.comm)
+    res, state = _solve(obj, state, mesh, bounded)
+    return (res, state) if return_state else res
 
-    comm = mesh.comm
-    state = init_state(vg, x_local, cfg.m, cfg.history_dtype, comm=comm)
-    return solve_to_result(cfg, f_local, vg, state, poly, fused_tail,
-                           phi_batch, phi_dphi_batch, bounded=bounded,
-                           comm=comm)
+
+def solve_shard_from_state(state: LBFGSState, n: int, cfg: LBFGSConfig,
+                           mesh: Mesh, problem: Optional[str] = None,
+                           kernels: bool = False, with_matvec: bool = False,
+                           bounded: bool = False,
+                           **own) -> tuple[SolveResult, LBFGSState]:
+    """The state-in / state-out form of the sharded solve: from this rank's
+    ``state`` (its block of x, g and the ring, the replicated scalars; as
+    ``solve_shard(..., return_state=True)`` or ``io.load_state_sharded``
+    give it) on ``mesh``, the objective as in ``shard_objective``, while
+    ``state.k < cfg.max_iters`` and the solve runs.  ``bounded``:
+    ``solve_bounded``, ``cfg.max_iters`` more iterations with no read,
+    else ``solve_from_state`` (or the traced solve).  Returns this rank's
+    ``SolveResult`` and final state.  The ring is updated in place: the
+    state handed in must not be used again."""
+    obj = shard_objective(problem, n, cfg, mesh, kernels, with_matvec, **own)
+    return _solve(obj, state, mesh, bounded)
+
+
+def _solve(obj: ShardObjective, state: LBFGSState, mesh: Mesh,
+           bounded: bool) -> tuple[SolveResult, LBFGSState]:
+    args = (obj.cfg, obj.f, obj.vg, state, obj.dir_poly, obj.fused_tail,
+            obj.phi_batch, obj.phi_dphi_batch, mesh.comm)
+    trace = None
+    if bounded:
+        state = solve_bounded(*args)
+    elif obj.cfg.record_trace:
+        state, trace = _solve_traced(*args)
+    else:
+        state = solve_from_state(*args)
+    # The state goes on: a solve that its cap stopped is RUNNING again, as
+    # ``make_solve_segment`` leaves it, so a later cap resumes it.
+    status = torch.where(state.status == Status.MAX_ITERS, Status.RUNNING,
+                         state.status).to(state.status.dtype)
+    return _state_to_result(state, trace), state.replace(status=status)
 
 
 def _gather_lanes(t: Tensor, mesh: Mesh) -> Tensor:

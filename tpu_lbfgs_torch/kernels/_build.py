@@ -68,7 +68,9 @@ _SIGNATURES = {
                                                  ctypes.c_longlong, _P],
                                      ctypes.c_int)
        for t in ("f32", "f64", "f32_bf16")},
-    **{f"tl_compact_chain_{t}": ([_P] * 8 + [c_thr, ctypes.c_int] + [_P] * 5
+    # ... skip_thr, use_thr, spread, the five outputs, B, m, stream.
+    **{f"tl_compact_chain_{t}": ([_P] * 8 + [c_thr, ctypes.c_int,
+                                            ctypes.c_int] + [_P] * 5
                                  + [ctypes.c_longlong, ctypes.c_int, _P],
                                  ctypes.c_int)
        for t, c_thr in (("f32", ctypes.c_float), ("f64", ctypes.c_double))},

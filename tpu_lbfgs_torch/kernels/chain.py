@@ -13,8 +13,12 @@
                          order of operations.
 
 The logical-order rotation uses index gathers where the reference used
-one-hot permutation matmuls or select chains, which only paid on the TPU;
-a gather gives the select chains' NaN semantics exactly.
+one-hot permutation matmuls or select chains, which only paid on the TPU.
+A gather gives the select chains' NaN semantics exactly; the one-hot
+matmuls, the reference's default, spread a non-finite product to every
+entry, which ``onehot_spread`` reproduces where the reference runs them
+(``reference_spreads``).  Its one-hot sums of the newest sy_hist and
+yy_hist compile to selects and spread nothing, as the gather.
 
 As in ``fused_ops``, the batched wrapper takes its plain version only for
 tensors on the CPU, and ``launches`` counts its kernel launches.
@@ -43,13 +47,54 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def reference_spreads(SY_p: Tensor) -> bool:
+    """Whether the reference's chain spreads non-finite products for these
+    (B, m, m) ones: its vmapped one-hot chain does
+    (tpu_lbfgs/kernels/chain.py:67-80, :99-104), its Pallas chain, taken
+    for float32 batches of B % 1024 == 0 (:313-325), selects and does
+    not."""
+    return not (SY_p.dtype == torch.float32 and SY_p.shape[0] % 1024 == 0)
+
+
+def onehot_spread(SY_p: Tensor, YY_p: Tensor, Sg_p: Tensor, Yg_p: Tensor,
+                  diag: Tensor):
+    """(diagonal, damaged): what the reference's one-hot reorderings make
+    of non-finite products, for one instance or a batch.
+
+    ``P @ A @ P.T`` (and ``P @ v``) adds every entry of A into every entry
+    of the result, with weight 1 or 0, and 0 * inf and 0 * NaN are NaN
+    (XLA keeps these dots as dots, compiled or not).  So an entry of the
+    result keeps its value when every non-finite entry of A is that entry
+    itself, and is NaN otherwise.  Of SY that decides the
+    diagonal, which the pair skip reads: returned as the reference sees it.
+    Every other entry (R, YY, p1, p2) enters the chain only through valid
+    pairs, and there a non-finite one makes u or v non-finite and the chain
+    falls back to -g: ``damaged`` is whether SY, YY, Sg or Yg holds a
+    non-finite entry, which falls back where any pair is valid."""
+    # x - x is NaN exactly where x is not finite, else 0: few operations
+    # and no scalar, which the host-bound single-instance iteration pays
+    # for.  An entry keeps its value iff SY's count of non-finite entries
+    # equals its own (0 or 1).
+    mm = SY_p.shape[-1] * SY_p.shape[-2]
+    every = torch.cat([SY_p.flatten(-2), YY_p.flatten(-2), Sg_p, Yg_p],
+                      dim=-1)
+    zeros = every - every
+    damaged = torch.isnan(zeros.sum(-1))
+    n_bad = torch.isnan(zeros[..., :mm]).sum(-1, keepdim=True)
+    zero_d = diag - diag
+    keep = torch.isnan(zero_d) == n_bad
+    return torch.where(keep, diag, zero_d / zero_d), damaged
+
+
 def chain_torch(SY_p: Tensor, YY_p: Tensor, Sg_p: Tensor, Yg_p: Tensor,
                 sy_hist: Tensor, yy_hist: Tensor, n_pairs: Tensor,
                 g_norm: Tensor, m: int, skip_thr):
     """(v_phys, u_phys, gamma, g_dot_d, fallback_pre) for one instance, as
     ``chain_jnp``: rotate the products to logical order, build the masked
     R, solve R u = p1 and R^T v = D u + gamma YY u - gamma p2, scatter v and
-    u back to slot order, and flag invalid curvature."""
+    u back to slot order, and flag invalid curvature, non-finite entries
+    spread as the reference's one-hot products spread them
+    (``onehot_spread``)."""
     from ..core.direction import _newest_ratio, _ring_logical_slots
 
     dtype, dev = SY_p.dtype, SY_p.device
@@ -57,7 +102,7 @@ def chain_torch(SY_p: Tensor, YY_p: Tensor, Sg_p: Tensor, Yg_p: Tensor,
     idx = slots.long()
     SY = SY_p.index_select(0, idx).index_select(1, idx)
     YY = YY_p.index_select(0, idx).index_select(1, idx)
-    diag = torch.diagonal(SY)
+    diag, damaged = onehot_spread(SY_p, YY_p, Sg_p, Yg_p, torch.diagonal(SY))
     if skip_thr is not None:
         valid = valid & (diag > skip_thr)
     p1 = torch.where(valid, Sg_p.index_select(0, idx), 0.0)
@@ -85,7 +130,8 @@ def chain_torch(SY_p: Tensor, YY_p: Tensor, Sg_p: Tensor, Yg_p: Tensor,
     small_ok = torch.all(torch.isfinite(v_phys)) & torch.all(
         torch.isfinite(u_phys))
     hist_len = torch.clamp(n_pairs, max=m)
-    fallback = bad_rho | bad_gamma | (hist_len == 0) | ~small_ok
+    fallback = (bad_rho | bad_gamma | (hist_len == 0) | ~small_ok
+                | (damaged & valid.any()))
 
     gg = g_norm * g_norm
     g_dot_d = -(gamma * gg + torch.dot(v, p1) - gamma * torch.dot(u, p2))
@@ -96,7 +142,8 @@ def chain_batched_plain(SY_p: Tensor, YY_p: Tensor, Sg_p: Tensor,
                         Yg_p: Tensor, sy_hist: Tensor, yy_hist: Tensor,
                         n_pairs: Tensor, g_norm: Tensor, m: int, skip_thr):
     """``chain_torch`` for B instances at once: (B, m, m), (B, m) and (B,)
-    in, (v_phys, u_phys, gamma, g_dot_d, fallback) out.
+    in, (v_phys, u_phys, gamma, g_dot_d, fallback) out, non-finite
+    products spread as by ``onehot_spread`` where ``reference_spreads``.
 
     It follows the Pallas kernel (tpu_lbfgs/kernels/chain.py:122-233)
     operation for operation, so that the CUDA kernel, built with
@@ -114,6 +161,9 @@ def chain_batched_plain(SY_p: Tensor, YY_p: Tensor, Sg_p: Tensor,
     SY = SY_p.gather(1, rows).gather(2, cols)               # logical order
     YY = YY_p.gather(1, rows).gather(2, cols)
     diag = torch.diagonal(SY, dim1=1, dim2=2)
+    spread = reference_spreads(SY_p)
+    if spread:
+        diag, damaged = onehot_spread(SY_p, YY_p, Sg_p, Yg_p, diag)
     if skip_thr is not None:
         valid = valid & (diag > skip_thr)
     zero = torch.zeros((), dtype=SY_p.dtype, device=SY_p.device)
@@ -154,6 +204,8 @@ def chain_batched_plain(SY_p: Tensor, YY_p: Tensor, Sg_p: Tensor,
     bad_gamma = (gamma <= 0) | ~torch.isfinite(gamma)
     bad_rho = (valid & ~torch.isfinite(1.0 / d_diag)).any(dim=1)
     fallback = bad_rho | bad_gamma | (n_pairs == 0) | ~small_ok
+    if spread:
+        fallback = fallback | (damaged & valid.any(dim=1))
 
     gg = g_norm * g_norm
     vp1, up2 = v * p1, u * p2
@@ -218,8 +270,9 @@ def compact_chain_batched(SY_p: Tensor, YY_p: Tensor, Sg_p: Tensor,
         err = getattr(lib, entry)(
             *(t.data_ptr() for t in args),
             c_scalar(skip_thr if use_thr else 0.0), int(use_thr),
-            v_phys.data_ptr(), u_phys.data_ptr(), gamma.data_ptr(),
-            g_dot_d.data_ptr(), fallback.data_ptr(), B, m,
+            int(reference_spreads(SY_p)), v_phys.data_ptr(),
+            u_phys.data_ptr(), gamma.data_ptr(), g_dot_d.data_ptr(),
+            fallback.data_ptr(), B, m,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "compact_chain")
     launches["compact_chain"] += 1
