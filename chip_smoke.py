@@ -8,7 +8,11 @@ Run from the repository root, on a machine with a CUDA card:
 It builds the port's CUDA kernels from tpu_lbfgs_torch/csrc, holds each
 against its plain PyTorch version on the card, and drives nine paths,
 each solve with the kernels' launch counts set to 0 just before it and
-read just after:
+read just after.  The solves run their iterations in blocks replayed as
+CUDA graphs (tpu_lbfgs_torch.core.blocks): a launch recorded into a
+graph's capture runs on every replay, and the counts count what the card
+ran, with the replayed part apart, so each check holds a solve to one
+launch per iteration the graphs stepped.  The paths:
 
 - the single instance (chained Rosenbrock, d = 2^20, float32, m = 10,
   compact_incremental direction, Armijo backtracking on the directional
@@ -123,6 +127,15 @@ the checkpoints at the sizes their users run:
   10,000: the three float32 parallel-configuration cells that the
   reference records as line_search_failed at iteration 1 end so here, and
   a float64 cell on the quadratic converges.
+
+After [batch], [graph] holds the solve loops' CUDA graphs to the same
+blocks run eagerly (tpu_lbfgs_torch.eager_loops): bench.py's solve at d =
+2^20 for 400 iterations and the batch cell for 200, bit for bit and timed
+in turns; a solve of each while form that its tol ends inside a block;
+replayed blocks under torch.cuda.set_sync_debug_mode("error"); the
+graphs' capture seconds and private pool at d = 2^20 and 2^26; the block
+length timed at 5, 20 and 50; and, after every timed phase, device
+kernels per iteration from torch.profiler, replayed against eager.
 
 After [checkpoint], six phases drive what the port added last:
 
@@ -241,6 +254,10 @@ DIRECT_BOX = 10.0
 # float64 kept, and one lane ended 475x apart; every other search kept
 # every lane's status, f within 8.1e-5, median 2-4e-7).
 SEARCH_ITERS = 20
+# The fixed-trip search whose capture [batch-search] holds to its eager
+# blocks: the interpolating Wolfe search (the capture of its 40 iterations
+# took 1.36 s on an H100 80GB HBM3 at 700 W, torch_records/graph_costs.py).
+SEARCH_CAPTURE = "wolfe_interpolation"
 SEARCH_D_ITERS = 10
 SEARCH_LANE_SHARE = 0.99
 SEARCH_F_RTOL = 1e-3
@@ -309,6 +326,68 @@ def check(ok, what):
 def ran(launches):
     """The kernels of a launch count that ran, for a printed line."""
     return {name: n for name, n in launches.items() if n}
+
+
+# The solves run their iterations in blocks replayed as CUDA graphs
+# (tpu_lbfgs_torch.core.blocks).  A kernel wrapper called while a graph is
+# captured records its launch into the graph, and each replay runs it:
+# kernels.launch_counts() counts what the card ran, eager launches and
+# replays together, kernels.replay_counts() the replayed part (each
+# graph's captured launches times its replays).  Each capture starts with
+# one warm-up iteration, every lane masked off, which runs every kernel of
+# an iteration once more, eagerly.  A solve that ends inside a block steps
+# on, frozen, to the block's end.  The checks below hold a solve in blocks
+# to one launch per iteration the graphs stepped.
+
+def reset_counts():
+    """Zero the kernels' launch counts and the block runner's counts
+    together, just before a solve."""
+    from tpu_lbfgs_torch import kernels
+    from tpu_lbfgs_torch.core import blocks
+
+    kernels.reset_launches()
+    blocks.reset_stats()
+
+
+def per_step(name, eager=0):
+    """Whether kernel ``name`` ran once per iteration stepped in blocks
+    since reset_counts(): its replayed launches equal those iterations
+    (none where the blocks ran eagerly, blocks.eager_loops), and its
+    launches in all those plus one per capture's warm-up iteration and
+    ``eager`` launches outside the blocks."""
+    from tpu_lbfgs_torch import kernels
+    from tpu_lbfgs_torch.core import blocks
+
+    st = blocks.stats
+    replayed = st["steps"] if st["replays"] else 0
+    return (kernels.replay_counts()[name] == replayed
+            and kernels.launch_counts()[name]
+            == st["steps"] + st["warmups"] + eager)
+
+
+def one_per_iteration(name, k, eager=0):
+    """Whether kernel ``name`` ran once per iteration of a solve of ``k``
+    iterations since reset_counts(): ``k`` launches (+ ``eager``) where the
+    solve kept its per-iteration loop; in blocks, ``per_step``, with ``k``
+    among the iterations stepped and fewer than a block past it."""
+    from tpu_lbfgs_torch import kernels
+    from tpu_lbfgs_torch.core import blocks
+
+    steps = blocks.stats["steps"]
+    if steps == 0:
+        return kernels.launch_counts()[name] == k + eager
+    return per_step(name, eager) and k <= steps < k + blocks.BLOCK_ITERS
+
+
+def blocks_note():
+    """The block runner's counts since reset_counts(), for a line."""
+    from tpu_lbfgs_torch.core import blocks
+
+    st = blocks.stats
+    return (f"{st['steps']} iterations in blocks ({st['replays']} replays, "
+            f"{st['captures']} captures in {st['capture_s']:.3f} s, "
+            f"{st['warmups']} warm-up iterations, {st['host_reads']} host "
+            "reads of the loop's flags)")
 
 
 def ulps(a, b):
@@ -1164,7 +1243,7 @@ def phase_main_path(dev):
     cfg = _bench_cfg(tt, MAIN_ITERS)
     torch.cuda.synchronize()
 
-    kernels.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     r = tt.minimize(p.f, x0, cfg, value_and_grad=vg, dir_poly=p.dir_poly,
                     fused_tail=tail)
@@ -1176,13 +1255,16 @@ def phase_main_path(dev):
     say(f"[main] minimize d={D} float32, {k} iterations in {wall:.3f} s: "
         f"f {f0:.6e} -> {f:.6e}, |g| {r.g_norm.item():.4e}, status "
         f"{tt.Status.NAMES[r.status.item()]}, guards {r.guards.tolist()}, "
-        f"launches {ran(launches)}")
+        f"launches {ran(launches)} (replayed "
+        f"{ran(kernels.replay_counts())}); {blocks_note()}")
     check(r.status.item() == tt.Status.MAX_ITERS and k == MAIN_ITERS,
           "the solve must run its 200 iterations to max_iters")
     check(r.x.shape == (D,) and bool(torch.isfinite(r.x).all())
           and np.isfinite(f) and f < f0, "f must be finite and decrease")
-    check(launches["rosenbrock_fused_tail"] == k,
-          "the fused tail kernel must launch once per iteration")
+    check(one_per_iteration("rosenbrock_fused_tail", k)
+          and kernels.replay_counts()["rosenbrock_fused_tail"] == k,
+          "the fused tail kernel must launch once per iteration, each "
+          "replayed from a graph")
     check(launches["rosenbrock_vg"] >= 1, "the vg kernel must launch")
 
     # The first iterations with the kernels and with the plain versions,
@@ -1231,19 +1313,27 @@ def phase_bench(card):
     from tpu_lbfgs_torch import kernels
     from tpu_lbfgs_torch.bench.harness import bench_gpu
 
-    kernels.reset_launches()
+    from tpu_lbfgs_torch.core import blocks
+
+    reset_counts()
     r = bench_gpu(problem="rosenbrock", d=D, iters=BENCH_ITERS,
                   cfg=_bench_cfg(tt, BENCH_ITERS), repeats=3)
     check(np.isfinite(r.final_f) and r.iterations == BENCH_ITERS,
           "bench_gpu must finish its iterations with a finite f")
-    # One warm-up and three timed runs, each through the kernels.
+    # One warm-up run, which captures the graphs (after one warm-up
+    # iteration), and three timed runs that replay them.
     got = kernels.launch_counts()
-    check(got["rosenbrock_fused_tail"] == 4 * BENCH_ITERS
-          and got["rosenbrock_vg"] == 4,
-          f"bench_gpu must run the fused kernels, launches {ran(got)}")
+    check(per_step("rosenbrock_fused_tail")
+          and blocks.stats["steps"] == 4 * BENCH_ITERS
+          and blocks.stats["warmups"] == 1 and got["rosenbrock_vg"] == 4,
+          f"bench_gpu must run the fused kernels, once per iteration from "
+          f"the graphs, launches {ran(got)}; {blocks_note()}")
+    d = r.details
     say(f"[bench] {r.name}: {r.iters_per_s:.2f} iterations/s "
         f"({BENCH_ITERS} iterations, best of 3 runs {r.wall_s:.4f} s, "
-        f"runs {[round(w, 4) for w in r.details['repeat_walls_s']]}) on "
+        f"runs {[round(w, 4) for w in d['repeat_walls_s']]}; graphs "
+        f"captured in the warm-up run in {d['capture_s']:.3f} s, "
+        f"{d['host_reads_per_solve']:.0f} host reads per timed solve) on "
         f"{card}")
 
 
@@ -1275,13 +1365,14 @@ def phase_batch(dev):
     cfg = _batch_cfg(tt, BATCH_ITERS)
     torch.cuda.synchronize()
 
-    kernels.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     r = tt.vmap_minimize(p.f, x0, cfg, grad=p.grad, dir_poly=p.dir_poly,
                          lockstep="bounded")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    note = blocks_note()
 
     counts = torch.bincount(r.status.long(), minlength=4).tolist()
     status = {tt.Status.NAMES[i]: n for i, n in enumerate(counts) if n}
@@ -1290,10 +1381,11 @@ def phase_batch(dev):
     say(f"[batch] vmap_minimize B={BATCH} d={BATCH_D} float32 bounded, "
         f"{BATCH_ITERS} iterations in {wall:.3f} s: mean f {mean0:.6e} -> "
         f"{mean1:.6e}, max |g| {r.g_norm.max().item():.4e}, status {status}, "
-        f"guards {r.guards.sum(0).tolist()}, launches {ran(launches)}")
+        f"guards {r.guards.sum(0).tolist()}, launches {ran(launches)}; "
+        f"{note}")
     check(bool((r.iterations == BATCH_ITERS).all()),
           "every lane must run its 200 iterations")
-    check(launches["compact_chain"] == BATCH_ITERS,
+    check(one_per_iteration("compact_chain", BATCH_ITERS),
           "the chain kernel must launch once per iteration")
     check(r.x.shape == (BATCH, BATCH_D) and r.f.shape == (BATCH,)
           and bool(torch.isfinite(r.f[ok]).all())
@@ -1343,15 +1435,16 @@ def phase_batch_any_m(dev, p, x0):
     for label in ("kernel", "plain"):
         if label == "plain":
             direction.compact_chain_batched = chain.chain_batched_plain
-        kernels.reset_launches()
+        reset_counts()
         try:
             r = tt.vmap_minimize(p.f, x0, cfg, grad=p.grad,
                                  dir_poly=p.dir_poly, lockstep="bounded")
             torch.cuda.synchronize()
         finally:
             direction.compact_chain_batched = chain.compact_chain_batched
-        runs[label] = (r, kernels.launch_counts()["compact_chain"])
-    (rk, nk), (rp, np_) = runs["kernel"], runs["plain"]
+        runs[label] = (r, kernels.launch_counts()["compact_chain"],
+                       one_per_iteration("compact_chain", CHAIN_SOLVE_ITERS))
+    (rk, nk, each), (rp, np_, _) = runs["kernel"], runs["plain"]
     same = all(torch.equal(a.isnan(), b.isnan())
                and torch.equal(a.nan_to_num(), b.nan_to_num())
                for a, b in ((rk.x, rp.x), (rk.f, rp.f),
@@ -1361,7 +1454,7 @@ def phase_batch_any_m(dev, p, x0):
         f"{CHAIN_SOLVE_ITERS} iterations: chain launches {nk} (plain run "
         f"{np_}), x, f, g_norm bit-equal to the plain chain's solve {same}, "
         f"mean f {rk.f.mean().item():.6e}")
-    check(nk == CHAIN_SOLVE_ITERS and np_ == 0,
+    check(each and np_ == 0,
           f"the m={CHAIN_SOLVE_M} batch solve must launch the chain kernel "
           "once per iteration")
     check(same and bool(torch.isfinite(rk.f[ok]).all()),
@@ -1382,6 +1475,436 @@ def phase_batch_no_sync(state, cfg):
     check(state.f.shape == (BATCH,), "a batched state must stay batched")
     say("[sync] one batched iterate (B=4096) under "
         "torch.cuda.set_sync_debug_mode('error'): no host synchronisation")
+
+
+# [graph]: the solve loops as blocks of iterations replayed as CUDA graphs
+# (tpu_lbfgs_torch.core.blocks) against the same blocks run eagerly
+# (blocks.eager_loops, the counterpart of jax.disable_jit).  bench.py's
+# solve (solve_from_state) at D for BENCH_ITERS iterations and the batch
+# cell (solve_bounded) for BATCH_ITERS: the replayed run equal to the eager
+# one bit for bit (x, f, g_norm, k, status, guards, n_fev, n_gev), and both
+# timed in turns (eager, graphs, graphs, eager; each mode keeps its runner
+# in a blocks.Kept, the graphs captured in a warm-up run before, as the
+# harnesses capture in theirs); a solve of each while form (minimize,
+# make_solve_segment, vmap_minimize lockstep "while") that tol ends inside a
+# block, bit for bit; blocks replayed under set_sync_debug_mode("error");
+# the graphs' capture seconds and private pool at D and GRAPH_POOL_D; the
+# block length timed at GRAPH_BLOCKS; short solves (GRAPH_SHORT) as a
+# caller's minimize runs them, each capturing afresh, against eager blocks
+# and against capture forced below blocks.CAPTURE_MIN_ITERS; and an
+# objective that reads the host, whose capture must fail naming it.
+# Device kernels per iteration, replayed against eager, come from
+# torch.profiler after every timed phase (phase_graph_kernels).
+GRAPH_FIELDS = ("x", "f", "g_norm", "iterations", "status", "guards",
+                "n_fev", "n_gev")
+GRAPH_BLOCKS = (5, 20, 50)
+GRAPH_POOL_D = 1 << 26
+GRAPH_TOL_ITERS = 200
+GRAPH_SYNC_BLOCKS = 5
+GRAPH_SHORT = ((1 << 12, (20, 40, 100)), (D, (20, 40, 100)))
+GRAPH_FREED_BYTES = 1 << 31
+
+
+def _graph_same(a, b):
+    """The result fields on which a and b differ, bit for bit (a NaN equal
+    to a NaN in its place)."""
+    def same(u, v):
+        if u.dtype != v.dtype:
+            return False
+        if not u.is_floating_point():
+            return torch.equal(u, v)
+        return (torch.equal(u.isnan(), v.isnan())
+                and torch.equal(u.nan_to_num(), v.nan_to_num()))
+
+    return [n for n in GRAPH_FIELDS if not same(getattr(a, n),
+                                                getattr(b, n))]
+
+
+def _graph_mode(blocks, mode):
+    import contextlib
+
+    return blocks.eager_loops() if mode == "eager" \
+        else contextlib.nullcontext()
+
+
+def _graph_turns(label, blocks, run, iters, lanes=1):
+    """run(kept) eager and replayed: the first of each bit for bit, then
+    timed in turns, each mode keeping its runner in its own blocks.Kept,
+    so that its first run (the graphs' capture) is a warm-up.  Returns the
+    iterations/s of each mode (instance-iterations/s for a batch), the
+    capture seconds and the replayed result."""
+    out, walls = {}, {"eager": [], "graphs": []}
+    kept = {mode: blocks.Kept() for mode in walls}
+    capture = dict(blocks.stats)
+    for mode in ("eager", "graphs"):
+        with _graph_mode(blocks, mode):
+            out[mode] = run(kept[mode])
+    torch.cuda.synchronize()
+    capture_s = blocks.stats["capture_s"] - capture["capture_s"]
+    differ = _graph_same(out["eager"], out["graphs"])
+    for mode in ("eager", "graphs", "graphs", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _graph_mode(blocks, mode):
+            run(kept[mode])
+        torch.cuda.synchronize()
+        walls[mode].append(time.perf_counter() - t0)
+    rate = {mode: [lanes * iters / w for w in ws]
+            for mode, ws in walls.items()}
+    say(f"[graph] {label}: replayed against eager, fields that differ "
+        f"{differ}; in turns (eager, graphs, graphs, eager) "
+        + ("instance-iterations/s" if lanes > 1 else "iterations/s")
+        + f" eager {[round(v, 2) for v in rate['eager']]}, graphs "
+        f"{[round(v, 2) for v in rate['graphs']]} (ms/iteration eager "
+        f"{[round(w / iters * 1e3, 4) for w in walls['eager']]}, graphs "
+        f"{[round(w / iters * 1e3, 4) for w in walls['graphs']]}); "
+        f"captured in the warm-up run in {capture_s:.3f} s")
+    check(not differ, f"[graph] {label}: the replayed solve differs from "
+          f"the eager one in {differ}")
+    return rate, capture_s, out["graphs"]
+
+
+def _graph_pool(label, blocks, tt, cfg, p, vg, tail, x0, card):
+    """The private pool of a block's graph: the card's reserved memory
+    after the capture against before it (empty caches on both sides), and
+    the capture's seconds."""
+    from tpu_lbfgs_torch.core.solver import _stepper
+
+    state = tt.init_state(vg, x0, cfg.m)
+    drv = blocks.BlockRunner(cfg, _stepper(cfg, p.f, vg, p.dir_poly, tail),
+                             state, masked=True)
+    drv.start(None)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before_b, before_s = torch.cuda.memory_reserved(), blocks.stats[
+        "capture_s"]
+    drv.run(blocks.BLOCK_ITERS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pool = torch.cuda.memory_reserved() - before_b
+    capture_s = blocks.stats["capture_s"] - before_s
+    ring = 2 * state.s_hist.numel() * state.s_hist.element_size()
+    say(f"[graph] {label}: one block of {blocks.BLOCK_ITERS} iterations "
+        f"captured in {capture_s:.3f} s (a warm-up iteration included), "
+        f"its private pool {pool / 1e6:.1f} MB beside a ring of "
+        f"{ring / 1e6:.1f} MB, on {card}")
+    check(bool(torch.isfinite(drv.s.f)), f"[graph] {label}: f must stay "
+          "finite")
+    return pool
+
+
+def phase_graph(dev, card):
+    """[graph]: the block runner's graphs against its eager blocks, at the
+    main path's and the batch cell's widths."""
+    import tpu_lbfgs_torch as tt
+    from tpu_lbfgs_torch.bench.harness import _x0
+    from tpu_lbfgs_torch.core import blocks
+    from tpu_lbfgs_torch.core.solver import _stepper
+
+    rose = tt.get_problem("rosenbrock")
+    vg = tt.fused_value_and_grad("rosenbrock")
+    tail = tt.fused_tail_for("rosenbrock")
+    x0 = _x0(D, SEED, torch.float32, dev)
+    cfg = _bench_cfg(tt, BENCH_ITERS)
+
+    def single(kept=None):
+        # minimize's solve, with a runner kept across the calls.
+        state = tt.init_state(vg, x0, cfg.m)
+        return tt.finalize_result(cfg, tt.solve_from_state(
+            cfg, rose.f, vg, state, rose.dir_poly, tail, kept=kept))
+
+    bx = _batch_x0(dev)
+    bcfg = _batch_cfg(tt, BATCH_ITERS)
+    bvg = tt.make_value_and_grad(rose.f, rose.grad)
+
+    def batch(kept=None):
+        # vmap_minimize's bounded solve, with a runner kept across the calls.
+        state = tt.init_state(bvg, bx, bcfg.m)
+        return tt.finalize_result(bcfg, tt.solve_bounded(
+            bcfg, rose.f, bvg, state, rose.dir_poly, kept=kept))
+
+    # Bit for bit and in turns, at the block length the solver takes.
+    reset_counts()
+    _graph_turns(f"bench.py's solve d={D} float32, {BENCH_ITERS} "
+                 "iterations", blocks, single, BENCH_ITERS)
+    _graph_turns(f"the batch cell B={BATCH} d={BATCH_D} float32 bounded, "
+                 f"{BATCH_ITERS} iterations", blocks, batch, BATCH_ITERS,
+                 BATCH)
+
+    # A solve of each while form whose tol ends it inside a block.
+    cq = tt.get_problem("coupled_quadratic")
+    cvg = tt.fused_value_and_grad("coupled_quadratic")
+    ctail = tt.fused_tail_for("coupled_quadratic")
+    ccfg = _bench_cfg(tt, GRAPH_TOL_ITERS).replace(tol=1e-5)
+    xq = torch.from_numpy(np.random.default_rng(SEED).uniform(
+        -1.0, 1.0, D)).to(dev, torch.float32)
+    mixed = bx.clone()
+    mixed[: BATCH // 2] = 1.0 + 0.1 * (2.0 * torch.rand(
+        BATCH // 2, BATCH_D, generator=torch.Generator(dev).manual_seed(SEED),
+        device=dev) - 1.0)
+    forms = {
+        "minimize": lambda: tt.minimize(
+            cq.f, xq, ccfg, value_and_grad=cvg, dir_poly=cq.dir_poly,
+            fused_tail=ctail),
+        "make_solve_segment": lambda: tt.finalize_result(
+            ccfg, tt.make_solve_segment(
+                ccfg, cq.f, value_and_grad=cvg, iters=GRAPH_TOL_ITERS,
+                dir_poly=cq.dir_poly, fused_tail=ctail)(
+                tt.init_state(cvg, xq, ccfg.m))),
+        "vmap_minimize while": lambda: tt.vmap_minimize(
+            rose.f, mixed, bcfg.replace(tol=1e-3), grad=rose.grad,
+            dir_poly=rose.dir_poly, lockstep="while"),
+    }
+    for label, run in forms.items():
+        res = {}
+        for mode in ("eager", "graphs"):
+            reset_counts()
+            with _graph_mode(blocks, mode):
+                res[mode] = run()
+            torch.cuda.synchronize()
+            reads = blocks.stats["host_reads"]
+            note = blocks_note()
+        r = res["graphs"]
+        differ = _graph_same(res["eager"], r)
+        iters = r.iterations.reshape(-1)
+        ended = (r.status.reshape(-1) == tt.Status.CONVERGED) \
+            & (iters % blocks.BLOCK_ITERS != 0)
+        top = int(iters.max())
+        say(f"[graph] {label}, tol ends it: iterations "
+            f"{sorted(set(iters.tolist()))[:12]}, converged inside a block "
+            f"on {int(ended.sum())} of {iters.numel()} lanes; replayed "
+            f"against eager, fields that differ {differ}; {note}")
+        check(not differ and bool(ended.any()),
+              f"[graph] {label}: the replayed solve must end inside a "
+              f"block as the eager one does ({differ})")
+        check(reads <= math.ceil(top / blocks.BLOCK_ITERS) + 2,
+              f"[graph] {label}: {reads} host reads for {top} iterations")
+
+    # Blocks replayed with no host synchronisation: a block of the main
+    # path's while form and of the batch cell's bounded form, captured
+    # first, then replayed under set_sync_debug_mode("error").
+    for label, c, x, fn, masked in (
+            (f"d={D} while", cfg, x0, (vg, rose.dir_poly, tail), True),
+            (f"B={BATCH} d={BATCH_D} bounded", bcfg, bx,
+             (tt.make_value_and_grad(rose.f, rose.grad), rose.dir_poly),
+             False)):
+        c = c.replace(max_iters=1 << 30)
+        step = _stepper(c, rose.f, fn[0], *fn[1:], bounded=not masked)
+        drv = blocks.BlockRunner(c, step, tt.init_state(fn[0], x, c.m),
+                                 masked)
+        drv.start(None)
+        drv.run(blocks.BLOCK_ITERS)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(GRAPH_SYNC_BLOCKS):
+                drv.run(blocks.BLOCK_ITERS)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(drv.s.f).all()), f"[graph] {label}: f "
+              "must stay finite")
+        say(f"[sync] {GRAPH_SYNC_BLOCKS} replayed blocks of "
+            f"{blocks.BLOCK_ITERS} iterations, {label}, under "
+            "torch.cuda.set_sync_debug_mode('error'): no host "
+            "synchronisation")
+
+    # The graphs' private pool, at D and at GRAPH_POOL_D.
+    _graph_pool(f"d={D}", blocks, tt, cfg, rose, vg, tail, x0, card)
+    big = _x0(GRAPH_POOL_D, SEED, torch.float32, dev)
+    _graph_pool(f"d={GRAPH_POOL_D}", blocks, tt, cfg, rose, vg, tail, big,
+                card)
+    del big
+    torch.cuda.empty_cache()
+
+    # The block length: each of GRAPH_BLOCKS, graphs captured in a warm-up
+    # run, two timed runs.
+    keep = blocks.BLOCK_ITERS
+    try:
+        for n in GRAPH_BLOCKS:
+            blocks.BLOCK_ITERS = n
+            line = []
+            for label, run, iters, lanes in (
+                    (f"d={D}", single, BENCH_ITERS, 1),
+                    (f"B={BATCH} d={BATCH_D}", batch, BATCH_ITERS, BATCH)):
+                kept = blocks.Kept()
+                before = dict(blocks.stats)
+                run(kept)
+                torch.cuda.synchronize()
+                cap = blocks.stats["capture_s"] - before["capture_s"]
+                walls = []
+                for _ in range(2):
+                    before = dict(blocks.stats)
+                    t0 = time.perf_counter()
+                    run(kept)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                reads = blocks.stats["host_reads"] - before["host_reads"]
+                rates = [round(lanes * iters / w, 2) for w in walls]
+                line.append(f"{label} {rates} (capture {cap:.3f} s, "
+                            f"{reads} host reads a solve)")
+            say(f"[graph] blocks of {n}: "
+                + "; ".join(line) + f" (it/s, instance-it/s) on {card}")
+    finally:
+        blocks.BLOCK_ITERS = keep
+
+    _graph_short(tt, blocks, rose, vg, tail, dev, card)
+    _graph_host_read(tt, blocks, rose, dev)
+
+
+def _graph_short(tt, blocks, rose, vg, tail, dev, card):
+    """Short solves as a caller's minimize runs them, a runner and its
+    capture per call: "rule" (the default: blocks captured only from a
+    budget of CAPTURE_MIN_ITERS), "eager" (eager_loops) and "forced"
+    (CAPTURE_MIN_ITERS set to 0), in turns, bit for bit."""
+    import contextlib
+
+    def forced():
+        keep = blocks.CAPTURE_MIN_ITERS
+        blocks.CAPTURE_MIN_ITERS = 0
+        try:
+            yield
+        finally:
+            blocks.CAPTURE_MIN_ITERS = keep
+
+    modes = {"rule": contextlib.nullcontext, "eager": blocks.eager_loops,
+             "forced": contextlib.contextmanager(forced)}
+    from tpu_lbfgs_torch.bench.harness import _x0
+
+    for d, lengths in GRAPH_SHORT:
+        x = _x0(d, SEED, torch.float32, dev)
+        for n in lengths:
+            cfg = _bench_cfg(tt, n)
+            walls, outs, replays = {m: [] for m in modes}, {}, {}
+            for m in ("rule", "eager", "forced", "forced", "eager", "rule"):
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with modes[m]():
+                    r = tt.minimize(rose.f, x, cfg, value_and_grad=vg,
+                                    dir_poly=rose.dir_poly, fused_tail=tail)
+                torch.cuda.synchronize()
+                walls[m].append(time.perf_counter() - t0)
+                outs.setdefault(m, r)
+                replays[m] = blocks.stats["replays"]
+            differ = sorted({f for m in ("eager", "forced")
+                             for f in _graph_same(outs["rule"], outs[m])})
+            say(f"[graph] short solve d={d} {n} iterations, each call "
+                f"capturing afresh: walls s rule "
+                f"{[round(w, 4) for w in walls['rule']]} "
+                f"({'captured' if replays['rule'] else 'eager'} blocks), "
+                f"eager {[round(w, 4) for w in walls['eager']]}, capture "
+                f"forced {[round(w, 4) for w in walls['forced']]}; fields "
+                f"that differ {differ}; on {card}")
+            check(not differ, f"[graph] short solve d={d} {n}: the modes "
+                  f"differ in {differ}")
+            check(bool(replays["rule"]) == (n >= blocks.CAPTURE_MIN_ITERS)
+                  and replays["forced"] and not replays["eager"],
+                  f"[graph] short solve d={d} {n}: the wrong blocks "
+                  "captured")
+
+
+def _graph_host_read(tt, blocks, rose, dev):
+    """An objective that reads the host (.item()) cannot be captured: the
+    solve raises a RuntimeError naming the objective and eager_loops(), and
+    runs under eager_loops(), equal there to the same solve of the
+    problem's own f.  The failed capture leaves the caching allocator free
+    to return memory: a freed GRAPH_FREED_BYTES goes back to the card at
+    torch.cuda.empty_cache()."""
+    def reads_host(x):
+        if bool((x.abs() > 1e30).any()):
+            return rose.f(x) * 0
+        return rose.f(x)
+
+    from tpu_lbfgs_torch.bench.harness import _x0
+
+    x = _x0(1 << 12, SEED, torch.float32, dev)
+    cfg = _bench_cfg(tt, blocks.CAPTURE_MIN_ITERS).replace(use_pallas=False)
+    try:
+        tt.minimize(reads_host, x, cfg, grad=rose.grad,
+                    dir_poly=rose.dir_poly)
+        err = None
+    except RuntimeError as e:
+        err = str(e)
+    torch.cuda.synchronize()
+    with blocks.eager_loops():
+        r = tt.minimize(reads_host, x, cfg, grad=rose.grad,
+                        dir_poly=rose.dir_poly)
+        want = tt.minimize(rose.f, x, cfg, grad=rose.grad,
+                           dir_poly=rose.dir_poly)
+    differ = _graph_same(r, want)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    freed = torch.empty(GRAPH_FREED_BYTES, dtype=torch.uint8, device=dev)
+    del freed
+    torch.cuda.empty_cache()
+    kept = torch.cuda.memory_reserved() - before
+    say(f"[graph] an objective that reads the host: the captured solve "
+        f"raised {err!r}; under eager_loops() it ran {r.iterations.item()} "
+        f"iterations, fields that differ from the problem's own f {differ}; "
+        f"then {GRAPH_FREED_BYTES} bytes freed, {kept} of them still "
+        "reserved after torch.cuda.empty_cache()")
+    check(kept <= 0, "[graph] after a failed capture the allocator must "
+          "return freed memory to the card")
+    check(err is not None and "f=" in err and "reads_host" in err
+          and "eager_loops()" in err, "[graph] a capture of an objective "
+          "that reads the host must raise naming it and eager_loops()")
+    check(not differ, "[graph] the host-reading objective's eager solve "
+          f"differs in {differ}")
+
+
+def phase_graph_kernels(dev):
+    """Device kernels per iteration of the main path's and the batch
+    cell's blocks, replayed against eager, from torch.profiler after every
+    timed phase: (kernels of a block of BLOCK_ITERS - kernels of a block of
+    one) / (BLOCK_ITERS - 1), so the block's own copies and flags drop
+    out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import tpu_lbfgs_torch as tt
+    from tpu_lbfgs_torch.bench.harness import _x0
+    from tpu_lbfgs_torch.core import blocks
+    from tpu_lbfgs_torch.core.solver import _stepper
+
+    rose = tt.get_problem("rosenbrock")
+    n = blocks.BLOCK_ITERS
+    paths = (
+        (f"d={D} while", _bench_cfg(tt, 1), _x0(D, SEED, torch.float32, dev),
+         (tt.fused_value_and_grad("rosenbrock"), rose.dir_poly,
+          tt.fused_tail_for("rosenbrock")), True),
+        (f"B={BATCH} d={BATCH_D} bounded", _batch_cfg(tt, 1),
+         _batch_x0(dev), (tt.make_value_and_grad(rose.f, rose.grad),
+                          rose.dir_poly), False))
+    for label, cfg, x, fn, masked in paths:
+        cfg = cfg.replace(max_iters=1 << 30)
+        step = _stepper(cfg, rose.f, fn[0], *fn[1:], bounded=not masked)
+        per_block = {}
+        for mode in ("eager", "graphs"):
+            with _graph_mode(blocks, mode):
+                drv = blocks.BlockRunner(cfg, step, tt.init_state(
+                    fn[0], x, cfg.m), masked)
+            drv.start(None)
+            drv.run(n)
+            drv.run(1)
+            counts = []
+            for length in (n, 1):
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    drv.run(length)
+                    torch.cuda.synchronize()
+                counts.append(sum(e.count for e in prof.key_averages()
+                                  if e.device_type == DeviceType.CUDA))
+            per_block[mode] = counts
+        (e_n, e_1), (g_n, g_1) = per_block["eager"], per_block["graphs"]
+        say(f"[graph] {label}: device kernels per iteration from "
+            f"torch.profiler, replayed {(g_n - g_1) / (n - 1):.2f}, eager "
+            f"{(e_n - e_1) / (n - 1):.2f} (a block of {n}: {g_n} replayed, "
+            f"{e_n} eager; of one: {g_1}, {e_1})")
+        check(g_n > 0 and (g_n, g_1) == (e_n, e_1),
+              f"[graph] {label}: the replayed blocks run other kernels than "
+              "the eager ones")
 
 
 # [batch-kernels]: the batched forms of iteration_tail, fused_vg, the fused
@@ -1760,6 +2283,7 @@ def phase_batch_kernel_slice(dev):
     launches of each batched form on these solves."""
     import tpu_lbfgs_torch as tt
     from tpu_lbfgs_torch import kernels
+    from tpu_lbfgs_torch.core import blocks
     from tpu_lbfgs_torch.core.direction import compute_direction_with_aux
     from tpu_lbfgs_torch.kernels import fused_ops as ops
 
@@ -1777,18 +2301,20 @@ def phase_batch_kernel_slice(dev):
     # stops there: with a kernel's f, summed apart from the directional
     # polynomial's float32 c0, a few lanes fail in both packages (ROADMAP
     # Queue 3, F11), so every other lane must run every iteration.
+    # The warm-up solves load each path's kernels; each timed solve
+    # captures its own graphs, as every call of vmap_minimize does.
     cfg = _batch_cfg(tt, BATCH_ITERS).replace(use_pallas=True)
     plain_cfg = cfg.replace(use_pallas=False)
-    kw = {True: dict(value_and_grad=tt.fused_value_and_grad("rosenbrock")),
-          False: dict(grad=rose.grad)}
+    fused = tt.fused_value_and_grad("rosenbrock")
+    kw = {True: dict(value_and_grad=fused), False: dict(grad=rose.grad)}
+    walls = {True: [], False: []}
     for on in (True, False):
         tt.vmap_minimize(rose.f, x0, (cfg if on else plain_cfg).replace(
-            max_iters=GENERAL_WARMUP), dir_poly=rose.dir_poly,
+            max_iters=blocks.BLOCK_ITERS), dir_poly=rose.dir_poly,
             lockstep="bounded", **kw[on])
-    walls = {True: [], False: []}
     for on in (True, False, False, True):
         torch.cuda.synchronize()
-        kernels.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         r = tt.vmap_minimize(rose.f, x0, cfg if on else plain_cfg,
                              dir_poly=rose.dir_poly, lockstep="bounded",
@@ -1797,6 +2323,10 @@ def phase_batch_kernel_slice(dev):
         walls[on].append(time.perf_counter() - t0)
         if on:
             got, res = kernels.launch_counts(), r
+            warm = blocks.stats["warmups"]
+            each = all(per_step(name) for name in (
+                "iteration_tail_batched", "compact_chain")) and per_step(
+                "rosenbrock_vg_batched", eager=1)
     r = res
     ref = tt.vmap_minimize(
         rose.f, x0, plain_cfg, dir_poly=rose.dir_poly, lockstep="bounded",
@@ -1828,11 +2358,13 @@ def phase_batch_kernel_slice(dev):
           "than the same solve through the plain versions")
     check(bool(((r.iterations == BATCH_ITERS) | ~ok).all()),
           "every lane whose line search holds must run its 200 iterations")
-    check(got["iteration_tail_batched"] == BATCH_ITERS
-          and got["rosenbrock_vg_batched"] == BATCH_ITERS + 1
-          and got["compact_chain"] == BATCH_ITERS,
+    # Once per iteration replayed and once in the capture's warm-up
+    # iteration; the vg once more, in init_state.
+    check(warm == 1 and got["iteration_tail_batched"] == BATCH_ITERS + warm
+          and got["rosenbrock_vg_batched"] == BATCH_ITERS + warm + 1
+          and got["compact_chain"] == BATCH_ITERS + warm and each,
           f"the batch solve must launch iteration_tail and compact_chain "
-          f"once per iteration and the vg once more: {ran(got)}")
+          f"once per iteration, replayed, and the vg once more: {ran(got)}")
     check(not any(n for k, n in got.items()
                   if k not in ("iteration_tail_batched",
                                "rosenbrock_vg_batched", "compact_chain")),
@@ -1862,17 +2394,18 @@ def phase_batch_kernel_slice(dev):
     # float64: the iteration_tail kernel's float64 form on the same solve.
     x64 = x0.double()
     cfg64 = _batch_cfg(tt, BK_F64_ITERS).replace(use_pallas=True)
-    kernels.reset_launches()
+    reset_counts()
     r64 = tt.vmap_minimize(rose.f, x64, cfg64, grad=rose.grad,
                            dir_poly=rose.dir_poly, lockstep="bounded")
     torch.cuda.synchronize()
     n64 = kernels.launch_counts()["iteration_tail_batched"]
+    each64 = one_per_iteration("iteration_tail_batched", BK_F64_ITERS)
     vg64 = tt.make_value_and_grad(rose.f, rose.grad)
     _bk_same_trace("vmap_minimize use_pallas float64",
                    _bk_trace(tt, cfg64, rose, x64, vg64),
                    _bk_trace(tt, cfg64.replace(use_pallas=False), rose, x64,
                              vg64))
-    check(n64 == BK_F64_ITERS and bool((r64.iterations == BK_F64_ITERS).all())
+    check(each64 and bool((r64.iterations == BK_F64_ITERS).all())
           and r64.f.mean().item() < mean0,
           f"the float64 batch solve must launch iteration_tail once per "
           f"iteration ({n64})")
@@ -1899,21 +2432,22 @@ def phase_batch_kernel_slice(dev):
                                  accurate_dots=acc)
         label = f"solve_bounded {problem} fused tail{form or ' [m=0]'}"
         torch.cuda.synchronize()
-        kernels.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         st = tt.init_state(vg, x0, c.m, c.history_dtype)
         out = tt.solve_bounded(c, p.f, vg, st, p.dir_poly, tail)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = kernels.launch_counts()
+        tail_name = f"{problem}_fused_tail_batched"
+        each = all(one_per_iteration(name, iters)
+                   for name in (tail_name, "compact_chain"))
         ok = out.status != tt.Status.LINE_SEARCH_FAILED
         f0, f1 = p.f(x0).mean().item(), out.f.mean().item()
         say(f"[batch-kernels] {label}: {iters} iterations in {wall:.3f} s "
             f"({wall / iters * 1e3:.3f} ms/iteration), mean f {f0:.6e} -> "
-            f"{f1:.6e}, launches {ran(got)}")
-        tail_name = f"{problem}_fused_tail_batched"
-        check(got[tail_name] == iters and got[f"{problem}_vg_batched"] == 1
-              and got["compact_chain"] == iters
+            f"{f1:.6e}, launches {ran(got)}; {blocks_note()}")
+        check(each and got[f"{problem}_vg_batched"] == 1
               and bool(((out.k == iters) | ~ok).all()),
               f"{label}: one fused tail per iteration, one vg, "
               f"{ran(got)}")
@@ -1970,15 +2504,17 @@ def phase_batch_kernel_slice(dev):
     # (d) the command line's --batch --pallas, in float32 and in float64:
     # iteration_tail's batched kernel is built for both.
     for argv in (BK_CLI, BK_CLI + ["--dtype", "float64"]):
-        kernels.reset_launches()
+        reset_counts()
         doc = _cli_main(argv)
         got = kernels.launch_counts()
         rec = doc["results"][0]
         say(f"[batch-kernels] python -m tpu_lbfgs_torch {' '.join(argv)}: "
-            f"{rec}, launches {ran(got)}")
+            f"{rec}, launches {ran(got)}; {blocks_note()}")
         n_tail = got["iteration_tail_batched"]
+        steps = blocks.stats["steps"]
         check(set(rec) == BK_CLI_KEYS and doc["config"]["pallas"]
-              and 1 <= n_tail <= 50 and rec["mean_iterations"] <= n_tail
+              and per_step("iteration_tail_batched") and 1 <= steps <= 50
+              and rec["mean_iterations"] <= steps
               and np.isfinite(rec["mean_f"]),
               f"{' '.join(argv)} must run iteration_tail's batched kernel "
               f"and print the reference's batch record")
@@ -2098,10 +2634,15 @@ def phase_batch_search(dev, card):
 
     The batch: 4096 x 1024, float32, m = 10, compact_incremental, direct
     evaluation, SEARCH_ITERS iterations of vmap_minimize(lockstep=
-    "bounded") under torch.cuda.set_sync_debug_mode("error"), so a host
-    read fails the run; held against the same solve in float64 on the card
+    "bounded") as a caller runs it (its blocks eager: a budget below
+    blocks.CAPTURE_MIN_ITERS, and a batch's fixed-trip search that loops
+    never captures, solver._captured), under
+    torch.cuda.set_sync_debug_mode("error"), so a host read fails the
+    run; held against the same solve in float64 on the card
     (SEARCH_LANE_SHARE of the lanes with the same status and f within
-    SEARCH_F_RTOL); the chain kernel launches once per iteration.  One
+    SEARCH_F_RTOL); the chain kernel launches once per iteration.  Then
+    what that rule saves: SEARCH_CAPTURE's fixed trip over two blocks with
+    its capture forced, against its eager blocks, bit for bit.  One
     instance: solve_bounded (fixed-trip searches, under the same sync
     mode) against solve_from_state
     (read-driven) over the same SEARCH_D_ITERS iterations of the direct
@@ -2110,6 +2651,7 @@ def phase_batch_search(dev, card):
     every timed phase (phase_launch_counts)."""
     import tpu_lbfgs_torch as tt
     from tpu_lbfgs_torch import kernels
+    from tpu_lbfgs_torch.core import blocks
     from tpu_lbfgs_torch.linesearch import strategies
 
     p = tt.get_problem("rosenbrock")
@@ -2122,7 +2664,7 @@ def phase_batch_search(dev, card):
         tt.vmap_minimize(p.f, x0, cfg.replace(max_iters=1), grad=p.grad,
                          lockstep="bounded")
         torch.cuda.synchronize()
-        kernels.reset_launches()
+        reset_counts()
         strategies.reset_host_reads()
         t0 = time.perf_counter()
         torch.cuda.set_sync_debug_mode("error")
@@ -2135,6 +2677,9 @@ def phase_batch_search(dev, card):
         wall = time.perf_counter() - t0
         got = kernels.launch_counts()
         reads = strategies.host_reads["line_search"]
+        each = one_per_iteration("compact_chain", SEARCH_ITERS) \
+            and blocks.stats["steps"] == SEARCH_ITERS
+        note = blocks_note()
         ref = tt.vmap_minimize(p.f, x0.double(), cfg, grad=p.grad,
                                lockstep="bounded")
         counts = torch.bincount(r.status.long(), minlength=4).tolist()
@@ -2157,16 +2702,18 @@ def phase_batch_search(dev, card):
             f"{rel.max().item():.3e}, within {SEARCH_F_RTOL} on "
             f"{100 * close:.2f}% of the lanes that ran in both; status "
             f"counts {counts} (float64 {ref_counts}), equal on "
-            f"{100 * same_status:.2f}% of the lanes; launches {ran(got)}, "
-            f"on {card}")
+            f"{100 * same_status:.2f}% of the lanes; launches {ran(got)}; "
+            f"{note}; on {card}")
         check(reads == 0, f"{strategy}: the bounded batch read on the host")
-        check(got["compact_chain"] == SEARCH_ITERS,
+        check(each,
               f"{strategy}: the chain kernel must launch once per iteration")
         check(same_status >= SEARCH_LANE_SHARE,
               f"{strategy}: statuses differ from the float64 run")
         check(bool(torch.isfinite(r.f[ok]).all())
               and close >= SEARCH_LANE_SHARE,
               f"{strategy}: f differs from the float64 run")
+
+    _search_capture(tt, blocks, p, x0, card)
 
     # One instance at d = 2^20: the two loops over the same iterations.
     rng = np.random.default_rng(SEED)
@@ -2184,7 +2731,7 @@ def phase_batch_search(dev, card):
         runs = {}
         for mode in ("read-driven", "fixed-trip"):
             torch.cuda.synchronize()
-            kernels.reset_launches()
+            reset_counts()
             strategies.reset_host_reads()
             t0 = time.perf_counter()
             # init_state's vg launch counts, as under minimize in [direct].
@@ -2200,11 +2747,14 @@ def phase_batch_search(dev, card):
             torch.cuda.synchronize()
             runs[mode] = (out, time.perf_counter() - t0,
                             kernels.launch_counts(),
-                            strategies.host_reads["line_search"])
+                            strategies.host_reads["line_search"],
+                            one_per_iteration("rosenbrock_fused_tail",
+                                              out.k.item()))
             jobs.append((f"[batch-search] d={D} {strategy} {mode}", x1, vg,
                          cfg.m, lambda s, cfg=cfg, b=mode == "fixed-trip":
                          tt.iterate(cfg, p.f, vg, s, *args, bounded=b)))
-        (a, wall_a, got_a, reads_a), (b, wall_b, got_b, reads_b) = \
+        (a, wall_a, got_a, reads_a, each_a), \
+            (b, wall_b, got_b, reads_b, each_b) = \
             runs["read-driven"], runs["fixed-trip"]
         k = b.k.item()
         same = all(torch.equal(getattr(a, n), getattr(b, n))
@@ -2222,9 +2772,8 @@ def phase_batch_search(dev, card):
               "iterations and read nothing")
         check(same, f"{strategy}: the fixed-trip loop's solve differs from "
               "the read-driven one")
-        for got in (got_a, got_b):
-            check(got["rosenbrock_fused_tail"] == k
-                  and got["rosenbrock_vg"] >= 1,
+        for got, each in ((got_a, each_a), (got_b, each_b)):
+            check(each and got["rosenbrock_vg"] >= 1,
                   f"{strategy}: the tail kernel must launch once per "
                   "iteration and the vg kernel at least once")
             if strategy.endswith("_speculative"):
@@ -2234,6 +2783,45 @@ def phase_batch_search(dev, card):
                 check(got[own] >= k, f"{strategy}: {own} must launch at "
                       "least once per iteration")
     return jobs
+
+
+def _search_capture(tt, blocks, p, x0, card):
+    """SEARCH_CAPTURE on the batch cell under vmap_minimize(lockstep=
+    "bounded") for two blocks: its blocks captured (solver._captured forced
+    to say yes) against the same blocks eager, bit for bit, the chain
+    kernel once per iteration in both, and both walls with the capture's
+    seconds: what solver._captured's rule saves a caller."""
+    from tpu_lbfgs_torch.core import solver
+
+    n = 2 * blocks.BLOCK_ITERS
+    cfg = _batch_cfg(tt, n).replace(line_search=SEARCH_CAPTURE,
+                                    ls_eval="direct")
+    rule, out, walls, notes = solver._captured, {}, {}, {}
+    for mode in ("eager", "captured"):
+        solver._captured = (lambda *a, **k: True) if mode == "captured" \
+            else rule
+        try:
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[mode] = tt.vmap_minimize(p.f, x0, cfg, grad=p.grad,
+                                         lockstep="bounded")
+            torch.cuda.synchronize()
+            walls[mode] = time.perf_counter() - t0
+        finally:
+            solver._captured = rule
+        check(per_step("compact_chain") and blocks.stats["steps"] == n
+              and bool(blocks.stats["replays"]) == (mode == "captured"),
+              f"[batch-search] {SEARCH_CAPTURE} {mode}: the chain kernel "
+              "must launch once per iteration, replayed when captured")
+        notes[mode] = blocks_note()
+    differ = _graph_same(out["eager"], out["captured"])
+    say(f"[batch-search] {SEARCH_CAPTURE} B={BATCH} d={BATCH_D} float32 "
+        f"direct, bounded, {n} iterations: eager blocks {walls['eager']:.3f} "
+        f"s, captured {walls['captured']:.3f} s ({notes['captured']}); "
+        f"fields that differ {differ}; on {card}")
+    check(not differ, f"[batch-search] {SEARCH_CAPTURE}: the captured fixed "
+          f"trip differs from the eager one in {differ}")
 
 
 def _launches_per_iteration(step, state, iters=2):
@@ -2277,7 +2865,7 @@ def _general_solve(label, tt, f, x0, cfg, jobs, expect_status=None,
     # launch of every kernel of the path loads it.
     tt.minimize(f, x0, cfg.replace(max_iters=GENERAL_WARMUP), **solver)
     torch.cuda.synchronize()
-    kernels.reset_launches()
+    reset_counts()
     strategies.reset_host_reads()
     t0 = time.perf_counter()
     r = tt.minimize(f, x0, cfg, **solver)
@@ -2286,6 +2874,7 @@ def _general_solve(label, tt, f, x0, cfg, jobs, expect_status=None,
     got = kernels.launch_counts()
     reads = strategies.host_reads["line_search"]
     k, fk = r.iterations.item(), r.f.item()
+    each = one_per_iteration("iteration_tail", k)
     status = tt.Status.NAMES[r.status.item()]
 
     vg = tt.make_value_and_grad(f, solver.get("grad"),
@@ -2297,11 +2886,12 @@ def _general_solve(label, tt, f, x0, cfg, jobs, expect_status=None,
         f"{reads / max(k, 1):.2f} line-search host reads/iteration (+1 for "
         f"the loop condition); f {f0:.6e} -> {fk:.6e}, |g| "
         f"{r.g_norm.item():.4e}, status {status}, guards "
-        f"{r.guards.tolist()}, launches {ran(got)}")
+        f"{r.guards.tolist()}, launches {ran(got)}; {blocks_note()}, the "
+        "captures inside the wall")
     check(k > 0 and r.x.shape == x0.shape and bool(torch.isfinite(r.x).all())
           and np.isfinite(fk) and fk < f0,
           f"{label}: f must be finite and decrease")
-    check(got["iteration_tail"] == k and got["rosenbrock_fused_tail"] == 0,
+    check(each and got["rosenbrock_fused_tail"] == 0,
           f"{label}: iteration_tail must launch once per iteration")
     if expect_status is not None:
         check(r.status.item() == expect_status,
@@ -2351,7 +2941,8 @@ def phase_general(dev):
         r, got = _general_solve(f"rosenbrock {direction}", tt, rose.f, x0,
                                 cfg, jobs, tt.Status.MAX_ITERS,
                                 value_and_grad=vg, dir_poly=rose.dir_poly)
-        check(got["rosenbrock_vg"] == r.iterations.item() + 1,
+        check(one_per_iteration("rosenbrock_vg", r.iterations.item(),
+                                eager=1),
               "the vg kernel must launch once per iteration and at the start")
         launches += got["iteration_tail"]
 
@@ -2505,9 +3096,10 @@ def _check_suite_launches(label, problem, cfg, k, got, reads):
     through: the fused tail once per iteration, the value and gradient once
     at the start (and once per scalar zoom turn of the direct Wolfe twin),
     a twin's K-trial kernel once per round."""
-    vg, tail = got[f"{problem}_vg"], got[f"{problem}_fused_tail"]
-    check(tail == k, f"{label}: {problem}_fused_tail must launch once per "
-          f"iteration ({k}), launches {ran(got)}")
+    vg = got[f"{problem}_vg"]
+    check(one_per_iteration(f"{problem}_fused_tail", k),
+          f"{label}: {problem}_fused_tail must launch once per iteration "
+          f"({k}), launches {ran(got)}; {blocks_note()}")
     check(vg >= 1 and (vg == 1 or cfg.ls_eval == "direct"),
           f"{label}: {problem}_vg must launch once per solve, launches "
           f"{ran(got)}")
@@ -2589,7 +3181,7 @@ def phase_cli(dev):
         # A few iterations first, outside the clock and the counts.
         _cli_main(argv + ["--max-iters", str(GENERAL_WARMUP)])
         torch.cuda.synchronize()
-        kernels.reset_launches()
+        reset_counts()
         strategies.reset_host_reads()
         doc = _cli_main(argv)
         got = kernels.launch_counts()
@@ -2675,7 +3267,7 @@ def phase_cli(dev):
         tt.minimize(rose.f, x0, cfg.replace(max_iters=GENERAL_WARMUP),
                     **solver)
         torch.cuda.synchronize()
-        kernels.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         r = tt.minimize(rose.f, x0, cfg, **solver)
         torch.cuda.synchronize()
@@ -2707,7 +3299,7 @@ def phase_cli(dev):
             solver = _suite_solver(tt, "rosenbrock", cfg, True,
                                    with_matvec=turn)
             torch.cuda.synchronize()
-            kernels.reset_launches()
+            reset_counts()
             t0 = time.perf_counter()
             r = tt.minimize(rose.f, x0, cfg, **solver)
             torch.cuda.synchronize()
@@ -2797,12 +3389,12 @@ def phase_routing(dev):
     tail, said7 = caught(lambda: tt.fused_tail_for(
         problem, with_matvec=True, m=7, d=n))
     t1 = tail(x32, x32, a64.float(), x32, ring, ring)[11]
-    kernels.reset_launches()
+    reset_counts()
     r = tt.minimize(p.f, x32, cfg, dir_poly=p.dir_poly, fused_tail=tail,
                     value_and_grad=tt.fused_value_and_grad(problem))
     got = kernels.launch_counts()
-    check(not said7 and t1.shape == (7,)
-          and got[f"{problem}_fused_tail"] == int(r.iterations) == 5
+    check(not said7 and t1.shape == (7,) and int(r.iterations) == 5
+          and one_per_iteration(f"{problem}_fused_tail", 5)
           and got[f"{problem}_vg"] == 1,
           f"with_matvec=True at m = 7 must launch the tail with its products "
           f"without a warning, warnings {said7}, launches {ran(got)}")
@@ -2820,11 +3412,14 @@ def phase_bench_batch(card):
                     iters=BATCH_ITERS, repeats=3)
     check(np.isfinite(r.final_f) and r.iterations == BATCH_ITERS,
           "bench_batch must finish its iterations with a finite f")
+    d = r.details
     say(f"[bench] {r.name}: {r.iters_per_s:.2f} instance-iterations/s "
         f"({BATCH_ITERS} iterations of {BATCH} lanes, best of 3 runs "
         f"{r.wall_s:.4f} s, runs "
-        f"{[round(w, 4) for w in r.details['repeat_walls_s']]}, status "
-        f"counts {r.details['status_counts']}) on {card}")
+        f"{[round(w, 4) for w in d['repeat_walls_s']]}, status "
+        f"counts {d['status_counts']}; graphs captured in the warm-up run "
+        f"in {d['capture_s']:.3f} s, {d['host_reads_per_solve']:.0f} host "
+        f"reads per timed solve) on {card}")
 
 
 # --- the sharded solve -------------------------------------------------------
@@ -3995,21 +4590,26 @@ def phase_giant(dev, card):
 
     from tpu_lbfgs_torch import kernels
     from tpu_lbfgs_torch.bench.giant import main as giant
+    from tpu_lbfgs_torch.core import blocks
 
     torch.cuda.empty_cache()
     _giant_kernel_checks(dev, card)
     torch.cuda.reset_peak_memory_stats()
     common = ["--iters", str(GIANT_ITERS), "--repeats", str(GIANT_REPEATS)]
     for argv in GIANT_RUNS:
-        kernels.reset_launches()
+        reset_counts()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             giant(argv + common)
         got = kernels.launch_counts()
+        each = per_step("rosenbrock_fused_tail")
         line = buf.getvalue().strip().splitlines()[-1]
         row = json.loads(line)
         roof = row["roofline"]
-        run = GIANT_ITERS * (GIANT_REPEATS + 2)
+        # The warm-up and timed runs, and the device-time run's blocks (one
+        # of them the capture's), fewer than a block short of GIANT_ITERS.
+        run = blocks.stats["steps"]
+        least = GIANT_ITERS * (GIANT_REPEATS + 2) - blocks.BLOCK_ITERS
         say(f"[giant] {line}")
         share = ("an unknown share (the host was not ahead)"
                  if row["host_share"] is None
@@ -4025,11 +4625,13 @@ def phase_giant(dev, card):
             f"model, {roof['achieved_gbps_on_model']:.1f} GB/s = "
             f"{roof['frac_of_h100_spec']:.4f} of 3350 GB/s; fused tail "
             f"launches {got['rosenbrock_fused_tail']} for {run} iterations "
-            f"run; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
-            f"GB; on {card}")
+            f"run; graphs captured in the warm-up run in "
+            f"{row['capture_s']:.3f} s, {row['host_reads_per_solve']:.1f} "
+            f"host reads per timed solve; {blocks_note()}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; on {card}")
         check(np.isfinite(row["final_f"]) and np.isfinite(row["device_f"]),
               f"[giant] {argv}: f must stay finite")
-        check(got["rosenbrock_fused_tail"] == run,
+        check(each and run >= least,
               f"[giant] {argv}: the fused tail must launch once per "
               f"iteration run, {got['rosenbrock_fused_tail']} for {run}")
         check(roof["frac_of_h100_spec"] <= GIANT_FRAC_MAX,
@@ -4042,22 +4644,30 @@ def phase_tol(card):
     """Time to ||g|| <= 1e-5 in two stages, the float64 one on the card."""
     from tpu_lbfgs_torch import kernels
     from tpu_lbfgs_torch.bench.harness import (
-        _WARMUP_ITERS,
+        _warmup_iters,
         time_to_tolerance_refined,
     )
+    from tpu_lbfgs_torch.core.blocks import BLOCK_ITERS
 
-    kernels.reset_launches()
+    reset_counts()
     r = time_to_tolerance_refined(d=TOL_D, refine_backend="torch")
     got = kernels.launch_counts()
+    replayed = kernels.replay_counts()["rosenbrock_fused_tail"]
     say(f"[tol] time_to_tolerance_refined(d={TOL_D}, coarse_tol=1e-3, "
         f"tol=1e-5, refine_backend='torch'): {json.dumps(r)}; fused tail "
-        f"launches {got['rosenbrock_fused_tail']} on {card}")
+        f"launches {got['rosenbrock_fused_tail']} ({replayed} replayed) on "
+        f"{card}")
     check(r["status"] == "converged" and r["g_norm"] <= 1e-5
           and r["refine_iterations"] <= TOL_REFINE_MAX,
           f"[tol] must converge to 1e-5 within {TOL_REFINE_MAX} float64 "
           "iterations")
-    check(got["rosenbrock_fused_tail"]
-          == r["coarse_iterations"] + _WARMUP_ITERS,
+    # The float32 stage's warm-up run (its first capture's warm-up
+    # iteration eager, the rest replayed) and its timed run, which steps
+    # on, frozen, to the end of the block it converges in; the float64
+    # stage runs the tail's plain version.
+    least = r["coarse_iterations"] + _warmup_iters()
+    check(got["rosenbrock_fused_tail"] == replayed + 1
+          and least <= replayed < least + BLOCK_ITERS,
           "[tol] the float32 stage must launch the fused tail once per "
           "iteration")
 
@@ -4513,6 +5123,8 @@ def main():
     phase_batch_no_sync(state, cfg)
     launches["compact_chain"] = batch_launches["compact_chain"]
     lap("[main], [batch]")
+    phase_graph(dev, card)
+    lap("[graph]")
     rec.update(phase_batch_kernel_checks(dev))
     launches.update(phase_batch_kernel_slice(dev))
     lap("[batch-kernels]")
@@ -4557,6 +5169,7 @@ def main():
     phase_bench(card)
     phase_bench_batch(card)
     phase_launch_counts(jobs)
+    phase_graph_kernels(dev)
     lap("[bench], launch counts")
 
     csrc, pallas = "tpu_lbfgs_torch/csrc/", "tpu_lbfgs/kernels/pallas_ops.py:"

@@ -158,7 +158,8 @@ def test_refined_native_backend_raises():
 GIANT_KEYS = {"d", "m", "iters", "problem", "history_dtype", "with_matvec",
               "direction", "use_pallas", "donated_segments", "device",
               "ms_per_iter", "iters_per_s", "wall_s", "final_f", "warmup_s",
-              "repeat_walls_s", "roofline"}
+              "repeat_walls_s", "capture_s", "host_reads_per_solve",
+              "roofline"}
 ROOF_KEYS = {"modeled_passes_per_iter", "modeled_gb_per_iter",
              "achieved_gbps_on_model", "frac_of_h100_spec"}
 
@@ -192,7 +193,8 @@ def test_giant_line(argv, capsys):
     jax_giant([a for a in common + argv if a != "--with-matvec"])
     jrow = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(row) - set(jrow) == {"device", "final_f", "warmup_s",
-                                    "problem"} | (
+                                    "problem", "capture_s",
+                                    "host_reads_per_solve"} | (
         {"repeat_walls_s"} if "--donate" not in argv else set())
     jcfg = tl.LBFGSConfig(
         line_search="backtracking", direction=jrow["direction"], m=10,

@@ -35,6 +35,12 @@ solve resumes from its per-rank checkpoint on another mesh
 ``dist.solve_shard_from_state``), and ``--debug-nans`` checks a solve for
 non-finite values.
 
+The solve loops run blocks of iterations on the device (``core.blocks``):
+on the card each block is a CUDA graph, captured once and replayed, and
+the host reads the loop's flags once per block, as the reference runs its
+loops as one device program; ``eager_loops()`` runs the same blocks
+eagerly.
+
 Where it runs: ``minimize`` and ``vmap_minimize`` solve on the device of
 the tensor they are given, so a CPU tensor is the caller asking for the
 CPU.  An entry point that is handed no tensor (``scipy_compat.minimize``
@@ -47,6 +53,7 @@ This package imports torch and never jax.
 
 from .batch import vmap_minimize
 from .config import REFERENCE_PARALLEL, REFERENCE_SEQUENTIAL, LBFGSConfig
+from .core.blocks import eager_loops
 from .core.solver import (
     finalize_result,
     init_state,
@@ -111,4 +118,5 @@ __all__ = [
     "solve_bounded",
     "solve_from_state",
     "vmap_minimize",
+    "eager_loops",
 ]

@@ -52,12 +52,15 @@ def vmap_minimize(f: Callable, x0_batch: Tensor,
       lockstep: "while" (the default) stops each lane the moment its own
          loop condition (RUNNING, g_norm >= tol, k < max_iters) fails and
          keeps its state from then on, as the reference's vmapped
-         ``while_loop`` does; it reads one scalar per iteration, whether
-         any lane still runs, and each line search reads one flag per
-         turn, whether any lane's search goes on.  "bounded" runs every
-         lane for exactly cfg.max_iters iterations and each search for its
-         own trip bound, and reads nothing on the host: failed lanes end
-         the same, lanes that converge early keep polishing past tol (and
+         ``while_loop`` does; in blocks of iterations (``core.blocks``,
+         CUDA graphs on the card) it reads one flag per block, whether any
+         lane still runs, where the search reads nothing (``backtracking``,
+         whose batch tests its whole ladder at once), and otherwise one
+         flag per iteration and each line search one per turn, whether any
+         lane's search goes on.  "bounded" runs every lane for exactly
+         cfg.max_iters iterations in blocks and each search for its own
+         trip bound, and reads nothing on the host: failed lanes end the
+         same, lanes that converge early keep polishing past tol (and
          report CONVERGED unless a later search fails).
 
     Returns a SolveResult whose fields carry the leading batch axis, a

@@ -10,25 +10,29 @@ where the card's memory, not the Python loop, should set the rate.  The
 line carries:
 
 - ``iters_per_s``, ``wall_s`` (best of ``--repeats`` timed runs of
-  ``--iters`` iterations, each reading the loop condition once per
-  iteration, as every solve does), ``ms_per_iter``, ``repeat_walls_s`` and
-  ``final_f``;
+  ``--iters`` iterations, each replaying blocks of iterations captured as
+  CUDA graphs in the warm-up run and reading the loop's flags once per
+  block, as every solve does), ``ms_per_iter``, ``repeat_walls_s``,
+  ``final_f``, and the block runner's ``capture_s`` (the warm-up's
+  captures) and ``host_reads_per_solve`` (``bench.harness.
+  _blocks_details``);
 - ``device_us_per_iter``: CUDA events around ``--iters`` more iterations
-  that read nothing back, queued behind a sleep kernel, so that the events
-  time the card's work and not the host's launches (when the host cannot
-  keep ahead of the card, they time the host; ``host_ahead`` says which);
-  ``host_share``: 1 - device / wall time per iteration, the share of an
-  iteration in which the card waits for the host (null when the host did
-  not keep ahead: the events then timed the host);
+  as replayed blocks of the same solve that read nothing back, queued
+  behind a sleep kernel, so that the events time the card's work and not
+  the host's (when the host cannot keep ahead of the card, they time the
+  host; ``host_ahead`` says which); ``host_share``: 1 - device / wall time
+  per iteration, the share of an iteration in which the card waits for
+  what is left of the host, the block's replay and its read (null when the
+  host did not keep ahead: the events then timed the host);
 - ``roofline``: the model's passes and GB per iteration
   (``utils.roofline.traffic_model``, with the port's products in the
   tail under ``--with-matvec``), the rate the timed runs reached on it and
   its share of one H100's 3350 GB/s.  A share above 1.0 means the model
   counts wrong, and is printed as it is;
 - under ``--profile``, ``profile``: where the device time of an iteration
-  goes, from ``PROFILE_ITERS`` more iterations under ``torch.profiler``
-  (each kernel's device us and launches per iteration, largest first, and
-  their sums).
+  goes, from one more replayed block under ``torch.profiler`` (each
+  kernel's device us and launches per iteration, largest first, and their
+  sums).
 
 The plain path is ``bench.harness.bench_gpu``'s protocol
 (``fixed_iterations``, on the device asked for); ``--donate``
@@ -47,21 +51,19 @@ import sys
 import torch
 
 from ..config import LBFGSConfig
-from ..core.solver import init_state, iterate, make_solve_segment
+from ..core import blocks
+from ..core.solver import _stepper, init_state, make_solve_segment
 from ..problems.suite import get_problem
 from ..types import resolve_device
 from ..utils.roofline import HBM_BW_GBPS, traffic_model
 from .harness import (
     _device_name,
+    _since,
     _timed,
     _x0,
     fixed_iterations,
     solve_callables,
 )
-
-#: Iterations profiled under ``--profile``, after the device-time run.
-PROFILE_ITERS = 5
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="tpu_lbfgs_torch.bench.giant")
@@ -105,7 +107,9 @@ def main(argv=None) -> int:
                               args.with_matvec, device)
         r = {"iters_per_s": br.iters_per_s, "wall_s": br.wall_s,
              "final_f": br.final_f, "warmup_s": br.details["warmup_s"],
-             "repeat_walls_s": br.details["repeat_walls_s"]}
+             "repeat_walls_s": br.details["repeat_walls_s"],
+             "capture_s": br.details["capture_s"],
+             "host_reads_per_solve": br.details["host_reads_per_solve"]}
         if device.type == "cuda":
             torch.cuda.empty_cache()
             r.update(_device_time(args, cfg, device, _x0_giant(args, device)))
@@ -164,50 +168,58 @@ def _callables(args, cfg):
 
 
 def _device_time(args, cfg, device, x0=None, state=None) -> dict:
-    """Device us per iteration: ``--iters`` iterations of ``iterate``,
-    which on the polynomial path read nothing back, between two CUDA
-    events, queued behind a sleep kernel of ~0.1 s.  ``host_ahead``:
-    whether the card was still behind the host when the last iteration
-    was queued (the events then time the card's work)."""
+    """Device us per iteration: about ``--iters`` iterations of the solve,
+    as blocks of ``blocks.BLOCK_ITERS`` replayed by a block runner of the
+    while form (``solve_from_state``'s), which read nothing back, between
+    two CUDA events, queued behind a sleep kernel of ~0.1 s; the runner
+    captures its graph in one block before.  ``host_ahead``: whether the
+    card was still behind the host when the last block was queued (the
+    events then time the card's work)."""
     p, vg, dir_poly, tail = _callables(args, cfg)
     if state is None:
         state = init_state(vg, x0, cfg.m, cfg.history_dtype)
     run_cfg = cfg.replace(max_iters=1 << 30, tol=0.0)
+    drv = blocks.BlockRunner(run_cfg, _stepper(run_cfg, p.f, vg, dir_poly,
+                                                tail), state, masked=True)
+    drv.start(None)
+    n = blocks.BLOCK_ITERS
+    n_blocks = max(1, args.iters // n)
+    drv.run(n)
     torch.cuda.synchronize(device)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(200_000_000)
     start.record()
-    for _ in range(args.iters):
-        state = iterate(run_cfg, p.f, vg, state, dir_poly, tail)
+    for _ in range(n_blocks):
+        drv.run(n)
     end.record()
     host_ahead = not end.query()
     end.synchronize()
-    out = {"device_us_per_iter": start.elapsed_time(end) * 1e3 / args.iters,
+    out = {"device_us_per_iter":
+           start.elapsed_time(end) * 1e3 / (n_blocks * n),
            "host_ahead": host_ahead}
     if args.profile:
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(PROFILE_ITERS):
-                state = iterate(run_cfg, p.f, vg, state, dir_poly, tail)
+            drv.run(n)
             torch.cuda.synchronize(device)
-        out["profile"] = _by_kernel(prof)
-    out["device_f"] = float(state.f)
+        out["profile"] = _by_kernel(prof, n)
+    out["device_f"] = float(drv.s.f)
     return out
 
 
-def _by_kernel(prof) -> dict:
+def _by_kernel(prof, iters: int) -> dict:
     """Each kernel's device us and launches per iteration of a profiled
-    run of ``PROFILE_ITERS`` iterations, largest first, and their sums."""
+    run of ``iters`` iterations, largest first, and their sums."""
     from torch.autograd import DeviceType
 
     kernels = sorted(
-        ((e.key, e.self_device_time_total / PROFILE_ITERS,
-          e.count / PROFILE_ITERS) for e in prof.key_averages()
+        ((e.key, e.self_device_time_total / iters,
+          e.count / iters) for e in prof.key_averages()
          if e.device_type == DeviceType.CUDA and e.self_device_time_total),
         key=lambda r: -r[1])
-    return {"iters": PROFILE_ITERS,
+    return {"iters": iters,
             "device_us_per_iter": sum(us for _, us, _ in kernels),
             "kernels_per_iter": sum(n for _, _, n in kernels),
             "by_kernel": [{"name": name[:120], "us_per_iter": us,
@@ -224,17 +236,22 @@ def _bench_donated(args, cfg, device):
     cfg = cfg.replace(max_iters=args.iters * (args.repeats + 1), tol=0.0)
     seg = make_solve_segment(cfg, p.f, value_and_grad=vg, iters=args.iters,
                              dir_poly=dir_poly, fused_tail=tail, donate=True)
+    before = dict(blocks.stats)
     state, warmup_s = _timed(
         lambda x0: seg(init_state(vg, x0, cfg.m, cfg.history_dtype)),
         _x0_giant(args, device), device)
+    capture_s = _since(before)["capture_s"]
     walls = []
+    before = dict(blocks.stats)
     for _ in range(args.repeats):
         state, wall = _timed(seg, state, device)
         walls.append(wall)
     best = min(walls)
     out = {"iters_per_s": args.iters / best, "wall_s": best,
            "final_f": float(state.f), "warmup_s": warmup_s,
-           "repeat_walls_s": walls}
+           "repeat_walls_s": walls, "capture_s": capture_s,
+           "host_reads_per_solve":
+           _since(before)["host_reads"] / args.repeats}
     if device.type == "cuda":
         out.update(_device_time(args, cfg, device, state=state))
     return out

@@ -8,10 +8,16 @@ bounded lockstep, instance-iterations/s), and ``time_to_tolerance`` /
 gradient tolerance; the refined one in two stages, float32 to a coarse
 tolerance, then float64 from that iterate, both on the card).
 
-Eager PyTorch compiles nothing per shape, so where the reference runs a
-whole solve once to compile it, the time-to-tolerance functions warm up
-with ``_WARMUP_ITERS`` iterations of the same solve (the kernels' build
-and load, the libraries' handles, the allocator's pool): a solve to
+The solves run in blocks of iterations replayed as CUDA graphs
+(``core.blocks``), and every function here keeps its solve's block runner
+across its runs (``blocks.Kept``): the warm-up captures the graphs, where
+the reference compiles its solve, and the timed runs replay them.  Beside each
+rate stand the capture seconds of the warm-up and the host reads and
+iterations stepped per timed solve (``_blocks_details``).  Where the
+reference runs a whole solve once to compile it, the time-to-tolerance
+functions warm up with ``_warmup_iters()`` iterations of the same solve
+(the kernels' build and load, the libraries' handles, the allocator's
+pool, a full block's graph and a single iteration's): a solve to
 tolerance is long (90,171 iterations at d = 2^20 in the reference's
 north-star run), and running it twice would double its cost for nothing.
 """
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from ..config import LBFGSConfig
+from ..core import blocks
 from ..core.solver import (
     init_state,
     make_value_and_grad,
@@ -55,6 +62,29 @@ class BenchResult:
     final_f: float
     final_g_norm: float
     details: dict
+
+
+def _warmup_iters() -> int:
+    """Warm-up iterations of a time-to-tolerance solve: ``_WARMUP_ITERS``,
+    and enough that the warm-up captures (``blocks.CAPTURE_MIN_ITERS``)
+    both graphs the solve replays, a full block's and a single
+    iteration's."""
+    n = max(_WARMUP_ITERS, blocks.CAPTURE_MIN_ITERS, blocks.BLOCK_ITERS)
+    return n + 1 if n % blocks.BLOCK_ITERS == 0 else n
+
+
+def _since(before: dict) -> dict:
+    """``blocks.stats`` since the snapshot ``before``."""
+    return {k: v - before[k] for k, v in blocks.stats.items()}
+
+
+def _blocks_details(capture_s: float, timed: dict, solves: int) -> dict:
+    """The block runner's numbers beside a rate: the warm-up's capture
+    seconds, and host reads and iterations stepped (frozen ones included)
+    per timed solve, from ``timed``, ``_since`` the timed runs began."""
+    return {"capture_s": capture_s,
+            "host_reads_per_solve": timed["host_reads"] / solves,
+            "steps_per_solve": timed["steps"] / solves}
 
 
 def _x0(d: int, seed: int, dtype, device="cpu") -> torch.Tensor:
@@ -129,16 +159,23 @@ def solve_callables(problem: str, d: int, cfg: LBFGSConfig, dtype,
 
 def _solve(problem: str, d: int, cfg: LBFGSConfig, dtype,
            with_matvec=False):
-    """``run(x0) -> state``: the solve of ``cfg`` from x0 with the
-    callables ``solve_callables`` hands over (the fused kernels under
-    ``cfg.use_pallas`` for float32; their plain versions, with
-    ``resolve_use_pallas``'s warning, for float64)."""
+    """``run(x0, iters=None) -> state``: the solve of ``cfg`` (with
+    ``max_iters=iters`` when given) from x0 with the callables
+    ``solve_callables`` hands over once for every run (the fused kernels
+    under ``cfg.use_pallas`` for float32; their plain versions, with
+    ``resolve_use_pallas``'s warning, for float64), keeping one block
+    runner for every run (``blocks.Kept``), so that a run replays the
+    graphs an earlier one captured and returns the kept buffers, which the
+    next run overwrites."""
     p = get_problem(problem)
     vg, *callables = solve_callables(problem, d, cfg, dtype, with_matvec)
+    kept = blocks.Kept()
 
-    def run(x0):
-        state = init_state(vg, x0, cfg.m, cfg.history_dtype)
-        return solve_from_state(cfg, p.f, vg, state, *callables)
+    def run(x0, iters=None):
+        run_cfg = cfg if iters is None else cfg.replace(max_iters=iters)
+        state = init_state(vg, x0, run_cfg.m, run_cfg.history_dtype)
+        return solve_from_state(run_cfg, p.f, vg, state, *callables,
+                                kept=kept)
     return run
 
 
@@ -161,29 +198,37 @@ def fixed_iterations(problem: str, d: int, iters: int,
                      with_matvec, device: torch.device) -> BenchResult:
     """``bench_gpu``'s protocol on ``device``, the CPU included (the giant
     cell's ``--device cpu``, for the tests); ``details["device"]`` names
-    it.  One state is alive at a time: a run's state is dropped before the
-    next run starts, which keeps a giant instance's ring (8 GB at d = 1e8,
-    m = 10) resident once."""
+    it.  The warm-up run captures the solve's graphs and the timed runs
+    replay them (``_solve``); ``details`` carries the capture
+    seconds and the host reads per solve (``_blocks_details``).  The kept
+    runner's buffers hold one state, into which each run's start is
+    copied: at most two rings are alive (a giant instance's is 8 GB at d =
+    1e8, m = 10), the kept one and a new start's until it is copied in."""
     cfg = cfg or LBFGSConfig(line_search="backtracking", direction="compact")
     cfg = cfg.replace(max_iters=iters, tol=0.0)   # tol=0: never stop early
     run = _solve(problem, d, cfg, dtype, with_matvec)
     per_seed, all_walls, warmup_s, out = [], [], None, None
+    capture_s, timed = 0.0, None
     for seed in seeds:
         x0 = _x0(d, seed, dtype, device)
         out = None
         _sync(device)
         t0 = time.perf_counter()
+        before = dict(blocks.stats)
         out = run(x0)
         _sync(device)
+        capture_s += _since(before)["capture_s"]
         if warmup_s is None:
             warmup_s = time.perf_counter() - t0
         walls = []
+        before = dict(blocks.stats)
         for _ in range(repeats):
             out = None
             t0 = time.perf_counter()
             out = run(x0)
             _sync(device)
             walls.append(time.perf_counter() - t0)
+        timed = _since(before)
         all_walls.extend(walls)
         per_seed.append(min(walls))
     wall = float(np.mean(per_seed))
@@ -196,6 +241,8 @@ def fixed_iterations(problem: str, d: int, iters: int,
         details={"per_seed_s": per_seed, "repeat_walls_s": all_walls,
                  "warmup_s": warmup_s, "n_fev": int(out.n_fev),
                  "n_gev": int(out.n_gev),
+                 # reads and steps: the last seed's timed runs
+                 **_blocks_details(capture_s, timed, repeats),
                  "device": _device_name(device)})
 
 
@@ -230,18 +277,24 @@ def bench_batch(problem: str = "rosenbrock", batch: int = 4096,
     x0s = torch.from_numpy(rng.uniform(-2.0, 2.0, (batch, d))).to(
         device=device, dtype=dtype)
 
+    kept = blocks.Kept()
+
     def run():
         state = init_state(vg, x0s, cfg.m, cfg.history_dtype)
-        return solve_bounded(cfg, p.f, vg, state, dir_poly)
+        return solve_bounded(cfg, p.f, vg, state, dir_poly, kept=kept)
 
+    before = dict(blocks.stats)
     out = run()
     torch.cuda.synchronize()
+    capture_s = _since(before)["capture_s"]
     walls = []
+    before = dict(blocks.stats)
     for _ in range(repeats):
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+    timed = _since(before)
     best = min(walls)
     return BenchResult(
         name=f"gpu-batch/{problem}/B={batch}/d={d}/{cfg.line_search}",
@@ -251,6 +304,7 @@ def bench_batch(problem: str = "rosenbrock", batch: int = 4096,
                  "repeat_walls_s": walls,
                  "status_counts": torch.bincount(out.status.long(), minlength=4)
                  .tolist(),
+                 **_blocks_details(capture_s, timed, repeats),
                  "device": torch.cuda.get_device_name(device)})
 
 
@@ -272,19 +326,24 @@ def time_to_tolerance(problem: str = "rosenbrock", d: int = 1_000_000,
                       device=None) -> dict:
     """Wall time of one solve from ``_x0(d, seed)`` to ||g|| <= ``tol`` on
     ``device`` (``types.resolve_device``: the card unless "cpu" is asked
-    for), after a warm-up of ``_WARMUP_ITERS`` iterations; the
-    reference's signature, default configuration and keys, plus
-    ``device``."""
+    for), after a warm-up of ``_warmup_iters()`` iterations that captures
+    its graphs; the reference's signature, default configuration and
+    keys, plus ``device`` and ``_blocks_details``'."""
     device = resolve_device(device)
     cfg = cfg or LBFGSConfig(line_search="backtracking", direction="compact")
     cfg = cfg.replace(max_iters=max_iters, tol=tol)
     x0 = _x0(d, seed, dtype, device)
-    _timed(_solve(problem, d, cfg.replace(max_iters=_WARMUP_ITERS), dtype),
-           x0, device)
-    out, wall = _timed(_solve(problem, d, cfg, dtype), x0, device)
+    run = _solve(problem, d, cfg, dtype)
+    before = dict(blocks.stats)
+    _timed(lambda x: run(x, _warmup_iters()), x0, device)
+    capture_s = _since(before)["capture_s"]
+    before = dict(blocks.stats)
+    out, wall = _timed(run, x0, device)
     return {"wall_s": wall, "iterations": int(out.k),
             "status": int(out.status), "g_norm": float(out.g_norm),
-            "f": float(out.f), "device": _device_name(device)}
+            "f": float(out.f),
+            **_blocks_details(capture_s, _since(before), 1),
+            "device": _device_name(device)}
 
 
 def time_to_tolerance_refined(problem: str = "rosenbrock", d: int = 1 << 20,
@@ -310,8 +369,9 @@ def time_to_tolerance_refined(problem: str = "rosenbrock", d: int = 1 << 20,
     and says so: the kernels are float32 programs).  "native", the C++
     oracle on the host, belongs to ``tpu_lbfgs`` and raises.
 
-    Each stage is warmed up with ``_WARMUP_ITERS`` iterations (module
-    docstring); each timed stage ends in a synchronize and a scalar read."""
+    Each stage is warmed up with ``_warmup_iters()`` iterations, which
+    capture its graphs (module docstring); each timed stage ends in a
+    synchronize and a scalar read."""
     if refine_backend != "torch":
         raise NotImplementedError(
             f"refine_backend={refine_backend!r} is not ported to "
@@ -321,21 +381,21 @@ def time_to_tolerance_refined(problem: str = "rosenbrock", d: int = 1 << 20,
     device = resolve_device(device)
     cfg = cfg or main_path_cfg().replace(fidelity="fixed",
                                          pair_skip_threshold=1e-10)
-    cfg32 = cfg.replace(max_iters=max_iters, tol=coarse_tol)
-    cfg64 = cfg.replace(max_iters=refine_iters, tol=tol)
-    def stages(iters32, iters64):
-        run32 = _solve(problem, d, cfg32.replace(max_iters=iters32),
-                       torch.float32)
-        run64 = _solve(problem, d, cfg64.replace(max_iters=iters64),
-                       torch.float64)
-        return run32, lambda x32: run64(x32.double())
-
+    run32 = _solve(problem, d, cfg.replace(max_iters=max_iters,
+                                           tol=coarse_tol), torch.float32)
+    run64 = _solve(problem, d, cfg.replace(max_iters=refine_iters, tol=tol),
+                   torch.float64)
     x0 = _x0(d, seed, torch.float32, device)
-    warm32, warm64 = stages(_WARMUP_ITERS, _WARMUP_ITERS)
-    _timed(warm64, _timed(warm32, x0, device)[0].x, device)
-    run32, run64 = stages(max_iters, refine_iters)
+    before = dict(blocks.stats)
+    warm = _timed(lambda x: run32(x, _warmup_iters()), x0, device)[0]
+    # The float32 stage's state is the kept buffers: the float64 stage
+    # starts from a copy of its x.
+    _timed(lambda x: run64(x, _warmup_iters()), warm.x.double(), device)
+    capture_s = _since(before)["capture_s"]
+    before = dict(blocks.stats)
     coarse, coarse_wall = _timed(run32, x0, device)
-    refine, refine_wall = _timed(run64, coarse.x, device)
+    refine, refine_wall = _timed(run64, coarse.x.double(), device)
+    timed = _blocks_details(capture_s, _since(before), 1)
     return {"wall_s": coarse_wall + refine_wall,
             "coarse_wall_s": coarse_wall, "refine_wall_s": refine_wall,
             "refine_backend": refine_backend,
@@ -343,4 +403,4 @@ def time_to_tolerance_refined(problem: str = "rosenbrock", d: int = 1 << 20,
             "refine_iterations": int(refine.k),
             "status": Status.NAMES[int(refine.status)],
             "g_norm": float(refine.g_norm), "f": float(refine.f),
-            "device": _device_name(device)}
+            **timed, "device": _device_name(device)}

@@ -8,8 +8,15 @@ tensor select on the device.  Under ``ls_eval="polynomial"`` with
 the host only enqueues work; every other line search reads its loop
 condition once per turn (``linesearch.strategies``), unless ``iterate`` is
 asked for the searches' fixed-trip loop (``bounded=True``).
-``solve_from_state`` reads one scalar per iteration, the loop condition;
-``solve_bounded`` reads none, its searches' included.
+The solves run their iterations in blocks (``core.blocks``), replayed as
+CUDA graphs on the card: ``solve_from_state`` and ``make_solve_segment``
+read the loop's flags once per block, ``solve_bounded`` reads none, its
+searches' included.  A solve of a short budget, and ``solve_bounded`` of
+a batch under a search that loops, run their blocks eagerly
+(``_captured``, ``blocks.CAPTURE_MIN_ITERS``).  A sharded solve,
+``set_debug_nans(True)``, a traced solve and a search that reads on the
+host keep the per-iteration loop, which reads the condition once per
+iteration.
 
 The history ring is updated in place: ``iterate`` writes the new pair's
 rows into ``state.s_hist`` / ``state.y_hist`` and hands the same tensors to
@@ -48,9 +55,10 @@ from torch import Tensor
 
 from ..config import LBFGSConfig
 from ..kernels.fused_ops import _dot, _rdot, _vdot, iteration_tail
-from ..linesearch.strategies import get_line_search
+from ..linesearch.strategies import get_line_search, reads_on_host
 from ..types import Guard, LBFGSState, SolveResult, Status, Trace, per_lane
 from ..utils.accurate import compensated_dot
+from . import blocks
 from .direction import _gamma, compute_direction_with_aux, history_products
 
 ObjFn = Callable[[Tensor], Tensor]
@@ -359,7 +367,10 @@ def iterate(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, state: LBFGSState,
         # invariant is over the raw gradient difference g_new = g + y_raw.
         gamma_p = _gamma(state, m)         # 1.0 before the first pair
         sBs = ss / gamma_p
-        mu = cfg.damping
+        # mu in the working dtype, as the reference's array, so that 1 - mu
+        # rounds there (from a double it may land an ulp away in float32);
+        # a fill on the device, not a copy from the host.
+        mu = torch.full((), cfg.damping, dtype=sy.dtype, device=sy.device)
         damp_fired = sy < mu * sBs
         denom = sBs - sy
         theta = torch.where(
@@ -639,11 +650,42 @@ def _stepper(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, *callables,
     return checked
 
 
+def _blocked(cfg: LBFGSConfig, state: LBFGSState, comm,
+             bounded: bool) -> bool:
+    """Whether the solve loop runs in blocks (``core.blocks``; CUDA graphs
+    on the card).  It keeps the per-iteration loop, by its arguments, for a
+    sharded solve (``comm``), under ``set_debug_nans(True)`` and, outside
+    ``bounded``, for a line search that reads its loop condition on the
+    host (``strategies.reads_on_host``)."""
+    return comm is None and not _DEBUG_NANS and (
+        bounded or not reads_on_host(cfg, state.x.dim() == 2))
+
+
+def _captured(cfg: LBFGSConfig, state: LBFGSState, bounded: bool) -> bool:
+    """Whether a solve in blocks may capture them as CUDA graphs on the
+    card (its budget decides the rest, ``blocks.runner``).  Under
+    ``bounded`` a search that loops (``strategies.reads_on_host``) runs its
+    fixed trip, up to hundreds of turns an iteration: on a batch a block of
+    it is a graph of tens of thousands of nodes whose capture costs more
+    than the eager solve of 40 iterations, while the batch keeps the card
+    busy and a replay saves little, so its blocks run eagerly."""
+    batched = state.x.dim() == 2
+    return not (bounded and batched and reads_on_host(cfg, batched))
+
+
+def _callables(f, vg, dir_poly, fused_tail, phi_batch,
+               phi_dphi_batch) -> dict:
+    """The solve's callables by name, for a block runner."""
+    return {"f": f, "vg": vg, "dir_poly": dir_poly, "fused_tail": fused_tail,
+            "phi_batch": phi_batch, "phi_dphi_batch": phi_dphi_batch}
+
+
 def _run_segment(cfg: LBFGSConfig, step, state: LBFGSState,
                  iters: Optional[int], emit=None) -> LBFGSState:
     """Iterate while running, for at most ``iters`` more iterations of each
     lane when given (counted on the device from each lane's k); one host
-    read per iteration.  ``emit(state)`` is called after every iteration."""
+    read per iteration.  ``emit(state)`` is called after every iteration.
+    The per-iteration loop of the solves that ``_blocked`` leaves out."""
     k_cap = None if iters is None else torch.clamp(state.k + iters,
                                                    max=cfg.max_iters)
     while True:
@@ -660,24 +702,35 @@ def _run_segment(cfg: LBFGSConfig, step, state: LBFGSState,
 def solve_from_state(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
                      state: LBFGSState, dir_poly=None, fused_tail=None,
                      phi_batch=None, phi_dphi_batch=None,
-                     comm=None) -> LBFGSState:
+                     comm=None, kept=None) -> LBFGSState:
     """Iterate while running; returns the final state with its status
-    finalized.  Reads one scalar per iteration, the loop condition (for a
-    batch: whether any lane still runs).  A lane stops the moment its own
-    condition fails and keeps its state from then on, as under the
-    reference's vmapped ``while_loop``.
+    finalized.  A lane stops the moment its own condition fails and keeps
+    its state from then on, as under the reference's vmapped
+    ``while_loop``.  In blocks of iterations (``core.blocks``: CUDA graphs
+    on the card) the host reads the loop's flags once per block, 1 +
+    ceil(n / BLOCK_ITERS) times for n iterations; where ``_blocked`` says
+    no, once per iteration (for a batch: whether any lane still runs).
 
     With ``cfg.refresh_interval`` set (compact_incremental only) the run is
     split into segments of up to that many iterations, counted from the k
     each segment starts at, and the history products are recomputed after
-    every segment (``refresh_products``), for the lanes that entered it."""
+    every segment (``refresh_products``), for the lanes that entered it.
+
+    ``kept``: a ``blocks.Kept`` that keeps the block runner, and its graphs,
+    for the next solve of the same configuration; the solve then returns
+    the kept buffers, which that next solve overwrites."""
     if cfg.record_trace:
         return _solve_traced(cfg, f, vg, state, dir_poly, fused_tail,
                              phi_batch, phi_dphi_batch, comm)[0]
     step = _stepper(cfg, f, vg, dir_poly, fused_tail, phi_batch,
                     phi_dphi_batch, comm=comm)
     interval = _refresh_interval(cfg)
-    if interval is None:
+    if _blocked(cfg, state, comm, bounded=False):
+        drv = blocks.runner("while", cfg, step, state, interval, _callables(
+            f, vg, dir_poly, fused_tail, phi_batch, phi_dphi_batch),
+            cfg.max_iters, kept=kept)
+        state = blocks.solve_while(drv, interval)
+    elif interval is None:
         state = _run_segment(cfg, step, state, None)
     else:
         while True:
@@ -693,25 +746,34 @@ def solve_from_state(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
 def solve_bounded(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
                   state: LBFGSState, dir_poly=None, fused_tail=None,
                   phi_batch=None, phi_dphi_batch=None,
-                  comm=None) -> LBFGSState:
+                  comm=None, kept=None) -> LBFGSState:
     """Exactly ``cfg.max_iters`` more iterations with no read of the loop
     condition: safe because iterate is idempotent on finished states
     (lanes).  The line search runs its fixed-trip loop, so no search
-    reads on the host either, in direct mode included.  A state that would
+    reads on the host either, in direct mode included; the iterations run
+    in blocks (``core.blocks``: CUDA graphs on the card, eager for a
+    batch's search that loops, ``_captured``) unless the solve is sharded
+    or ``set_debug_nans(True)`` holds.  A state that would
     have converged early keeps iterating to the budget.  The budget and,
     with ``cfg.refresh_interval``
     (compact_incremental), the refresh points are relative to the state
     given: a refresh after every full ``refresh_interval`` iterations, none
-    after the remainder."""
+    after the remainder.  ``kept`` as under ``solve_from_state``."""
     interval = _refresh_interval(cfg)
     if interval is not None and interval >= cfg.max_iters:
         interval = None
     step = _stepper(cfg, f, vg, dir_poly, fused_tail, phi_batch,
                     phi_dphi_batch, comm=comm, bounded=True)
-    for i in range(1, cfg.max_iters + 1):
-        state = step(state)
-        if interval and i % interval == 0:
-            state = refresh_products(state, comm)
+    if _blocked(cfg, state, comm, bounded=True):
+        drv = blocks.runner("bounded", cfg, step, state, interval, _callables(
+            f, vg, dir_poly, fused_tail, phi_batch, phi_dphi_batch),
+            cfg.max_iters, _captured(cfg, state, bounded=True), kept)
+        state = blocks.solve_fixed(drv, cfg.max_iters, interval)
+    else:
+        for i in range(1, cfg.max_iters + 1):
+            state = step(state)
+            if interval and i % interval == 0:
+                state = refresh_products(state, comm)
     return state.replace(status=_finalize_status(cfg, state))
 
 
@@ -729,19 +791,35 @@ def make_solve_segment(cfg: LBFGSConfig, f: ObjFn, grad=None,
     ``cfg.refresh_interval`` set (compact_incremental) the history products
     are refreshed at the end of every segment.
 
-    ``donate`` is the reference's buffer donation and has no counterpart
-    here: the port's ring is updated in place whatever it says, so the
-    state passed in must not be used again either way."""
+    The port's ring is updated in place, so the state passed in must not
+    be used again, whatever ``donate`` says.  The segment runs in blocks
+    (``core.blocks``) where ``_blocked`` says so, and the function keeps
+    its block runner, graphs and buffers across calls (``blocks.Kept``): a
+    state is copied into the buffers (none is copied when it is the state
+    the last call returned).  ``donate``, the reference's buffer donation:
+    True returns the buffers, which the next call overwrites, as a donated
+    state is; False returns a copy of every field, so that no later call
+    changes a state returned earlier, as the reference's fresh outputs."""
     vg = make_value_and_grad(f, grad, value_and_grad)
     seg_iters = iters if iters is not None \
         else (cfg.refresh_interval if cfg.refresh_interval is not None
               else cfg.max_iters)
     step = _stepper(cfg, f, vg, dir_poly, fused_tail, phi_batch,
                     phi_dphi_batch)
+    refresh = _refresh_interval(cfg) is not None
+    kept = blocks.Kept()
 
     def segment(state: LBFGSState) -> LBFGSState:
+        if _blocked(cfg, state, None, bounded=False):
+            drv = blocks.runner("segment", cfg, step, state, None, _callables(
+                f, vg, dir_poly, fused_tail, phi_batch, phi_dphi_batch),
+                min(seg_iters, cfg.max_iters), kept=kept)
+            out = blocks.solve_segment(drv, seg_iters, refresh)
+            return out if donate else out.replace(**{
+                n.name: getattr(out, n.name).clone()
+                for n in dataclasses.fields(out)})
         out = _run_segment(cfg, step, state, seg_iters)
-        if _refresh_interval(cfg) is not None:
+        if refresh:
             out = refresh_products(out)
         return out
 

@@ -50,6 +50,7 @@ from ..core.solver import (
     solve_bounded,
     solve_from_state,
 )
+from ..kernels.chain import whole_batch
 from ..kernels.fused_ops import pallas_ok
 from ..types import LBFGSState, SolveResult, Status
 from .mesh import Mesh, local_block, local_lanes, make_mesh, pad_for_mesh
@@ -230,9 +231,10 @@ def sharded_vmap_minimize(f: Callable, x0_batch: Tensor,
 
         cfg, _ = _resolve_shard_local(cfg, x0_batch.shape[-1], 1,
                                       x0_batch.dtype, False, batch_local)
-        return vmap_minimize(f, x_rows, cfg, grad=grad,
-                             value_and_grad=value_and_grad,
-                             dir_poly=dir_poly, lockstep=lockstep)
+        with whole_batch(x0_batch.shape[0]):
+            return vmap_minimize(f, x_rows, cfg, grad=grad,
+                                 value_and_grad=value_and_grad,
+                                 dir_poly=dir_poly, lockstep=lockstep)
     x_pad, n = pad_for_mesh(x_rows, n_shards)
     cfg, wm = _resolve_shard_local(cfg, x_pad.shape[-1], n_shards,
                                    x0_batch.dtype,
@@ -372,12 +374,15 @@ def _solve(obj: ShardObjective, state: LBFGSState, mesh: Mesh,
     args = (obj.cfg, obj.f, obj.vg, state, obj.dir_poly, obj.fused_tail,
             obj.phi_batch, obj.phi_dphi_batch, mesh.comm)
     trace = None
-    if bounded:
-        state = solve_bounded(*args)
-    elif obj.cfg.record_trace:
-        state, trace = _solve_traced(*args)
-    else:
-        state = solve_from_state(*args)
+    # A row holds B / b lanes of the mesh's batch; the compact chain's
+    # non-finite rule asks about all B, as the reference's vmap rule does.
+    with whole_batch(state.x.shape[:-1].numel() * mesh.batch_size):
+        if bounded:
+            state = solve_bounded(*args)
+        elif obj.cfg.record_trace:
+            state, trace = _solve_traced(*args)
+        else:
+            state = solve_from_state(*args)
     # The state goes on: a solve that its cap stopped is RUNNING again, as
     # ``make_solve_segment`` leaves it, so a later cap resumes it.
     status = torch.where(state.status == Status.MAX_ITERS, Status.RUNNING,

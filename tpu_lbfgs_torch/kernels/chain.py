@@ -26,14 +26,19 @@ tensors on the CPU, and ``launches`` counts its kernel launches.
 from __future__ import annotations
 
 import ctypes
+from contextlib import contextmanager
 
 import torch
 from torch import Tensor
 
-from . import _build
+from . import _build, counts
 
 #: Kernel launches since the last ``reset_launches()``.
 launches = {"compact_chain": 0}
+
+#: The batch size the non-finite rule asks about (``whole_batch``); None:
+#: the lanes at hand.
+_whole_batch = None
 
 #: The deepest history the CUDA kernel takes (csrc/compact_chain.cu kMaxM).
 MAX_M = 64
@@ -47,13 +52,29 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+@contextmanager
+def whole_batch(size: int):
+    """Within it, the batched chain's non-finite rule asks about a batch of
+    ``size`` lanes, where the solve holds only some of them: the rows of a
+    ``sharded_vmap_minimize`` mesh, each with B / b lanes of the global B.
+    The reference's ``custom_vmap`` rule sees the whole vmapped axis
+    (tpu_lbfgs/kernels/chain.py:313-325), whatever a device holds."""
+    global _whole_batch
+    outer, _whole_batch = _whole_batch, size
+    try:
+        yield
+    finally:
+        _whole_batch = outer
+
+
 def reference_spreads(SY_p: Tensor) -> bool:
     """Whether the reference's chain spreads non-finite products for these
     (B, m, m) ones: its vmapped one-hot chain does
     (tpu_lbfgs/kernels/chain.py:67-80, :99-104), its Pallas chain, taken
     for float32 batches of B % 1024 == 0 (:313-325), selects and does
-    not."""
-    return not (SY_p.dtype == torch.float32 and SY_p.shape[0] % 1024 == 0)
+    not.  B is the whole batch's size inside ``whole_batch``."""
+    B = SY_p.shape[0] if _whole_batch is None else _whole_batch
+    return not (SY_p.dtype == torch.float32 and B % 1024 == 0)
 
 
 def onehot_spread(SY_p: Tensor, YY_p: Tensor, Sg_p: Tensor, Yg_p: Tensor,
@@ -275,5 +296,5 @@ def compact_chain_batched(SY_p: Tensor, YY_p: Tensor, Sg_p: Tensor,
             fallback.data_ptr(), B, m,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "compact_chain")
-    launches["compact_chain"] += 1
+    counts.count(launches, "compact_chain")
     return v_phys, u_phys, gamma, g_dot_d, fallback

@@ -79,7 +79,7 @@ from torch import Tensor
 
 from ..types import per_lane
 from ..utils.accurate import compensated_dot
-from . import _build
+from . import _build, counts
 
 #: The body ids of csrc/bodies.cuh, by problem name.
 BODY_IDS = {"quadratic": 0, "rosenbrock": 1, "coupled_quadratic": 2}
@@ -286,7 +286,7 @@ def fused_vg(problem: str, x: Tensor,
             name = f"{problem}_vg_batched"
             err = lib.tl_fused_vg_batched_f32(*head, lanes, n, stream)
     _build.check(lib, err, name)
-    launches[name] += 1
+    counts.count(launches, name)
     return (f[0] if lanes is None else f), g
 
 
@@ -337,7 +337,7 @@ def local_fused_vg(problem: str, x_local: Tensor, n: int, start: int,
             err = lib.tl_fused_vg_local_batched_f32(*head, lanes, n_local,
                                                     *tail, stream)
     _build.check(lib, err, name)
-    launches[name] += 1
+    counts.count(launches, name)
     return (f[0] if lanes is None else f), g
 
 
@@ -475,7 +475,7 @@ def _fused_tail_kernel(problem: str, x: Tensor, d: Tensor, alpha: Tensor,
             name = f"{problem}_fused_tail_local"
             err = lib.tl_fused_tail_local_f32(*head, n, *where, stream)
     _build.check(lib, err, name)
-    launches[name] += 1
+    counts.count(launches, name)
     if shard is not None:
         # A batch's rows (sum, lane), seen as (lane, sum).
         return x_new, g_new, s_row, y_row, (sums if lanes is None
@@ -656,7 +656,7 @@ def iteration_tail(x: Tensor, d: Tensor, alpha: Tensor, g: Tensor,
             err = getattr(lib, f"tl_iteration_tail_batched_{suffix}")(
                 *ptrs, lanes, n, int(accurate), stream)
     _build.check(lib, err, name)
-    launches[name] += 1
+    counts.count(launches, name)
     return (x_new, s_row, y_row, *sums.unbind(0))
 
 
@@ -787,5 +787,5 @@ def combine_direction(g: Tensor, s_hist: Tensor, y_hist: Tensor, v: Tensor,
             err = getattr(lib, f"tl_combine_direction_batched_{suffix}")(
                 *ptrs, lanes, n, stream)
     _build.check(lib, err, name)
-    launches[name] += 1
+    counts.count(launches, name)
     return r

@@ -39,7 +39,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-from . import _build
+from . import _build, counts
 from .fused_ops import (
     BODY_IDS,
     F_PLAIN,
@@ -151,7 +151,7 @@ def _launch(kernel: str, problem: str, x: Tensor, d: Tensor, alphas: Tensor,
                 err = getattr(lib, f"tl_{kernel}_local_batched_f32")(
                     *args, lanes, n, *where, stream)
     _build.check(lib, err, name)
-    launches[name] += 1
+    counts.count(launches, name)
     return out if lanes is None else out.view(outputs, k, lanes)
 
 

@@ -77,6 +77,25 @@ def _read(*flags: Tensor) -> list[bool]:
             else flags[0].reshape(1)).tolist()
 
 
+def reads_on_host(cfg: LBFGSConfig, batched: bool) -> bool:
+    """Whether ``cfg``'s search, driven read-driven, reads on the host:
+    every search but ``backtracking`` on the directional polynomial or on
+    a batch (the whole ladder at once, no loop)."""
+    return not (cfg.line_search == "backtracking"
+                and (cfg.ls_eval == "polynomial" or batched))
+
+
+def _refuse_capture(what: str) -> None:
+    """Raise inside a CUDA graph capture: ``what`` is a host-to-device copy,
+    made once per configuration and device and cached, which a capture
+    cannot take.  The warm-up before a capture makes it (``core.blocks``),
+    so this is a table that the warm-up missed."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"{what} is copied from the host during a CUDA graph capture: "
+            "its cached table was not made before the capture")
+
+
 def _select(go: Tensor, new: tuple, old: tuple) -> tuple:
     """The carry ``new`` on the lanes where ``go`` holds, ``old`` elsewhere."""
     return tuple(torch.where(go, a, b) for a, b in zip(new, old))
@@ -180,6 +199,7 @@ def _ladder(initial_step: float, shrink: float, tol: float,
     copy happens once per configuration and device."""
     trials, underflowed = _ladder_values(initial_step, shrink, tol,
                                          _np_dtype(dtype))
+    _refuse_capture("the backtracking ladder")
     return torch.tensor(trials, device=device), underflowed
 
 
@@ -706,6 +726,7 @@ def _tree_tables(R: int, device: torch.device):
     (index of (i, j) in the (R+1, R+1) level grid, index of the shrink child,
     index of the grow child, whether each child is in the tree, node
     indices).  Cached, so the copy happens once per R and device."""
+    _refuse_capture("the backtracking_wolfe_speculative node table")
     pairs = [(i, j) for i in range(R + 1) for j in range(R + 1 - i)]
     flat = {p: t for t, p in enumerate(pairs)}
 
