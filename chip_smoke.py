@@ -173,6 +173,7 @@ card could take for the same bytes and operations, and, where one PyTorch
 call computes the same function, that call's time.  Without a CUDA device
 it exits with an error and prints no record.
 """
+import contextlib
 import itertools
 import json
 import math
@@ -254,9 +255,11 @@ DIRECT_BOX = 10.0
 # float64 kept, and one lane ended 475x apart; every other search kept
 # every lane's status, f within 8.1e-5, median 2-4e-7).
 SEARCH_ITERS = 20
-# The fixed-trip search whose capture [batch-search] holds to its eager
-# blocks: the interpolating Wolfe search (the capture of its 40 iterations
-# took 1.36 s on an H100 80GB HBM3 at 700 W, torch_records/graph_costs.py).
+# The search whose capture on the batch cell, each turn under an IF node,
+# [batch-search] holds to its eager fixed-trip blocks: the interpolating
+# Wolfe search (captured, 6.26-6.27 ms an iteration against 44.93-50.89
+# eager, capture 0.10 s, on an H100 80GB HBM3 at 700 W,
+# torch_records/graph_costs.py --gated).
 SEARCH_CAPTURE = "wolfe_interpolation"
 SEARCH_D_ITERS = 10
 SEARCH_LANE_SHARE = 0.99
@@ -383,11 +386,13 @@ def blocks_note():
     """The block runner's counts since reset_counts(), for a line."""
     from tpu_lbfgs_torch.core import blocks
 
-    st = blocks.stats
+    st = blocks.read_stats()
     return (f"{st['steps']} iterations in blocks ({st['replays']} replays, "
-            f"{st['captures']} captures in {st['capture_s']:.3f} s, "
-            f"{st['warmups']} warm-up iterations, {st['host_reads']} host "
-            "reads of the loop's flags)")
+            f"{st['captures']} captures in {st['capture_s']:.3f} s of "
+            f"{st['graph_nodes']} nodes and {st['if_nodes']} IF nodes, "
+            f"{st['gated_turns']} gated search turns, {st['warmups']} "
+            f"warm-up iterations, {st['host_reads']} host reads of the "
+            "loop's flags)")
 
 
 def ulps(a, b):
@@ -1593,6 +1598,63 @@ def _graph_pool(label, blocks, tt, cfg, p, vg, tail, x0, card):
     return pool
 
 
+def _driver_version():
+    """The CUDA driver API's version, as cuDriverGetVersion gives it."""
+    import ctypes
+
+    version = ctypes.c_int()
+    err = ctypes.CDLL("libcuda.so.1").cuDriverGetVersion(
+        ctypes.byref(version))
+    check(err == 0, f"cuDriverGetVersion failed: {err}")
+    return f"{version.value // 1000}.{version.value % 1000 // 10}"
+
+
+def phase_graph_if(dev):
+    """[graph-if]: what the gated line-search driver stands on
+    (linesearch.strategies, kernels.graph_if): a CUDA graph IF node.  The
+    versions of torch, the CUDA runtime and the driver; whether torch's
+    own capture methods for IF nodes exist (the port does not use them:
+    some torch releases lack them); then a graph whose IF node, added
+    through csrc/graph_if.cu, adds 1 to a tensor, replayed with its
+    predicate true and then false, and the turns its condition kernel
+    counted."""
+    from tpu_lbfgs_torch.kernels import graph_if
+
+    methods = {name: hasattr(torch.cuda.CUDAGraph, name)
+               for name in ("begin_capture_to_if_node",
+                            "end_capture_to_conditional_node")}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    say(f"[graph-if] torch {torch.__version__}, CUDA runtime "
+        f"{torch.version.cuda}, driver API {_driver_version()} (driver "
+        f"{smi.stdout.strip().splitlines()[0]}); torch's IF-node capture "
+        f"methods {methods}; the port adds its IF nodes through "
+        "csrc/graph_if.cu")
+    total = torch.zeros((), device=dev)
+    pred = torch.ones((), dtype=torch.bool, device=dev)
+    turns = torch.zeros(1, dtype=torch.int64, device=dev)
+    graph, pool = torch.cuda.CUDAGraph(), torch.cuda.graph_pool_handle()
+    gate = graph_if.GraphGate(turns)
+    with torch.cuda.graph(graph, pool=pool):
+        graph_if.route_to_pool(dev.index, pool)
+        gate.start()
+        gate.open(pred)
+        total.add_(1.0)
+        gate.end()
+    gate.close()
+    got = []
+    for value in (True, False):
+        pred.fill_(value)
+        graph.replay()
+        got.append((total.item(), turns.item()))
+    say(f"[graph-if] an IF node that adds 1, replayed with its predicate "
+        f"true then false: (total, turns counted) {got} (want [(1.0, 1), "
+        f"(1.0, 1)]); {gate.nodes} IF node")
+    check(got == [(1.0, 1), (1.0, 1)],
+          "the IF node's body ran against its predicate")
+
+
 def phase_graph(dev, card):
     """[graph]: the block runner's graphs against its eager blocks, at the
     main path's and the batch cell's widths."""
@@ -1810,47 +1872,101 @@ def _graph_host_read(tt, blocks, rose, dev):
     runs under eager_loops(), equal there to the same solve of the
     problem's own f.  The failed capture leaves the caching allocator free
     to return memory: a freed GRAPH_FREED_BYTES goes back to the card at
-    torch.cuda.empty_cache()."""
-    def reads_host(x):
-        if bool((x.abs() > 1e30).any()):
-            return rose.f(x) * 0
-        return rose.f(x)
-
+    torch.cuda.empty_cache().  Twice: on bench.py's path, where the read
+    breaks the block's own capture, and in direct mode, where the objective
+    reads only while an IF node's body is captured (the search's first
+    gated turn; its first turn runs with no gate), so that the capture
+    breaks inside the body."""
     from tpu_lbfgs_torch.bench.harness import _x0
+    from tpu_lbfgs_torch.linesearch import strategies
+
+    def in_body():
+        return bool(getattr(strategies._GATE, "_open", None))
 
     x = _x0(1 << 12, SEED, torch.float32, dev)
-    cfg = _bench_cfg(tt, blocks.CAPTURE_MIN_ITERS).replace(use_pallas=False)
-    try:
-        tt.minimize(reads_host, x, cfg, grad=rose.grad,
-                    dir_poly=rose.dir_poly)
-        err = None
-    except RuntimeError as e:
-        err = str(e)
-    torch.cuda.synchronize()
-    with blocks.eager_loops():
-        r = tt.minimize(reads_host, x, cfg, grad=rose.grad,
+    bench = _bench_cfg(tt, blocks.CAPTURE_MIN_ITERS).replace(
+        use_pallas=False)
+    direct = bench.replace(ls_eval="direct")
+    for label, cfg, when in (("bench.py's path", bench, lambda: True),
+                             ("direct mode, inside an IF node", direct,
+                              in_body)):
+        def reads_host(x, when=when):
+            if when() and bool((x.abs() > 1e30).any()):
+                return rose.f(x) * 0
+            return rose.f(x)
+
+        try:
+            tt.minimize(reads_host, x, cfg, grad=rose.grad,
                         dir_poly=rose.dir_poly)
-        want = tt.minimize(rose.f, x, cfg, grad=rose.grad,
-                           dir_poly=rose.dir_poly)
-    differ = _graph_same(r, want)
-    torch.cuda.empty_cache()
-    before = torch.cuda.memory_reserved()
-    freed = torch.empty(GRAPH_FREED_BYTES, dtype=torch.uint8, device=dev)
-    del freed
-    torch.cuda.empty_cache()
-    kept = torch.cuda.memory_reserved() - before
-    say(f"[graph] an objective that reads the host: the captured solve "
-        f"raised {err!r}; under eager_loops() it ran {r.iterations.item()} "
-        f"iterations, fields that differ from the problem's own f {differ}; "
-        f"then {GRAPH_FREED_BYTES} bytes freed, {kept} of them still "
-        "reserved after torch.cuda.empty_cache()")
-    check(kept <= 0, "[graph] after a failed capture the allocator must "
-          "return freed memory to the card")
-    check(err is not None and "f=" in err and "reads_host" in err
-          and "eager_loops()" in err, "[graph] a capture of an objective "
-          "that reads the host must raise naming it and eager_loops()")
-    check(not differ, "[graph] the host-reading objective's eager solve "
-          f"differs in {differ}")
+            err = None
+        except RuntimeError as e:
+            err = str(e)
+        torch.cuda.synchronize()
+        with blocks.eager_loops():
+            r = tt.minimize(reads_host, x, cfg, grad=rose.grad,
+                            dir_poly=rose.dir_poly)
+            want = tt.minimize(rose.f, x, cfg, grad=rose.grad,
+                               dir_poly=rose.dir_poly)
+        differ = _graph_same(r, want)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
+        freed = torch.empty(GRAPH_FREED_BYTES, dtype=torch.uint8, device=dev)
+        del freed
+        torch.cuda.empty_cache()
+        kept = torch.cuda.memory_reserved() - before
+        say(f"[graph] an objective that reads the host, {label}: the "
+            f"captured solve raised {err!r}; under eager_loops() it ran "
+            f"{r.iterations.item()} iterations, fields that differ from the "
+            f"problem's own f {differ}; then {GRAPH_FREED_BYTES} bytes "
+            f"freed, {kept} of them still reserved after "
+            "torch.cuda.empty_cache()")
+        check(kept <= 0, f"[graph] {label}: after a failed capture the "
+              "allocator must return freed memory to the card")
+        check(err is not None and "f=" in err and "reads_host" in err
+              and "eager_loops()" in err, f"[graph] {label}: a capture of "
+              "an objective that reads the host must raise naming it and "
+              "eager_loops()")
+        check(not differ, f"[graph] {label}: the host-reading objective's "
+              f"eager solve differs in {differ}")
+
+
+#: Profiler sessions per count in phase_graph_kernels: torch.profiler drops
+#: device records now and then, never adds one, so a count is the most of
+#: these sessions.
+PROFILE_REPEATS = 3
+#: Seconds each profiler session of phase_graph_kernels waits on the host
+#: after it starts and before it ends, and the spin kernels it launches on
+#: each side of the block (torch.cuda._sleep, SENTINEL_CYCLES each).  The
+#: records torch.profiler lost were a session's first kernels (on an NVIDIA
+#: H100 80GB HBM3, torch_records/profiler_counts.py): the sentinels stand
+#: where the lost records were, and are not counted.
+PROFILE_EDGE_S = 0.02
+SENTINELS = 8
+SENTINEL_CYCLES = 100_000
+#: Seconds the process of phase_graph_kernels may take (about 40 on an
+#: NVIDIA H100 80GB HBM3).
+GRAPH_KERNELS_TIMEOUT_S = 600
+
+
+def phase_graph_kernels_fresh():
+    """phase_graph_kernels in a process of its own, after every timed
+    phase.  torch.profiler loses more device records the longer its
+    process has run: in this script's own process, at its end, 10 records
+    of nearly every session in both modes, so one session of each count
+    in three could be whole (on an NVIDIA H100 80GB HBM3); in a fresh
+    process it lost none in 288 sessions of the same blocks
+    (torch_records/profiler_counts.py)."""
+    proc = subprocess.run(
+        [sys.executable, "-X", "faulthandler", "-u", __file__,
+         "--graph-kernels"], capture_output=True, text=True,
+        timeout=GRAPH_KERNELS_TIMEOUT_S,
+        env=dict(os.environ, PYTHONPATH=os.getcwd()))
+    for line in proc.stdout.splitlines():
+        if line.startswith("[graph]"):
+            say(line)
+    check(proc.returncode == 0, "[graph] the profiler's kernel counts "
+          f"failed (exit {proc.returncode}): "
+          f"{(proc.stdout + proc.stderr)[-3000:]}")
 
 
 def phase_graph_kernels(dev):
@@ -1858,7 +1974,16 @@ def phase_graph_kernels(dev):
     cell's blocks, replayed against eager, from torch.profiler after every
     timed phase: (kernels of a block of BLOCK_ITERS - kernels of a block of
     one) / (BLOCK_ITERS - 1), so the block's own copies and flags drop
-    out."""
+    out.  The profiler loses device records and never adds one
+    (torch_records/profiler_counts.py, on an NVIDIA H100 80GB HBM3): more
+    the longer its process has run (phase_graph_kernels_fresh), and now
+    and then many of one session's (a replayed block of 20 once counted
+    6,309 of its 6,537), so each count is the most of PROFILE_REPEATS
+    sessions.  The records lost were a session's first kernels, so each
+    session waits PROFILE_EDGE_S at its edges and puts SENTINELS spin
+    kernels on each side of the block, and counts every device record but
+    theirs.  Every session's count, and the sentinels it kept, are
+    printed, and the comparison is made once, exactly."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1879,7 +2004,7 @@ def phase_graph_kernels(dev):
     for label, cfg, x, fn, masked in paths:
         cfg = cfg.replace(max_iters=1 << 30)
         step = _stepper(cfg, rose.f, fn[0], *fn[1:], bounded=not masked)
-        per_block = {}
+        per_block, sessions = {}, {}
         for mode in ("eager", "graphs"):
             with _graph_mode(blocks, mode):
                 drv = blocks.BlockRunner(cfg, step, tt.init_state(
@@ -1889,19 +2014,35 @@ def phase_graph_kernels(dev):
             drv.run(1)
             counts = []
             for length in (n, 1):
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    drv.run(length)
+                seen = []
+                for _ in range(PROFILE_REPEATS):
                     torch.cuda.synchronize()
-                counts.append(sum(e.count for e in prof.key_averages()
-                                  if e.device_type == DeviceType.CUDA))
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        time.sleep(PROFILE_EDGE_S)
+                        for _ in range(SENTINELS):
+                            torch.cuda._sleep(SENTINEL_CYCLES)
+                        drv.run(length)
+                        for _ in range(SENTINELS):
+                            torch.cuda._sleep(SENTINEL_CYCLES)
+                        torch.cuda.synchronize()
+                        time.sleep(PROFILE_EDGE_S)
+                    records = [e for e in prof.key_averages()
+                               if e.device_type == DeviceType.CUDA]
+                    kept = sum(e.count for e in records
+                               if "spin_kernel" in e.key)
+                    seen.append((sum(e.count for e in records) - kept,
+                                 kept))
+                counts.append(max(c for c, _ in seen))
+                sessions[f"{mode} {length}"] = seen
             per_block[mode] = counts
         (e_n, e_1), (g_n, g_1) = per_block["eager"], per_block["graphs"]
         say(f"[graph] {label}: device kernels per iteration from "
             f"torch.profiler, replayed {(g_n - g_1) / (n - 1):.2f}, eager "
             f"{(e_n - e_1) / (n - 1):.2f} (a block of {n}: {g_n} replayed, "
-            f"{e_n} eager; of one: {g_1}, {e_1})")
+            f"{e_n} eager; of one: {g_1}, {e_1}; each the most of its "
+            f"sessions, as (kernels, sentinels of {2 * SENTINELS}), "
+            f"{sessions})")
         check(g_n > 0 and (g_n, g_1) == (e_n, e_1),
               f"[graph] {label}: the replayed blocks run other kernels than "
               "the eager ones")
@@ -2529,6 +2670,17 @@ def _direct_cfg(tt, strategy, iters):
         max_iters=iters, tol=0.0)
 
 
+# The state fields [direct] holds bit for bit between the read-driven and
+# the gated solve.
+DIRECT_FIELDS = ("x", "f", "g", "k", "n_fev", "n_gev", "guards", "status")
+
+
+def _twin_kernel(strategy):
+    """The K-trial kernel a direct-mode twin launches once per round."""
+    return ("rosenbrock_multi_phi" if strategy == "backtracking_speculative"
+            else "rosenbrock_multi_phi_dphi")
+
+
 def _direct_solver(tt, use_kernels=True):
     return dict(
         value_and_grad=tt.fused_value_and_grad("rosenbrock"),
@@ -2538,9 +2690,36 @@ def _direct_solver(tt, use_kernels=True):
                                              use_pallas=use_kernels))
 
 
+def twin_rounds(reads, got, vg, own):
+    """(rounds, the K-trial kernel's launches in them) of a direct-mode
+    twin's solve since reset_counts().  Read-driven, each round is one host
+    read, and so is each scalar zoom turn of
+    wolfe_interpolation_speculative's phase B (one vg launch each past
+    init_state's).  On the gated driver nothing is read: each iteration
+    stepped runs its first round with no gate, the card counts the gated
+    turns (the zoom turns among them), and a capture's warm-up launches
+    are set aside (blocks.stats["warmup_launches"])."""
+    from tpu_lbfgs_torch.core import blocks
+
+    st = blocks.read_stats()
+    warm = st["warmup_launches"]
+    zoom = got[vg] - warm[vg] - 1
+    if st["replays"]:
+        return st["steps"] + st["gated_turns"] - zoom, got[own] - warm[own]
+    return reads - zoom, got[own]
+
+
 def phase_direct(dev):
+    """[direct]: each of the 8 line searches in direct mode at d = 2^20 for
+    DIRECT_ITERS iterations, through minimize's solve, read-driven on the
+    per-iteration loop (eager_loops()) and on the gated driver in captured
+    blocks (each search turn under an IF node): a kept runner captures in
+    a first solve, and the measured one replays under
+    set_sync_debug_mode("error").  The two bit-equal in x, f, g, k, the
+    counts, the guards and the kernel launches; their walls in turns."""
     import tpu_lbfgs_torch as tt
     from tpu_lbfgs_torch import kernels
+    from tpu_lbfgs_torch.core import blocks
     from tpu_lbfgs_torch.kernels import line_search_ops
     from tpu_lbfgs_torch.linesearch import strategies
 
@@ -2550,55 +2729,103 @@ def phase_direct(dev):
         device=dev, dtype=torch.float32)
     f0 = p.f(x0).item()
     solver = _direct_solver(tt)
+    vg = solver["value_and_grad"]
+    args = (None, solver["fused_tail"], solver["phi_batch"],
+            solver["phi_dphi_batch"])
     trial_kernels = tuple(line_search_ops.launches)
     launches = dict.fromkeys(trial_kernels, 0)
     for strategy in tt.config.LINE_SEARCH_METHODS:
         cfg = _direct_cfg(tt, strategy, DIRECT_ITERS)
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        strategies.reset_host_reads()
-        t0 = time.perf_counter()
-        r = tt.minimize(p.f, x0, cfg, **solver)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = kernels.launch_counts()
-        reads = strategies.host_reads["line_search"]
-        k, n_fev, f = r.iterations.item(), r.n_fev.item(), r.f.item()
+        kept = blocks.Kept()
+
+        def solve(kept=None, cfg=cfg):
+            # minimize's solve (solve_to_result), with a kept runner.
+            state = tt.init_state(vg, x0, cfg.m)
+            return tt.solve_from_state(cfg, p.f, vg, state, *args, kept=kept)
+
+        blocks.reset_stats()
+        solve(kept)                         # the capture
+        capture_s, nodes = blocks.stats["capture_s"], blocks.read_stats()
+        nodes = (nodes["if_nodes"], nodes["graph_nodes"])
+        runs, walls = {}, {"read-driven": [], "gated": []}
+        for mode in ("read-driven", "gated", "gated", "read-driven"):
+            torch.cuda.synchronize()
+            reset_counts()
+            strategies.reset_host_reads()
+            t0 = time.perf_counter()
+            if mode == "gated":
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    r = solve(kept)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            else:
+                with tt.eager_loops():
+                    r = solve()
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t0)
+            if mode not in runs:
+                r = r.replace(**{n: getattr(r, n).clone()
+                                 for n in DIRECT_FIELDS})
+                reads = strategies.host_reads["line_search"]
+                got = kernels.launch_counts()
+                runs[mode] = (r, got, reads, dict(blocks.read_stats()),
+                              twin_rounds(reads, got, "rosenbrock_vg",
+                                          _twin_kernel(strategy))
+                              if strategy.endswith("_speculative") else None)
+        (a, got_a, reads_a, st_a, rounds_a), \
+            (b, got_b, reads_b, st_b, rounds_b) = \
+            runs["read-driven"], runs["gated"]
+        k, n_fev, f = b.k.item(), b.n_fev.item(), b.f.item()
+        differ = [n for n in DIRECT_FIELDS
+                  if not torch.equal(getattr(a, n), getattr(b, n))]
         # init_state charges one evaluation, each iteration its tail's one.
         trials = n_fev - 1 - k
-        say(f"[direct] {strategy}: {k} iterations in {wall:.3f} s, "
-            f"{wall / k * 1e3:.3f} ms/iteration, {trials / k:.2f} trials/"
-            f"iteration, {reads / k:.2f} line-search host reads/iteration "
-            f"(+1 for the loop condition); f {f0:.6e} -> {f:.6e}, |g| "
-            f"{r.g_norm.item():.4e}, status "
-            f"{tt.Status.NAMES[r.status.item()]}, guards "
-            f"{r.guards.tolist()}, launches {ran(got)}")
-        check(r.status.item() == tt.Status.MAX_ITERS and k == DIRECT_ITERS,
+        ms = {m: ", ".join(f"{w / k * 1e3:.3f}" for w in ws)
+              for m, ws in walls.items()}
+        say(f"[direct] {strategy}: {k} iterations, {trials / k:.2f} trials/"
+            f"iteration; ms/iteration in turns read-driven "
+            f"{ms['read-driven']} ({reads_a / k:.2f} line-search host reads/"
+            f"iteration +1 for the loop), gated {ms['gated']} (replayed "
+            f"under set_sync_debug_mode('error'): {reads_b} line-search "
+            f"reads, {st_b['host_reads']} loop reads, {st_b['gated_turns']} "
+            f"gated turns; capture {capture_s:.3f} s, {nodes[0]} IF nodes, "
+            f"{nodes[1]} other nodes); f {f0:.6e} -> {f:.6e}, |g| "
+            f"{b.g_norm.item():.4e}, status "
+            f"{tt.Status.NAMES[b.status.item()]}, guards {b.guards.tolist()}"
+            f", launches {ran(got_b)} (read-driven {ran(got_a)}); fields "
+            f"that differ {differ}")
+        check(b.status.item() == tt.Status.MAX_ITERS and k == DIRECT_ITERS,
               f"{strategy}: the solve must run its {DIRECT_ITERS} iterations")
-        check(r.x.shape == (D,) and bool(torch.isfinite(r.x).all())
+        check(b.x.shape == (D,) and bool(torch.isfinite(b.x).all())
               and np.isfinite(f) and f < f0,
               f"{strategy}: f must be finite and decrease")
-        check(got["rosenbrock_fused_tail"] == k and got["rosenbrock_vg"] >= 1,
+        check(not differ and ran(got_a) == ran(got_b),
+              f"{strategy}: the gated solve differs from the read-driven "
+              f"one in {differ}, launches {ran(got_b)} against {ran(got_a)}")
+        check(reads_b == 0 and st_b["host_reads"]
+              == 1 + -(-DIRECT_ITERS // blocks.BLOCK_ITERS)
+              and st_b["steps"] == DIRECT_ITERS and st_b["replays"]
+              and not st_b["captures"],
+              f"{strategy}: the gated solve must replay its blocks and read "
+              f"1 + ceil(n / {blocks.BLOCK_ITERS}) times; {blocks_note()}")
+        check(got_b["rosenbrock_fused_tail"] == k
+              and got_b["rosenbrock_vg"] >= 1,
               f"{strategy}: the tail kernel must launch once per iteration "
               "and the vg kernel at least once")
-        # A twin reads one condition per pass over (x, d): per K-wide round,
-        # and per scalar zoom turn of wolfe_interpolation_speculative's
-        # phase B (one vg launch each, past init_state's).  So its rounds
-        # are its reads less those turns, and its K-trial kernel launches
-        # once per round.
-        batched = sum(got[name] for name in trial_kernels)
+        batched = sum(got_b[name] for name in trial_kernels)
         if strategy.endswith("_speculative"):
-            own = ("rosenbrock_multi_phi"
-                   if strategy == "backtracking_speculative"
-                   else "rosenbrock_multi_phi_dphi")
-            rounds = reads - (got["rosenbrock_vg"] - 1)
-            check(rounds > 0 and got[own] == batched == rounds,
-                  f"{strategy}: {own} must launch once per round ({rounds} "
-                  f"rounds, launches {ran(got)})")
+            own = _twin_kernel(strategy)
+            for label, (rounds, n) in (("read-driven", rounds_a),
+                                       ("gated", rounds_b)):
+                check(rounds > 0 and n == rounds
+                      and batched == got_b[own],
+                      f"{strategy} {label}: {own} must launch once per round "
+                      f"({rounds} rounds, {n} launches)")
         else:
             check(batched == 0, f"{strategy} must not launch a K-trial kernel")
         for name in trial_kernels:
-            launches[name] += got[name]
+            launches[name] += got_b[name]
 
     # Each twin's first iterations with its K-trial kernel and with the
     # plain version, both on the card, from the same state.
@@ -2634,19 +2861,20 @@ def phase_batch_search(dev, card):
 
     The batch: 4096 x 1024, float32, m = 10, compact_incremental, direct
     evaluation, SEARCH_ITERS iterations of vmap_minimize(lockstep=
-    "bounded") as a caller runs it (its blocks eager: a budget below
-    blocks.CAPTURE_MIN_ITERS, and a batch's fixed-trip search that loops
-    never captures, solver._captured), under
+    "bounded") as a caller runs it (its blocks eager, the fixed trip: a
+    budget below blocks.CAPTURE_MIN_ITERS), under
     torch.cuda.set_sync_debug_mode("error"), so a host read fails the
     run; held against the same solve in float64 on the card
     (SEARCH_LANE_SHARE of the lanes with the same status and f within
     SEARCH_F_RTOL); the chain kernel launches once per iteration.  Then
-    what that rule saves: SEARCH_CAPTURE's fixed trip over two blocks with
-    its capture forced, against its eager blocks, bit for bit.  One
-    instance: solve_bounded (fixed-trip searches, under the same sync
-    mode) against solve_from_state
-    (read-driven) over the same SEARCH_D_ITERS iterations of the direct
-    stack of [direct]: x bit for bit, the same counts; both timed.
+    SEARCH_CAPTURE over two blocks' worth, a budget that captures, its
+    search turns under IF nodes, against its eager fixed-trip blocks, bit
+    for bit.  One instance: solve_bounded (fixed-trip searches, under the
+    same sync mode) and the gated driver (captured though the budget is
+    below the rule's, a kept runner replaying under the same sync mode)
+    against solve_from_state read-driven (eager_loops()) over the same
+    SEARCH_D_ITERS iterations of the direct stack of [direct]: x bit for
+    bit, the same counts (the gated one's launches too); all timed.
     Returns the profiler jobs of the single-instance runs, counted after
     every timed phase (phase_launch_counts)."""
     import tpu_lbfgs_torch as tt
@@ -2724,55 +2952,84 @@ def phase_batch_search(dev, card):
     args = (None, solver["fused_tail"], solver["phi_batch"],
             solver["phi_dphi_batch"])
     jobs = []
+    fields = ("x", "f", "g", "k", "n_fev", "n_gev", "guards")
     for strategy in tt.config.LINE_SEARCH_METHODS:
         cfg = _direct_cfg(tt, strategy, SEARCH_D_ITERS)
         tt.solve_bounded(cfg.replace(max_iters=1), p.f, vg,
                          tt.init_state(vg, x1, cfg.m), *args)
+        # The gated column captures though SEARCH_D_ITERS is under the
+        # budget of blocks.CAPTURE_MIN_ITERS; its kept runner captures
+        # first, outside the counts.
+        kept = blocks.Kept()
+
+        def gated(state, cfg=cfg, kept=kept):
+            least = blocks.CAPTURE_MIN_ITERS
+            blocks.CAPTURE_MIN_ITERS = 0
+            try:
+                return tt.solve_from_state(cfg, p.f, vg, state, *args,
+                                           kept=kept)
+            finally:
+                blocks.CAPTURE_MIN_ITERS = least
+
+        gated(tt.init_state(vg, x1, cfg.m))
         runs = {}
-        for mode in ("read-driven", "fixed-trip"):
+        for mode in ("read-driven", "fixed-trip", "gated"):
             torch.cuda.synchronize()
             reset_counts()
             strategies.reset_host_reads()
             t0 = time.perf_counter()
-            # init_state's vg launch counts, as under minimize in [direct].
+            # init_state's vg launch counts, as under minimize.
             state = tt.init_state(vg, x1, cfg.m)
-            if mode == "fixed-trip":
+            if mode == "read-driven":
+                with tt.eager_loops():
+                    out = tt.solve_from_state(cfg, p.f, vg, state, *args)
+            else:
                 torch.cuda.set_sync_debug_mode("error")
                 try:
-                    out = tt.solve_bounded(cfg, p.f, vg, state, *args)
+                    out = tt.solve_bounded(cfg, p.f, vg, state, *args) \
+                        if mode == "fixed-trip" else gated(state)
                 finally:
                     torch.cuda.set_sync_debug_mode(0)
-            else:
-                out = tt.solve_from_state(cfg, p.f, vg, state, *args)
             torch.cuda.synchronize()
             runs[mode] = (out, time.perf_counter() - t0,
-                            kernels.launch_counts(),
-                            strategies.host_reads["line_search"],
-                            one_per_iteration("rosenbrock_fused_tail",
-                                              out.k.item()))
-            jobs.append((f"[batch-search] d={D} {strategy} {mode}", x1, vg,
-                         cfg.m, lambda s, cfg=cfg, b=mode == "fixed-trip":
-                         tt.iterate(cfg, p.f, vg, s, *args, bounded=b)))
+                          kernels.launch_counts(),
+                          strategies.host_reads["line_search"],
+                          one_per_iteration("rosenbrock_fused_tail",
+                                            out.k.item()))
+            if mode != "gated":
+                jobs.append((f"[batch-search] d={D} {strategy} {mode}",
+                             x1, vg, cfg.m,
+                             lambda s, cfg=cfg, b=mode == "fixed-trip":
+                             tt.iterate(cfg, p.f, vg, s, *args,
+                                        bounded=b)))
         (a, wall_a, got_a, reads_a, each_a), \
-            (b, wall_b, got_b, reads_b, each_b) = \
-            runs["read-driven"], runs["fixed-trip"]
+            (b, wall_b, got_b, reads_b, each_b), \
+            (c, wall_c, got_c, reads_c, each_c) = \
+            runs["read-driven"], runs["fixed-trip"], runs["gated"]
         k = b.k.item()
-        same = all(torch.equal(getattr(a, n), getattr(b, n))
-                   for n in ("x", "f", "g", "k", "n_fev", "n_gev", "guards"))
+        same = all(torch.equal(getattr(a, n), getattr(b, n)) for n in fields)
+        same_c = all(torch.equal(getattr(a, n), getattr(c, n))
+                     for n in fields) and ran(got_a) == ran(got_c)
         say(f"[batch-search] d={D} {strategy}, {k} iterations: read-driven "
             f"{wall_a / k * 1e3:.3f} ms/iteration, {reads_a / k:.2f} host "
             f"reads/iteration, kernel launches/iteration "
             f"{sum(got_a.values()) / k:.2f} {ran(got_a)}; fixed-trip "
             f"{wall_b / k * 1e3:.3f} ms/iteration, {reads_b} host reads "
             f"under set_sync_debug_mode('error'), kernel launches/iteration "
-            f"{sum(got_b.values()) / k:.2f} {ran(got_b)}; x, f, g and counts "
-            f"bit-equal {same}; f {b.f.item():.6e}, on {card}")
-        check(k == SEARCH_D_ITERS and reads_b == 0,
-              f"{strategy}: solve_bounded must run {SEARCH_D_ITERS} "
-              "iterations and read nothing")
+            f"{sum(got_b.values()) / k:.2f} {ran(got_b)}; gated, replayed "
+            f"{wall_c / k * 1e3:.3f} ms/iteration, {reads_c} line-search "
+            f"host reads under the same mode, kernel launches/iteration "
+            f"{sum(got_c.values()) / k:.2f} {ran(got_c)}; x, f, g and counts "
+            f"bit-equal: fixed-trip {same}, gated (launches too) {same_c}; "
+            f"f {b.f.item():.6e}, on {card}")
+        check(k == SEARCH_D_ITERS and reads_b == 0 and reads_c == 0,
+              f"{strategy}: solve_bounded and the gated solve must run "
+              f"{SEARCH_D_ITERS} iterations and read nothing")
         check(same, f"{strategy}: the fixed-trip loop's solve differs from "
               "the read-driven one")
-        for got, each in ((got_a, each_a), (got_b, each_b)):
+        check(same_c, f"{strategy}: the gated solve differs from the "
+              "read-driven one")
+        for got, each in ((got_a, each_a), (got_b, each_b), (got_c, each_c)):
             check(each and got["rosenbrock_vg"] >= 1,
                   f"{strategy}: the tail kernel must launch once per "
                   "iteration and the vg kernel at least once")
@@ -2787,41 +3044,39 @@ def phase_batch_search(dev, card):
 
 def _search_capture(tt, blocks, p, x0, card):
     """SEARCH_CAPTURE on the batch cell under vmap_minimize(lockstep=
-    "bounded") for two blocks: its blocks captured (solver._captured forced
-    to say yes) against the same blocks eager, bit for bit, the chain
-    kernel once per iteration in both, and both walls with the capture's
-    seconds: what solver._captured's rule saves a caller."""
-    from tpu_lbfgs_torch.core import solver
-
+    "bounded") for two blocks' worth of iterations, a budget that
+    captures: its blocks captured, every search turn under an IF node,
+    against the same blocks eager (eager_loops(): the fixed trip), bit for
+    bit, the chain kernel once per iteration in both, and both walls with
+    the capture's seconds."""
     n = 2 * blocks.BLOCK_ITERS
     cfg = _batch_cfg(tt, n).replace(line_search=SEARCH_CAPTURE,
                                     ls_eval="direct")
-    rule, out, walls, notes = solver._captured, {}, {}, {}
+    out, walls, notes = {}, {}, {}
     for mode in ("eager", "captured"):
-        solver._captured = (lambda *a, **k: True) if mode == "captured" \
-            else rule
-        try:
-            reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (tt.eager_loops() if mode == "eager"
+              else contextlib.nullcontext()):
             out[mode] = tt.vmap_minimize(p.f, x0, cfg, grad=p.grad,
                                          lockstep="bounded")
-            torch.cuda.synchronize()
-            walls[mode] = time.perf_counter() - t0
-        finally:
-            solver._captured = rule
+        torch.cuda.synchronize()
+        walls[mode] = time.perf_counter() - t0
         check(per_step("compact_chain") and blocks.stats["steps"] == n
-              and bool(blocks.stats["replays"]) == (mode == "captured"),
+              and bool(blocks.stats["replays"]) == (mode == "captured")
+              and bool(blocks.stats["if_nodes"]) == (mode == "captured"),
               f"[batch-search] {SEARCH_CAPTURE} {mode}: the chain kernel "
-              "must launch once per iteration, replayed when captured")
+              "must launch once per iteration, replayed when captured, "
+              "its turns under IF nodes")
         notes[mode] = blocks_note()
     differ = _graph_same(out["eager"], out["captured"])
     say(f"[batch-search] {SEARCH_CAPTURE} B={BATCH} d={BATCH_D} float32 "
-        f"direct, bounded, {n} iterations: eager blocks {walls['eager']:.3f} "
-        f"s, captured {walls['captured']:.3f} s ({notes['captured']}); "
-        f"fields that differ {differ}; on {card}")
-    check(not differ, f"[batch-search] {SEARCH_CAPTURE}: the captured fixed "
-          f"trip differs from the eager one in {differ}")
+        f"direct, bounded, {n} iterations: eager fixed-trip blocks "
+        f"{walls['eager']:.3f} s, captured gated {walls['captured']:.3f} s "
+        f"({notes['captured']}); fields that differ {differ}; on {card}")
+    check(not differ, f"[batch-search] {SEARCH_CAPTURE}: the captured gated "
+          f"turns differ from the eager fixed trip in {differ}")
 
 
 def _launches_per_iteration(step, state, iters=2):
@@ -2922,6 +3177,7 @@ def phase_general(dev):
     import tpu_lbfgs_torch as tt
     from tpu_lbfgs_torch import kernels
     from tpu_lbfgs_torch.bench.harness import _x0
+    from tpu_lbfgs_torch.core import blocks
     from tpu_lbfgs_torch.core.direction import compute_direction_with_aux
     from tpu_lbfgs_torch.kernels import chain
     from tpu_lbfgs_torch.kernels import fused_ops as ops
@@ -3028,6 +3284,25 @@ def phase_general(dev):
     r, got = _general_solve("rosenbrock damping accurate_dots trace refresh",
                             tt, rose.f, x0, cfg, jobs, tt.Status.MAX_ITERS,
                             grad=rose.grad)
+    # The traced solve runs in blocks: one read to start and one per block
+    # of each refresh segment; under eager_loops() it keeps the
+    # per-iteration loop, whose trace it must equal bit for bit.
+    reads, steps = blocks.stats["host_reads"], blocks.stats["steps"]
+    segments = [min(OPTIONS_REFRESH, OPTIONS_ITERS - i)
+                for i in range(0, OPTIONS_ITERS, OPTIONS_REFRESH)]
+    want_reads = 1 + sum(-(-n // blocks.BLOCK_ITERS) for n in segments)
+    with tt.eager_loops():
+        eager = tt.minimize(rose.f, x0, cfg, grad=rose.grad)
+    differ = [n for n in tt.Trace._fields
+              if not torch.equal(getattr(r.trace, n), getattr(eager.trace, n))]
+    differ += _graph_same(r, eager)
+    say(f"[general] the traced solve in blocks: {steps} iterations stepped, "
+        f"{reads} host reads (1 + one per block of each refresh segment "
+        f"{segments}: {want_reads}); against the per-iteration loop's "
+        f"trace and result (eager_loops()), fields that differ {differ}")
+    check(steps == OPTIONS_ITERS and reads == want_reads and not differ,
+          "the traced solve must run in blocks and equal the per-iteration "
+          f"trace bit for bit ({reads} reads, {steps} steps, {differ})")
     tr = r.trace
     check(tr is not None and tr.f.shape == (OPTIONS_ITERS,)
           and tr.guards.shape == (OPTIONS_ITERS, tt.Guard.N)
@@ -3109,10 +3384,10 @@ def _check_suite_launches(label, problem, cfg, k, got, reads):
         own = (f"{problem}_multi_phi"
                if cfg.line_search == "backtracking_speculative"
                else f"{problem}_multi_phi_dphi")
-        rounds = reads - (vg - 1)
-        check(rounds > 0 and got[own] == rounds,
+        rounds, n = twin_rounds(reads, got, f"{problem}_vg", own)
+        check(rounds > 0 and n == rounds,
               f"{label}: {own} must launch once per round ({rounds} rounds, "
-              f"launches {ran(got)})")
+              f"launches {ran(got)}; {blocks_note()})")
 
 
 def _kernels_vs_plain(label, tt, problem, cfg, x0, iters, **tail_kw):
@@ -5123,6 +5398,7 @@ def main():
     phase_batch_no_sync(state, cfg)
     launches["compact_chain"] = batch_launches["compact_chain"]
     lap("[main], [batch]")
+    phase_graph_if(dev)
     phase_graph(dev, card)
     lap("[graph]")
     rec.update(phase_batch_kernel_checks(dev))
@@ -5169,7 +5445,7 @@ def main():
     phase_bench(card)
     phase_bench_batch(card)
     phase_launch_counts(jobs)
-    phase_graph_kernels(dev)
+    phase_graph_kernels_fresh()
     lap("[bench], launch counts")
 
     csrc, pallas = "tpu_lbfgs_torch/csrc/", "tpu_lbfgs/kernels/pallas_ops.py:"
@@ -5233,5 +5509,19 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def graph_kernels_main():
+    """``chip_smoke.py --graph-kernels``: phase_graph_kernels alone, the
+    process phase_graph_kernels_fresh starts."""
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
+                 "check needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    phase_graph_kernels(dev)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--graph-kernels"]:
+        graph_kernels_main()
+    else:
+        main()

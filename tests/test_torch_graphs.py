@@ -322,52 +322,206 @@ def test_blocks_match_jax_solve_from_state(monkeypatch, end):
     _assert_matches_jax(got, want)
 
 
+# --- the traced solve in blocks ----------------------------------------------
+
+def _traced(cfg, f, grad, dir_poly, x0):
+    vg = tt.make_value_and_grad(f, grad)
+    state = tt.init_state(vg, torch.from_numpy(x0), cfg.m)
+    return solver._solve_traced(cfg, f, vg, state, dir_poly)
+
+
+def _assert_equal_traces(a, b):
+    for name in tt.Trace._fields:
+        ta, tb = getattr(a, name), getattr(b, name)
+        assert ta.dtype == tb.dtype and ta.shape == tb.shape, name
+        torch.testing.assert_close(ta, tb, rtol=0, atol=0, equal_nan=True,
+                                   msg=name)
+
+
+def _assert_trace_matches_jax(trace, ref, live=None):
+    """tests/test_torch_general.py::test_record_trace_matches_jax's bounds:
+    alpha, the counters and the guards equal, f and ||g|| to STEP_RTOL
+    (on the ``live`` lanes of a batch)."""
+    for name in tt.Trace._fields:
+        a, b = getattr(trace, name).numpy(), np.asarray(getattr(ref, name))
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        if name in ("f", "g_norm"):
+            if live is not None:
+                a, b = a[live], b[live]
+            np.testing.assert_allclose(a, b, rtol=STEP_RTOL, atol=1e-14,
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.parametrize("end", list(ENDS))
+def test_traced_blocks_equal_the_per_iteration_trace(monkeypatch, end):
+    """The traced solve in blocks of 7 (each iteration writing its row at a
+    step counter on the device, the rows past the last step filled with
+    the final state's) equals the per-iteration trace bit for bit, every
+    Trace and state field, for a solve that ends by tol, by max_iters and
+    by a failed search inside a block; it reads the flags at most
+    ceil(n / 7) + 2 times; and its Trace matches the JAX package's."""
+    cfg = tt.LBFGSConfig(**BENCH, **ENDS[end], record_trace=True)
+    f, grad, dir_poly = _parts(tt, end)
+    x0 = _x0(1, center=CENTER[end])
+    monkeypatch.setattr(blocks, "BLOCK_ITERS", 7)
+    blocks.reset_stats()
+    got, trace = _traced(cfg, f, grad, dir_poly, x0)
+    reads, steps = blocks.stats["host_reads"], blocks.stats["steps"]
+    n = got.k.item()
+    assert got.status.item() == END_STATUS[end]
+    assert 1 < n < cfg.max_iters and n % 7 or end == "max_iters", n
+    assert reads <= math.ceil(n / 7) + 2 and n <= steps < n + 7
+    _per_iteration(monkeypatch)
+    want, want_trace = _traced(cfg, f, grad, dir_poly, x0)
+    _assert_equal_states(got, want)
+    _assert_equal_traces(trace, want_trace)
+    fj, gj, pj = _parts(tl, end)
+    ref = tl.minimize(fj, jnp.asarray(x0), tl.LBFGSConfig(
+        **BENCH, **ENDS[end], record_trace=True), grad=gj, dir_poly=pj)
+    _assert_trace_matches_jax(trace, ref.trace)
+
+
+@pytest.mark.parametrize("max_iters", [40, 36])
+def test_traced_refresh_edges_in_blocks(monkeypatch, max_iters):
+    """``refresh_interval`` = 9 in blocks of 7: a refresh after every 9
+    iterations from the state given and after the last, partial segment
+    (40 = 4 x 9 + 4; 36 ends on a segment's edge), as the per-iteration
+    trace refreshes, bit for bit, and JAX's Trace."""
+    cfg = tt.LBFGSConfig(**BENCH, tol=0.0, max_iters=max_iters,
+                         refresh_interval=9, record_trace=True)
+    f, grad, dir_poly = _parts(tt, "tol")
+    monkeypatch.setattr(blocks, "BLOCK_ITERS", 7)
+    seen = []
+    real = solver.refresh_products
+
+    def spy(state, comm=None):
+        seen.append(int(state.k))
+        return real(state, comm)
+
+    monkeypatch.setattr(solver, "refresh_products", spy)
+    got, trace = _traced(cfg, f, grad, dir_poly, _x0(2))
+    points = list(range(9, max_iters + 1, 9))
+    assert seen[:len(points)] == points and set(seen) <= set(points) | {
+        max_iters}, seen
+    refreshed = seen
+    seen = []
+    _per_iteration(monkeypatch)
+    want, want_trace = _traced(cfg, f, grad, dir_poly, _x0(2))
+    assert seen == refreshed
+    _assert_equal_states(got, want)
+    _assert_equal_traces(trace, want_trace)
+    fj, gj, pj = _parts(tl, "tol")
+    ref = tl.minimize(fj, jnp.asarray(_x0(2)), tl.LBFGSConfig(
+        **BENCH, tol=0.0, max_iters=max_iters, refresh_interval=9,
+        record_trace=True), grad=gj, dir_poly=pj)
+    _assert_trace_matches_jax(trace, ref.trace)
+
+
+def test_traced_batch_lanes_finish_in_different_blocks(monkeypatch):
+    """``vmap_minimize(record_trace=True)`` in blocks of 7: lanes that end in
+    different blocks (at iterations 1, 6, 15 and 30) give (B, max_iters)
+    rows equal to the per-iteration loop's bit for bit, each lane's rows
+    past its end its final values, and match the JAX package's vmapped
+    trace."""
+    cfg = tt.LBFGSConfig(**BENCH, tol=1e-1, max_iters=30, record_trace=True)
+    p = tt.get_problem("rosenbrock")
+    monkeypatch.setattr(blocks, "BLOCK_ITERS", 7)
+    x0 = _lanes_x0()
+
+    def run():
+        return tt.vmap_minimize(p.f, torch.from_numpy(x0), cfg, grad=p.grad,
+                                dir_poly=p.dir_poly)
+
+    blocks.reset_stats()
+    got = run()
+    assert blocks.stats["steps"] >= 30
+    iters = got.iterations.numpy()
+    assert len(set(iters // 7)) >= 3, iters
+    assert got.trace.f.shape == (6, 30)
+    for lane, k in enumerate(iters):
+        if k:
+            assert torch.equal(got.trace.n_fev[lane, k - 1:],
+                               got.n_fev[lane].expand(30 - k + 1))
+    _per_iteration(monkeypatch)
+    want = run()
+    _assert_equal_traces(got.trace, want.trace)
+    pj = tl.get_problem("rosenbrock")
+    ref = jax_vmap_minimize(pj.f, jnp.asarray(x0), tl.LBFGSConfig(
+        **BENCH, tol=1e-1, max_iters=30, record_trace=True), grad=pj.grad,
+        dir_poly=pj.dir_poly)
+    live = got.status.numpy() != tt.Status.LINE_SEARCH_FAILED
+    _assert_trace_matches_jax(got.trace, ref.trace, live)
+
+
 # --- which loop runs ----------------------------------------------------------
 
 def test_eager_paths_are_chosen_by_their_arguments(monkeypatch):
-    """The per-iteration loop runs, and no block, for a search that reads
-    on the host (direct-mode backtracking on one instance), a traced
-    solve, and under ``set_debug_nans(True)``; ``solve_bounded`` runs its
-    fixed-trip search in blocks in direct mode too, blocks that are never
-    captured for a batch whose search loops."""
+    """A search that reads on the host (direct-mode backtracking on one
+    instance) runs in blocks exactly where they are captured
+    (``blocks.captures``: a CUDA device outside ``eager_loops()`` and a
+    budget of ``CAPTURE_MIN_ITERS``), on the gated driver; on the CPU it
+    keeps the per-iteration loop and no block runs.  A traced solve runs
+    in blocks; ``set_debug_nans(True)`` and a sharded solve keep the
+    per-iteration loop; ``solve_bounded`` runs its fixed-trip search in
+    blocks in direct mode too, one instance's and a batch's alike (a
+    search that loops takes one-iteration blocks where they are captured,
+    ``GATED_BLOCK_ITERS``)."""
     p = tt.get_problem("rosenbrock")
     vg = tt.make_value_and_grad(p.f, p.grad)
     x0 = torch.from_numpy(_x0(0))
     direct = tt.LBFGSConfig(line_search="backtracking", ls_eval="direct",
                             max_iters=5, tol=0.0)
-    cases = {"direct": (direct, None),
+    cases = {"direct": (direct, None, 0),
              "traced": (tt.LBFGSConfig(**BENCH, max_iters=5,
-                                       record_trace=True), p.dir_poly)}
-    for label, (cfg, poly) in cases.items():
+                                       record_trace=True), p.dir_poly, 5)}
+    for label, (cfg, poly, steps) in cases.items():
         blocks.reset_stats()
         out = tt.solve_from_state(cfg, p.f, vg, tt.init_state(vg, x0, cfg.m),
                                   poly)
         assert out.k.item() == 5, label
-        assert blocks.stats["steps"] == 0, label
-    blocks.reset_stats()
-    tt.solve_bounded(direct, p.f, vg, tt.init_state(vg, x0, direct.m))
-    assert blocks.stats["steps"] == 5
+        assert blocks.stats["steps"] == steps, label
     cfg = tt.LBFGSConfig(**BENCH, max_iters=5, tol=0.0)
     solver.set_debug_nans(True)
     try:
-        blocks.reset_stats()
-        tt.solve_from_state(cfg, p.f, vg, tt.init_state(vg, x0, cfg.m),
-                            p.dir_poly)
-        assert blocks.stats["steps"] == 0
+        for traced in (False, True):
+            blocks.reset_stats()
+            tt.solve_from_state(cfg.replace(record_trace=traced), p.f, vg,
+                                tt.init_state(vg, x0, cfg.m), p.dir_poly)
+            assert blocks.stats["steps"] == 0, traced
     finally:
         solver.set_debug_nans(False)
     state = tt.init_state(vg, x0, cfg.m)
-    assert solver._blocked(cfg, state, None, False)
-    assert not solver._blocked(cfg, state, object(), True)
-    # solve_bounded's blocks of a batch under a search that loops are never
-    # captured; one instance's are.
     batch = tt.init_state(vg, torch.from_numpy(_x0(0, lanes=3)), cfg.m)
     wolfe = direct.replace(line_search="backtracking_wolfe")
-    assert not solver._captured(wolfe, batch, bounded=True)
-    assert solver._captured(wolfe, batch, bounded=False)
-    assert solver._captured(direct, batch, bounded=True)
-    assert solver._captured(wolfe, state, bounded=True)
-    assert solver._captured(cfg, state, bounded=True)
+    for c, st in ((direct, state), (wolfe, batch)):
+        blocks.reset_stats()
+        tt.solve_bounded(c, p.f, vg, st)
+        assert blocks.stats["steps"] == 5
+        drv = blocks.runner("bounded", c, None, st, None, {}, 5)
+        assert drv.gated and drv.block == blocks.BLOCK_ITERS
+        drv = blocks.BlockRunner(c, None, st, False, graphed=True,
+                                 gated=True)
+        assert drv.block == blocks.GATED_BLOCK_ITERS
+    assert not blocks.runner("bounded", cfg, None, state, None, {}, 5).gated
+    assert solver._blocked(cfg, state, None, False, 5)
+    assert not solver._blocked(cfg, state, object(), True, 5)
+    # The reading search: blocks where they are captured, which the rule
+    # says from the device, eager_loops() and the budget.
+    least = blocks.CAPTURE_MIN_ITERS
+    assert not solver._blocked(direct, state, None, False, 10 ** 6)
+    assert solver._blocked(direct, state, None, True, 5)
+    cuda = torch.device("cuda")
+    assert blocks.captures(cuda, least)
+    assert not blocks.captures(cuda, least - 1)
+    assert not blocks.captures(torch.device("cpu"), 10 ** 6)
+    with tt.eager_loops():
+        assert not blocks.captures(cuda, 10 ** 6)
+    monkeypatch.setattr(blocks, "captures", lambda *a, **k: True)
+    for c, st in ((direct, state), (wolfe, batch)):
+        assert solver._blocked(c, st, None, False, 5)
+        assert not solver._blocked(c, st, object(), False, 5)
 
 
 def test_kept_runners_replay_for_a_second_solve(monkeypatch):

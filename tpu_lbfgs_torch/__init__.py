@@ -10,8 +10,9 @@ the incremental compact direction, for one large instance with
 ``vmap_minimize``), every line search with direct evaluation of its
 trials, as the reference's own protocol runs them, or on the directional
 polynomial, for one instance and for a batch (each search a lane-masked
-turn: read-driven, or a fixed trip that reads nothing under
-``solve_bounded`` and ``lockstep="bounded"``), the
+turn: each turn under a CUDA graph IF node inside a captured block,
+read-driven on the per-iteration loop, or a fixed trip that reads nothing
+under ``solve_bounded`` and ``lockstep="bounded"``), the
 solve of a caller's own objective (``minimize(f, x0)`` with the default
 configuration and autograd's gradient, the three directions, damping,
 compensated dots, traces, the periodic product refresh, segmented solves
@@ -36,10 +37,11 @@ solve resumes from its per-rank checkpoint on another mesh
 non-finite values.
 
 The solve loops run blocks of iterations on the device (``core.blocks``):
-on the card each block is a CUDA graph, captured once and replayed, and
-the host reads the loop's flags once per block, as the reference runs its
-loops as one device program; ``eager_loops()`` runs the same blocks
-eagerly.
+on the card each block is a CUDA graph, captured once and replayed, its
+line-search turns under IF nodes (``kernels.graph_if``), and the host
+reads the loop's flags once per block, as the reference runs its loops,
+its searches and its traced solve as one device program;
+``eager_loops()`` runs the same blocks eagerly.
 
 Where it runs: ``minimize`` and ``vmap_minimize`` solve on the device of
 the tensor they are given, so a CPU tensor is the caller asking for the

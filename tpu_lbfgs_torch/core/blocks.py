@@ -23,12 +23,23 @@ On the CPU, and on the card inside ``eager_loops()`` (the counterpart of
 mask, the freeze, one read per block, no capture.  A capture or replay
 that fails raises, naming the solve's callables; nothing carries on
 eagerly by itself.  The solver keeps its per-iteration loop
-(``solver._run_segment``) where a block cannot be captured: a sharded
-solve (``comm``; gloo's collectives go through the host), under
-``set_debug_nans(True)`` (it reads by design), a traced solve, and a line
-search that reads its loop condition on the host (``strategies.
-reads_on_host``; under ``solve_bounded`` every search runs its fixed
-trip and reads nothing).
+(``solver._run_segment``) for a sharded solve (``comm``; gloo's
+collectives go through the host) and under ``set_debug_nans(True)`` (it
+reads by design).
+
+A line search that loops (``strategies.reads_on_host``) runs, while a
+block is captured, on the gated driver: each of its turns inside a CUDA
+graph IF node on "a lane still searches" (``kernels.graph_if``), so a
+replay runs a turn only while the search runs and reads nothing, as the
+reference's ``while_loop`` does.  The graph then holds the search's
+whole trip of turns, so such a runner captures one-iteration blocks
+(``GATED_BLOCK_ITERS``) and replays them up to ``BLOCK_ITERS`` times
+between reads; its warm-up runs one gated turn of each search loop.  Its
+eager blocks would read once per turn, as the per-iteration loop does,
+so a while form of such a search runs in blocks only where they are
+captured (``solver._blocked``); ``solve_bounded``'s eager blocks run the
+fixed trip.  ``solve_traced`` is the traced solve's loop: each iteration
+also writes its row of the trace into a buffer on the device.
 
 Buffers.  A graph reads and writes fixed addresses, so a runner owns the
 state it iterates: a copy of every field of the state handed in but the
@@ -37,57 +48,82 @@ handed in gives its ring to the solve).  So a solve holds no second ring,
 at d = 1e8 and m = 10 8 GB.  The warm-up before the first capture
 iterates with every lane masked off, which runs every kernel and leaves
 the state as it was.  Each runner's graphs share one private memory pool,
-which holds a block's temporaries for as long as the runner lives.
+which holds a block's temporaries, an IF body's included, for as long as
+the runner lives.  The flags come to the host through a pinned buffer
+and an event, so ``torch.cuda.set_sync_debug_mode("error")`` lets the
+loop's own read through and catches any other.
 
 A solve captures only when its budget, the most iterations its arguments
-let it run, is at least ``CAPTURE_MIN_ITERS``: below that, a capture
-costs more than the eager blocks it would replace, and the blocks run
-eagerly on the card too, as do ``solve_bounded``'s blocks of a batch
-under a search that loops, whose fixed trip makes graphs too large to pay
-(``solver._captured``).  A solve makes its runner and drops it at its
-end, so each call captures anew, as a solve that is not kept would
-compile anew.  A caller that runs many solves of one configuration keeps
-one runner in a ``Kept`` and hands it to each (``make_solve_segment``'s
-segment function and the harnesses do): a kept runner copies each new
-state into its buffers and returns them, so the state it returned before
-is overwritten, as the reference's donated buffers are (a segment
-function under ``donate=False`` returns a copy).
+let it run, is at least ``CAPTURE_MIN_ITERS`` (``captures``): below
+that, a capture typically costs more than the eager blocks it would
+replace; a slow capture of a search that loops breaks even only later,
+after up to ~200 iterations on the card (PERF.md).  A solve makes its
+runner and drops it at its end, so each call captures anew, as a solve
+that is not kept would compile anew.  A caller that runs many solves of
+one configuration keeps one runner in a ``Kept`` and hands it to each
+(``make_solve_segment``'s segment function and the harnesses do): a kept
+runner copies each new state into its buffers and returns them, so the
+state it returned before is overwritten, as the reference's donated
+buffers are (a segment function under ``donate=False`` returns a copy).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from collections import Counter
 from contextlib import contextmanager
 from typing import Callable, Optional
 
 import torch
 
-from ..kernels import chain, counts
-from ..types import LBFGSState, Status
+from ..kernels import chain, counts, graph_if
+from ..linesearch import strategies
+from ..types import LBFGSState, Status, Trace
 from . import solver
 
-#: Iterations per captured block.  A solve that ends inside a block
-#: replays up to BLOCK_ITERS - 1 frozen iterations.
+#: Iterations per captured block, and between two host reads of the
+#: flags.  A solve that ends inside a block replays up to BLOCK_ITERS - 1
+#: frozen iterations.
 BLOCK_ITERS = 20
 #: The least budget of a solve that captures its blocks (module docstring).
 CAPTURE_MIN_ITERS = 2 * BLOCK_ITERS
+#: Iterations per captured block of a solve whose line search loops (the
+#: gated driver: each turn under an IF node), replayed up to BLOCK_ITERS
+#: times between reads (module docstring; the card's numbers in PERF.md).
+GATED_BLOCK_ITERS = 1
 
 #: Blocks since the last ``reset_stats()``: graphs captured and the host
 #: seconds they took (warm-up included), warm-up iterations, replays,
 #: iterations stepped on the device (frozen ones included, eager or
-#: replayed), and host reads of the loop's flags.
+#: replayed), host reads of the loop's flags, the nodes captured other
+#: than IF nodes (kernels and copies, every IF body's included), the IF
+#: nodes captured, the gated line-search turns the replays ran
+#: ("gated_turns", counted on the device and brought up to date by
+#: ``kernels.launch_counts()`` or ``read_stats()``), and the kernel
+#: launches of the warm-ups by wrapper (counted in ``launch_counts()``
+#: too: the card ran them).
 stats = {"captures": 0, "capture_s": 0.0, "warmups": 0, "replays": 0,
-         "steps": 0, "host_reads": 0}
+         "steps": 0, "host_reads": 0, "graph_nodes": 0, "if_nodes": 0,
+         "gated_turns": 0, "warmup_launches": Counter()}
 
 _EAGER = False
 
 _RING = ("s_hist", "y_hist")
 _FIELDS = tuple(f.name for f in dataclasses.fields(LBFGSState))
+_TRACE = Trace._fields
 
 
 def reset_stats() -> None:
+    counts.fold()
     for name in stats:
         stats[name] = type(stats[name])()
+
+
+def read_stats() -> dict:
+    """``stats`` with the gated turns run brought up to date (a host read
+    of their counters): outside a solve."""
+    counts.fold()
+    return stats
 
 
 @contextmanager
@@ -128,17 +164,24 @@ class BlockRunner:
     segment in the flags.  ``callables``: the solve's callables by name,
     for the capture's error message.  ``graphed``: whether the blocks are
     captured and replayed; by default on a CUDA device outside
-    ``eager_loops()``."""
+    ``eager_loops()``.  ``gated``: the line search loops, so a capture
+    runs it on the gated driver (``kernels.graph_if``) and a captured
+    block is ``GATED_BLOCK_ITERS`` iterations, else ``BLOCK_ITERS``
+    (``block``).
+    ``rows``: the traced solve's ``max_iters``: each iteration also writes
+    its row of the trace at a step counter on the device (``trace``)."""
 
     def __init__(self, cfg, step: Callable, state: LBFGSState, masked: bool,
                  interval: Optional[int] = None, callables: dict = None,
-                 graphed: Optional[bool] = None):
+                 graphed: Optional[bool] = None, gated: bool = False,
+                 rows: Optional[int] = None):
         self.cfg, self.step, self.masked = cfg, step, masked
         self.interval = interval
         self.callables = callables or {}
         if graphed is None:
             graphed = state.x.device.type == "cuda" and not _EAGER
-        self.graphed = graphed
+        self.graphed, self.gated = graphed, gated
+        self.block = _block_len(gated, graphed)
         self.meta = _meta(state)
         self.s = state.replace(**{n: getattr(state, n).clone()
                                   for n in _FIELDS if n not in _RING})
@@ -148,6 +191,24 @@ class BlockRunner:
         self.k_cap = torch.full_like(state.k, cfg.max_iters)
         self.entered = torch.ones_like(state.status, dtype=torch.bool)
         self.flags = torch.zeros(4, dtype=torch.int32, device=state.x.device)
+        # The flags come to the host through a pinned buffer and an event,
+        # a read that set_sync_debug_mode("error") lets through: it catches
+        # any other.
+        on_card = state.x.device.type == "cuda"
+        self._host_flags = torch.empty(4, dtype=torch.int32,
+                                       pin_memory=on_card)
+        self._flags_read = torch.cuda.Event() if on_card else None
+        self.rows = None
+        if rows is not None:
+            # One row per iteration after each lane's own axis, as the
+            # reference's (vmapped) scan stacks them.
+            self.axis = state.x.dim() - 1
+            self.step_no = torch.zeros(1, dtype=torch.int64,
+                                       device=state.x.device)
+            self.rows = {n: torch.empty(
+                v.shape[:self.axis] + (rows,) + v.shape[self.axis:],
+                dtype=v.dtype, device=v.device)
+                for n, v in ((n, getattr(state, n)) for n in _TRACE)}
         self._graphs = {}
         self._pool = None
 
@@ -170,9 +231,32 @@ class BlockRunner:
         s = self.s
         for _ in range(n):
             s = self.step(s, lanes=self._go(s) if self.masked else None)
+            if self.rows is not None:
+                self._emit(s)
         _copy_into(self.s, s)
         if self.masked:
             self._set_flags()
+
+    def _emit(self, s: LBFGSState) -> None:
+        """Write this iteration's row of the trace and count the step."""
+        for name, buf in self.rows.items():
+            buf.index_copy_(self.axis, self.step_no,
+                            getattr(s, name).unsqueeze(self.axis))
+        self.step_no += 1
+
+    def trace(self) -> Trace:
+        """The trace after the loop: the rows past the last step, where the
+        state no longer changed, filled with the state's fields on the
+        device."""
+        rows = next(iter(self.rows.values())).shape[self.axis]
+        past = torch.arange(rows, device=self.step_no.device) >= self.step_no
+        out = {}
+        for name, buf in self.rows.items():
+            v = getattr(self.s, name).unsqueeze(self.axis)
+            mask = past.reshape((1,) * self.axis + (rows,)
+                                + (1,) * (v.dim() - self.axis - 1))
+            out[name] = torch.where(mask, v, buf)
+        return Trace(**out)
 
     def _set_flags(self) -> None:
         """[any lane goes on under the cap, any lane runs, the most
@@ -226,7 +310,11 @@ class BlockRunner:
     def read(self) -> tuple:
         """One host read of the flags: (go, running, budget, next budget)."""
         stats["host_reads"] += 1
-        go, running, budget, nxt = self.flags.tolist()
+        self._host_flags.copy_(self.flags, non_blocking=True)
+        if self._flags_read is not None:
+            self._flags_read.record()
+            self._flags_read.synchronize()
+        go, running, budget, nxt = self._host_flags.tolist()
         return bool(go), bool(running), budget, nxt
 
     # --- capture and replay -------------------------------------------------
@@ -245,19 +333,28 @@ class BlockRunner:
 
     def _warm_up(self, key) -> None:
         """Run what ``key`` captures once on a side stream without changing
-        the state: an iteration with every lane masked off, or a refresh
+        the state: an iteration with every lane masked off (a gated
+        runner's searches run one gated turn of each loop), or a refresh
         whose result is dropped.  It builds and loads the kernels, makes the
         libraries' handles and the searches' cached tables, and runs
-        autograd once, which a capture cannot."""
+        autograd once, which a capture cannot.  Its launches count, and
+        ``stats["warmup_launches"]`` names them."""
         side = torch.cuda.Stream(device=self.s.x.device)
         side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), counts.recording() as warm:
             if key[0] == "iterate":
                 off = torch.zeros_like(self.s.status, dtype=torch.bool)
-                self.step(self.s, lanes=off)
+                if self.gated:
+                    # One gated turn of each search loop, no host read.
+                    with strategies.gated(graph_if.WarmGate()):
+                        self.step(self.s, lanes=off)
+                else:
+                    self.step(self.s, lanes=off)
                 stats["warmups"] += 1
             else:
                 solver.refresh_products(self.s)
+        counts.ran(warm)
+        stats["warmup_launches"].update(warm)
         torch.cuda.current_stream().wait_stream(side)
 
     def _capture(self, key, fn):
@@ -268,10 +365,26 @@ class BlockRunner:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         stream = torch.cuda.current_stream()
+        gate = None
+        if self.gated and key[0] == "iterate":
+            # A counter of gated turns for each search loop of the block.
+            turns = torch.zeros(4 * key[1] + 4, dtype=torch.int64,
+                                device=self.s.x.device)
+            gate = graph_if.GraphGate(turns)
         try:
             with counts.recording() as tally, \
                     torch.cuda.graph(graph, pool=self._pool):
-                fn()
+                if gate is None:
+                    fn()
+                else:
+                    graph_if.route_to_pool(self.s.x.device.index, self._pool)
+                    try:
+                        with strategies.gated(gate):
+                            fn()
+                    except BaseException:
+                        gate.abandon()
+                        raise
+                nodes = graph_if.capture_nodes(torch.cuda.current_stream())
         except RuntimeError as err:
             _end_failed_capture(self._pool, stream)
             names = ", ".join(f"{k}={_name(v)}"
@@ -287,6 +400,14 @@ class BlockRunner:
                 "reads the host (.item(), bool(), .tolist(), a copy from the "
                 "host) cannot be captured; run the solve inside "
                 "tpu_lbfgs_torch.eager_loops()") from err
+        finally:
+            if gate is not None:
+                gate.close()
+        if gate is not None:
+            counts.gated(self, turns, gate.loops, stats)
+            stats["if_nodes"] += gate.nodes
+            nodes += gate.body_nodes - gate.top_nodes
+        stats["graph_nodes"] += nodes
         stats["captures"] += 1
         stats["capture_s"] += time.perf_counter() - t0
         return graph, tally
@@ -318,27 +439,40 @@ class Kept:
         self.key, self.runner = None, None
 
 
+def _block_len(gated: bool, graphed: bool) -> int:
+    return GATED_BLOCK_ITERS if gated and graphed else BLOCK_ITERS
+
+
+def captures(device: torch.device, budget: int) -> bool:
+    """Whether a solve of at most ``budget`` iterations on ``device``
+    captures its blocks: on a CUDA device outside ``eager_loops()``, from
+    a budget of ``CAPTURE_MIN_ITERS``."""
+    return device.type == "cuda" and not _EAGER and budget >= CAPTURE_MIN_ITERS
+
+
 def runner(kind: str, cfg, step: Callable, state: LBFGSState,
            interval: Optional[int], callables: dict, budget: int,
-           capture: bool = True, kept: Optional[Kept] = None) -> BlockRunner:
+           kept: Optional[Kept] = None) -> BlockRunner:
     """The runner of one solve of at most ``budget`` iterations: its blocks
-    captured on a CUDA device outside ``eager_loops()`` when ``capture``
-    holds and ``budget`` is at least ``CAPTURE_MIN_ITERS``.  With ``kept``,
-    the runner it holds when it matches, ``state`` copied in, else a new
-    one that it holds."""
+    captured where ``captures`` says so.  ``kind``: "while", "segment",
+    "traced" (the while forms) or "bounded".  With ``kept``, the runner it
+    holds when it matches, ``state`` copied in, else a new one that it
+    holds."""
     masked = kind != "bounded"
-    graphed = (capture and state.x.device.type == "cuda" and not _EAGER
-               and budget >= CAPTURE_MIN_ITERS)
+    gated = strategies.reads_on_host(cfg, state.x.dim() == 2)
+    graphed = captures(state.x.device, budget)
+    rows = cfg.max_iters if kind == "traced" else None
+    args = (cfg, step, state, masked, interval, callables, graphed, gated,
+            rows)
     if kept is None:
-        return BlockRunner(cfg, step, state, masked, interval, callables,
-                           graphed)
+        return BlockRunner(*args)
     # The graphs read the iteration caps from the device: one runner serves
     # every max_iters (a harness's short warm-up and its long solve).
-    key = (kind, cfg.replace(max_iters=0), interval, BLOCK_ITERS, graphed,
+    key = (kind, cfg.replace(max_iters=0), interval,
+           _block_len(gated, graphed), graphed,
            chain._whole_batch, tuple(callables.items()), _meta(state))
     if kept.key != key:
-        kept.key, kept.runner = key, BlockRunner(
-            cfg, step, state, masked, interval, callables, graphed)
+        kept.key, kept.runner = key, BlockRunner(*args)
     else:
         kept.runner.cfg = cfg
         kept.runner.load(state)
@@ -347,9 +481,9 @@ def runner(kind: str, cfg, step: Callable, state: LBFGSState,
 
 def _steps(drv: BlockRunner, n: int) -> None:
     """n iterations as full blocks and single iterations, no read."""
-    full, rest = divmod(n, BLOCK_ITERS)
+    full, rest = divmod(n, drv.block)
     for _ in range(full):
-        drv.run(BLOCK_ITERS)
+        drv.run(drv.block)
     for _ in range(rest):
         drv.run(1)
 
@@ -383,6 +517,27 @@ def solve_while(drv: BlockRunner, interval: Optional[int]) -> LBFGSState:
         if running:
             drv.start(interval)
     return drv.s
+
+
+def solve_traced(drv: BlockRunner, interval: Optional[int]) -> LBFGSState:
+    """``_solve_traced``'s loop: ``solve_while``'s, each iteration writing
+    its row of the trace (``BlockRunner.trace``); with ``interval`` a
+    refresh of every lane after each segment, and after the first one
+    whatever ran, as the per-iteration trace refreshes.  Reads 1 + one
+    per block."""
+    drv.start(interval)
+    go, running, budget, _ = drv.read()
+    if interval is None:
+        if go:
+            _drain(drv, budget)
+        return drv.s
+    while True:
+        if running:
+            _, running, _, budget = _drain(drv, budget)
+        drv.refresh(keep_entered=False)
+        if not running:
+            return drv.s
+        drv.start(interval)
 
 
 def solve_segment(drv: BlockRunner, iters: int,

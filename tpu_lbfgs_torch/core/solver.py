@@ -5,18 +5,19 @@ descent safeguard, line search, fused tail, masked ring write, incremental
 history products, guard counters, state advance.  Every decision is a
 tensor select on the device.  Under ``ls_eval="polynomial"`` with
 ``backtracking`` (bench.py's path) it reads nothing back to the host, so
-the host only enqueues work; every other line search reads its loop
-condition once per turn (``linesearch.strategies``), unless ``iterate`` is
-asked for the searches' fixed-trip loop (``bounded=True``).
+the host only enqueues work; every other line search loops
+(``linesearch.strategies``): inside a captured block each turn sits under
+a CUDA graph IF node and nothing is read, else it reads its loop
+condition once per turn, unless ``iterate`` is asked for the searches'
+fixed-trip loop (``bounded=True``).
 The solves run their iterations in blocks (``core.blocks``), replayed as
-CUDA graphs on the card: ``solve_from_state`` and ``make_solve_segment``
-read the loop's flags once per block, ``solve_bounded`` reads none, its
-searches' included.  A solve of a short budget, and ``solve_bounded`` of
-a batch under a search that loops, run their blocks eagerly
-(``_captured``, ``blocks.CAPTURE_MIN_ITERS``).  A sharded solve,
-``set_debug_nans(True)``, a traced solve and a search that reads on the
-host keep the per-iteration loop, which reads the condition once per
-iteration.
+CUDA graphs on the card: ``solve_from_state``, ``make_solve_segment`` and
+the traced solve read the loop's flags once per block,
+``solve_bounded`` reads none, its searches' included.  A solve of a short
+budget runs its blocks eagerly (``blocks.CAPTURE_MIN_ITERS``), and a
+while form under a search that loops then keeps the per-iteration loop,
+as do a sharded solve and ``set_debug_nans(True)``: one read of the
+condition per iteration.
 
 The history ring is updated in place: ``iterate`` writes the new pair's
 rows into ``state.s_hist`` / ``state.y_hist`` and hands the same tensors to
@@ -650,27 +651,22 @@ def _stepper(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn, *callables,
     return checked
 
 
-def _blocked(cfg: LBFGSConfig, state: LBFGSState, comm,
-             bounded: bool) -> bool:
-    """Whether the solve loop runs in blocks (``core.blocks``; CUDA graphs
-    on the card).  It keeps the per-iteration loop, by its arguments, for a
-    sharded solve (``comm``), under ``set_debug_nans(True)`` and, outside
-    ``bounded``, for a line search that reads its loop condition on the
-    host (``strategies.reads_on_host``)."""
-    return comm is None and not _DEBUG_NANS and (
-        bounded or not reads_on_host(cfg, state.x.dim() == 2))
-
-
-def _captured(cfg: LBFGSConfig, state: LBFGSState, bounded: bool) -> bool:
-    """Whether a solve in blocks may capture them as CUDA graphs on the
-    card (its budget decides the rest, ``blocks.runner``).  Under
-    ``bounded`` a search that loops (``strategies.reads_on_host``) runs its
-    fixed trip, up to hundreds of turns an iteration: on a batch a block of
-    it is a graph of tens of thousands of nodes whose capture costs more
-    than the eager solve of 40 iterations, while the batch keeps the card
-    busy and a replay saves little, so its blocks run eagerly."""
-    batched = state.x.dim() == 2
-    return not (bounded and batched and reads_on_host(cfg, batched))
+def _blocked(cfg: LBFGSConfig, state: LBFGSState, comm, bounded: bool,
+             budget: int) -> bool:
+    """Whether a solve of at most ``budget`` iterations runs in blocks
+    (``core.blocks``; CUDA graphs on the card).  It keeps the
+    per-iteration loop, by its arguments, for a sharded solve (``comm``),
+    under ``set_debug_nans(True)`` and, outside ``bounded``, for a line
+    search that reads its loop condition on the host
+    (``strategies.reads_on_host``) unless its blocks are captured
+    (``blocks.captures``), where the search runs on the gated driver and
+    reads nothing: eager blocks of such a search would read as often as
+    that loop and cost more."""
+    if comm is not None or _DEBUG_NANS:
+        return False
+    if bounded or not reads_on_host(cfg, state.x.dim() == 2):
+        return True
+    return blocks.captures(state.x.device, budget)
 
 
 def _callables(f, vg, dir_poly, fused_tail, phi_batch,
@@ -725,7 +721,7 @@ def solve_from_state(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
     step = _stepper(cfg, f, vg, dir_poly, fused_tail, phi_batch,
                     phi_dphi_batch, comm=comm)
     interval = _refresh_interval(cfg)
-    if _blocked(cfg, state, comm, bounded=False):
+    if _blocked(cfg, state, comm, False, cfg.max_iters):
         drv = blocks.runner("while", cfg, step, state, interval, _callables(
             f, vg, dir_poly, fused_tail, phi_batch, phi_dphi_batch),
             cfg.max_iters, kept=kept)
@@ -749,11 +745,12 @@ def solve_bounded(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
                   comm=None, kept=None) -> LBFGSState:
     """Exactly ``cfg.max_iters`` more iterations with no read of the loop
     condition: safe because iterate is idempotent on finished states
-    (lanes).  The line search runs its fixed-trip loop, so no search
-    reads on the host either, in direct mode included; the iterations run
-    in blocks (``core.blocks``: CUDA graphs on the card, eager for a
-    batch's search that loops, ``_captured``) unless the solve is sharded
-    or ``set_debug_nans(True)`` holds.  A state that would
+    (lanes).  The line search runs its fixed-trip loop, or inside a
+    captured block the gated driver, which skips the dead turns, so no
+    search reads on the host either, in direct mode included; the
+    iterations run in blocks (``core.blocks``: CUDA graphs on the card)
+    unless the solve is sharded or ``set_debug_nans(True)`` holds.  A
+    state that would
     have converged early keeps iterating to the budget.  The budget and,
     with ``cfg.refresh_interval``
     (compact_incremental), the refresh points are relative to the state
@@ -764,10 +761,10 @@ def solve_bounded(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
         interval = None
     step = _stepper(cfg, f, vg, dir_poly, fused_tail, phi_batch,
                     phi_dphi_batch, comm=comm, bounded=True)
-    if _blocked(cfg, state, comm, bounded=True):
+    if _blocked(cfg, state, comm, True, cfg.max_iters):
         drv = blocks.runner("bounded", cfg, step, state, interval, _callables(
             f, vg, dir_poly, fused_tail, phi_batch, phi_dphi_batch),
-            cfg.max_iters, _captured(cfg, state, bounded=True), kept)
+            cfg.max_iters, kept)
         state = blocks.solve_fixed(drv, cfg.max_iters, interval)
     else:
         for i in range(1, cfg.max_iters + 1):
@@ -810,10 +807,11 @@ def make_solve_segment(cfg: LBFGSConfig, f: ObjFn, grad=None,
     kept = blocks.Kept()
 
     def segment(state: LBFGSState) -> LBFGSState:
-        if _blocked(cfg, state, None, bounded=False):
+        budget = min(seg_iters, cfg.max_iters)
+        if _blocked(cfg, state, None, False, budget):
             drv = blocks.runner("segment", cfg, step, state, None, _callables(
                 f, vg, dir_poly, fused_tail, phi_batch, phi_dphi_batch),
-                min(seg_iters, cfg.max_iters), kept=kept)
+                budget, kept=kept)
             out = blocks.solve_segment(drv, seg_iters, refresh)
             return out if donate else out.replace(**{
                 n.name: getattr(out, n.name).clone()
@@ -839,25 +837,34 @@ def _solve_traced(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
                   ) -> Tuple[LBFGSState, Trace]:
     """The solve with per-iteration metrics: f, g_norm, alpha, n_fev, n_gev
     and the guard counters after each of ``cfg.max_iters`` iterations, kept
-    on the device and stacked once at the end.  Once no lane runs the state
-    is frozen, so the remaining rows are copies of the last one and are
-    filled in without iterating.
+    on the device.  Once no lane runs the state is frozen, so the remaining
+    rows are copies of the last one and are filled in without iterating.
 
     ``cfg.refresh_interval`` (compact_incremental) is honoured at the
     reference's points: after every ``refresh_interval`` iterations counted
-    from the state given, and after the last, partial segment.  Reads one
-    scalar per iteration, the loop condition."""
+    from the state given, and after the last, partial segment.  In blocks
+    where ``_blocked`` says so (``blocks.solve_traced``: each iteration
+    writes its row into a (max_iters, ...) buffer on the device, one read
+    per block), else one read per iteration, the loop condition, and the
+    rows stacked at the end."""
     step = _stepper(cfg, f, vg, dir_poly, fused_tail, phi_batch,
                     phi_dphi_batch, comm=comm)
-    fields = ("f", "g_norm", "alpha", "n_fev", "n_gev", "guards")
+    interval = _refresh_interval(cfg)
+    if interval is not None and interval >= cfg.max_iters:
+        interval = None
+    if _blocked(cfg, state, comm, False, cfg.max_iters):
+        drv = blocks.runner("traced", cfg, step, state, interval, _callables(
+            f, vg, dir_poly, fused_tail, phi_batch, phi_dphi_batch),
+            cfg.max_iters)
+        state = blocks.solve_traced(drv, interval)
+        return (state.replace(status=_finalize_status(cfg, state)),
+                drv.trace())
+    fields = Trace._fields
     rows = []
 
     def emit(s):
         rows.append(tuple(getattr(s, name) for name in fields))
 
-    interval = _refresh_interval(cfg)
-    if interval is not None and interval >= cfg.max_iters:
-        interval = None
     while len(rows) < cfg.max_iters:
         before = len(rows)
         want = min(interval or cfg.max_iters, cfg.max_iters - before)

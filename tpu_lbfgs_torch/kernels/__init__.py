@@ -6,8 +6,9 @@ Each wrapper counts its kernel's launches in its module's ``launches``;
 the package at once.  A launch recorded into a CUDA graph counts nothing
 until the graph runs, and each replay as the kernels it runs (``counts``):
 ``launch_counts()`` is what the device ran, eager or replayed,
-``replay_counts()`` the replayed part."""
-from . import chain, counts, fused_ops, line_search_ops
+``replay_counts()`` the replayed part.  ``graph_if`` adds the IF nodes
+under which the gated line-search driver captures each search turn."""
+from . import chain, counts, fused_ops, graph_if, line_search_ops
 from .fused_ops import (
     FUSED_VG,
     combine_direction,
@@ -21,7 +22,10 @@ _COUNTED = (fused_ops, chain, line_search_ops)
 
 def launch_counts() -> dict[str, int]:
     """Kernel runs on the device per wrapper, eager launches and graph
-    replays together, for every kernel of the package."""
+    replays together, for every kernel of the package.  Reads the turn
+    counters of the gated line-search bodies on the host (``counts.fold``),
+    so it is called outside a solve, as the checks do."""
+    counts.fold()
     return {name: n for module in _COUNTED
             for name, n in module.launches.items()}
 
@@ -33,6 +37,7 @@ def replay_counts() -> dict[str, int]:
 
 
 def reset_launches() -> None:
+    counts.fold()
     for module in _COUNTED:
         module.reset_launches()
     counts.reset()

@@ -88,6 +88,15 @@ _SIGNATURES = {
         [_P] * 7 + [ctypes.c_int] + [ctypes.c_longlong] * 2 + [_P],
         ctypes.c_int)
        for t in ("f32", "f64", "f32_bf16")},
+    # The IF nodes of the gated line-search driver (csrc/graph_if.cu):
+    # out; stream; parent, into, pred, turns, body, body graph out, nodes;
+    # body, into, nodes; stream, nodes; stream.
+    "tl_stream_create": ([_P], ctypes.c_int),
+    "tl_stream_destroy": ([_P], ctypes.c_int),
+    "tl_graph_if_begin": ([_P] * 7, ctypes.c_int),
+    "tl_graph_if_end": ([_P] * 3, ctypes.c_int),
+    "tl_capture_nodes": ([_P] * 2, ctypes.c_int),
+    "tl_capture_abort": ([_P], ctypes.c_int),
     # The batched shard-local forms: the batched arguments, lanes and n,
     # then n_global, start, edges.
     "tl_fused_vg_local_batched_f32": ([ctypes.c_int] + [_P] * 4

@@ -12,21 +12,29 @@ rounds as the reference's weak-typed scalar arithmetic does.  K trials are
 The reference runs each search as a ``lax.while_loop`` on the device, and a
 batch as its ``jax.vmap``: the loop runs while any lane's condition holds,
 and a lane whose condition has failed keeps its carry.  Here each search
-is one turn, ``cond`` / ``body`` over the lanes, and one of two loops
+is one turn, ``cond`` / ``body`` over the lanes, and one of three loops
 runs it (``_loop``):
 
-- read-driven (the default): while any lane's condition holds, one bool
-  read on the host per turn, that is one per trial for the sequential
-  searches and one per K-wide round for the speculative twins
-  (``host_reads`` counts them).  ``solve_from_state`` and
-  ``vmap_minimize(lockstep="while")`` use it.
+- gated (whenever a gate is set, ``gated``: the block runner sets the
+  graph's while it captures a block, ``core.blocks``): the search's own
+  trip bound of turns, each inside a CUDA graph IF node on whether the
+  condition holds on any lane (``kernels.graph_if``), so a replay runs a
+  turn only while the search runs, and reads nothing.  The carry lives in
+  buffers that each turn overwrites.  The CPU tests drive it through
+  ``EagerGate``.
+- read-driven (the default otherwise): while any lane's condition holds,
+  one bool read on the host per turn, that is one per trial for the
+  sequential searches and one per K-wide round for the speculative twins
+  (``host_reads`` counts them).  The per-iteration solve loop and eager
+  blocks use it.
 - fixed-trip (``bounded=True``): exactly the search's own trip bound
   (``cfg.ls_max_iters``, ``cfg.ls_safety_cap``, or the ladder's length),
   with finished lanes frozen by a ``torch.where``; it reads nothing.
-  ``solve_bounded`` and ``vmap_minimize(lockstep="bounded")`` use it.
+  ``solve_bounded`` and ``vmap_minimize(lockstep="bounded")`` use it
+  where their blocks are not captured.
 
-A finished lane is frozen in both, so the two give the same result bit for
-bit.  Each body is the reference's body, line for line.
+A finished lane is frozen in all three, so they give the same result bit
+for bit.  Each body is the reference's body, line for line.
 
 ``backtracking`` under ``ls_eval="polynomial"`` (the bench.py path) takes
 no loop at all: a trial is one scalar Horner evaluation, so the port tests
@@ -42,6 +50,7 @@ docstring) are reproduced under ``cfg.fidelity == "reference"``, not fixed.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from functools import lru_cache
 from typing import Callable
 
@@ -78,9 +87,10 @@ def _read(*flags: Tensor) -> list[bool]:
 
 
 def reads_on_host(cfg: LBFGSConfig, batched: bool) -> bool:
-    """Whether ``cfg``'s search, driven read-driven, reads on the host:
-    every search but ``backtracking`` on the directional polynomial or on
-    a batch (the whole ladder at once, no loop)."""
+    """Whether ``cfg``'s search loops, and so reads on the host when driven
+    read-driven: every search but ``backtracking`` on the directional
+    polynomial or on a batch (the whole ladder at once, no loop).  Inside
+    a captured block such a search runs on the gated driver instead."""
     return not (cfg.line_search == "backtracking"
                 and (cfg.ls_eval == "polynomial" or batched))
 
@@ -101,15 +111,94 @@ def _select(go: Tensor, new: tuple, old: tuple) -> tuple:
     return tuple(torch.where(go, a, b) for a, b in zip(new, old))
 
 
+#: The gate of the gated driver while one is set (``gated``).
+_GATE = None
+
+
+@contextmanager
+def gated(gate):
+    """Run every search loop on the gated driver through ``gate``: an object
+    with ``start()`` (a new loop), ``open(pred) -> bool`` (a turn under
+    the 0-d bool ``pred`` on the device: whether to run its body) and
+    ``end()`` (the loop's turns are done).  The port sets only ``kernels.graph_if``'s gates
+    (``core.blocks``); ``EagerGate`` is the CPU tests'."""
+    global _GATE
+    outer, _GATE = _GATE, gate
+    try:
+        yield gate
+    finally:
+        _GATE = outer
+
+
+class EagerGate:
+    """The gated driver run eagerly: a turn's body runs iff ``bool(pred)``,
+    a host read that ``host_reads`` does not count.  For the CPU tests,
+    which hold the gated driver's own code to the other two drivers."""
+
+    def start(self) -> None:
+        pass
+
+    def open(self, pred: Tensor) -> bool:
+        return bool(pred)
+
+    def end(self) -> None:
+        pass
+
+
+def _gated(gate, cond, body, carry, trips: int, enter=None) -> tuple:
+    """The gated driver: up to ``trips`` turns, each opened by ``gate`` on
+    whether ``cond`` holds on any lane, a lane whose condition has failed
+    keeping its carry.  The carry is cloned once into buffers that every
+    turn overwrites (a graph reads fixed addresses after an IF node).
+    ``enter`` as under the read-driven driver: False runs no turn, True
+    runs the first turn with no gate."""
+    if enter is False:
+        return carry
+    lanes = carry[0].dim() > 0
+    buf = tuple(c.clone() for c in carry)
+    held = [b.untyped_storage().data_ptr() for b in buf]
+
+    def turn(go):
+        # A body may hand back one of its carry's own tensors, or a view of
+        # one, in another slot (armijo_interpolation under fidelity="fixed"
+        # returns alpha as the next alpha_prev): copy it before the buffers
+        # change.
+        new = body(buf)
+        new = [v.clone() if any(v.untyped_storage().data_ptr() == p
+                                for j, p in enumerate(held) if j != i)
+               else v for i, v in enumerate(new)]
+        for b, v in zip(buf, new):
+            if lanes:
+                torch.where(go, v, b, out=b)
+            else:
+                b.copy_(v)
+
+    first = 0
+    if enter:
+        turn(cond(buf) if lanes else None)
+        first = 1
+    gate.start()
+    for _ in range(first, trips):
+        go = cond(buf)
+        if not gate.open(go.any() if lanes else go):
+            break
+        turn(go)
+    gate.end()
+    return buf
+
+
 def _loop(cond, body, carry, trips: int, bounded: bool, enter=None):
     """Run one search's turn until its condition fails on every lane.
 
-    Read-driven (``bounded=False``): ``lax.while_loop`` driven from the
-    host, one bool read per turn; on a batch a lane whose condition has
-    failed keeps its carry.  ``enter`` is the first condition where the
-    caller knows it from the configuration alone; it is then not read.
-    Fixed-trip (``bounded=True``): ``trips`` turns, the search's own bound,
-    each lane frozen once its condition fails; no read."""
+    Gated (a gate is set, ``gated``): ``_gated``, whatever ``bounded``
+    says.  Read-driven (``bounded=False``): ``lax.while_loop`` driven from
+    the host, one bool read per turn; on a batch a lane whose condition
+    has failed keeps its carry.  ``enter`` is the first condition where
+    the caller knows it from the configuration alone; it is then not
+    read.  Fixed-trip (``bounded=True``): ``trips`` turns, the search's
+    own bound, each lane frozen once its condition fails; no read."""
+    if _GATE is not None:
+        return _gated(_GATE, cond, body, carry, trips, enter)
     if bounded:
         for _ in range(trips):
             carry = _select(cond(carry), body(carry), carry)
@@ -691,8 +780,8 @@ def wolfe_interpolation_speculative(cfg: LBFGSConfig, phi, phi_dphi,
          _full(0.0, f_x), _full(math.inf, f_x), f_x, g_dot_d, zero, zero,
          zero)
     go_b = None
-    if bounded:
-        c = _loop(condA, bodyA, c, -(-cap // K), True)
+    if bounded or _GATE is not None:
+        c = _loop(condA, bodyA, c, -(-cap // K), bounded, enter=cap > 0)
     else:
         # Each round reads phase A's condition and, for the exit, phase B's
         # entry condition in the same transfer.
