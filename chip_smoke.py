@@ -128,6 +128,17 @@ the checkpoints at the sizes their users run:
   reference records as line_search_failed at iteration 1 end so here, and
   a float64 cell on the quadratic converges.
 
+After [bench], [cpu-baseline] drives the CPU baseline: the C++ oracle
+(tpu_lbfgs_torch.native, native/oracle.cpp built by g++ at first use, its
+build seconds and the host's CPU printed) at d = 2^20 through
+bench_cpu_native beside [bench]'s bench_gpu rate and their ratio; the
+oracle against minimize in float64 on the card, the same algorithm, over
+20 iterations (statuses equal, f within 1e-6 at each); the north-star
+function with the oracle's float64 stage (refine_backend="native") at d
+= 2^11 to 1e-5; run_protocol with the oracle's cells at d = 10,000 for
+Armijo Backtracking, whose row gets cuda_per_iter_speedup; and the
+command line's --backend native against a direct native_lbfgs call.
+
 After [batch], [graph] holds the solve loops' CUDA graphs to the same
 blocks run eagerly (tpu_lbfgs_torch.eager_loops): bench.py's solve at d =
 2^20 for 400 iterations and the batch cell for 200, bit for bit and timed
@@ -1340,6 +1351,7 @@ def phase_bench(card):
         f"captured in the warm-up run in {d['capture_s']:.3f} s, "
         f"{d['host_reads_per_solve']:.0f} host reads per timed solve) on "
         f"{card}")
+    return r.iters_per_s
 
 
 def _batch_cfg(tt, iters):
@@ -3697,6 +3709,126 @@ def phase_bench_batch(card):
         f"reads per timed solve) on {card}")
 
 
+# [cpu-baseline]: the C++ oracle (tpu_lbfgs_torch.native, native/oracle.cpp
+# built by g++ at first use) on the host, after [bench].  bench_cpu_native at
+# bench.py's d for CPU_ITERS iterations, best of 3, beside [bench]'s
+# bench_gpu rate (bench.py's ratio: the main path against the oracle's
+# reference algorithm, two_loop and direct Armijo backtracking).  The oracle
+# against minimize in float64 on the card (plain versions, the same
+# algorithm) from -1.2 + U(-0.1, 0.1) at d = 2^20 over CPU_ITERS
+# iterations: statuses equal and f within CPU_F_RTOL at every iteration (the
+# two add their sums in other orders).  time_to_tolerance_refined with the
+# oracle's float64 stage at TOL_D; run_protocol with the oracle's cells at
+# PROTOCOL_D, seeds PROTOCOL_SEEDS, for Armijo Backtracking, which iterates
+# on both backends from the published box, so that its row has
+# cuda_per_iter_speedup; --backend native against native_lbfgs.
+CPU_ITERS = 20
+CPU_F_RTOL = 1e-6
+CPU_CLI_ARGS = ["--backend", "native", "--problem", "rosenbrock", "--dim",
+                "1000", "--json"]
+
+
+def phase_cpu_baseline(card, gpu_rate):
+    import tpu_lbfgs_torch as tt
+    from tpu_lbfgs_torch.bench.harness import (
+        bench_cpu_native,
+        host_cpu,
+        time_to_tolerance_refined,
+    )
+    from tpu_lbfgs_torch.bench.reference_protocol import (
+        TABLE_I_STRATEGIES,
+        run_protocol,
+    )
+    from tpu_lbfgs_torch.native import binding, native_lbfgs
+
+    cpu = host_cpu()
+    t0 = time.perf_counter()
+    lib = binding.build()
+    say(f"[cpu-baseline] C++ oracle built by g++ "
+        f"{' '.join(binding.CXX_FLAGS)} in {time.perf_counter() - t0:.2f} s "
+        f"({lib.parent.name}); host CPU {cpu}, {os.cpu_count()} logical "
+        "cores, the oracle on one")
+
+    r = bench_cpu_native(problem="rosenbrock", d=D, iters=CPU_ITERS,
+                         repeats=3)
+    check(np.isfinite(r.final_f) and r.iterations == CPU_ITERS,
+          "bench_cpu_native must finish its iterations with a finite f")
+    say(f"[cpu-baseline] {r.name}: {r.iters_per_s:.3f} iterations/s "
+        f"({CPU_ITERS} iterations, float64, best of 3 runs {r.wall_s:.4f} s, "
+        f"runs {[round(w, 4) for w in r.details['repeat_walls_s']]}) on "
+        f"{cpu}; [bench] bench_gpu {gpu_rate:.2f} iterations/s on {card}: "
+        f"{gpu_rate / r.iters_per_s:.2f}x the CPU baseline per iteration")
+
+    # The same algorithm on both sides: the oracle on the host, minimize in
+    # float64 on the card.
+    x0 = -1.2 + np.random.default_rng(SEED).uniform(-0.1, 0.1, D)
+    cfg = tt.LBFGSConfig(line_search="backtracking", direction="two_loop",
+                         max_iters=CPU_ITERS, tol=0.0, record_trace=True)
+    t0 = time.perf_counter()
+    nat = native_lbfgs("rosenbrock", x0, cfg, record_trace=True)
+    nat_s = time.perf_counter() - t0
+    p = tt.get_problem("rosenbrock")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = tt.minimize(p.f, torch.from_numpy(x0).cuda(), cfg, grad=p.grad)
+    k = int(res.iterations)
+    card_s = time.perf_counter() - t0
+    # The oracle's trace_f[i] is f before step i, the solver's after it.
+    f_nat = np.append(nat["trace_f"][1:], nat["f"])
+    f_card = res.trace.f[:k].cpu().numpy()
+    status = tt.Status.NAMES[int(res.status)]
+    rel = (np.abs(f_card - f_nat[:k]) / np.abs(f_nat[:k])).max() if k \
+        else np.inf
+    alphas = int((res.trace.alpha[:k].cpu().numpy()
+                  == nat["trace_alpha"][:k]).sum())
+    say(f"[cpu-baseline] native_lbfgs vs minimize float64 on the card, "
+        f"backtracking, two_loop, d={D} from -1.2 + U(-0.1, 0.1): "
+        f"{nat['status']} / {status} after {nat['iterations']} / {k} "
+        f"iterations, f {nat['f']:.12g} / {float(res.f):.12g}, largest "
+        f"relative f difference over the iterations {rel:.3e}, {alphas} of "
+        f"{k} alphas equal, n_fev {nat['n_fev']} / {int(res.n_fev)}; "
+        f"{nat_s:.3f} s on the host, {card_s:.3f} s on {card}")
+    check(nat["status"] == status and nat["iterations"] == k == CPU_ITERS
+          and rel <= CPU_F_RTOL,
+          f"[cpu-baseline] the oracle and the float64 solve must agree in "
+          f"status and in f within {CPU_F_RTOL} at every iteration")
+
+    rt = time_to_tolerance_refined(d=TOL_D, refine_backend="native")
+    say(f"[cpu-baseline] time_to_tolerance_refined(d={TOL_D}, coarse_tol="
+        f"1e-3, tol=1e-5, refine_backend='native'): {json.dumps(rt)}; the "
+        f"float64 stage on {cpu}")
+    check(rt["status"] == "converged" and rt["g_norm"] <= 1e-5
+          and rt["refine_iterations"] <= TOL_REFINE_MAX,
+          f"[cpu-baseline] the oracle's stage must converge to 1e-5 within "
+          f"{TOL_REFINE_MAX} iterations")
+
+    report = run_protocol(problem="rosenbrock", dims=(PROTOCOL_D,),
+                          seeds=PROTOCOL_SEEDS, out=None, isolate=False,
+                          strategies=TABLE_I_STRATEGIES[:1])
+    for c in report["cells"]:
+        say(f"[cpu-baseline] protocol d={PROTOCOL_D} {c['backend']}: "
+            f"{c.get('statuses')}, iterations "
+            f"{c.get('per_seed_iterations')}, walls "
+            f"{c.get('per_seed_wall_s')} s, {c.get('iters_per_s')} it/s "
+            f"on {c.get('device')}")
+    rows = report["per_iteration_speedups"]
+    say(f"[cpu-baseline] per-iteration rows (card {card}, host {cpu}): "
+        f"{json.dumps(rows)}")
+    check(len(rows) == 1 and rows[0].get("cuda_per_iter_speedup"),
+          "[cpu-baseline] the protocol must give a cuda_per_iter_speedup "
+          "row for Armijo Backtracking")
+
+    rec = _cli_main(CPU_CLI_ARGS)["results"][0]
+    want = native_lbfgs("rosenbrock",
+                        np.random.default_rng(42).uniform(-2.0, 2.0, 1000),
+                        tt.LBFGSConfig())
+    say(f"[cpu-baseline] cli {' '.join(CPU_CLI_ARGS)}: {json.dumps(rec)}")
+    check(all(rec[key] == want[key] for key in
+              ("status", "iterations", "f", "g_norm", "n_fev", "n_gev")),
+          "[cpu-baseline] --backend native must give native_lbfgs's solve "
+          "of the same x0")
+
+
 # --- the sharded solve -------------------------------------------------------
 # The shard-local kernel forms: d, the shard counts, and the depth of the
 # ring for t1 and t2.  Each shard's kernel against its plain version:
@@ -5442,11 +5574,14 @@ def main():
     lap("[tol]")
     phase_protocol(card)
     lap("[protocol]")
-    phase_bench(card)
+    gpu_rate = phase_bench(card)
     phase_bench_batch(card)
+    lap("[bench]")
+    phase_cpu_baseline(card, gpu_rate)
+    lap("[cpu-baseline]")
     phase_launch_counts(jobs)
     phase_graph_kernels_fresh()
-    lap("[bench], launch counts")
+    lap("launch counts")
 
     csrc, pallas = "tpu_lbfgs_torch/csrc/", "tpu_lbfgs/kernels/pallas_ops.py:"
     vg_line = {"quadratic": 443, "rosenbrock": 461, "coupled_quadratic": 489}

@@ -150,8 +150,22 @@ def test_time_to_tolerance_refined_reaches_1e5():
 
 
 def test_refined_native_backend_raises():
-    with pytest.raises(NotImplementedError, match="C\\+\\+ oracle"):
-        harness.time_to_tolerance_refined(d=64, refine_backend="native",
+    """refine_backend="native" (the float64 stage by the C++ oracle on the
+    host, from the float32 iterate) converges to 1e-5 at d = 128 as the
+    reference's does, with its keys; only another backend name raises."""
+    kw = dict(d=128, max_iters=30_000, refine_iters=2_000,
+              refine_backend="native")
+    ref = jax_harness.time_to_tolerance_refined(**kw)
+    got = harness.time_to_tolerance_refined(device="cpu", **kw)
+    for r in (ref, got):
+        assert r["status"] == "converged", r
+        assert r["g_norm"] <= 1e-5
+        assert r["refine_iterations"] <= 100, r
+    assert got["refine_backend"] == "native" and got["device"] == "cpu"
+    assert set(ref) <= set(got)
+    assert got["wall_s"] == got["coarse_wall_s"] + got["refine_wall_s"]
+    with pytest.raises(ValueError, match="refine_backend"):
+        harness.time_to_tolerance_refined(d=64, refine_backend="jax",
                                           device="cpu")
 
 
@@ -228,6 +242,24 @@ def test_giant_profile_needs_the_card(capsys):
         giant(["--d", "64", "--iters", "2", "--profile", "--device", "cpu"])
     captured = capsys.readouterr()
     assert captured.out == "" and "needs the card" in captured.err
+
+
+def test_sweep_protocol_with_cpu_cells_only(tmp_path, capsys):
+    """--reference-protocol --no-cuda: the C++ oracle's cells alone, each
+    in its own interpreter, with no card; four at a time (--jobs), so the
+    report keeps no rate."""
+    out = tmp_path / "protocol.json"
+    assert bench_main(["--reference-protocol", "--no-cuda", "--quick",
+                       "--problem", "quadratic", "--dims", "64",
+                       "--cpu-budget", "60", "--jobs", "4",
+                       "--out", str(out)]) == 0
+    report = json.loads(out.read_text())
+    assert report["device"] is None and report["concurrent_cells"] == 4
+    cells = report["cells"]
+    assert [c["backend"] for c in cells] == ["cpu-native-f64"] * 4
+    assert all(c["statuses"] == ["converged"] * 2 and "iters_per_s" not in c
+               for c in cells)
+    assert "cpu-native-f64" in capsys.readouterr().out
 
 
 def test_sweep_refuses_scaling_and_runs_on_the_card_only():

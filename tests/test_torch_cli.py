@@ -104,6 +104,13 @@ F64_SETS = {
     # there, in both command lines
     "shard_batch_poly": "--shard --batch 4 --poly-ls --problem rosenbrock "
                         "--dim 64 --max-iters 30 --lockstep bounded",
+    # --backend native: the C++ oracle on the host in both command lines
+    # (one source built with one command), whatever --dtype says
+    "native_rosenbrock": "--backend native --problem rosenbrock --dim 1000",
+    "native_coupled_bisect": "--backend native --problem coupled_quadratic "
+                             "--dim 64 --line-search "
+                             "backtracking_wolfe_bisect --tol 1e-8 "
+                             "--seeds 42 365",
 }
 
 
@@ -123,9 +130,10 @@ def test_cli_matches_jax_f64(name, capsys):
         # A --batch record has counts and means over its lanes instead.
         batch = "batch" in b
         for key in (("seed", "batch", "converged", "mean_iterations") if batch
-                    else ("seed", "status", "iterations", "n_fev", "n_gev",
-                          "guards")):
+                    else ("seed", "status", "iterations", "n_fev", "n_gev")):
             assert a[key] == b[key], key
+        # A --backend native record counts no guards.
+        assert a.get("guards") == b.get("guards")
         for key in (("mean_f", "max_g_norm") if batch else ("f", "g_norm")):
             assert abs(a[key] - b[key]) <= 1e-5 * abs(b[key]) + 1e-12, key
         assert a["wall_s"] > 0
@@ -216,7 +224,15 @@ def test_multi_seed_summary_and_damped_guards(capsys):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--backend", "native"], "belongs to tpu_lbfgs"),
+    # --backend native: the reference's two checks of what the C++ oracle
+    # has, before anything runs
+    (["--backend", "native", "--problem", "sphere"],
+     "--backend native supports problems ['coupled_quadratic', 'quadratic', "
+     "'rosenbrock'], not 'sphere'"),
+    (["--backend", "native", "--line-search", "backtracking_speculative"],
+     "--backend native supports line searches ['armijo_interpolation', "
+     "'backtracking', 'backtracking_wolfe', 'backtracking_wolfe_bisect', "
+     "'wolfe_interpolation'], not 'backtracking_speculative'"),
     (["--nproc", "2"], "give --shard too"),
     (["--line-search", "nope"], "invalid choice"),
 ])
@@ -225,6 +241,28 @@ def test_unported_flags_exit_through_the_parser(argv, message, capsys):
         torch_cli.main(["--device", "cpu", "--dim", "16"] + argv)
     assert exc.value.code == 2
     assert message in capsys.readouterr().err
+
+
+def test_native_backend_runs_on_the_host(capsys):
+    """--backend native without --device: each seed is the C++ oracle's
+    solve on the host of default_rng(seed).uniform(-r, r, dim), as a
+    direct native_lbfgs call gives it, whether or not a card is present."""
+    import numpy as np
+
+    from tpu_lbfgs_torch import LBFGSConfig
+    from tpu_lbfgs_torch.native import native_lbfgs
+
+    capsys.readouterr()
+    assert torch_cli.main("--backend native --problem rosenbrock --dim 300 "
+                          "--line-search wolfe_interpolation --seeds 7 "
+                          "--json".split()) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    r = native_lbfgs("rosenbrock",
+                     np.random.default_rng(7).uniform(-2.0, 2.0, 300),
+                     LBFGSConfig(line_search="wolfe_interpolation"))
+    got = rec["results"][0]
+    for key in ("status", "iterations", "f", "g_norm", "n_fev", "n_gev"):
+        assert got[key] == r[key], key
 
 
 def test_parser_surface_matches_the_reference():

@@ -1,6 +1,7 @@
 """The port's reference protocol (tpu_lbfgs_torch.bench.reference_protocol)
-on the CPU at small d, against the JAX package's run_tpu_cell from the same
-starting arrays (tests/test_reference_protocol.py is the model)."""
+on the CPU at small d, against the JAX package's run_tpu_cell and
+run_cpu_cell from the same starting arrays (tests/test_reference_protocol.py
+is the model)."""
 import numpy as np
 import pytest
 import torch
@@ -116,31 +117,97 @@ def test_run_protocol_quick_grid_and_report(tmp_path):
     report = rp.run_protocol(problem="quadratic", dims=(256, 512),
                              seeds=(42, 365, 12345), out=str(out),
                              quick=True, isolate=False, device="cpu")
-    # quick: the first d, the first 2 seeds, 4 strategies x 2 backends.
-    assert len(report["cells"]) == 8
+    # quick: the first d, the first 2 seeds, 4 strategies x 3 backends
+    # (the two float32 ones and the C++ oracle's).
+    assert len(report["cells"]) == 12
     assert {c["d"] for c in report["cells"]} == {256}
     assert {c["backend"] for c in report["cells"]} == {
-        "cuda-f32-parcfg", "cuda-f32-norescue"}
+        "cuda-f32-parcfg", "cuda-f32-norescue", "cpu-native-f64"}
     assert all(c["seeds_total"] == 2 for c in report["cells"])
     assert report["device"] == "cpu" and report["concurrent_cells"] == 1
-    assert report["per_iteration_speedups"] == []
+    # Every strategy's float32 and CPU cells iterate on the quadratic.
+    rows = report["per_iteration_speedups"]
+    assert len(rows) == 4 and all(r["cuda_per_iter_speedup"] > 0
+                                  and "f32_over_f64_per_iter" not in r
+                                  for r in rows)
     assert out.exists()
     md = rp.markdown_table(report)
-    assert md.count("\n") == 9          # header + rule + 8 rows
+    assert md.count("\n") == 13         # header + rule + 12 rows
     assert "Armijo Backtracking" in md and "cuda-f32-norescue" in md
+    assert "cpu-native-f64" in md
 
 
 def test_run_protocol_with_f64_cells_and_ratios():
     report = rp.run_protocol(problem="quadratic", dims=(128,), seeds=(42,),
                              out=None, quick=True, isolate=False,
                              cuda_f64=True, device="cpu")
-    assert len(report["cells"]) == 12
+    assert len(report["cells"]) == 16
     f64 = [c for c in report["cells"] if c["backend"] == "cuda-f64"]
     assert len(f64) == 4 and all(c["statuses"] == ["converged"] for c in f64)
     assert all(c["max_final_g_norm"] <= 1e-8 for c in f64)
     assert len(report["per_iteration_speedups"]) == 4
     assert all(r["f32_over_f64_per_iter"] > 0
+               and r["cuda_per_iter_speedup"] > 0
                for r in report["per_iteration_speedups"])
+
+
+@pytest.mark.parametrize("_, strategy", rp.TABLE_I_STRATEGIES)
+def test_cpu_cell_matches_jax(_, strategy, monkeypatch):
+    """The C++ oracle's cell from the same U(-1000, 1000) arrays in both
+    packages: statuses, iterations and f equal (both load the oracle
+    built from one source with one command)."""
+    _same_x0(monkeypatch)
+    ref = jax_rp.run_cpu_cell("rosenbrock", 16, strategy, seeds=(42, 365))
+    got = rp.run_cpu_cell("rosenbrock", 16, strategy, seeds=(42, 365))
+    assert got["backend"] == ref["backend"] == "cpu-native-f64"
+    for key in ("seeds_run", "seeds_total", "statuses", "per_seed_iterations",
+                "mean_iterations", "mean_final_f", "max_final_g_norm"):
+        assert got[key] == ref[key], key
+    assert got["device"]
+    scaled = rp.run_cpu_cell("quadratic", 16, strategy, seeds=(42,),
+                             x0_range=(-10.0, 10.0))
+    assert scaled["backend"] == "cpu-native-f64-scaled"
+    assert scaled["statuses"] == ["converged"]
+
+
+def test_cpu_cell_budget(monkeypatch):
+    """A probe that does not converge and projects one seed past the
+    budget skips the cell, as the reference's does; a cell that runs stops
+    adding seeds at the budget (the first always runs)."""
+    _same_x0(monkeypatch)
+    kw = dict(seeds=(42, 365, 12345), budget_s=0.0)
+    got = rp.run_cpu_cell("rosenbrock", 256, "backtracking", **kw)
+    ref = jax_rp.run_cpu_cell("rosenbrock", 256, "backtracking", **kw)
+    assert got.keys() == ref.keys()
+    assert got["skipped"] == ref["skipped"] == "budget"
+    assert got["seeds_run"] == 0 and got["projected_wall_s_per_seed"] > 0
+    got = rp.run_cpu_cell("quadratic", 256, "backtracking", **kw)
+    assert got["seeds_run"] == 1 and got["seeds_total"] == 3
+
+
+def test_run_protocol_cpu_cells_need_no_card(monkeypatch):
+    """run_protocol(cuda=False): only the C++ oracle's cells, no device,
+    and the reference report's keys (less its TPU float64 probe, which is
+    not ported); with cuda=True and no card it still raises."""
+    _same_x0(monkeypatch)
+    kw = dict(problem="quadratic", dims=(64,), seeds=(42, 365), out=None,
+              isolate=False)
+    got = rp.run_protocol(cuda=False, **kw)
+    ref = jax_rp.run_protocol(tpu=False, **kw)
+    assert set(ref) - {"f64_probe"} <= set(got)
+    assert ref["protocol"]["cpu_config"] in got["protocol"]["cpu_config"]
+    assert got["device"] is None and got["cpu"]
+    assert [c["backend"] for c in got["cells"]] == ["cpu-native-f64"] * 4
+    for a, b in zip(got["cells"], ref["cells"]):
+        assert (a["strategy"], a["statuses"], a["per_seed_iterations"],
+                a["mean_final_f"]) == (b["strategy"], b["statuses"],
+                                       b["per_seed_iterations"],
+                                       b["mean_final_f"])
+    assert got["per_iteration_speedups"] == ref["per_iteration_speedups"] \
+        == []
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            rp.run_protocol(cpu=False, **kw)
 
 
 def test_markdown_table_renders_error_and_skip_rows():
@@ -167,6 +234,13 @@ def test_a_cell_runs_in_its_own_interpreter():
                                device="cpu")
     assert cell["statuses"] == ["converged"] and cell["device"] == "cpu"
     assert cell["backend"] == "cuda-f32-norescue"
+
+
+def test_a_cpu_cell_runs_in_its_own_interpreter():
+    cell = rp._cell_subprocess("quadratic", 64, "backtracking", "cpu", (42,),
+                               60.0, 120)
+    assert cell["backend"] == "cpu-native-f64"
+    assert cell["statuses"] == ["converged"] and cell["device"]
 
 
 def test_cell_ran_and_cell_rate():

@@ -4,19 +4,22 @@
 
 The reference's 8 fixed-iteration configurations (directions, line
 searches, history dtypes, m) through ``harness.bench_gpu``, then its batch
-row through ``harness.bench_batch``, written to one JSON report with each
-row's it/s and every timed run's wall (``repeat_walls_s``: the host's speed
-differs between calls, so the best alone hides the spread).  ``--quick``
-runs the reference's 3 quick configurations.  ``--reference-protocol``
-runs ``reference_protocol.run_protocol`` instead.  A configuration that
-fails or overruns ``--per-config-timeout`` is recorded in its row and the
-sweep goes on.
+row through ``harness.bench_batch`` and its CPU baseline row
+(``cpu-native-baseline``: the C++ oracle at ``--d``, 20 iterations of
+Armijo backtracking, best of 3, through ``harness.bench_cpu_native``),
+written to one JSON report with each row's it/s and every timed run's
+wall (``repeat_walls_s``: the host's speed differs between calls, so the
+best alone hides the spread).  ``--quick`` runs the reference's 3 quick
+configurations.  ``--reference-protocol`` runs
+``reference_protocol.run_protocol`` instead, with the C++ oracle's cells
+unless ``--no-cpu`` and the card's unless ``--no-cuda``.  A row that fails
+(a failed build of the oracle too) or overruns ``--per-config-timeout``
+is recorded with its error and the sweep goes on.
 
 ``--scaling`` runs ``scaling.scaling_sweep`` (strong scaling over 1, 2,
 4, ... ranks, up to the cards present) and writes
 ``torch_scaling_results.json``; where ranks share a card the record says
-it is no scaling number.  Not ported: the reference's cpu-native row (the
-C++ oracle belongs to ``tpu_lbfgs``; the sweep prints a line saying so).
+it is no scaling number.
 """
 from __future__ import annotations
 
@@ -100,12 +103,19 @@ def main(argv=None) -> int:
     ap.add_argument("--reference-protocol", action="store_true",
                     help="run the reference's published experiment instead: "
                          "5 seeds x 4 strategies x d in {1e4, 2e4, 1e5, "
-                         "2^20}, x0 ~ U(-1000, 1000), to convergence")
+                         "2^20}, x0 ~ U(-1000, 1000), to convergence, the "
+                         "card against the C++ oracle (Table-I analogue)")
     ap.add_argument("--problem", default="rosenbrock")
     ap.add_argument("--cuda-budget", type=float, default=600.0,
                     help="per-cell seed-loop wall budget (s)")
+    ap.add_argument("--cpu-budget", type=float, default=600.0,
+                    help="per-cell C++ oracle wall budget (s)")
     ap.add_argument("--cell-timeout", type=int, default=900,
                     help="hard limit per cell (s)")
+    ap.add_argument("--no-cpu", action="store_true",
+                    help="protocol without the C++ oracle's cells")
+    ap.add_argument("--no-cuda", action="store_true",
+                    help="protocol without the card's cells (needs no card)")
     ap.add_argument("--cuda-f64", action="store_true",
                     help="include the float64 sequential-configuration cells")
     ap.add_argument("--dims", type=int, nargs="+", default=None,
@@ -143,6 +153,8 @@ def main(argv=None) -> int:
         from .reference_protocol import DIMS, run_protocol
 
         run_protocol(problem=args.problem, dims=tuple(args.dims or DIMS),
+                     cpu=not args.no_cpu, cuda=not args.no_cuda,
+                     cpu_budget_s=args.cpu_budget,
                      cuda_budget_s=args.cuda_budget,
                      cell_timeout_s=args.cell_timeout,
                      out=args.out or "torch_reference_protocol_results.json",
@@ -150,7 +162,15 @@ def main(argv=None) -> int:
                      jobs=args.jobs)
         return 0
 
-    from .harness import _cuda_device, _device_name, bench_batch, bench_gpu
+    from ..config import LBFGSConfig
+    from .harness import (
+        _cuda_device,
+        _device_name,
+        bench_batch,
+        bench_cpu_native,
+        bench_gpu,
+        host_cpu,
+    )
 
     card = _device_name(_cuda_device("tpu_lbfgs_torch.bench"))
     signal.signal(signal.SIGALRM, _alarm)
@@ -173,13 +193,21 @@ def main(argv=None) -> int:
                 "repeat_walls_s": rb.details["repeat_walls_s"]}
     rows.append(_timed_row("batch-4096xd1024", args.per_config_timeout, batch))
     _print_row(rows[-1], "instance_iters_per_s", "inst-it/s")
-    print(f"{'cpu-native-baseline':28s} not ported: the C++ oracle belongs "
-          "to tpu_lbfgs", flush=True)
+
+    def cpu_baseline():
+        # A failed build of the oracle (no g++) is this row's error.
+        r = bench_cpu_native(d=args.d, iters=20,
+                             cfg=LBFGSConfig(line_search="backtracking"))
+        return {"iters_per_s": r.iters_per_s, "wall_s": r.wall_s,
+                "repeat_walls_s": r.details["repeat_walls_s"]}
+    rows.append(_timed_row("cpu-native-baseline", args.per_config_timeout,
+                           cpu_baseline))
+    _print_row(rows[-1], "iters_per_s", "it/s")
 
     out = args.out or "torch_bench_results.json"
     with open(out, "w") as fh:
         json.dump({"d": args.d, "iters": args.iters,
-                   "device": card,
+                   "device": card, "cpu": host_cpu(),
                    "rows": rows}, fh, indent=1)
     print(f"wrote {out}")
     return 0

@@ -6,7 +6,10 @@ over seeds), ``bench_batch`` as its namesake (a batch of instances in
 bounded lockstep, instance-iterations/s), and ``time_to_tolerance`` /
 ``time_to_tolerance_refined`` as theirs (the wall time of a solve to a
 gradient tolerance; the refined one in two stages, float32 to a coarse
-tolerance, then float64 from that iterate, both on the card).
+tolerance, then float64 from that iterate, on the card or with the C++
+oracle on the host).  ``bench_cpu_native`` times the CPU baseline as its
+namesake does: the C++ oracle (``native``) in float64 on one host thread,
+at a fixed number of iterations.
 
 The solves run in blocks of iterations replayed as CUDA graphs
 (``core.blocks``), and every function here keeps its solve's block runner
@@ -23,8 +26,10 @@ north-star run), and running it twice would double its cost for nothing.
 """
 from __future__ import annotations
 
+import platform
 import time
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -246,6 +251,64 @@ def fixed_iterations(problem: str, d: int, iters: int,
                  "device": _device_name(device)})
 
 
+def host_cpu() -> str:
+    """The host CPU, where the C++ oracle runs: the model name of
+    ``/proc/cpuinfo``'s first processor, with its vendor, family and model
+    numbers where the name is missing or "unknown" (as some virtual
+    machines report it); the machine's architecture where the file cannot
+    be read."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                if not line.strip():
+                    break                   # the first processor only
+                key, _, value = line.partition(":")
+                info[key.strip()] = value.strip()
+    except OSError:
+        return platform.machine() or "unknown cpu"
+    name = info.get("model name") or "unknown"
+    if name == "unknown":
+        name += " (" + ", ".join(f"{k} {info.get(k, '?')}" for k in
+                                 ("vendor_id", "cpu family", "model")) + ")"
+    return name
+
+
+def bench_cpu_native(problem: str = "rosenbrock", d: int = 1_000_000,
+                     iters: int = 20, cfg: Optional[LBFGSConfig] = None,
+                     seeds=REFERENCE_SEEDS[:1],
+                     repeats: int = 3) -> BenchResult:
+    """Fixed-iteration throughput of the C++ oracle on the host, the CPU
+    baseline (``tpu_lbfgs.bench.harness.bench_cpu_native``): float64 from
+    ``_x0(d, seed)``, tol = 0, best of ``repeats`` runs per seed (the
+    host's speed spreads between runs; the best is its capability and the
+    conservative side of a ratio over it), mean over seeds.  It runs on
+    the host whatever the card; ``details`` carries every run's wall and
+    the CPU's name."""
+    from ..native import native_lbfgs
+
+    cfg = cfg or LBFGSConfig(line_search="backtracking")
+    cfg = cfg.replace(max_iters=iters, tol=0.0)
+    per_seed, all_walls, r = [], [], None
+    for seed in seeds:
+        x0 = _x0(d, seed, torch.float64).numpy()
+        walls = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            r = native_lbfgs(problem, x0, cfg)
+            walls.append(time.perf_counter() - t0)
+        all_walls.extend(walls)
+        per_seed.append(min(walls))
+    wall = float(np.mean(per_seed))
+    return BenchResult(
+        name=f"cpu-native/{problem}/d={d}/{cfg.line_search}",
+        iters_per_s=iters / wall, wall_s=wall, iterations=iters,
+        final_f=r["f"], final_g_norm=r["g_norm"],
+        details={"per_seed_s": per_seed, "repeat_walls_s": all_walls,
+                 "n_fev": r["n_fev"], "n_gev": r["n_gev"],
+                 "device": host_cpu()})
+
+
 def bench_batch(problem: str = "rosenbrock", batch: int = 4096,
                 d: int = 1024, iters: int = 200,
                 cfg: Optional[LBFGSConfig] = None, dtype=torch.float32,
@@ -362,29 +425,33 @@ def time_to_tolerance_refined(problem: str = "rosenbrock", d: int = 1 << 20,
     the main path: the reference's configuration (polynomial backtracking,
     ``compact_incremental``, ``fidelity="fixed"``, the pair skip) with the
     fused kernels (``cfg.use_pallas``; ``solve_callables``).  Stage 2
-    warm-starts a fresh-history float64 solve from the float32 iterate, on
-    the same device: the card has float64, so ``refine_backend="torch"``
-    is the counterpart of the reference's "jax", and the stage takes the
-    kernels' plain versions (``problems.suite.resolve_use_pallas`` warns
-    and says so: the kernels are float32 programs).  "native", the C++
-    oracle on the host, belongs to ``tpu_lbfgs`` and raises.
+    warm-starts a fresh-history float64 solve from the float32 iterate.
+    ``refine_backend="torch"``, the default, runs it on the same device:
+    the card has float64, so this is the counterpart of the reference's
+    "jax", and the stage takes the kernels' plain versions
+    (``problems.suite.resolve_use_pallas`` warns and says so: the kernels
+    are float32 programs).  ``refine_backend="native"`` runs it with the
+    C++ oracle on the host from ``coarse.x.double().cpu().numpy()``, the
+    copy inside the stage's wall, as the reference does by default (its
+    TPU's float64 is emulated); the oracle takes the configuration's line
+    search, fidelity and constants and runs its own two-loop direction.
 
     Each stage is warmed up with ``_warmup_iters()`` iterations, which
-    capture its graphs (module docstring); each timed stage ends in a
-    synchronize and a scalar read."""
-    if refine_backend != "torch":
-        raise NotImplementedError(
-            f"refine_backend={refine_backend!r} is not ported to "
-            "tpu_lbfgs_torch: the C++ oracle ('native') belongs to "
-            "tpu_lbfgs; the float64 stage runs on the card with "
-            "refine_backend='torch'")
+    capture its graphs (module docstring) or load the oracle; each timed
+    stage ends in a synchronize and a scalar read."""
+    if refine_backend not in ("torch", "native"):
+        raise ValueError(f"refine_backend must be 'torch' or 'native', got "
+                         f"{refine_backend!r}")
     device = resolve_device(device)
     cfg = cfg or main_path_cfg().replace(fidelity="fixed",
                                          pair_skip_threshold=1e-10)
     run32 = _solve(problem, d, cfg.replace(max_iters=max_iters,
                                            tol=coarse_tol), torch.float32)
-    run64 = _solve(problem, d, cfg.replace(max_iters=refine_iters, tol=tol),
-                   torch.float64)
+    cfg64 = cfg.replace(max_iters=refine_iters, tol=tol)
+    if refine_backend == "native":
+        run64 = _native_run(problem, cfg64)
+    else:
+        run64 = _solve(problem, d, cfg64, torch.float64)
     x0 = _x0(d, seed, torch.float32, device)
     before = dict(blocks.stats)
     warm = _timed(lambda x: run32(x, _warmup_iters()), x0, device)[0]
@@ -404,3 +471,20 @@ def time_to_tolerance_refined(problem: str = "rosenbrock", d: int = 1 << 20,
             "status": Status.NAMES[int(refine.status)],
             "g_norm": float(refine.g_norm), "f": float(refine.f),
             **timed, "device": _device_name(device)}
+
+
+def _native_run(problem: str, cfg: LBFGSConfig):
+    """``run(x, iters=None)``: the C++ oracle under ``cfg`` (with
+    ``max_iters=iters`` when given) from a copy of the float64 x on the
+    host; its result under the state's names, for ``_timed`` and the
+    stage's record."""
+    from ..native import native_lbfgs
+
+    codes = {name: code for code, name in Status.NAMES.items()}
+
+    def run(x, iters=None):
+        run_cfg = cfg if iters is None else cfg.replace(max_iters=iters)
+        r = native_lbfgs(problem, x.cpu().numpy(), run_cfg)
+        return SimpleNamespace(k=r["iterations"], status=codes[r["status"]],
+                               g_norm=r["g_norm"], f=r["f"])
+    return run

@@ -13,6 +13,10 @@ parallel-implementation/L-BFGS-Backtracking.cu:429-457):
   - d = 10,000 (published), 20,000 ("similar trend continues"), 1e5, 2^20.
 
 Backends, each a cell label:
+  - ``cpu-native-f64``: REFERENCE_SEQUENTIAL with the C++ oracle
+    (``native``, g++ -O3 -march=native, one host thread) in float64 on
+    the host, the reference's ``cpu`` backend; ``-scaled`` where the start
+    box is not the published one (``run_cpu_cell``'s ``x0_range``).
   - ``cuda-f32-parcfg``: REFERENCE_PARALLEL verbatim (tol 1e-1, C2 = 0.7,
     the alpha-floor rescue, the pair skip) in float32 with direct
     evaluation of every trial, on the fused kernels.  From U(-1000, 1000)
@@ -26,17 +30,23 @@ Backends, each a cell label:
     large cells in segments to keep its worker alive
     (``F64_SEGMENT_THRESHOLD``); neither applies here.
 
-The reference's ``cpu`` backend, the C++ oracle, belongs to ``tpu_lbfgs``
-and is not ported, nor the speed-ups against it; the per-iteration ratio
-of the port's float32 and float64 backends is kept where both ran.
+Each (d, strategy) where the float32 cell iterated gets the reference's
+Fig.-1 row: ``cuda_per_iter_speedup``, its per-iteration rate over the
+CPU cell's, and ``f32_over_f64_per_iter``, over the float64 cell's,
+where those ran (the units are iterations: the cells stop at different
+tolerances).
 
-A cell runs its seeds until the next would overrun ``budget_s`` (measured
-solve walls only); ``seeds_run`` says how many.  Each seed is timed after a
+A CUDA cell runs its seeds until the next would overrun ``budget_s``
+(measured solve walls only); ``seeds_run`` says how many.  A CPU cell
+first runs a 200-iteration probe and is skipped when one seed's 15,000
+iterations, projected from it, would overrun its budget, as the
+reference's is.  Each seed is timed after a
 warm-up of ``harness._WARMUP_ITERS`` iterations from the first seed (eager
 PyTorch compiles nothing per shape).  ``run_protocol`` runs each cell in
 its own interpreter (a new process, never a fork of one that holds a CUDA
-context), killed at ``cell_timeout_s``; ``jobs`` cells at a time share the
-card, whose solves here are bound by the host's launches and reads.
+context; a CPU cell's never makes one), killed at ``cell_timeout_s``;
+``jobs`` cells at a time share the card, whose solves here are bound by
+the host's launches and reads.
 ``jobs`` > 1 departs from the reference's sequential grid: the cells'
 walls then include the sharing, so the budget runs fewer seeds than the
 card alone would, and the report keeps no rate (no ``iters_per_s``, no
@@ -64,6 +74,7 @@ from .harness import (
     _device_name,
     _solve,
     _timed,
+    host_cpu,
 )
 
 # Paper Table I rows -> the solver's strategy names.
@@ -76,7 +87,8 @@ TABLE_I_STRATEGIES = (
 
 DIMS = (10_000, 20_000, 100_000, 1 << 20)
 
-BACKENDS = ("cuda-f32-parcfg", "cuda-f32-norescue", "cuda-f64")
+BACKENDS = ("cuda-f32-parcfg", "cuda-f32-norescue", "cuda-f64", "cpu")
+PUBLISHED_BOX = (-1000.0, 1000.0)
 
 
 def _status_name(s) -> str:
@@ -147,11 +159,67 @@ def run_cuda_cell(problem: str, d: int, strategy: str,
     return cell
 
 
+def run_cpu_cell(problem: str, d: int, strategy: str,
+                 seeds=REFERENCE_SEEDS, budget_s: float = 600.0,
+                 x0_range=PUBLISHED_BOX) -> dict:
+    """To-convergence runs of the C++ oracle on the host under
+    REFERENCE_SEQUENTIAL (tol 1e-8, at most 15,000 iterations) in float64,
+    the reference's ``run_cpu_cell``, from ``reference_x0`` (the CUDA
+    cells' starts).  It touches no CUDA device.
+
+    A 200-iteration probe of the same configuration from the first seed
+    comes first: where it does not converge and one seed's 15,000
+    iterations, projected from it, would overrun ``budget_s``, the cell is
+    skipped.  Otherwise seeds run until the next would overrun the budget
+    (time since the first seed plus the slowest seed so far); ``seeds_run``
+    says how many.  ``x0_range``: another start box, labelled
+    ``cpu-native-f64-scaled``."""
+    from ..native import native_lbfgs
+
+    cfg = REFERENCE_SEQUENTIAL.replace(line_search=strategy)
+    label = ("cpu-native-f64" if tuple(x0_range) == PUBLISHED_BOX
+             else "cpu-native-f64-scaled")
+
+    def x0_of(seed):
+        return reference_x0(d, seed, *x0_range, device="cpu").numpy()
+
+    probe_iters = 200
+    x0_probe = x0_of(seeds[0])          # drawn outside the timed probe
+    t0 = time.perf_counter()
+    probe = native_lbfgs(problem, x0_probe, cfg.replace(max_iters=probe_iters))
+    probe_wall = time.perf_counter() - t0
+    if probe["status"] != "converged":
+        projected = probe_wall * (cfg.max_iters / probe_iters)
+        if projected > budget_s:
+            return {"backend": label, "seeds_run": 0, "skipped": "budget",
+                    "projected_wall_s_per_seed": round(projected, 1),
+                    "probe_iters_per_s": round(probe_iters / probe_wall, 2)}
+
+    walls, iters, fs, gnorms, statuses = [], [], [], [], []
+    t_start = time.perf_counter()
+    for seed in seeds:
+        if walls and time.perf_counter() - t_start + max(walls) > budget_s:
+            break
+        x0 = x0_of(seed)
+        t0 = time.perf_counter()
+        r = native_lbfgs(problem, x0, cfg)
+        walls.append(time.perf_counter() - t0)
+        iters.append(int(r["iterations"]))
+        fs.append(float(r["f"]))
+        gnorms.append(float(r["g_norm"]))
+        statuses.append(r["status"])
+    cell = _summarize(label, walls, iters, fs, gnorms, statuses, len(seeds))
+    cell["device"] = host_cpu()
+    return cell
+
+
 def _run_backend(problem, d, strategy, backend, seeds, budget_s,
                  device=None) -> dict:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
+    if backend == "cpu":
+        return run_cpu_cell(problem, d, strategy, seeds, budget_s=budget_s)
     return run_cuda_cell(problem, d, strategy, seeds,
                          dtype="float64" if backend == "cuda-f64"
                          else "float32",
@@ -235,28 +303,35 @@ def run_protocol(problem: str = "rosenbrock", dims=DIMS,
                  out: Optional[str] = "torch_reference_protocol_results.json",
                  quick: bool = False, isolate: bool = True,
                  cuda_f64: bool = False, jobs: int = 1,
-                 device=None) -> dict:
-    """Run the per-strategy, per-dimension grid over the two float32
-    backends (and ``cuda-f64`` when asked), print each cell as it ends and
-    the markdown table at the end, and return (and write to ``out``) the
-    report.  ``quick``: the first d and the first 2 seeds.  ``isolate``:
-    each cell in its own interpreter, killed at ``cell_timeout_s``, up to
-    ``jobs`` at a time; otherwise in this process under an alarm (the
-    tests)."""
-    card = _device_name(resolve_device(device))     # raises with no card
+                 device=None, cpu: bool = True, cuda: bool = True,
+                 cpu_budget_s: float = 600.0,
+                 strategies=TABLE_I_STRATEGIES) -> dict:
+    """Run the per-strategy, per-dimension grid, print each cell as it
+    ends and the markdown table at the end, and return (and write to
+    ``out``) the report.  Backends: under ``cuda``, the two float32 ones
+    (and ``cuda-f64`` under ``cuda_f64``) on ``device``
+    (``types.resolve_device``: without one, the card, and no card raises);
+    under ``cpu``, the C++ oracle's (``run_cpu_cell``, ``cpu_budget_s``),
+    which needs no card.  ``strategies``: rows of ``TABLE_I_STRATEGIES``.
+    ``quick``: the first d and the first 2 seeds.  ``isolate``: each cell
+    in its own interpreter, killed at ``cell_timeout_s``, up to ``jobs`` at
+    a time; otherwise in this process under an alarm (the tests)."""
+    card = _device_name(resolve_device(device)) if cuda else None
     if quick:
         dims = dims[:1]
         seeds = seeds[:2]
-    backends = BACKENDS if cuda_f64 else BACKENDS[:2]
+    backends = ((BACKENDS[:3] if cuda_f64 else BACKENDS[:2]) if cuda
+                else ()) + (("cpu",) if cpu else ())
     grid = [(d, label, strategy, backend) for d in dims
-            for label, strategy in TABLE_I_STRATEGIES for backend in backends]
+            for label, strategy in strategies for backend in backends]
     if not isolate:
         signal.signal(signal.SIGALRM, _alarm)
 
     def cell_of(item):
         d, label, strategy, backend = item
         t0 = time.perf_counter()
-        cell = _one_cell(problem, d, strategy, backend, seeds, cuda_budget_s,
+        budget = cpu_budget_s if backend == "cpu" else cuda_budget_s
+        cell = _one_cell(problem, d, strategy, backend, seeds, budget,
                          cell_timeout_s, isolate, device)
         cell.update({"d": d, "strategy": label, "strategy_key": strategy,
                      "cell_wall_s": round(time.perf_counter() - t0, 1)})
@@ -273,35 +348,18 @@ def run_protocol(problem: str = "rosenbrock", dims=DIMS,
     else:
         cells = [cell_of(item) for item in grid]
 
-    # Per-iteration rate of the float32 stack over the float64 one, for
-    # each (d, strategy) where both iterated: the reference's Fig.-1 ratio
-    # with the port's own float64 backend in place of the C++ oracle.
-    speedups = []
-    for d in () if shared else dims:
-        for label, _ in TABLE_I_STRATEGIES:
-            f32, f64 = (next((c for c in cells if c["d"] == d
-                              and c["strategy"] == label
-                              and c.get("backend") == b), None)
-                        for b in ("cuda-f32-norescue", "cuda-f64"))
-            if not (f32 and f64):
-                continue
-            (r32, used32), (r64, used64) = _cell_rate(f32), _cell_rate(f64)
-            if not r32 or not r64:
-                continue
-            row = {"d": d, "strategy": label,
-                   "f32_over_f64_per_iter": round(r32 / r64, 2)}
-            if used32 < len(f32.get("statuses", ())) \
-                    or used64 < len(f64.get("statuses", ())):
-                row["seeds_used"] = {"f32": used32, "f64": used64}
-            speedups.append(row)
-
+    speedups = [] if shared else _speedups(cells, dims, strategies)
     report = {
         "problem": problem,
         "device": card,
+        "cpu": host_cpu() if cpu else None,
         "concurrent_cells": jobs if shared else 1,
         "protocol": {
             "x0": "U(-1000, 1000), seeds " + ", ".join(map(str, seeds))
                   + " (numpy default_rng)",
+            "cpu_config": "sequential reference: tol=1e-8, max_iters=15000, "
+                          "m=10, C2=0.9, float64 (main.cpp:48-51), the C++ "
+                          "oracle on one host thread",
             "cuda_f32_parcfg": "parallel reference verbatim: tol=1e-1, "
                                "max_iters=50000, m=10, C2=0.7, rescue+skip, "
                                "float32, direct evaluation, fused kernels",
@@ -319,6 +377,44 @@ def run_protocol(problem: str = "rosenbrock", dims=DIMS,
     print()
     print(markdown_table(report))
     return report
+
+
+def _speedups(cells, dims, strategies) -> list:
+    """The reference's Fig.-1 rows: for each (d, strategy) where the
+    float32 cell (``cuda-f32-norescue``) iterated, its per-iteration rate
+    over the CPU cell's (``cuda_per_iter_speedup``) and over the float64
+    cell's (``f32_over_f64_per_iter``), each where that cell iterated;
+    ``seeds_used`` where a rate counts only some of a cell's seeds (those
+    that converged or reached max_iters)."""
+    rows = []
+    for d in dims:
+        for label, _ in strategies:
+            def cell(backend):
+                return next((c for c in cells if c["d"] == d
+                             and c["strategy"] == label
+                             and c.get("backend") == backend), None)
+
+            f32 = cell("cuda-f32-norescue")
+            r32, used32 = _cell_rate(f32) if f32 else (None, 0)
+            if not r32:
+                continue
+            row, used = {"d": d, "strategy": label}, {"f32": used32}
+            partial = used32 < len(f32.get("statuses", ()))
+            for key, backend, digits, name in (
+                    ("cuda_per_iter_speedup", "cpu-native-f64", 3, "cpu"),
+                    ("f32_over_f64_per_iter", "cuda-f64", 2, "f64")):
+                other = cell(backend)
+                rate, n = _cell_rate(other) if other else (None, 0)
+                if rate:
+                    row[key] = round(r32 / rate, digits)
+                    used[name] = n
+                    partial |= n < len(other.get("statuses", ()))
+            if len(row) == 2:
+                continue
+            if partial:
+                row["seeds_used"] = used
+            rows.append(row)
+    return rows
 
 
 def _cell_subprocess(problem: str, d: int, strategy: str, backend: str,

@@ -8,6 +8,7 @@ Examples:
   python -m tpu_lbfgs_torch --problem rosenbrock --dim 1048576 --dtype float32 --direction compact --pallas
   python -m tpu_lbfgs_torch --problem coupled_quadratic --dim 1048576 --pallas --poly-ls --direction compact_incremental
   python -m tpu_lbfgs_torch --batch 4096 --dim 1000 --max-iters 500 --poly-ls
+  python -m tpu_lbfgs_torch --backend native --dim 10000        # C++ CPU oracle
   python -m tpu_lbfgs_torch --seeds 42 365 12345 777777 10000   # reference protocol
   torchrun --nproc-per-node=4 -m tpu_lbfgs_torch --problem rosenbrock --dim 4194304 --pallas --poly-ls --direction compact_incremental --shard
 
@@ -48,7 +49,14 @@ lanes, in float32 or float64 (that kernel is built for both, so
 reference's command line does (its batch branch comes first); under a
 launcher each rank solves the whole batch and rank 0 prints the record.
 
-``--backend native`` is refused: the C++ oracle belongs to ``tpu_lbfgs``.
+``--backend native`` solves each seed with the C++ oracle
+(``tpu_lbfgs_torch.native``) in float64 on the host from the same
+``default_rng(seed)`` draw, as the reference's does: the problems and line
+searches it has (others exit through the parser first), the configuration's
+line search, fidelity and constants, its own two-loop direction.  It runs
+on the host whatever ``--device`` says, touches no CUDA device, and
+ignores the flags of the other paths (``--batch``, ``--shard``,
+``--pallas``, ``--dtype``, ...).
 """
 from __future__ import annotations
 
@@ -123,8 +131,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="with --shard: start this many ranks from this "
                          "command (no launcher needed)")
     ap.add_argument("--backend", default="torch", choices=["torch", "native"],
-                    help="native (the C++ CPU oracle) belongs to tpu_lbfgs "
-                         "and is refused")
+                    help="native = the C++ CPU oracle")
     ap.add_argument("--trace", action="store_true",
                     help="record per-iteration metrics")
     ap.add_argument("--verbose", action="store_true",
@@ -156,11 +163,18 @@ def _rank_main(rank: int, size: int, argv: list) -> int:
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.backend == "native":
-        ap.error("--backend native is not ported to tpu_lbfgs_torch: the "
-                 "C++ oracle belongs to tpu_lbfgs")
     if args.nproc and not args.shard:
         ap.error("--nproc starts the ranks of --shard; give --shard too")
+    if args.backend == "native":
+        # Validate against what the C++ oracle supports before running.
+        from .native.binding import _LS_IDS, PROBLEM_IDS
+        if args.problem not in PROBLEM_IDS:
+            ap.error(f"--backend native supports problems "
+                     f"{sorted(PROBLEM_IDS)}, not {args.problem!r}")
+        if args.line_search not in _LS_IDS:
+            ap.error(f"--backend native supports line searches "
+                     f"{sorted(_LS_IDS)}, not {args.line_search!r}")
+        return _run_native(args)
     if args.nproc > 1:
         return _spawn(args, sys.argv[1:] if argv is None else list(argv))
 
@@ -190,11 +204,65 @@ def _spawn(args, argv: list) -> int:
     return max(codes)
 
 
+def _config(args, record_trace: bool):
+    from .config import LBFGSConfig
+
+    return LBFGSConfig(
+        m=args.history, max_iters=args.max_iters, tol=args.tol,
+        line_search=args.line_search, direction=args.direction,
+        fidelity=args.fidelity, c1=args.c1, c2=args.c2,
+        use_pallas=args.pallas, record_trace=record_trace,
+        ls_eval="polynomial" if args.poly_ls else "direct",
+        history_dtype=args.history_dtype, damping=args.damping)
+
+
+def _say(args, rec) -> None:
+    if not args.json:
+        print(f"seed {rec['seed']}: " + "  ".join(
+            f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in rec.items() if k != "seed"))
+
+
+def _summary(args, results) -> int:
+    import numpy as np
+
+    if args.json:
+        print(json.dumps({"config": vars(args), "results": results}))
+    elif len(results) > 1:
+        walls = [r["wall_s"] for r in results]
+        print(f"mean wall over {len(results)} seeds: {np.mean(walls):.4f}s "
+              f"(protocol: cuda_lbfgs.pdf §IV, 5-run average)")
+    return 0
+
+
+def _run_native(args) -> int:
+    """``--backend native``: each seed by the C++ oracle on the host."""
+    import numpy as np
+
+    from .native import native_lbfgs
+
+    cfg = _config(args, record_trace=args.trace)
+    results = []
+    for seed in args.seeds:
+        rng = np.random.default_rng(seed)
+        t0 = time.perf_counter()
+        x0 = rng.uniform(-args.x0_range, args.x0_range, args.dim)
+        r = native_lbfgs(args.problem, x0, cfg)
+        wall = time.perf_counter() - t0
+        rec = {"seed": seed, "status": r["status"],
+               "iterations": r["iterations"], "f": r["f"],
+               "g_norm": r["g_norm"], "n_fev": r["n_fev"],
+               "n_gev": r["n_gev"], "wall_s": wall}
+        results.append(rec)
+        _say(args, rec)
+    return _summary(args, results)
+
+
 def _run(args) -> int:
     import numpy as np
     import torch
 
-    from . import LBFGSConfig, Status, get_problem, minimize
+    from . import Status, get_problem, minimize
     from .core.solver import resolve_history_dtype
     from .problems.suite import (
         fused_tail_for,
@@ -222,16 +290,9 @@ def _run(args) -> int:
         initialize(backend="gloo" if on_cpu else None)
         mesh = make_mesh()
     device = resolve_device("cpu" if args.device == "cpu" else None)
-    cfg = LBFGSConfig(
-        m=args.history, max_iters=args.max_iters, tol=args.tol,
-        line_search=args.line_search, direction=args.direction,
-        fidelity=args.fidelity, c1=args.c1, c2=args.c2,
-        use_pallas=args.pallas,
-        # --verbose replays the trace, which only the single-instance
-        # branch prints.
-        record_trace=args.trace or (args.verbose and not args.batch),
-        ls_eval="polynomial" if args.poly_ls else "direct",
-        history_dtype=args.history_dtype, damping=args.damping)
+    # --verbose replays the trace, which only the single-instance branch
+    # prints.
+    cfg = _config(args, args.trace or (args.verbose and not args.batch))
     dtype = torch.float32 if args.dtype == "float32" else torch.float64
     p = get_problem(args.problem)
 
@@ -349,25 +410,15 @@ def _run(args) -> int:
             rec["guards"] = {name: int(g_arr[j]) for j, name in
                              enumerate(Guard.NAMES) if int(g_arr[j])}
         results.append(rec)
-        if mesh is not None and mesh.rank != 0:
-            continue            # replicated: rank 0 prints the record
-        if not args.json:
-            print(f"seed {seed}: " + "  ".join(
-                f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
-                for k, v in rec.items() if k != "seed"))
+        if mesh is None or mesh.rank == 0:
+            _say(args, rec)     # replicated: rank 0 prints the record
 
     if own_group:
         from .dist import shutdown
         shutdown()
     if mesh is not None and mesh.rank != 0:
         return 0
-    if args.json:
-        print(json.dumps({"config": vars(args), "results": results}))
-    elif len(results) > 1:
-        walls = [r["wall_s"] for r in results]
-        print(f"mean wall over {len(results)} seeds: {np.mean(walls):.4f}s "
-              f"(protocol: cuda_lbfgs.pdf §IV, 5-run average)")
-    return 0
+    return _summary(args, results)
 
 
 if __name__ == "__main__":
