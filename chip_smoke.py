@@ -266,7 +266,7 @@ DIRECT_BOX = 10.0
 # float64 kept, and one lane ended 475x apart; every other search kept
 # every lane's status, f within 8.1e-5, median 2-4e-7).
 SEARCH_ITERS = 20
-# The search whose capture on the batch cell, each turn under an IF node,
+# The search whose capture on the batch cell, each loop a WHILE node,
 # [batch-search] holds to its eager fixed-trip blocks: the interpolating
 # Wolfe search (captured, 6.26-6.27 ms an iteration against 44.93-50.89
 # eager, capture 0.10 s, on an H100 80GB HBM3 at 700 W,
@@ -400,7 +400,7 @@ def blocks_note():
     st = blocks.read_stats()
     return (f"{st['steps']} iterations in blocks ({st['replays']} replays, "
             f"{st['captures']} captures in {st['capture_s']:.3f} s of "
-            f"{st['graph_nodes']} nodes and {st['if_nodes']} IF nodes, "
+            f"{st['graph_nodes']} nodes and {st['while_nodes']} WHILE nodes, "
             f"{st['gated_turns']} gated search turns, {st['warmups']} "
             f"warm-up iterations, {st['host_reads']} host reads of the "
             "loop's flags)")
@@ -1623,48 +1623,63 @@ def _driver_version():
 
 def phase_graph_if(dev):
     """[graph-if]: what the gated line-search driver stands on
-    (linesearch.strategies, kernels.graph_if): a CUDA graph IF node.  The
-    versions of torch, the CUDA runtime and the driver; whether torch's
-    own capture methods for IF nodes exist (the port does not use them:
-    some torch releases lack them); then a graph whose IF node, added
-    through csrc/graph_if.cu, adds 1 to a tensor, replayed with its
-    predicate true and then false, and the turns its condition kernel
-    counted."""
+    (linesearch.strategies, kernels.graph_if): a CUDA graph WHILE node.
+    The versions of torch, the CUDA runtime and the driver; whether
+    torch's own capture methods for conditional nodes exist (the port does
+    not use them: some torch releases lack them); then a graph whose WHILE
+    node, added through csrc/graph_if.cu, adds 1 to a counter on the
+    device while the counter is under N, its condition kernel a node of
+    the body graph's own after the captured turn, replayed with N = 5 and
+    then N = 0: the total and the turns the condition kernels counted,
+    exact."""
     from tpu_lbfgs_torch.kernels import graph_if
 
     methods = {name: hasattr(torch.cuda.CUDAGraph, name)
                for name in ("begin_capture_to_if_node",
+                            "begin_capture_to_while_loop_node",
                             "end_capture_to_conditional_node")}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     say(f"[graph-if] torch {torch.__version__}, CUDA runtime "
         f"{torch.version.cuda}, driver API {_driver_version()} (driver "
-        f"{smi.stdout.strip().splitlines()[0]}); torch's IF-node capture "
-        f"methods {methods}; the port adds its IF nodes through "
+        f"{smi.stdout.strip().splitlines()[0]}); torch's conditional-node "
+        f"capture methods {methods}; the port adds its WHILE nodes through "
         "csrc/graph_if.cu")
     total = torch.zeros((), device=dev)
-    pred = torch.ones((), dtype=torch.bool, device=dev)
+    limit = torch.zeros((), device=dev)
+    pred = torch.zeros((), dtype=torch.bool, device=dev)
     turns = torch.zeros(1, dtype=torch.int64, device=dev)
     graph, pool = torch.cuda.CUDAGraph(), torch.cuda.graph_pool_handle()
     gate = graph_if.GraphGate(turns)
+
+    def turn():
+        total.add_(1.0)
+        torch.lt(total, limit, out=pred)
+
     with torch.cuda.graph(graph, pool=pool):
         graph_if.route_to_pool(dev.index, pool)
-        gate.start()
-        gate.open(pred)
-        total.add_(1.0)
-        gate.end()
+        torch.lt(total, limit, out=pred)
+        gate.loop(pred, turn)
+        nodes = graph_if.capture_nodes(torch.cuda.current_stream())
     gate.close()
-    got = []
-    for value in (True, False):
-        pred.fill_(value)
+    got, want = [], []
+    for n in (5, 0):
+        total.zero_()
+        turns.zero_()
+        limit.fill_(float(n))
         graph.replay()
         got.append((total.item(), turns.item()))
-    say(f"[graph-if] an IF node that adds 1, replayed with its predicate "
-        f"true then false: (total, turns counted) {got} (want [(1.0, 1), "
-        f"(1.0, 1)]); {gate.nodes} IF node")
-    check(got == [(1.0, 1), (1.0, 1)],
-          "the IF node's body ran against its predicate")
+        want.append((float(n), n))
+    say(f"[graph-if] a WHILE node whose turn adds 1 while the total is "
+        f"under N, replayed with N = 5 then N = 0: (total, turns counted) "
+        f"{got} (want {want}); {gate.nodes} WHILE node in a graph of "
+        f"{nodes} nodes, its body {gate.body_nodes} nodes (the turn's and "
+        "the condition kernel)")
+    check(got == want, "the WHILE node ran other than N turns")
+    check(gate.nodes == 1 and gate.body_nodes >= 2,
+          "the WHILE node's body must hold the turn and its condition "
+          "kernel")
 
 
 def phase_graph(dev, card):
@@ -1886,9 +1901,9 @@ def _graph_host_read(tt, blocks, rose, dev):
     to return memory: a freed GRAPH_FREED_BYTES goes back to the card at
     torch.cuda.empty_cache().  Twice: on bench.py's path, where the read
     breaks the block's own capture, and in direct mode, where the objective
-    reads only while an IF node's body is captured (the search's first
-    gated turn; its first turn runs with no gate), so that the capture
-    breaks inside the body."""
+    reads only while a WHILE node's body is captured (the search's gated
+    turn; its first turn runs with no gate), so that the capture breaks
+    inside the body."""
     from tpu_lbfgs_torch.bench.harness import _x0
     from tpu_lbfgs_torch.linesearch import strategies
 
@@ -1900,7 +1915,7 @@ def _graph_host_read(tt, blocks, rose, dev):
         use_pallas=False)
     direct = bench.replace(ls_eval="direct")
     for label, cfg, when in (("bench.py's path", bench, lambda: True),
-                             ("direct mode, inside an IF node", direct,
+                             ("direct mode, inside a WHILE node", direct,
                               in_body)):
         def reads_host(x, when=when):
             if when() and bool((x.abs() > 1e30).any()):
@@ -2721,14 +2736,37 @@ def twin_rounds(reads, got, vg, own):
     return reads - zoom, got[own]
 
 
+# WHILE nodes of a captured direct-mode iteration: one per search loop, the
+# bracketing twin's two phases two.
+DIRECT_LOOPS = {"wolfe_interpolation_speculative": 2}
+
+
+def _iteration_nodes(tt, blocks, cfg, p, vg, x0, args):
+    """(WHILE nodes, other nodes) per iteration of one block of the direct
+    solve under ``cfg``, captured by a runner of its own (stats reset)."""
+    from tpu_lbfgs_torch.core import solver
+
+    drv = blocks.BlockRunner(cfg, solver._stepper(cfg, p.f, vg, *args),
+                             tt.init_state(vg, x0, cfg.m), masked=True,
+                             graphed=True, gated=True)
+    blocks.reset_stats()
+    drv.start(None)
+    drv.run(drv.block)
+    st = blocks.read_stats()
+    return st["while_nodes"] / drv.block, st["graph_nodes"] / drv.block
+
+
 def phase_direct(dev):
     """[direct]: each of the 8 line searches in direct mode at d = 2^20 for
     DIRECT_ITERS iterations, through minimize's solve, read-driven on the
     per-iteration loop (eager_loops()) and on the gated driver in captured
-    blocks (each search turn under an IF node): a kept runner captures in
-    a first solve, and the measured one replays under
+    blocks (each search loop a WHILE node): a kept runner captures in a
+    first solve, and the measured one replays under
     set_sync_debug_mode("error").  The two bit-equal in x, f, g, k, the
-    counts, the guards and the kernel launches; their walls in turns."""
+    counts, the guards and the kernel launches; their walls in turns.
+    Each search's captured iteration holds one WHILE node per search loop
+    and as many nodes under 4x its caps (ls_safety_cap, ls_max_iters) as
+    under its own (_iteration_nodes)."""
     import tpu_lbfgs_torch as tt
     from tpu_lbfgs_torch import kernels
     from tpu_lbfgs_torch.core import blocks
@@ -2757,8 +2795,11 @@ def phase_direct(dev):
 
         blocks.reset_stats()
         solve(kept)                         # the capture
-        capture_s, nodes = blocks.stats["capture_s"], blocks.read_stats()
-        nodes = (nodes["if_nodes"], nodes["graph_nodes"])
+        capture_s = blocks.stats["capture_s"]
+        nodes = {c: _iteration_nodes(tt, blocks, cfg.replace(
+            ls_safety_cap=c * cfg.ls_safety_cap,
+            ls_max_iters=c * cfg.ls_max_iters), p, vg, x0, args)
+            for c in (1, 4)}
         runs, walls = {}, {"read-driven": [], "gated": []}
         for mode in ("read-driven", "gated", "gated", "read-driven"):
             torch.cuda.synchronize()
@@ -2801,14 +2842,20 @@ def phase_direct(dev):
             f"iteration +1 for the loop), gated {ms['gated']} (replayed "
             f"under set_sync_debug_mode('error'): {reads_b} line-search "
             f"reads, {st_b['host_reads']} loop reads, {st_b['gated_turns']} "
-            f"gated turns; capture {capture_s:.3f} s, {nodes[0]} IF nodes, "
-            f"{nodes[1]} other nodes); f {f0:.6e} -> {f:.6e}, |g| "
+            f"gated turns; capture {capture_s:.3f} s; a captured iteration "
+            f"{nodes[1][0]:g} WHILE nodes and {nodes[1][1]:g} other nodes, "
+            f"at 4x ls_safety_cap and ls_max_iters {nodes[4][0]:g} and "
+            f"{nodes[4][1]:g}); f {f0:.6e} -> {f:.6e}, |g| "
             f"{b.g_norm.item():.4e}, status "
             f"{tt.Status.NAMES[b.status.item()]}, guards {b.guards.tolist()}"
             f", launches {ran(got_b)} (read-driven {ran(got_a)}); fields "
             f"that differ {differ}")
         check(b.status.item() == tt.Status.MAX_ITERS and k == DIRECT_ITERS,
               f"{strategy}: the solve must run its {DIRECT_ITERS} iterations")
+        check(nodes[1] == nodes[4]
+              and nodes[1][0] == DIRECT_LOOPS.get(strategy, 1),
+              f"{strategy}: a captured iteration must hold one WHILE node "
+              f"per search loop, whatever the caps: {nodes}")
         check(b.x.shape == (D,) and bool(torch.isfinite(b.x).all())
               and np.isfinite(f) and f < f0,
               f"{strategy}: f must be finite and decrease")
@@ -2880,7 +2927,7 @@ def phase_batch_search(dev, card):
     (SEARCH_LANE_SHARE of the lanes with the same status and f within
     SEARCH_F_RTOL); the chain kernel launches once per iteration.  Then
     SEARCH_CAPTURE over two blocks' worth, a budget that captures, its
-    search turns under IF nodes, against its eager fixed-trip blocks, bit
+    search loops as WHILE nodes, against its eager fixed-trip blocks, bit
     for bit.  One instance: solve_bounded (fixed-trip searches, under the
     same sync mode) and the gated driver (captured though the budget is
     below the rule's, a kept runner replaying under the same sync mode)
@@ -2969,19 +3016,19 @@ def phase_batch_search(dev, card):
         cfg = _direct_cfg(tt, strategy, SEARCH_D_ITERS)
         tt.solve_bounded(cfg.replace(max_iters=1), p.f, vg,
                          tt.init_state(vg, x1, cfg.m), *args)
-        # The gated column captures though SEARCH_D_ITERS is under the
-        # budget of blocks.CAPTURE_MIN_ITERS; its kept runner captures
+        # The gated column captures whatever the budget of
+        # blocks.GATED_CAPTURE_MIN_ITERS says; its kept runner captures
         # first, outside the counts.
         kept = blocks.Kept()
 
         def gated(state, cfg=cfg, kept=kept):
-            least = blocks.CAPTURE_MIN_ITERS
-            blocks.CAPTURE_MIN_ITERS = 0
+            least = blocks.GATED_CAPTURE_MIN_ITERS
+            blocks.GATED_CAPTURE_MIN_ITERS = 0
             try:
                 return tt.solve_from_state(cfg, p.f, vg, state, *args,
                                            kept=kept)
             finally:
-                blocks.CAPTURE_MIN_ITERS = least
+                blocks.GATED_CAPTURE_MIN_ITERS = least
 
         gated(tt.init_state(vg, x1, cfg.m))
         runs = {}
@@ -3057,7 +3104,7 @@ def phase_batch_search(dev, card):
 def _search_capture(tt, blocks, p, x0, card):
     """SEARCH_CAPTURE on the batch cell under vmap_minimize(lockstep=
     "bounded") for two blocks' worth of iterations, a budget that
-    captures: its blocks captured, every search turn under an IF node,
+    captures: its blocks captured, every search loop a WHILE node,
     against the same blocks eager (eager_loops(): the fixed trip), bit for
     bit, the chain kernel once per iteration in both, and both walls with
     the capture's seconds."""
@@ -3077,10 +3124,10 @@ def _search_capture(tt, blocks, p, x0, card):
         walls[mode] = time.perf_counter() - t0
         check(per_step("compact_chain") and blocks.stats["steps"] == n
               and bool(blocks.stats["replays"]) == (mode == "captured")
-              and bool(blocks.stats["if_nodes"]) == (mode == "captured"),
+              and bool(blocks.stats["while_nodes"]) == (mode == "captured"),
               f"[batch-search] {SEARCH_CAPTURE} {mode}: the chain kernel "
               "must launch once per iteration, replayed when captured, "
-              "its turns under IF nodes")
+              "its loops as WHILE nodes")
         notes[mode] = blocks_note()
     differ = _graph_same(out["eager"], out["captured"])
     say(f"[batch-search] {SEARCH_CAPTURE} B={BATCH} d={BATCH_D} float32 "

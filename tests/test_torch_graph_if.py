@@ -1,17 +1,19 @@
 """The gated line-search driver (``linesearch.strategies._gated``) on the
 CPU, through the eager gate.
 
-On the card each turn of a search inside a captured block sits under a
-CUDA graph IF node (``kernels.graph_if``); here ``strategies.EagerGate``
-runs a turn's body iff its predicate holds, so these tests drive the
-gated driver's own code: the buffers, the per-lane freeze, ``enter``, the
-trip bound.  ``chip_smoke.py`` ``[direct]`` holds the graphs to the eager
-solve on the card.
+On the card each search loop inside a captured block is a CUDA graph
+WHILE node whose body is the loop's one turn (``kernels.graph_if``); here
+``strategies.EagerGate`` runs the turn while its predicate holds, so these
+tests drive the gated driver's own code: the buffers, the per-lane freeze,
+``enter``, the condition the turn rewrites.  ``chip_smoke.py``
+``[direct]`` holds the graphs to the eager solve on the card.
 
 - Every search, one instance and a batch, float32 and float64: the gated
   driver equals the read-driven and fixed-trip drivers bit for bit.
 - Searches that end on their first turn, on a middle turn and at their
   trip, the turns each loop ran counted by the gate.
+- The driver hands the gate one turn per search loop, the same turn
+  whatever the caps.
 - A solve in blocks whose searches run on the gated driver, against the
   JAX package on the searches of
   ``tests/test_torch_direct.py::test_f64_direct_trajectory_matches_jax``,
@@ -55,14 +57,15 @@ class CountingGate(ls.EagerGate):
     def __init__(self):
         self.loops = []
 
-    def start(self):
+    def loop(self, pred, turn):
+        assert pred.dtype == torch.bool and pred.dim() == 0
         self.loops.append(0)
 
-    def open(self, pred):
-        assert pred.dtype == torch.bool and pred.dim() == 0
-        ok = super().open(pred)
-        self.loops[-1] += ok
-        return ok
+        def counted():
+            self.loops[-1] += 1
+            turn()
+
+        super().loop(pred, counted)
 
 
 def _run(strategy, cfg, coeffs, driver):
@@ -145,13 +148,14 @@ def test_gated_driver_ends(strategy, end, monkeypatch):
                           "wolfe_interpolation_speculative" else 2)
     coeffs = torch.tensor(row + [0.0, 0.0], dtype=torch.float64)
     seen = []
-    inner = ls._gated
+    inner = ls._loop
 
-    def record(gate, cond, body, carry, trips, enter=None):
-        seen.append((trips, enter))
-        return inner(gate, cond, body, carry, trips, enter)
+    def record(cond, body, carry, trips, bounded, enter=None):
+        if ls._GATE is not None:
+            seen.append((trips, enter))
+        return inner(cond, body, carry, trips, bounded, enter)
 
-    monkeypatch.setattr(ls, "_gated", record)
+    monkeypatch.setattr(ls, "_loop", record)
     read, _, _ = _run(strategy, cfg, coeffs, "read")
     fixed, _, _ = _run(strategy, cfg, coeffs, "fixed")
     gated, reads, gate = _run(strategy, cfg, coeffs, "gated")
@@ -362,3 +366,85 @@ def test_gated_driver_copies_a_view_of_its_carry(batched):
     for w, f, g in zip(want, fixed, got):
         assert torch.equal(w, g) and torch.equal(f, g)
     assert torch.equal(got[1], got[0] - 1.0)
+
+
+# --- one turn per search loop ------------------------------------------------
+
+class RecordingGate:
+    """A gate that runs each loop's turn once, as a capture records it, and
+    counts the trials the turn evaluates."""
+
+    def __init__(self, trials):
+        self.trials, self.turns = trials, []
+
+    def loop(self, pred, turn):
+        assert pred.dtype == torch.bool and pred.dim() == 0
+        before = sum(self.trials.values())
+        turn()
+        self.turns.append(sum(self.trials.values()) - before)
+
+
+# Search loops a search hands its gate: the bracketing twin's two phases.
+LOOPS = {"wolfe_interpolation_speculative": 2}
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["one", "batch"])
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_gated_driver_hands_one_turn_per_loop(strategy, batched):
+    """Each search hands the gate exactly one turn per loop, one trial (a
+    round of K for a twin) each, under the default caps and under
+    ls_safety_cap and ls_max_iters times 4: what a WHILE node captures does
+    not grow with the trip bound (backtracking on a batch takes its whole
+    ladder at once and loops not at all)."""
+    coeffs = torch.from_numpy(_polys())
+    coeffs = coeffs if batched else coeffs[0]
+    cfg = tt.LBFGSConfig(line_search=strategy, c2=0.9)
+    seen = []
+    for c in (cfg, cfg.replace(ls_safety_cap=4 * cfg.ls_safety_cap,
+                               ls_max_iters=4 * cfg.ls_max_iters)):
+        phi, phi_dphi = _phis(coeffs)
+        trials = Counter()
+
+        def count(fn, name):
+            def counted(alpha):
+                trials[name] += 1
+                return fn(alpha)
+            return counted
+
+        gate = RecordingGate(trials)
+        with ls.gated(gate):
+            ls.get_line_search(strategy)(
+                c, count(phi, "phi"), count(phi_dphi, "phi_dphi"),
+                coeffs[..., 0], coeffs[..., 1])
+        seen.append(gate.turns)
+    loops = 0 if strategy == "backtracking" and batched \
+        else LOOPS.get(strategy, 1)
+    assert seen[0] == seen[1] == [1] * loops, seen
+
+
+@pytest.mark.parametrize("enter", [None, True])
+def test_gated_driver_keeps_a_finished_lanes_carry(enter):
+    """A batch whose lanes' conditions turn false on different turns of the
+    loop: a lane that has ended keeps its carry while the others go on (a
+    body applied to it would drive its count below 0 and add to its sum),
+    as under the read-driven and fixed-trip drivers."""
+    start = torch.tensor([2, 5, 1, 3], dtype=torch.int32)
+
+    def cond(c):
+        return c[0] > 0
+
+    def body(c):
+        return c[0] - 1, c[1] + 10.0 * c[0].to(torch.float64)
+
+    carry = (start, torch.zeros(4, dtype=torch.float64))
+    gate = CountingGate()
+    with ls.gated(gate):
+        got = ls._loop(cond, body, carry, 8, False, enter)
+    assert torch.equal(got[0], torch.zeros(4, dtype=torch.int32))
+    # n + (n - 1) + ... + 1, times 10, on every lane.
+    want_sum = (start * (start + 1) * 5).to(torch.float64)
+    assert torch.equal(got[1], want_sum)
+    for bounded in (False, True):
+        other = ls._loop(cond, body, carry, 8, bounded, enter)
+        assert all(torch.equal(a, b) for a, b in zip(other, got)), bounded
+    assert gate.loops == [int(start.max()) - (enter is True)]

@@ -17,6 +17,7 @@ package: status, iterations and counters equal, f and x within
 """
 import dataclasses
 import math
+import types
 
 import jax
 import jax.numpy as jnp
@@ -461,7 +462,8 @@ def test_eager_paths_are_chosen_by_their_arguments(monkeypatch):
     """A search that reads on the host (direct-mode backtracking on one
     instance) runs in blocks exactly where they are captured
     (``blocks.captures``: a CUDA device outside ``eager_loops()`` and a
-    budget of ``CAPTURE_MIN_ITERS``), on the gated driver; on the CPU it
+    budget of ``GATED_CAPTURE_MIN_ITERS``, ``CAPTURE_MIN_ITERS`` for a
+    search that does not loop), on the gated driver; on the CPU it
     keeps the per-iteration loop and no block runs.  A traced solve runs
     in blocks; ``set_debug_nans(True)`` and a sharded solve keep the
     per-iteration loop; ``solve_bounded`` runs its fixed-trip search in
@@ -518,6 +520,18 @@ def test_eager_paths_are_chosen_by_their_arguments(monkeypatch):
     assert not blocks.captures(torch.device("cpu"), 10 ** 6)
     with tt.eager_loops():
         assert not blocks.captures(cuda, 10 ** 6)
+    # A search that loops: the gated driver's own budget, from the device
+    # and the budget (a stand-in state on "cuda": nothing runs).
+    gated_least = blocks.GATED_CAPTURE_MIN_ITERS
+    assert blocks.captures(cuda, gated_least, gated=True)
+    assert not blocks.captures(cuda, gated_least - 1, gated=True)
+    on_card = types.SimpleNamespace(x=types.SimpleNamespace(
+        device=cuda, dim=lambda: 1))
+    assert solver._blocked(direct, on_card, None, False, gated_least)
+    assert not solver._blocked(direct, on_card, None, False,
+                               gated_least - 1)
+    with tt.eager_loops():
+        assert not solver._blocked(direct, on_card, None, False, 10 ** 6)
     monkeypatch.setattr(blocks, "captures", lambda *a, **k: True)
     for c, st in ((direct, state), (wolfe, batch)):
         assert solver._blocked(c, st, None, False, 5)

@@ -18,19 +18,23 @@ Every solve here captures, whatever its budget: the script sets
 ``blocks.CAPTURE_MIN_ITERS``, the rule these numbers chose, to 0.
 
 ``--gated`` measures the searches that loop on the gated driver instead
-(each turn under a CUDA graph IF node, ``kernels.graph_if``), the numbers
-behind ``blocks.GATED_BLOCK_ITERS``, ``blocks.CAPTURE_MIN_ITERS`` for
-them and the capture of a batch's fixed trip (``solve_bounded``): each of
-the 8 searches in direct mode (the reference protocol's float32 stack of
+(each search loop one CUDA graph WHILE node whose body is the loop's one
+turn, ``kernels.graph_if``), the numbers behind
+``blocks.GATED_BLOCK_ITERS``, ``blocks.GATED_CAPTURE_MIN_ITERS`` and the
+capture of a batch's fixed trip (``solve_bounded``): each of the 8
+searches in direct mode (the reference protocol's float32 stack of
 chip_smoke's [direct]) on one instance at d = 2^20 for ``GATED_ITERS``
-iterations, from blocks of 1, 5 and 20 iterations, and on the batch cell (4096 x 1024) for ``GATED_BATCH_ITERS`` under both
-lockstep forms: capture seconds, IF nodes and other graph nodes per
-captured iteration, ms per iteration replayed (a kept runner's second
-solve) against the same solve read-driven eagerly (``eager_loops()``:
-the per-iteration loop) or, under bounded lockstep, on its eager
-fixed-trip blocks, in turns (eager, graphs, graphs, eager), and one
-replay's host and device milliseconds.  Needs the card; run from the
-repository's root:
+iterations, from blocks of ``GATED_BLOCKS`` iterations, and on the batch
+cell (4096 x 1024) for ``GATED_BATCH_ITERS`` under both lockstep forms
+from blocks of ``GATED_BATCH_BLOCKS``: capture seconds (each captured
+solve's, the warm-up's share apart), WHILE nodes and other graph nodes
+per captured iteration, ms per iteration replayed (a kept runner's second
+solve) against the same solve read-driven eagerly (``eager_loops()``: the
+per-iteration loop) or, under bounded lockstep, on its eager fixed-trip
+blocks, in turns (eager, graphs, graphs, eager), one replay's host and
+device milliseconds, and the iterations after which the capture has paid
+for itself (capture seconds over the ms an iteration saved).  Needs the
+card; run from the repository's root:
 
     python3 torch_records/graph_costs.py [--gated]
 """
@@ -53,6 +57,7 @@ from tpu_lbfgs_torch.kernels import _build  # noqa: E402
 GATED_ITERS = 100
 GATED_BATCH_ITERS = 40
 GATED_BLOCKS = (1, 5, 20)
+GATED_BATCH_BLOCKS = (1, 20)
 SHORT_ITERS = (20, 40, 100)
 BATCH_SHORT_ITERS = (20, 40)
 SEARCH_ITERS = 40
@@ -183,6 +188,7 @@ def gated_turns(label, solve, iters, modes, block=1, eager_label="eager"):
     with blocks.eager_loops():
         solve(None)
     walls, outs, info = {m: [] for m in set(modes)}, {}, {}
+    captures = {"first_solve_s": [], "capture_s": [], "warmup_s": []}
     for m in modes:
         if m == "eager":
             out, wall, _ = timed("eager", lambda: solve(None))
@@ -198,9 +204,12 @@ def gated_turns(label, solve, iters, modes, block=1, eager_label="eager"):
             outs.setdefault(m, out._replace(**{
                 n: getattr(out, n).clone() for n in FIELDS}))
             n = kept.runner.block
-            info[m] = {"first_solve_s": first, "capture_s": st["capture_s"],
-                       "graph_iterations": n,
-                       "if_nodes_per_iteration": st["if_nodes"] / n,
+            for name, v in (("first_solve_s", first),
+                            ("capture_s", st["capture_s"]),
+                            ("warmup_s", st["warmup_s"])):
+                captures[name].append(v)
+            info[m] = {"graph_iterations": n,
+                       "while_nodes_per_iteration": st["while_nodes"] / n,
                        "graph_nodes_per_iteration": st["graph_nodes"] / n,
                        "gated_turns_per_iteration":
                            st2["gated_turns"] / iters,
@@ -210,6 +219,10 @@ def gated_turns(label, solve, iters, modes, block=1, eager_label="eager"):
                        "replay_host_ms, replay_device_ms":
                            replay_ms(kept)}
         walls[m].append(wall / iters * 1e3)
+    saved = (np.mean(walls["eager"]) - np.mean(walls["graphs"])) / 1e3
+    info["graphs"].update(captures)
+    info["graphs"]["break_even_iterations"] = [
+        c / saved if saved > 0 else None for c in captures["capture_s"]]
     print(json.dumps({
         "what": label, "block": block,
         "ms_per_iteration": walls, "eager_is": eager_label,
@@ -221,7 +234,7 @@ def gated_turns(label, solve, iters, modes, block=1, eager_label="eager"):
 
 def gated_main():
     print(json.dumps({"build": _build.build()[1]}), flush=True)
-    blocks.CAPTURE_MIN_ITERS = 0
+    blocks.CAPTURE_MIN_ITERS = blocks.GATED_CAPTURE_MIN_ITERS = 0
     p = tt.get_problem("rosenbrock")
     vg = tt.fused_value_and_grad("rosenbrock")
     kw = dict(fused_tail=tt.fused_tail_for("rosenbrock"),
@@ -257,11 +270,13 @@ def gated_main():
                 return tt.finalize_result(bcfg, fn(bcfg, p.f, bvg, state,
                                                    kept=kept))
 
-            gated_turns(f"batch B=4096 d=1024 {lockstep} direct {strategy}",
-                        batch, GATED_BATCH_ITERS,
-                        ("eager", "graphs", "graphs", "eager"), 1,
-                        "eager fixed-trip blocks" if lockstep == "bounded"
-                        else "eager read-driven")
+            for block in GATED_BATCH_BLOCKS:
+                gated_turns(
+                    f"batch B=4096 d=1024 {lockstep} direct {strategy}",
+                    batch, GATED_BATCH_ITERS,
+                    ("eager", "graphs", "graphs", "eager"), block,
+                    "eager fixed-trip blocks" if lockstep == "bounded"
+                    else "eager read-driven")
 
 
 if __name__ == "__main__":

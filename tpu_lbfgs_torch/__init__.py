@@ -10,7 +10,7 @@ the incremental compact direction, for one large instance with
 ``vmap_minimize``), every line search with direct evaluation of its
 trials, as the reference's own protocol runs them, or on the directional
 polynomial, for one instance and for a batch (each search a lane-masked
-turn: each turn under a CUDA graph IF node inside a captured block,
+turn: each search loop one CUDA graph WHILE node inside a captured block,
 read-driven on the per-iteration loop, or a fixed trip that reads nothing
 under ``solve_bounded`` and ``lockstep="bounded"``), the
 solve of a caller's own objective (``minimize(f, x0)`` with the default
@@ -38,7 +38,7 @@ non-finite values.
 
 The solve loops run blocks of iterations on the device (``core.blocks``):
 on the card each block is a CUDA graph, captured once and replayed, its
-line-search turns under IF nodes (``kernels.graph_if``), and the host
+line-search loops as WHILE nodes (``kernels.graph_if``), and the host
 reads the loop's flags once per block, as the reference runs its loops,
 its searches and its traced solve as one device program;
 ``eager_loops()`` runs the same blocks eagerly.

@@ -28,17 +28,16 @@ collectives go through the host) and under ``set_debug_nans(True)`` (it
 reads by design).
 
 A line search that loops (``strategies.reads_on_host``) runs, while a
-block is captured, on the gated driver: each of its turns inside a CUDA
-graph IF node on "a lane still searches" (``kernels.graph_if``), so a
-replay runs a turn only while the search runs and reads nothing, as the
-reference's ``while_loop`` does.  The graph then holds the search's
-whole trip of turns, so such a runner captures one-iteration blocks
-(``GATED_BLOCK_ITERS``) and replays them up to ``BLOCK_ITERS`` times
-between reads; its warm-up runs one gated turn of each search loop.  Its
-eager blocks would read once per turn, as the per-iteration loop does,
-so a while form of such a search runs in blocks only where they are
-captured (``solver._blocked``); ``solve_bounded``'s eager blocks run the
-fixed trip.  ``solve_traced`` is the traced solve's loop: each iteration
+block is captured, on the gated driver: each of its loops one CUDA graph
+WHILE node on "a lane still searches" whose body is the loop's one turn
+(``kernels.graph_if``), so a replay runs the turn while the search runs
+and reads nothing, as the reference's ``while_loop`` does.  Such a
+runner captures one-iteration blocks (``GATED_BLOCK_ITERS``) and
+replays them up to ``BLOCK_ITERS`` times between reads; its warm-up runs
+each search loop's turn once.  Its eager blocks would read once per
+turn, as the per-iteration loop does, so a while form of such a search
+runs in blocks only where they are captured (``solver._blocked``);
+``solve_bounded``'s eager blocks run the fixed trip.  ``solve_traced`` is the traced solve's loop: each iteration
 also writes its row of the trace into a buffer on the device.
 
 Buffers.  A graph reads and writes fixed addresses, so a runner owns the
@@ -48,16 +47,17 @@ handed in gives its ring to the solve).  So a solve holds no second ring,
 at d = 1e8 and m = 10 8 GB.  The warm-up before the first capture
 iterates with every lane masked off, which runs every kernel and leaves
 the state as it was.  Each runner's graphs share one private memory pool,
-which holds a block's temporaries, an IF body's included, for as long as
+which holds a block's temporaries, a WHILE body's included, for as long as
 the runner lives.  The flags come to the host through a pinned buffer
 and an event, so ``torch.cuda.set_sync_debug_mode("error")`` lets the
 loop's own read through and catches any other.
 
 A solve captures only when its budget, the most iterations its arguments
-let it run, is at least ``CAPTURE_MIN_ITERS`` (``captures``): below
-that, a capture typically costs more than the eager blocks it would
-replace; a slow capture of a search that loops breaks even only later,
-after up to ~200 iterations on the card (PERF.md).  A solve makes its
+let it run, is at least ``CAPTURE_MIN_ITERS``, or
+``GATED_CAPTURE_MIN_ITERS`` where its search loops (``captures``):
+below that, a capture costs more than the eager blocks or the
+per-iteration loop it would replace, as measured on the card (the
+constants' comments; PERF.md).  A solve makes its
 runner and drops it at its end, so each call captures anew, as a solve
 that is not kept would compile anew.  A caller that runs many solves of
 one configuration keeps one runner in a ``Kept`` and hands it to each
@@ -85,26 +85,40 @@ from . import solver
 #: flags.  A solve that ends inside a block replays up to BLOCK_ITERS - 1
 #: frozen iterations.
 BLOCK_ITERS = 20
-#: The least budget of a solve that captures its blocks (module docstring).
+#: The least budget of a solve that captures its blocks (module docstring):
+#: a capture costs about one eager solve of 20-40 iterations on bench.py's
+#: path (``torch_records/graph_costs.py``, NVIDIA H100 80GB HBM3, 700 W).
 CAPTURE_MIN_ITERS = 2 * BLOCK_ITERS
+#: The same for a solve whose line search loops (the gated driver): the
+#: expected break-even of a one-iteration block's capture on one instance
+#: at d = 2^20, its mean seconds (0.145, warm-up included) over the mean
+#: it saves an iteration against the per-iteration loop (4.77 ms), is
+#: 30.4 iterations; 27 of 32 such captures of the 7 looping searches broke
+#: even within 30 (median 10.4), the batch cell's 52 of 56 (expected 2.7)
+#: (``graph_costs.py --gated``, two runs, same card).
+GATED_CAPTURE_MIN_ITERS = 30
 #: Iterations per captured block of a solve whose line search loops (the
-#: gated driver: each turn under an IF node), replayed up to BLOCK_ITERS
-#: times between reads (module docstring; the card's numbers in PERF.md).
+#: gated driver: each loop a WHILE node), replayed up to BLOCK_ITERS times
+#: between reads.  On one instance at d = 2^20 blocks of 20 replay 2.4-7.0%
+#: faster, but their capture (median 0.18-0.48 s a search against
+#: 0.04-0.11 s) pays for itself only after 1,200-10,000 iterations; on the
+#: batch cell they gain nothing (the same runs as above).
 GATED_BLOCK_ITERS = 1
 
 #: Blocks since the last ``reset_stats()``: graphs captured and the host
-#: seconds they took (warm-up included), warm-up iterations, replays,
-#: iterations stepped on the device (frozen ones included, eager or
-#: replayed), host reads of the loop's flags, the nodes captured other
-#: than IF nodes (kernels and copies, every IF body's included), the IF
-#: nodes captured, the gated line-search turns the replays ran
+#: seconds they took (warm-up included), the warm-ups' share of those
+#: seconds, warm-up iterations, replays, iterations stepped on the device
+#: (frozen ones included, eager or replayed), host reads of the loop's
+#: flags, the nodes captured other than WHILE nodes (kernels and copies,
+#: every WHILE body's included), the WHILE nodes captured (one per gated
+#: search loop), the gated line-search turns the replays ran
 #: ("gated_turns", counted on the device and brought up to date by
 #: ``kernels.launch_counts()`` or ``read_stats()``), and the kernel
 #: launches of the warm-ups by wrapper (counted in ``launch_counts()``
 #: too: the card ran them).
-stats = {"captures": 0, "capture_s": 0.0, "warmups": 0, "replays": 0,
-         "steps": 0, "host_reads": 0, "graph_nodes": 0, "if_nodes": 0,
-         "gated_turns": 0, "warmup_launches": Counter()}
+stats = {"captures": 0, "capture_s": 0.0, "warmup_s": 0.0, "warmups": 0,
+         "replays": 0, "steps": 0, "host_reads": 0, "graph_nodes": 0,
+         "while_nodes": 0, "gated_turns": 0, "warmup_launches": Counter()}
 
 _EAGER = False
 
@@ -345,7 +359,7 @@ class BlockRunner:
             if key[0] == "iterate":
                 off = torch.zeros_like(self.s.status, dtype=torch.bool)
                 if self.gated:
-                    # One gated turn of each search loop, no host read.
+                    # Each search loop's turn once, no host read.
                     with strategies.gated(graph_if.WarmGate()):
                         self.step(self.s, lanes=off)
                 else:
@@ -361,6 +375,7 @@ class BlockRunner:
         t0 = time.perf_counter()
         if all(k[0] != key[0] for k in self._graphs):
             self._warm_up(key)
+            stats["warmup_s"] += time.perf_counter() - t0
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
@@ -405,8 +420,8 @@ class BlockRunner:
                 gate.close()
         if gate is not None:
             counts.gated(self, turns, gate.loops, stats)
-            stats["if_nodes"] += gate.nodes
-            nodes += gate.body_nodes - gate.top_nodes
+            stats["while_nodes"] += gate.nodes
+            nodes += gate.body_nodes - gate.nodes
         stats["graph_nodes"] += nodes
         stats["captures"] += 1
         stats["capture_s"] += time.perf_counter() - t0
@@ -443,11 +458,13 @@ def _block_len(gated: bool, graphed: bool) -> int:
     return GATED_BLOCK_ITERS if gated and graphed else BLOCK_ITERS
 
 
-def captures(device: torch.device, budget: int) -> bool:
+def captures(device: torch.device, budget: int, gated: bool = False) -> bool:
     """Whether a solve of at most ``budget`` iterations on ``device``
     captures its blocks: on a CUDA device outside ``eager_loops()``, from
-    a budget of ``CAPTURE_MIN_ITERS``."""
-    return device.type == "cuda" and not _EAGER and budget >= CAPTURE_MIN_ITERS
+    a budget of ``CAPTURE_MIN_ITERS``, or ``GATED_CAPTURE_MIN_ITERS``
+    where its line search loops (``gated``)."""
+    least = GATED_CAPTURE_MIN_ITERS if gated else CAPTURE_MIN_ITERS
+    return device.type == "cuda" and not _EAGER and budget >= least
 
 
 def runner(kind: str, cfg, step: Callable, state: LBFGSState,
@@ -460,7 +477,7 @@ def runner(kind: str, cfg, step: Callable, state: LBFGSState,
     holds."""
     masked = kind != "bounded"
     gated = strategies.reads_on_host(cfg, state.x.dim() == 2)
-    graphed = captures(state.x.device, budget)
+    graphed = captures(state.x.device, budget, gated)
     rows = cfg.max_iters if kind == "traced" else None
     args = (cfg, step, state, masked, interval, callables, graphed, gated,
             rows)

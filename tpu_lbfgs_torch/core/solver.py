@@ -6,15 +6,16 @@ history products, guard counters, state advance.  Every decision is a
 tensor select on the device.  Under ``ls_eval="polynomial"`` with
 ``backtracking`` (bench.py's path) it reads nothing back to the host, so
 the host only enqueues work; every other line search loops
-(``linesearch.strategies``): inside a captured block each turn sits under
-a CUDA graph IF node and nothing is read, else it reads its loop
+(``linesearch.strategies``): inside a captured block each loop is a CUDA
+graph WHILE node and nothing is read, else it reads its loop
 condition once per turn, unless ``iterate`` is asked for the searches'
 fixed-trip loop (``bounded=True``).
 The solves run their iterations in blocks (``core.blocks``), replayed as
 CUDA graphs on the card: ``solve_from_state``, ``make_solve_segment`` and
 the traced solve read the loop's flags once per block,
 ``solve_bounded`` reads none, its searches' included.  A solve of a short
-budget runs its blocks eagerly (``blocks.CAPTURE_MIN_ITERS``), and a
+budget runs its blocks eagerly (``blocks.CAPTURE_MIN_ITERS``;
+``blocks.GATED_CAPTURE_MIN_ITERS`` under a search that loops), and a
 while form under a search that loops then keeps the per-iteration loop,
 as do a sharded solve and ``set_debug_nans(True)``: one read of the
 condition per iteration.
@@ -666,7 +667,7 @@ def _blocked(cfg: LBFGSConfig, state: LBFGSState, comm, bounded: bool,
         return False
     if bounded or not reads_on_host(cfg, state.x.dim() == 2):
         return True
-    return blocks.captures(state.x.device, budget)
+    return blocks.captures(state.x.device, budget, gated=True)
 
 
 def _callables(f, vg, dir_poly, fused_tail, phi_batch,
@@ -746,7 +747,7 @@ def solve_bounded(cfg: LBFGSConfig, f: ObjFn, vg: ValGradFn,
     """Exactly ``cfg.max_iters`` more iterations with no read of the loop
     condition: safe because iterate is idempotent on finished states
     (lanes).  The line search runs its fixed-trip loop, or inside a
-    captured block the gated driver, which skips the dead turns, so no
+    captured block the gated driver, which runs only the live turns, so no
     search reads on the host either, in direct mode included; the
     iterations run in blocks (``core.blocks``: CUDA graphs on the card)
     unless the solve is sharded or ``set_debug_nans(True)`` holds.  A

@@ -6,8 +6,8 @@ Each wrapper counts its kernel's launches in its module's ``launches``;
 the package at once.  A launch recorded into a CUDA graph counts nothing
 until the graph runs, and each replay as the kernels it runs (``counts``):
 ``launch_counts()`` is what the device ran, eager or replayed,
-``replay_counts()`` the replayed part.  ``graph_if`` adds the IF nodes
-under which the gated line-search driver captures each search turn."""
+``replay_counts()`` the replayed part.  ``graph_if`` adds the WHILE nodes
+in which the gated line-search driver captures each search loop."""
 from . import chain, counts, fused_ops, graph_if, line_search_ops
 from .fused_ops import (
     FUSED_VG,

@@ -88,13 +88,14 @@ _SIGNATURES = {
         [_P] * 7 + [ctypes.c_int] + [ctypes.c_longlong] * 2 + [_P],
         ctypes.c_int)
        for t in ("f32", "f64", "f32_bf16")},
-    # The IF nodes of the gated line-search driver (csrc/graph_if.cu):
-    # out; stream; parent, into, pred, turns, body, body graph out, nodes;
-    # body, into, nodes; stream, nodes; stream.
+    # The WHILE nodes of the gated line-search driver (csrc/graph_if.cu):
+    # out; stream; parent, pred, turns, body, body graph out, handle out;
+    # body, body graph, handle, pred, turns, nodes; stream, nodes; stream.
     "tl_stream_create": ([_P], ctypes.c_int),
     "tl_stream_destroy": ([_P], ctypes.c_int),
-    "tl_graph_if_begin": ([_P] * 7, ctypes.c_int),
-    "tl_graph_if_end": ([_P] * 3, ctypes.c_int),
+    "tl_graph_while_begin": ([_P] * 6, ctypes.c_int),
+    "tl_graph_while_end": ([_P, _P, ctypes.c_ulonglong] + [_P] * 3,
+                           ctypes.c_int),
     "tl_capture_nodes": ([_P] * 2, ctypes.c_int),
     "tl_capture_abort": ([_P], ctypes.c_int),
     # The batched shard-local forms: the batched arguments, lanes and n,

@@ -11,9 +11,9 @@ So ``launches`` counts the kernels the device ran, eager or replayed, and
 ``replayed`` the part of ``launches`` that graphs ran: a check says which
 one it means.
 
-A launch inside the body of a graph's IF node (the gated line-search
-turns, ``kernels.graph_if``) runs only on the replays that run its turn,
-so it is kept out of the graph's tally: each gated loop records its first
+A launch inside the body of a graph's WHILE node (the gated line-search
+loops, ``kernels.graph_if``) runs as many times as the replays run its
+turn, so it is kept out of the graph's tally: each gated loop records its
 turn's launches in a tally of its own, and a counter on the device counts
 the turns the replays ran.  ``fold()`` adds tally x turns into the counts,
 one host read per live capture (the captures of runners that are gone are
@@ -92,7 +92,7 @@ _gated: list = []
 
 
 def gated(owner, turns, loops: list, sink: dict) -> None:
-    """Register the gated loops of one capture: loop i's first gated turn
+    """Register the gated loops of one capture: loop i's captured turn
     recorded ``loops[i] = (slot, tally)``, and ``turns[slot]`` (an int64
     tensor on the device) counts the turns of it that the replays of
     ``owner``'s graphs ran.  Outside a capture."""

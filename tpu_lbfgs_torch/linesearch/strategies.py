@@ -16,12 +16,12 @@ is one turn, ``cond`` / ``body`` over the lanes, and one of three loops
 runs it (``_loop``):
 
 - gated (whenever a gate is set, ``gated``: the block runner sets the
-  graph's while it captures a block, ``core.blocks``): the search's own
-  trip bound of turns, each inside a CUDA graph IF node on whether the
-  condition holds on any lane (``kernels.graph_if``), so a replay runs a
-  turn only while the search runs, and reads nothing.  The carry lives in
-  buffers that each turn overwrites.  The CPU tests drive it through
-  ``EagerGate``.
+  graph's while it captures a block, ``core.blocks``): the loop handed to
+  the gate as one turn, which the graph's gate captures once as the body
+  of a CUDA graph WHILE node on whether the condition holds on any lane
+  (``kernels.graph_if``), so a replay runs the turn while the search runs,
+  and reads nothing.  The carry, and the condition, live in buffers that
+  each turn overwrites.  The CPU tests drive it through ``EagerGate``.
 - read-driven (the default otherwise): while any lane's condition holds,
   one bool read on the host per turn, that is one per trial for the
   sequential searches and one per K-wide round for the speculative twins
@@ -118,9 +118,9 @@ _GATE = None
 @contextmanager
 def gated(gate):
     """Run every search loop on the gated driver through ``gate``: an object
-    with ``start()`` (a new loop), ``open(pred) -> bool`` (a turn under
-    the 0-d bool ``pred`` on the device: whether to run its body) and
-    ``end()`` (the loop's turns are done).  The port sets only ``kernels.graph_if``'s gates
+    with ``loop(pred, turn)``, one call per search loop, which runs
+    ``turn()`` while the 0-d bool ``pred`` on the device holds (``turn``
+    rewrites ``pred``).  The port sets only ``kernels.graph_if``'s gates
     (``core.blocks``); ``EagerGate`` is the CPU tests'."""
     global _GATE
     outer, _GATE = _GATE, gate
@@ -131,34 +131,32 @@ def gated(gate):
 
 
 class EagerGate:
-    """The gated driver run eagerly: a turn's body runs iff ``bool(pred)``,
-    a host read that ``host_reads`` does not count.  For the CPU tests,
+    """The gated driver run eagerly: the turn runs while ``bool(pred)``, a
+    host read that ``host_reads`` does not count.  For the CPU tests,
     which hold the gated driver's own code to the other two drivers."""
 
-    def start(self) -> None:
-        pass
-
-    def open(self, pred: Tensor) -> bool:
-        return bool(pred)
-
-    def end(self) -> None:
-        pass
+    def loop(self, pred: Tensor, turn) -> None:
+        while bool(pred):
+            turn()
 
 
-def _gated(gate, cond, body, carry, trips: int, enter=None) -> tuple:
-    """The gated driver: up to ``trips`` turns, each opened by ``gate`` on
-    whether ``cond`` holds on any lane, a lane whose condition has failed
-    keeping its carry.  The carry is cloned once into buffers that every
-    turn overwrites (a graph reads fixed addresses after an IF node).
-    ``enter`` as under the read-driven driver: False runs no turn, True
-    runs the first turn with no gate."""
+def _gated(gate, cond, body, carry, enter=None) -> tuple:
+    """The gated driver: one call of ``gate.loop`` that runs one turn while
+    ``cond`` holds on any lane, a lane whose condition has failed keeping
+    its carry.  The carry is cloned once into buffers that every turn
+    overwrites, and the condition is kept in buffers that every turn
+    rewrites (a graph reads fixed addresses).  ``enter`` as under the
+    read-driven driver: False runs no turn, True runs the first turn
+    before the loop, with no gate.  The loop ends on ``cond`` alone, as
+    the read-driven driver's does: each search's condition carries its
+    cap."""
     if enter is False:
         return carry
     lanes = carry[0].dim() > 0
     buf = tuple(c.clone() for c in carry)
     held = [b.untyped_storage().data_ptr() for b in buf]
 
-    def turn(go):
+    def step(go):
         # A body may hand back one of its carry's own tensors, or a view of
         # one, in another slot (armijo_interpolation under fidelity="fixed"
         # returns alpha as the next alpha_prev): copy it before the buffers
@@ -173,17 +171,18 @@ def _gated(gate, cond, body, carry, trips: int, enter=None) -> tuple:
             else:
                 b.copy_(v)
 
-    first = 0
     if enter:
-        turn(cond(buf) if lanes else None)
-        first = 1
-    gate.start()
-    for _ in range(first, trips):
-        go = cond(buf)
-        if not gate.open(go.any() if lanes else go):
-            break
-        turn(go)
-    gate.end()
+        step(cond(buf) if lanes else None)
+    go = cond(buf).clone()
+    pred = go.any() if lanes else go
+
+    def turn():
+        step(go)
+        go.copy_(cond(buf))
+        if lanes:
+            pred.copy_(go.any())
+
+    gate.loop(pred, turn)
     return buf
 
 
@@ -191,14 +190,14 @@ def _loop(cond, body, carry, trips: int, bounded: bool, enter=None):
     """Run one search's turn until its condition fails on every lane.
 
     Gated (a gate is set, ``gated``): ``_gated``, whatever ``bounded``
-    says.  Read-driven (``bounded=False``): ``lax.while_loop`` driven from
-    the host, one bool read per turn; on a batch a lane whose condition
-    has failed keeps its carry.  ``enter`` is the first condition where
-    the caller knows it from the configuration alone; it is then not
-    read.  Fixed-trip (``bounded=True``): ``trips`` turns, the search's
+    says; it needs no trip bound.  Read-driven (``bounded=False``):
+    ``lax.while_loop`` driven from the host, one bool read per turn; on a
+    batch a lane whose condition has failed keeps its carry.  ``enter`` is
+    the first condition where the caller knows it from the configuration
+    alone; it is then not read.  Fixed-trip (``bounded=True``): ``trips`` turns, the search's
     own bound, each lane frozen once its condition fails; no read."""
     if _GATE is not None:
-        return _gated(_GATE, cond, body, carry, trips, enter)
+        return _gated(_GATE, cond, body, carry, enter)
     if bounded:
         for _ in range(trips):
             carry = _select(cond(carry), body(carry), carry)
