@@ -450,6 +450,18 @@ def bound_ms(n_bytes, n_ops):
             else (by_ops, "operations"))
 
 
+def trial_bound_note(bounds, ms):
+    """A K-trial kernel's bound for the build the port has
+    (tpu_lbfgs_torch/bench/trial_bounds.py: issue at one slot an operation,
+    float64 conversions and adds on their pipe, bytes) and the share of it
+    the kernel's time ``ms`` reaches, for its line."""
+    limit, by = bounds["corrected"]
+    return (f"corrected bound {limit * 1e3:.2f} us by {by} (issue "
+            f"{bounds['issue'] * 1e3:.2f}, float64 pipe "
+            f"{bounds['f64'] * 1e3:.2f}, bytes {bounds['bytes'] * 1e3:.2f}): "
+            f"{limit / ms:.0%} of it")
+
+
 def phase_card():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1005,6 +1017,7 @@ def _beyond_ulp(a, b, scale):
 def phase_trial_kernels(dev):
     """multi_phi and multi_phi_dphi of every body against their plain
     versions, each called twice (bit-equal sums)."""
+    from tpu_lbfgs_torch.bench import trial_bounds
     from tpu_lbfgs_torch.kernels import fused_ops
     from tpu_lbfgs_torch.kernels import line_search_ops as ops
 
@@ -1073,13 +1086,14 @@ def phase_trial_kernels(dev):
             # term and its float64 add, with phi' the gradient and g_i d_i
             # as well.
             outs = 1 if name == names[0] else 2
-            per_trial = {"quadratic": (6, 9), "rosenbrock": (13, 28),
-                         "coupled_quadratic": (10, 19)}[problem][outs - 1]
-            bound = bound_ms(8 * n + 4 * k + 4 * outs * k,
-                             per_trial * n * k)
+            bounds = trial_bounds.trial_bound(
+                name[len(problem) + 1:], problem, n, k,
+                8 * n + 4 * k + 4 * outs * k)
+            bound = bounds["old"]
             say(f"[kernel] {name} d={n} K={k}: {ms * 1e3:.2f} us on the "
                 f"card, plain version {plain_ms * 1e3:.2f} us, bound "
-                f"{bound[0] * 1e3:.2f} us by {bound[1]}")
+                f"{bound[0] * 1e3:.2f} us by {bound[1]}; "
+                f"{trial_bound_note(bounds, ms)}")
             if kept:
                 rec[name].update(ms=ms, plain_ms=plain_ms, bound=bound)
     return rec
@@ -3935,6 +3949,7 @@ def _shard_edges(xp, dp, r, d_local):
 def phase_shard_kernels(dev):
     """The shard-local forms of the four kernel families, in one process:
     each shard is handed its block, its start and its edges."""
+    from tpu_lbfgs_torch.bench import trial_bounds
     from tpu_lbfgs_torch.dist.shardmap_vg import local_vg_plain
     from tpu_lbfgs_torch.kernels import fused_ops as ops
     from tpu_lbfgs_torch.kernels import line_search_ops as ls
@@ -4081,8 +4096,12 @@ def phase_shard_kernels(dev):
     for problem in ops.BODY_IDS:
         body_ops = {"quadratic": 4, "rosenbrock": 18,
                     "coupled_quadratic": 9}[problem]
-        per_trial = {"quadratic": (6, 9), "rosenbrock": (13, 28),
-                     "coupled_quadratic": (10, 19)}[problem]
+        trial = {
+            "multi_phi": trial_bounds.trial_bound(
+                "multi_phi", problem, D, 8, 8 * D + 4 * 8 + 8 * 8 + 8),
+            "multi_phi_dphi": trial_bounds.trial_bound(
+                "multi_phi_dphi", problem, D, 36,
+                8 * D + 4 * 36 + 16 * 36 + 16)}
         tail = ops.make_fused_tail(problem, None, with_matvec=False)
         forms = {
             "vg": (lambda: ops.local_fused_vg(problem, xl, n, D, e_vg),
@@ -4101,26 +4120,27 @@ def phase_shard_kernels(dev):
                 lambda: ls.multi_phi_local_plain(problem, xl, dl, a8, n, D,
                                                  e_phi),
                 lambda: ls._launch("multi_phi", problem, xl, dl, a8, 1),
-                bound_ms(8 * D + 4 * 8 + 8 * 8 + 8, per_trial[0] * D * 8)),
+                trial["multi_phi"]["old"]),
             "multi_phi_dphi": (
                 lambda: ls.local_multi_phi_dphi(problem, xl, dl, a36, n, D,
                                                 e4),
                 lambda: ls.multi_phi_dphi_local_plain(problem, xl, dl, a36, n,
                                                       D, e4),
                 lambda: ls._launch("multi_phi_dphi", problem, xl, dl, a36, 2),
-                bound_ms(8 * D + 4 * 36 + 16 * 36 + 16,
-                         per_trial[1] * D * 36)),
+                trial["multi_phi_dphi"]["old"]),
         }
         for family, (local, plain, whole, bound) in forms.items():
             name = f"{problem}_{family}_local"
             r = rec[name] = {"max_abs_err": worst[problem, family.replace(
                 "fused_tail", "tail")], "ms": device_ms(local),
                 "plain_ms": device_ms(plain), "bound": bound}
+            note = (f"; {trial_bound_note(trial[family], r['ms'])}"
+                    if family in trial else "")
             say(f"[kernel] {name} d_local={D} (of d={n}): {r['ms'] * 1e3:.2f}"
                 f" us on the card, the whole-vector kernel on the same block "
                 f"{device_ms(whole) * 1e3:.2f} us, plain version "
                 f"{r['plain_ms'] * 1e3:.2f} us, bound {bound[0] * 1e3:.2f} us "
-                f"by {bound[1]}")
+                f"by {bound[1]}{note}")
     return rec
 
 
@@ -4494,6 +4514,7 @@ def _db_split(name, out):
 def phase_dist_batch_kernels(dev):
     """The batched shard-local forms of the four kernel families, in one
     process (the header of this section)."""
+    from tpu_lbfgs_torch.bench import trial_bounds
     from tpu_lbfgs_torch.kernels import fused_ops as ops
     from tpu_lbfgs_torch.kernels import line_search_ops as ls
 
@@ -4596,8 +4617,13 @@ def phase_dist_batch_kernels(dev):
     for problem in ops.BODY_IDS:
         body_ops = {"quadratic": 4, "rosenbrock": 18,
                     "coupled_quadratic": 9}[problem]
-        per_trial = {"quadratic": (6, 9), "rosenbrock": (13, 28),
-                     "coupled_quadratic": (10, 19)}[problem]
+        trial = {f"{family}[K={k}]": trial_bounds.trial_bound(
+                     kernel, problem, elems, k,
+                     8 * elems + 16 * lanes + per_k * k * lanes)
+                 for family, kernel, per_k in (
+                     ("multi_phi", "multi_phi_batched", 12),
+                     ("multi_phi_dphi", "multi_phi_dphi", 20))
+                 for k in TRIALS}
         calls = _db_families(problem, xl, dl, gl, Sl, Yl, alpha, alphas,
                              DB_D, d_local, e4)
         tail_ops = (body_ops + 22) * elems
@@ -4612,12 +4638,7 @@ def phase_dist_batch_kernels(dev):
                 + 16 * SHARD_M * lanes, tail_ops + 4 * SHARD_M * elems),
             "tail[float32 compensated]": bound_ms(28 * elems + 76 * lanes,
                                                   tail_ops),
-            **{f"multi_phi[K={k}]": bound_ms(
-                8 * elems + 16 * lanes + 12 * k * lanes,
-                per_trial[0] * elems * k) for k in TRIALS},
-            **{f"multi_phi_dphi[K={k}]": bound_ms(
-                8 * elems + 16 * lanes + 20 * k * lanes,
-                per_trial[1] * elems * k) for k in TRIALS},
+            **{name: b["old"] for name, b in trial.items()},
         }
         for name, (kern, plain) in calls.items():
             ms, plain_ms = device_ms(kern), device_ms(plain)
@@ -4632,10 +4653,12 @@ def phase_dist_batch_kernels(dev):
                                             torch.bmm(Y_h, y_col)))
                 library = (f", t1, t2 by two torch.bmm "
                            f"{lib_ms * 1e3:.2f} us")
+            note = (f"; {trial_bound_note(trial[name], ms)}"
+                    if name in trial else "")
             say(f"[dist-batch] {problem} {name} local batched, {lanes} lanes "
                 f"of d_local={d_local} (of d={DB_D}): {ms * 1e3:.2f} us on "
                 f"the card, plain version {plain_ms * 1e3:.2f} us{library}, "
-                f"bound {bound[0] * 1e3:.2f} us by {bound[1]}")
+                f"bound {bound[0] * 1e3:.2f} us by {bound[1]}{note}")
             # The kernels line: the main path's tail, multi_phi at K = 8
             # and multi_phi_dphi at K = 36, as the one-instance rows.
             family = {"vg": "vg", "tail[float32]": "tail",

@@ -21,6 +21,12 @@ the middle of a d of 2^22):
   compensated sums (the Neumaier stage 2) at m = 0 and m = 10;
 - ``tl_multi_phi_f32`` and ``tl_multi_phi_dphi_f32`` at K = 8 and 36, and
   their ``_local_f32`` forms at K = 8 and 36;
+- the batched shard-local entries at sharded_vmap_minimize's shape, 4
+  lanes of a block of 2^20 (``tl_fused_vg_local_batched_f32``,
+  ``tl_fused_tail_local_batched_f32`` at m = 0 and 10,
+  ``tl_multi_phi_local_batched_f32`` and
+  ``tl_multi_phi_dphi_local_batched_f32`` at K = 8 and 36), each lane with
+  its own edges, alphas and step, the two trees on the same buffers;
 
 each for the three bodies; ``tl_iteration_tail_f32`` and
 ``tl_iteration_tail_f64``, plain and compensated;
@@ -76,6 +82,7 @@ CHAIN_B = 4096              # bench.py's batch
 CHAIN_M = (5, 10, 20)       # both trees
 CHAIN_M_CHANGE = (7,)       # the change only
 BATCHED_D = 1024            # bench.py's batch cell, B = CHAIN_B
+LOCAL_LANES = 4             # sharded_vmap_minimize's lanes of a block
 BATCHED = ("tl_fused_vg_batched_f32", "tl_fused_tail_batched_f32",
            "tl_iteration_tail_batched_f32", "tl_iteration_tail_batched_f64",
            "tl_combine_direction_batched_f32",
@@ -89,7 +96,11 @@ _SIGS = {k: _build._SIGNATURES[k]
                    "tl_compact_chain_f32", "tl_compact_chain_f64",
                    "tl_iteration_tail_f32", "tl_iteration_tail_f64",
                    "tl_combine_direction_f32", "tl_combine_direction_f64",
-                   "tl_combine_direction_f32_bf16")}
+                   "tl_combine_direction_f32_bf16",
+                   "tl_fused_vg_local_batched_f32",
+                   "tl_fused_tail_local_batched_f32",
+                   "tl_multi_phi_local_batched_f32",
+                   "tl_multi_phi_dphi_local_batched_f32")}
 
 
 def _load(csrc: Path):
@@ -133,9 +144,10 @@ def _time(fn, calls=10, reps=5):
     return statistics.median(times)
 
 
-def _calls(lib, body: int):
+def _calls(lib, body: int, shared: dict):
     """{label: (callable, output vectors, output sums)} of the C entries on
-    fixed inputs, for one body."""
+    fixed inputs, for one body; the batched shard-local entries on the
+    tensors ``shared``, which both trees are given."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(body)
     uniform = lambda *shape: torch.empty(*shape, device=dev).uniform_(
@@ -214,6 +226,89 @@ def _calls(lib, body: int):
                 xx=xx, dd=dd, extra=extra, e=e:
                 fn(body, xx.data_ptr(), dd.data_ptr(), alphas.data_ptr(), k,
                    kpart.data_ptr(), res.data_ptr(), N, *extra, stream),
+                (), (res,))
+    out.update(_local_batched_calls(lib, body, stream, shared))
+    return out
+
+
+def _local_batched_tensors(body: int, nb: int) -> dict:
+    """The inputs and outputs of the batched shard-local entries for one
+    body, made once and handed to both trees, so that a time compares the
+    kernels and not where their buffers lie (with a set each, the same
+    library read up to 10% apart on fused_vg)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(100 + body)
+    uniform = lambda *shape: torch.empty(*shape, device=dev).uniform_(
+        -2, 2, generator=gen)
+    B = LOCAL_LANES
+    t = {"x": uniform(B, N), "d": uniform(B, N), "g": uniform(B, N),
+         "edges": uniform(B, 4)}
+    t["e_vg"] = t["edges"][:, [0, 2]].contiguous()
+    t["e_phi"] = t["edges"][:, 2:].contiguous()
+    t["f_out"] = torch.empty(B, dtype=torch.float64, device=dev)
+    t["g_out"] = torch.empty(B, N, device=dev)
+    t["part"] = torch.empty(B + nb, dtype=torch.float64, device=dev)
+    t["alpha"] = 0.25 + uniform(B).abs() / 8
+    for m in (0, 10):
+        t["ring", m] = [uniform(B, max(m, 1), N) / 2 for _ in range(2)]
+        t["vecs", m] = [torch.empty(B, N, device=dev) for _ in range(4)]
+        t["sums", m] = torch.empty((7 + 2 * m) * B, dtype=torch.float64,
+                                   device=dev)
+        t["tpart", m] = torch.empty((7 + 2 * m) * (B + nb),
+                                    dtype=torch.float64, device=dev)
+    for k in (8, 36):
+        t["alphas", k] = (torch.linspace(1e-3, 1.0, k, device=dev)
+                          * (1.0 + torch.arange(B, device=dev)[:, None] / 8)
+                          ).contiguous()
+    for kernel, outputs in (("multi_phi", 1), ("multi_phi_dphi", 2)):
+        for k in (8, 36):
+            t["res", kernel, k] = torch.empty(outputs * k * B,
+                                              dtype=torch.float64, device=dev)
+            t["kpart", kernel, k] = torch.empty(outputs * k * (nb + B),
+                                                dtype=torch.float64,
+                                                device=dev)
+    return t
+
+
+def _local_batched_calls(lib, body: int, stream, t: dict):
+    """{label: (callable, output vectors, output sums)} of the batched
+    shard-local entries (tl_*_local_batched_f32) at sharded_vmap_minimize's
+    shape: LOCAL_LANES lanes of block 1 of 4 of a d of 2^22, each lane with
+    its own edges, alphas and steps, on the tensors ``t``
+    (_local_batched_tensors)."""
+    B = LOCAL_LANES
+    where = (SHARDS * N, N)
+    x, d, g, alpha = t["x"], t["d"], t["g"], t["alpha"]
+    out = {}
+    out[f"fused_vg local batched B={B}"] = (
+        lambda: lib.tl_fused_vg_local_batched_f32(
+            body, x.data_ptr(), t["g_out"].data_ptr(), t["part"].data_ptr(),
+            t["f_out"].data_ptr(), B, N, *where, t["e_vg"].data_ptr(),
+            stream),
+        (t["g_out"],), (t["f_out"],))
+    for m in (0, 10):
+        S, Y = t["ring", m]
+        vecs, sums, tpart = t["vecs", m], t["sums", m], t["tpart", m]
+        out[f"fused_tail local batched B={B} ring f32 m={m}"] = (
+            lambda m=m, S=S, Y=Y, vecs=vecs, sums=sums, tpart=tpart:
+            lib.tl_fused_tail_local_batched_f32(
+                body, 0, m, 0, x.data_ptr(), d.data_ptr(), g.data_ptr(),
+                alpha.data_ptr(), S.data_ptr(), Y.data_ptr(),
+                *(v.data_ptr() for v in vecs), tpart.data_ptr(),
+                sums.data_ptr(), B, N, *where, t["edges"].data_ptr(),
+                stream),
+            tuple(vecs), (sums,))
+    for kernel in ("multi_phi", "multi_phi_dphi"):
+        e = t["e_phi"] if kernel == "multi_phi" else t["edges"]
+        fn = getattr(lib, f"tl_{kernel}_local_batched_f32")
+        for k in (8, 36):
+            alphas, res = t["alphas", k], t["res", kernel, k]
+            kpart = t["kpart", kernel, k]
+            out[f"{kernel} local batched B={B} K={k}"] = (
+                lambda fn=fn, alphas=alphas, res=res, kpart=kpart, k=k, e=e:
+                fn(body, x.data_ptr(), d.data_ptr(), alphas.data_ptr(), k,
+                   kpart.data_ptr(), res.data_ptr(), B, N, *where,
+                   e.data_ptr(), stream),
                 (), (res,))
     return out
 
@@ -469,18 +564,23 @@ def _ab_call(label, pcall, ccall, moving, card) -> bool:
     """One label of both trees in turns: prints whether their outputs are
     equal and their times; True where an output differs that may not."""
     (pf, pvec, psum), (cf, cvec, csum) = pcall, ccall
-    errs = (pf(), cf())
+    err = pf()
+    torch.cuda.synchronize()
+    # The parent's outputs, kept: the trees may share their buffers.
+    pvec, psum = ([v.clone() for v in vs] for vs in (pvec, psum))
+    errs = (err, cf())
     if any(errs):
         print(f"{label}: a launch failed {errs}")
         return True
     torch.cuda.synchronize()
     vec_same = all(_same(a, b) for a, b in zip(pvec, cvec))
     sum_same = all(_same(a, b) for a, b in zip(psum, csum))
-    t = [_time(f) for f in (pf, cf, cf, pf)]
-    tp, tc = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
     sums = ("sums bit-equal" if sum_same else
             f"sums differ by {max(map(_sum_rel, csum, psum)):.2e} "
             "relative" + ("" if moving else " (MAY NOT)"))
+    # Timed after the comparison: the calls overwrite shared buffers.
+    t = [_time(f) for f in (pf, cf, cf, pf)]
+    tp, tc = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
     print(f"{label}: vectors {'bit-equal' if vec_same else 'DIFFER'}, "
           f"{sums}; parent {tp:.2f} us ({t[0]:.2f}, {t[3]:.2f}), change "
           f"{tc:.2f} us ({t[1]:.2f}, {t[2]:.2f}), change/parent "
@@ -528,8 +628,12 @@ def main(argv) -> int:
 
     may_move = re.compile(args.sums_may_move) if args.sums_may_move else None
     bad = 0
-    groups = [(name, _calls(parent, body), _calls(change, body))
-              for body, name in enumerate(BODIES)]
+    nb = max(parent.tl_max_blocks(), change.tl_max_blocks())
+    groups = []
+    for body, name in enumerate(BODIES):
+        shared = _local_batched_tensors(body, nb)
+        groups.append((name, _calls(parent, body, shared),
+                       _calls(change, body, shared)))
     groups.append(("general", _general_calls(parent), _general_calls(change)))
     for name, pcalls, ccalls in groups:
         for label in pcalls:

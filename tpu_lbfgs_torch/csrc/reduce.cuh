@@ -10,7 +10,8 @@
 // Stage 2 may be launched behind stage 1 by programmatic dependent launch
 // (launch_after): stage 1 calls allow_dependents() as it starts, so the
 // stage-2 grid is put on the card while stage 1 runs, and stage 2
-// (finish_sums_lanes, finish_sums_compensated, finish_rows) waits in
+// (finish_sums_lanes, finish_sums_compensated, finish_rows,
+// finish_rows_warps) waits in
 // wait_for_prerequisites() until stage 1 has finished and its partials are
 // visible.
 //
@@ -21,7 +22,8 @@
 // (walk), so no tile straddles two lanes and a lane's chain neighbours stay
 // inside its own row.  A block's partial of sum k still lands at
 // partials[k * gridDim.x + blockIdx.x], which is row k * B + lane of parts
-// partials; stage 2 (finish_rows) adds each row in block order.
+// partials; stage 2 (finish_rows, or finish_rows_warps where a lane has
+// many parts: launch_finish_rows_by_parts) adds each row in a fixed order.
 #pragma once
 
 #include <cstdint>
@@ -356,6 +358,52 @@ inline void launch_finish_rows(const double* partials, const double* comps,
   const int64_t blocks = (rows + kThreads - 1) / kThreads;
   launch_after(finish_rows<T>, static_cast<int>(blocks), kThreads, s,
                partials, comps, parts, rows, compensated, out);
+}
+
+// Stage 2 of a batched launch whose lanes have many parts (a few lanes of
+// a long block, as the batched K-trial kernel runs at sharded_vmap_minimize's
+// shapes: 66 parts a lane at 4 lanes), one warp per row r < rows, kThreads
+// / 32 rows a block: lane l adds the row's partials l, l + 32, ... in block
+// order, and a fixed shuffle tree adds the 32 lanes' sums (warp_sum);
+// out[r] is rounded once to T.  The dependent chain is parts / 32 loads
+// and adds and five shuffles, where finish_rows walks the whole row on one
+// thread.  The order depends on parts alone.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    finish_rows_warps(const double* __restrict__ partials, int parts,
+                      int64_t rows, T* __restrict__ out) {
+  wait_for_prerequisites();
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * (kThreads / kLanes) +
+                    (threadIdx.x / kLanes);
+  const int lane = threadIdx.x % kLanes;
+  if (r >= rows) return;  // the whole warp
+  const double* __restrict__ row = partials + r * parts;
+  double a = 0.0;
+  for (int b = lane; b < parts; b += kLanes) a += row[b];
+  a = warp_sum(a);
+  if (lane == 0) out[r] = static_cast<T>(a);
+}
+
+// Launches stage 2 of an uncompensated batched launch for `rows` rows of
+// `parts` partials behind the stage-1 kernel on s (launch_after):
+// finish_rows_warps where a lane has at least kLanes parts, so that each
+// lane of a warp adds one or more, and finish_rows below that (at one part
+// a lane, as at bench.py's batch cell, both give the partial itself).  The
+// batched multi_phi takes stage 2 here; multi_phi_dphi, fused_vg and the
+// tails keep finish_rows at every parts, as the order of their sums, and so
+// their bits, stay those of their first batched design.
+template <typename T>
+inline void launch_finish_rows_by_parts(const double* partials, int parts,
+                                        int64_t rows, T* out,
+                                        cudaStream_t s) {
+  if (parts < kLanes) {
+    launch_finish_rows<T>(partials, nullptr, parts, rows, false, out, s);
+    return;
+  }
+  constexpr int64_t per_block = kThreads / kLanes;
+  const int64_t blocks = (rows + per_block - 1) / per_block;
+  launch_after(finish_rows_warps<T>, static_cast<int>(blocks), kThreads, s,
+               partials, parts, rows, out);
 }
 
 }  // namespace
