@@ -4336,7 +4336,8 @@ def phase_dist(dev, card):
 # shards emulated by start and edges, at DB_KERNEL_SHAPES (lanes, global d)
 # in DB_SHARDS shards: DB_LANES lanes of 2^21, of DB_RAGGED (d_local = 2^20
 # + 10, shard 1 ending in padding) and the batch cell cut in two (4096 lanes
-# of d_local = 512).  Each against its batched plain version (vectors bit
+# of d_local = 512), the K-trial kernels at TRIALS and DB_PARTIAL_TRIALS
+# (rows partly empty).  Each against its batched plain version (vectors bit
 # for bit, float64 sums within TRIAL_SUM_RTOL of the lane's sum|terms|),
 # every lane against the one-instance shard-local kernel on that lane alone
 # (the same rule), and lane 0 bit for bit, sums included, when every other
@@ -4359,17 +4360,21 @@ DB_RAGGED = 2 * (D + 10) - 3
 DB_ITERS = 40
 DB_KERNEL_SHAPES = ((DB_LANES, DB_D), (DB_LANES, DB_RAGGED),
                     (BATCH, 2 * 512))
+# The batched K-trial kernels take 8 trials a row up to K = 8 and 18
+# above: besides TRIALS (full rows) the kernel check draws K that leave a
+# row partly empty on each side of that split and one that takes two rows.
+DB_PARTIAL_TRIALS = (1, 5, 9, 19)
 # The fused tail's forms checked: (ring dtype, products, compensated).
 # The main path's form comes first.
 DB_TAIL_FORMS = (("float32", False, False), ("float32", True, False),
                  ("bfloat16", True, False), ("float32", False, True))
 
 
-def _db_inputs(lanes, n, dev, seed):
+def _db_inputs(lanes, n, dev, seed, trials=TRIALS):
     """(lanes, n) rows of x ~ U(-2, 2), d, g ~ U(-1, 1) and two (lanes,
     SHARD_M, n) rings zero-padded to a multiple of DB_SHARDS, as the solver
-    pads them; one step per lane and K per lane, 2^U(-6, 2); made on the
-    card."""
+    pads them; one step per lane and K per lane for each K of ``trials``,
+    2^U(-6, 2); made on the card."""
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def uni(lo, hi, shape):
@@ -4382,7 +4387,7 @@ def _db_inputs(lanes, n, dev, seed):
     S, Y = (torch.nn.functional.pad(uni(-1.0, 1.0, (lanes, SHARD_M, n)),
                                     (0, pad)) for _ in range(2))
     alpha = torch.exp2(uni(-6.0, 2.0, (lanes,)))
-    alphas = {k: torch.exp2(uni(-6.0, 2.0, (lanes, k))) for k in TRIALS}
+    alphas = {k: torch.exp2(uni(-6.0, 2.0, (lanes, k))) for k in trials}
     return x, d, g, S, Y, alpha, alphas
 
 
@@ -4521,7 +4526,8 @@ def phase_dist_batch_kernels(dev):
     worst = {}      # largest |kernel - plain| per (problem, family)
     for problem, (lanes, n) in itertools.product(ops.BODY_IDS,
                                                  DB_KERNEL_SHAPES):
-        x, d, g, S, Y, alpha, alphas = _db_inputs(lanes, n, dev, SEED + n)
+        x, d, g, S, Y, alpha, alphas = _db_inputs(
+            lanes, n, dev, SEED + n, TRIALS + DB_PARTIAL_TRIALS)
         d_local = x.shape[-1] // DB_SHARDS
         for r in range(DB_SHARDS):
             start = r * d_local
@@ -4622,7 +4628,7 @@ def phase_dist_batch_kernels(dev):
                      8 * elems + 16 * lanes + per_k * k * lanes)
                  for family, kernel, per_k in (
                      ("multi_phi", "multi_phi_batched", 12),
-                     ("multi_phi_dphi", "multi_phi_dphi", 20))
+                     ("multi_phi_dphi", "multi_phi_dphi_batched", 20))
                  for k in TRIALS}
         calls = _db_families(problem, xl, dl, gl, Sl, Yl, alpha, alphas,
                              DB_D, d_local, e4)

@@ -84,6 +84,53 @@ def test_multi_phi_dphi_quadratic_k36():
     assert got["old"][0] == pytest.approx(150_994_944 * 9 / 67e9, rel=1e-12)
 
 
+def test_multi_phi_dphi_batched_rosenbrock_k8():
+    # The batched kernel (multi_phi_dphi_batched_kernel), runs of 8.
+    # 4 * 2^20 elements * 8 trials = 33,554,432 terms.
+    # Issue: 21.75 instructions a term (67 FMUL + 67 FADD + 16 F2F + 8 DMUL
+    # + 16 DADD for one trial of a run of 8, over 8; 10 trial points, the
+    # body's 8 terms and gradients, their conversions, products and adds),
+    # 128 a clock an SM:
+    #   33,554,432 * 21.75 / 128 = 5,701,632 SM-clocks = 0.021815 ms.
+    # Float64 pipe: two conversions (2/16) and, overlapped, a multiply and
+    # two adds (3/64) a term: 33,554,432 / 8 = 4,194,304 SM-clocks =
+    # 0.016048 ms.
+    # Bytes: x and d (8 a element), edges (16 a lane) and, per trial and
+    # lane, an alpha and two float64 sums (20): 33,554,432 + 64 + 640 =
+    # 33,555,136 = 0.010016 ms.
+    # Old: 28 operations a term at 67e12 = 0.014023 ms, over the bytes.
+    n_bytes = 8 * ELEMS + 16 * LANES + 20 * 8 * LANES
+    got = tb.trial_bound("multi_phi_dphi_batched", "rosenbrock", ELEMS, 8,
+                         n_bytes)
+    assert got["issue"] == pytest.approx(5_701_632 / SM_CLOCKS_PER_MS,
+                                         rel=1e-12)
+    assert got["f64"] == pytest.approx(4_194_304 / SM_CLOCKS_PER_MS,
+                                       rel=1e-12)
+    assert got["bytes"] == pytest.approx(33_555_136 / 3.35e9, rel=1e-12)
+    assert got["corrected"] == (got["issue"], "issue")
+    assert got["corrected"][0] == pytest.approx(0.021815, abs=5e-7)
+    assert got["old"] == (pytest.approx(33_554_432 * 28 / 67e9, rel=1e-12),
+                          "operations")
+
+
+def test_multi_phi_dphi_batched_wide_rows_take_runs_of_4():
+    # Above K = 8 the batched kernel's 18-wide rows run a chain body in
+    # runs of 4, whose counts are multi_phi_dphi_kernel's; the quadratic
+    # keeps its runs of 8 (the same count either way).
+    for body in tb.BODIES:
+        want = tb.trial_bound("multi_phi_dphi", body, ELEMS, 36, 8 * ELEMS)
+        got = tb.trial_bound("multi_phi_dphi_batched", body, ELEMS, 36,
+                             8 * ELEMS)
+        assert got == want
+    # Rosenbrock at K = 36: 150,994,944 terms * 22.5 / 128 = 26,542,080
+    # SM-clocks = 0.101554 ms.
+    got = tb.trial_bound("multi_phi_dphi_batched", "rosenbrock", ELEMS, 36,
+                         8 * ELEMS)
+    assert got["issue"] == pytest.approx(26_542_080 / SM_CLOCKS_PER_MS,
+                                         rel=1e-12)
+    assert got["corrected"][0] == pytest.approx(0.101554, abs=5e-7)
+
+
 @pytest.mark.parametrize("kernel", tb.KERNELS)
 @pytest.mark.parametrize("body", tb.BODIES)
 def test_corrected_bound_is_the_largest_limit(kernel, body):

@@ -17,6 +17,7 @@ of the problem-specific kernels, the tail's products at any history depth,
 """
 import json
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -173,6 +174,101 @@ def test_local_multi_phi_plain_matches_pallas(problem, n, r):
     assert f.dtype == dphi.dtype == torch.float64
     _close(f, f_ref, "phi partials of phi_dphi")
     _close(dphi, dphi_ref, "dphi partials")
+
+
+# The batched shard-local K-trial plain version (the one the batched CUDA
+# kernel is held to on the card) on LANES_B lanes, each with its own
+# alphas, at K that fill a row of the kernel's (8 or 18 trials), leave one
+# partly empty, or take two rows.
+LANES_B = 3
+BATCH_K = [1, 8, 9, 19, 36]
+# A d_local that is not a multiple of 4 (the kernel's element path) and a
+# global n that ends shard 3 in two elements of padding.
+RAGGED_LOCAL = D_LOCAL - 1
+RAGGED_N = SHARDS * RAGGED_LOCAL - 2
+
+
+# The interpreted Pallas kernel under jit, n and start traced, so that one
+# compilation per problem, K and block length serves every shard and lane.
+_pallas_phi_dphi = jax.jit(
+    lambda problem, x, d, a, n, start, edges, br: _multi_phi_dphi_pallas(
+        problem, x, d, a, n=n, start=start, edges=edges, br=br),
+    static_argnums=(0, 7))
+
+
+def _lanes(n, d_local, k, seed):
+    """LANES_B lanes of x ~ U(-2, 2), d ~ U(-1, 1), float32, zero beyond
+    n in a vector of SHARDS * d_local, and (LANES_B, K) alphas in
+    [0.01, 1.7]."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-2, 2, (LANES_B, SHARDS * d_local)).astype(np.float32)
+    d = rng.uniform(-1, 1, (LANES_B, SHARDS * d_local)).astype(np.float32)
+    x[:, n:] = d[:, n:] = 0.0
+    alphas = rng.uniform(0.01, 1.7, (LANES_B, k)).astype(np.float32)
+    return x, d, alphas
+
+
+def _batched_phi_dphi(problem, x, d, alphas, n, r, d_local):
+    """The batched plain version on shard r of every lane: (K, B) f and
+    dphi partials, and the (B, 4) edges it was given."""
+    e4 = np.stack([_edges(x[j], d[j], r, d_local) for j in range(LANES_B)])
+    f, dphi = line_search_ops.multi_phi_dphi_local_plain(
+        problem, torch.from_numpy(_local(x, r, d_local)),
+        torch.from_numpy(_local(d, r, d_local)), torch.from_numpy(alphas), n,
+        r * d_local, torch.from_numpy(e4))
+    assert f.dtype == dphi.dtype == torch.float64
+    assert f.shape == dphi.shape == (LANES_B, alphas.shape[1])
+    return f, dphi, e4
+
+
+@pytest.mark.parametrize("r", [0, 1, SHARDS - 1])
+@pytest.mark.parametrize("k", BATCH_K)
+@pytest.mark.parametrize("problem", BODIES)
+def test_batched_local_multi_phi_dphi_plain_matches_pallas(problem, k, r):
+    """Each lane of the batch against the interpreted Pallas kernel on that
+    lane's shard alone, in the first, a middle and the last shard."""
+    x, d, alphas = _lanes(D_PAD, D_LOCAL, k, seed=40 + k)
+    f, dphi, e4 = _batched_phi_dphi(problem, x, d, alphas, D_PAD, r, D_LOCAL)
+    for j in range(LANES_B):
+        f_ref, dphi_ref = _pallas_phi_dphi(
+            problem, _local(x[j], r), _local(d[j], r), alphas[j], D_PAD,
+            r * D_LOCAL, e4[j], BR)
+        _close(f[j], f_ref, f"lane {j} phi partials")
+        _close(dphi[j], dphi_ref, f"lane {j} dphi partials")
+
+
+@pytest.mark.parametrize("k", BATCH_K)
+@pytest.mark.parametrize("problem", BODIES)
+def test_batched_local_multi_phi_dphi_plain_ragged(problem, k):
+    """A d_local of 1023.  The Pallas kernel takes whole (8, 128) tiles, so
+    it sees a shard of 1023 only where the rest of its tile owns nothing:
+    the last shard, zero-padded to 1024, whose global indices from 1023 on
+    are past n.  The first and middle shards are held to it through the
+    whole vector: each lane's partials over the four shards added against
+    the reference's own sharded sum at the same n, its kernel on four
+    blocks of 1024 of the vector padded as the reference pads it."""
+    x, d, alphas = _lanes(RAGGED_N, RAGGED_LOCAL, k, seed=60 + k)
+    parts = [_batched_phi_dphi(problem, x, d, alphas, RAGGED_N, r,
+                               RAGGED_LOCAL) for r in range(SHARDS)]
+    f_last, dphi_last, e4 = parts[-1]
+    start = (SHARDS - 1) * RAGGED_LOCAL
+    pad = ((0, 0), (0, D_LOCAL - RAGGED_LOCAL))
+    x_last, d_last = (np.pad(_local(a, SHARDS - 1, RAGGED_LOCAL), pad)
+                      for a in (x, d))
+    whole = ((0, 0), (0, D_PAD - SHARDS * RAGGED_LOCAL))
+    x_all, d_all = np.pad(x, whole), np.pad(d, whole)
+    for j in range(LANES_B):
+        f_ref, dphi_ref = _pallas_phi_dphi(
+            problem, x_last[j], d_last[j], alphas[j], RAGGED_N, start, e4[j],
+            BR)
+        _close(f_last[j], f_ref, f"lane {j} last shard phi partials")
+        _close(dphi_last[j], dphi_ref, f"lane {j} last shard dphi partials")
+        f_ref, dphi_ref = (sum(p) for p in zip(*(_pallas_phi_dphi(
+            problem, _local(x_all[j], r), _local(d_all[j], r), alphas[j],
+            RAGGED_N, r * D_LOCAL, _edges(x_all[j], d_all[j], r), BR)
+            for r in range(SHARDS))))
+        _close(sum(p[0][j] for p in parts), f_ref, f"lane {j} phi")
+        _close(sum(p[1][j] for p in parts), dphi_ref, f"lane {j} dphi")
 
 
 # --- (b) the shards joined against the whole-vector plain versions ----------

@@ -25,8 +25,9 @@ the middle of a d of 2^22):
   lanes of a block of 2^20 (``tl_fused_vg_local_batched_f32``,
   ``tl_fused_tail_local_batched_f32`` at m = 0 and 10,
   ``tl_multi_phi_local_batched_f32`` and
-  ``tl_multi_phi_dphi_local_batched_f32`` at K = 8 and 36), each lane with
-  its own edges, alphas and step, the two trees on the same buffers;
+  ``tl_multi_phi_dphi_local_batched_f32`` at K = 8 and 36, these two also
+  on the last block of 4, whose last element ends the vector), each lane
+  with its own edges, alphas and step, the two trees on the same buffers;
 
 each for the three bodies; ``tl_iteration_tail_f32`` and
 ``tl_iteration_tail_f64``, plain and compensated;
@@ -273,9 +274,9 @@ def _local_batched_tensors(body: int, nb: int) -> dict:
 def _local_batched_calls(lib, body: int, stream, t: dict):
     """{label: (callable, output vectors, output sums)} of the batched
     shard-local entries (tl_*_local_batched_f32) at sharded_vmap_minimize's
-    shape: LOCAL_LANES lanes of block 1 of 4 of a d of 2^22, each lane with
-    its own edges, alphas and steps, on the tensors ``t``
-    (_local_batched_tensors)."""
+    shape: LOCAL_LANES lanes of block 1 of 4 of a d of 2^22 (the K-trial
+    forms also of block 3), each lane with its own edges, alphas and steps,
+    on the tensors ``t`` (_local_batched_tensors)."""
     B = LOCAL_LANES
     where = (SHARDS * N, N)
     x, d, g, alpha = t["x"], t["d"], t["g"], t["alpha"]
@@ -298,16 +299,20 @@ def _local_batched_calls(lib, body: int, stream, t: dict):
                 sums.data_ptr(), B, N, *where, t["edges"].data_ptr(),
                 stream),
             tuple(vecs), (sums,))
+    # The K-trial forms also on the last block of 4, whose last element
+    # ends the vector.
     for kernel in ("multi_phi", "multi_phi_dphi"):
         e = t["e_phi"] if kernel == "multi_phi" else t["edges"]
         fn = getattr(lib, f"tl_{kernel}_local_batched_f32")
-        for k in (8, 36):
+        for k, (shard, start) in itertools.product(
+                (8, 36), (("", N), (" last shard", (SHARDS - 1) * N))):
             alphas, res = t["alphas", k], t["res", kernel, k]
             kpart = t["kpart", kernel, k]
-            out[f"{kernel} local batched B={B} K={k}"] = (
-                lambda fn=fn, alphas=alphas, res=res, kpart=kpart, k=k, e=e:
+            out[f"{kernel} local batched B={B} K={k}{shard}"] = (
+                lambda fn=fn, alphas=alphas, res=res, kpart=kpart, k=k, e=e,
+                start=start:
                 fn(body, x.data_ptr(), d.data_ptr(), alphas.data_ptr(), k,
-                   kpart.data_ptr(), res.data_ptr(), B, N, *where,
+                   kpart.data_ptr(), res.data_ptr(), B, N, SHARDS * N, start,
                    e.data_ptr(), stream),
                 (), (res,))
     return out

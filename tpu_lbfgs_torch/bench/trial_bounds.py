@@ -38,7 +38,8 @@ trial points, the body, the float64 adds) at the float32 peak of
 """
 from __future__ import annotations
 
-KERNELS = ("multi_phi", "multi_phi_batched", "multi_phi_dphi")
+KERNELS = ("multi_phi", "multi_phi_batched", "multi_phi_dphi",
+           "multi_phi_dphi_batched")
 BODIES = ("quadratic", "rosenbrock", "coupled_quadratic")
 
 # NVIDIA H100 SXM: SMs, the maximum SM clock (nvidia-smi
@@ -62,9 +63,14 @@ F32_OPS_PER_S = 67e12
 #   form, runs of 8 (9 trial points for 8 terms where the body has a
 #   forward neighbour): 16 FMUL + 16 FADD, 41 + 33, 41 + 17, each with 8
 #   F2F.F64.F32 and 8 DADD;
-# - "multi_phi_dphi": multi_phi_dphi_kernel, every form (the batched one
-#   too), runs of 4: 8 FMUL + 12 FADD, 35 + 35, 32 + 18, each with 8
-#   F2F.F64.F32, 4 DMUL and 8 DADD.
+# - "multi_phi_dphi": multi_phi_dphi_kernel, the one-instance,
+#   whole-vector and shard-local forms, runs of 4: 8 FMUL + 12 FADD,
+#   35 + 35, 32 + 18, each with 8 F2F.F64.F32, 4 DMUL and 8 DADD;
+# - "multi_phi_dphi_batched": multi_phi_dphi_batched_kernel, the batched
+#   shard-local form, runs of 8 (10 trial points for 8 terms where the body
+#   has neighbours): 16 FMUL + 24 FADD, 67 + 67, 60 + 34, each with 16
+#   F2F.F64.F32, 8 DMUL and 16 DADD.  Above K = 8 its 18-wide rows take
+#   runs of 4 for a chain body (WIDE).
 SASS = {
     ("multi_phi", "quadratic"): (6.0, 1, 1),
     ("multi_phi", "rosenbrock"): (11.5, 1, 1),
@@ -75,6 +81,18 @@ SASS = {
     ("multi_phi_dphi", "quadratic"): (10.0, 2, 3),
     ("multi_phi_dphi", "rosenbrock"): (22.5, 2, 3),
     ("multi_phi_dphi", "coupled_quadratic"): (17.5, 2, 3),
+    ("multi_phi_dphi_batched", "quadratic"): (10.0, 2, 3),
+    ("multi_phi_dphi_batched", "rosenbrock"): (21.75, 2, 3),
+    ("multi_phi_dphi_batched", "coupled_quadratic"): (16.75, 2, 3),
+}
+
+# The kernel functions whose rows above K = 8 run other code, by body:
+# multi_phi_dphi_batched_kernel's 18-wide rows in runs of 4 for a chain
+# body, 35 FMUL + 35 FADD (Rosenbrock), 32 + 18 (coupled), each with 8
+# F2F.F64.F32, 4 DMUL and 8 DADD, as multi_phi_dphi_kernel's.
+WIDE = {
+    ("multi_phi_dphi_batched", "rosenbrock"): (22.5, 2, 3),
+    ("multi_phi_dphi_batched", "coupled_quadratic"): (17.5, 2, 3),
 }
 
 # The old model's operations per element and trial.
@@ -87,12 +105,14 @@ OLD_OPS = {
 
 def trial_bound(kernel: str, body: str, elems: int, k: int,
                 n_bytes: int) -> dict:
-    """The bounds of one call of ``kernel`` (a key of ``SASS``) with
-    ``body`` over ``elems`` elements (all lanes together) at ``k`` trials,
-    moving ``n_bytes``, in milliseconds: ``bytes``, ``issue``, ``f64`` (the
-    float64 pipe), ``corrected`` = (the largest, its name), and ``old`` =
-    (the old model's bound, "bytes" or "operations")."""
-    insns, cvts, f64 = SASS[kernel, body]
+    """The bounds of one call of ``kernel`` (a key of ``SASS``; of ``WIDE``
+    too above K = 8) with ``body`` over ``elems`` elements (all lanes
+    together) at ``k`` trials, moving ``n_bytes``, in milliseconds:
+    ``bytes``, ``issue``, ``f64`` (the float64 pipe), ``corrected`` = (the
+    largest, its name), and ``old`` = (the old model's bound, "bytes" or
+    "operations")."""
+    insns, cvts, f64 = (WIDE[kernel, body] if k > 8 and (kernel, body) in WIDE
+                        else SASS[kernel, body])
     terms = elems * k
     per_clock = SMS * CLOCK_HZ
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3

@@ -361,13 +361,13 @@ inline void launch_finish_rows(const double* partials, const double* comps,
 }
 
 // Stage 2 of a batched launch whose lanes have many parts (a few lanes of
-// a long block, as the batched K-trial kernel runs at sharded_vmap_minimize's
-// shapes: 66 parts a lane at 4 lanes), one warp per row r < rows, kThreads
-// / 32 rows a block: lane l adds the row's partials l, l + 32, ... in block
-// order, and a fixed shuffle tree adds the 32 lanes' sums (warp_sum);
-// out[r] is rounded once to T.  The dependent chain is parts / 32 loads
-// and adds and five shuffles, where finish_rows walks the whole row on one
-// thread.  The order depends on parts alone.
+// a long block, as the batched K-trial kernels run at
+// sharded_vmap_minimize's shapes: 66 parts a lane at 4 lanes), one warp
+// per row r < rows, kThreads / 32 rows a block: lane l adds the row's
+// partials l, l + 32, ... in block order, and a fixed shuffle tree adds the
+// 32 lanes' sums (warp_sum); out[r] is rounded once to T.  The dependent
+// chain is parts / 32 loads and adds and five shuffles, where finish_rows
+// walks the whole row on one thread.  The order depends on parts alone.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     finish_rows_warps(const double* __restrict__ partials, int parts,
@@ -389,9 +389,10 @@ __global__ void __launch_bounds__(kThreads)
 // finish_rows_warps where a lane has at least kLanes parts, so that each
 // lane of a warp adds one or more, and finish_rows below that (at one part
 // a lane, as at bench.py's batch cell, both give the partial itself).  The
-// batched multi_phi takes stage 2 here; multi_phi_dphi, fused_vg and the
-// tails keep finish_rows at every parts, as the order of their sums, and so
-// their bits, stay those of their first batched design.
+// batched K-trial kernels (multi_phi_batched_kernel,
+// multi_phi_dphi_batched_kernel) take stage 2 here; fused_vg and the tails
+// keep finish_rows at every parts, as the order of their sums, and so their
+// bits, stay those of their first batched design.
 template <typename T>
 inline void launch_finish_rows_by_parts(const double* partials, int parts,
                                         int64_t rows, T* out,
