@@ -5247,8 +5247,44 @@ def _own_cfg(tt, tol=0.0):
                           max_iters=OWN_ITERS, tol=tol, record_trace=True)
 
 
+def _backend_threads():
+    """The names of this process's threads that belong to a process
+    group's backend or store (Linux names them; elsewhere None)."""
+    if not os.path.isdir("/proc/self/task"):
+        return None
+    names = []
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/comm") as fh:
+                names.append(fh.read().strip())
+        except OSError:
+            pass
+    return sorted(n for n in names if "gloo" in n or "tcpstore" in n)
+
+
 def _own_ckpt_rank(rank, size, ck_dir):
-    """One rank of the [dist-own] / [checkpoint-sharded] job."""
+    """One rank of the [dist-own] / [checkpoint-sharded] job, then the
+    job's ``dist.shutdown()`` and what it leaves alive: the groups the job
+    made and the threads of their backend."""
+    import gc
+
+    from tpu_lbfgs_torch import dist
+
+    groups = []
+    out = _own_ckpt_work(rank, size, ck_dir, groups)
+    dist.shutdown()
+    gc.collect()
+    out["after_shutdown"] = {
+        "groups_alive": sum(g() is not None for g in groups),
+        "backend_threads": _backend_threads()}
+    return out
+
+
+def _own_ckpt_work(rank, size, ck_dir, groups):
+    """The [dist-own] / [checkpoint-sharded] work of one rank; a weak
+    reference to each group it uses goes into ``groups``."""
+    import weakref
+
     import torch.distributed as torch_dist
     from torch.distributed.tensor.debug import CommDebugMode
 
@@ -5265,6 +5301,7 @@ def _own_ckpt_rank(rank, size, ck_dir):
 
     dev = torch.device("cuda", 0)
     mesh = dist.make_mesh()
+    groups.append(weakref.ref(torch_dist.group.WORLD))
     out = {"own": {}}
 
     def trace(res):
@@ -5328,6 +5365,8 @@ def _own_ckpt_rank(rank, size, ck_dir):
     differ4 = bool(mesh.comm.any_flag(torch.tensor(not same, device=dev)))
     whole = gather_result(uncut, mesh, n).x
     pair = torch_dist.new_group([0, 1])
+    if isinstance(pair, torch_dist.ProcessGroup):
+        groups.append(weakref.ref(pair))
     on2 = None
     if rank < 2:
         mesh2 = dist.make_mesh(pair)
@@ -5364,6 +5403,14 @@ def phase_dist_own_and_ckpt(dev, card, tmp):
     say(f"[dist-own] {DIST_RANKS} ranks on {card} (gloo, all on cuda:0), "
         f"the job with [checkpoint-sharded] in "
         f"{time.perf_counter() - t0:.1f} s with start-up")
+    left = [r["after_shutdown"] for r in ranks]
+    say(f"[dist-own] after dist.shutdown(): groups alive by rank "
+        f"{[a['groups_alive'] for a in left]}, backend threads by rank "
+        f"{[a['backend_threads'] for a in left]}")
+    check(all(a["groups_alive"] == 0 and not a["backend_threads"]
+              for a in left),
+          "[dist-own] dist.shutdown() must end every group the job made, "
+          "with its backend's threads, after a caller's own objective")
     own = ranks[0]["own"]
     for r in ranks[1:]:
         for label in own:

@@ -458,11 +458,72 @@ def _one_rank_raises(rank, size):
     return rank
 
 
+class _AbortsWhenPickled:
+    """A return value whose pickling aborts the process (without a core
+    file): a rank that ends by a signal after its ``fn`` returned."""
+
+    def __reduce__(self):
+        import resource
+
+        resource.setrlimit(resource.RLIMIT_CORE, (0, 0))
+        os.abort()
+
+
+def _aborts_after_fn(rank, size):
+    return _AbortsWhenPickled() if rank == 1 else rank
+
+
+def test_a_rank_that_aborts_is_named_with_its_signal_and_mark():
+    """A rank that dies by a signal writes no error of its own; the job
+    still fails, and its error names the rank, the signal and the last
+    point the rank marked."""
+    with pytest.raises(RuntimeError,
+                       match="rank 1 terminated with signal SIGABRT; its "
+                             "last mark: after fn"):
+        spawn_ranks(_aborts_after_fn, 2, timeout_s=20.0)
+
+
+def _job_sum(rank, size, tag):
+    t = torch.tensor([100.0 * tag + rank], dtype=torch.float64)
+    torch.distributed.all_reduce(t)
+    return t.item()
+
+
+def test_two_jobs_at_once_keep_their_own_groups():
+    """Two jobs spawned at the same time on one host each join their own
+    ranks: each sums its own tags."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(spawn_ranks, _job_sum, 2, tag, backend="gloo",
+                            timeout_s=60.0) for tag in (1, 2)]
+        assert [job.result() for job in jobs] == [[201.0] * 2, [401.0] * 2]
+
+
+def test_a_port_taken_by_another_job_does_not_matter(monkeypatch):
+    """The job's ranks rendezvous in its own directory: a port that
+    another process holds, even the one ``free_port`` would hand out,
+    leaves the job unharmed."""
+    import socket
+
+    from tpu_lbfgs_torch.dist import launch
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as held:
+        held.bind(("localhost", 0))
+        held.listen()
+        monkeypatch.setattr(launch, "free_port",
+                            lambda: held.getsockname()[1])
+        assert spawn_ranks(_job_sum, 2, 1, backend="gloo",
+                           timeout_s=30.0) == [201.0, 201.0]
+
+
 def test_cli_shard_matches_the_reference_cli():
     """``torchrun --nproc-per-node=4 -m tpu_lbfgs_torch ... --shard`` against
     ``python -m tpu_lbfgs --shard`` (in process, on the 8-device mesh) and
     against the port's unsharded command line, in f64: status, iterations
-    and counters equal, f and ||g|| to 1e-10."""
+    and counters equal, f and ||g|| to 1e-10.  ``--standalone``: torchrun
+    binds its rendezvous port itself, so a job started at the same time
+    cannot take it first."""
     import contextlib
     import io
 
@@ -475,7 +536,7 @@ def test_cli_shard_matches_the_reference_cli():
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run",
-         f"--nproc-per-node={RANKS}", f"--master-port={free_port()}",
+         f"--nproc-per-node={RANKS}", "--standalone",
          "-m", "tpu_lbfgs_torch", "--device", "cpu", "--shard"] + argv,
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

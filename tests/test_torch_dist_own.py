@@ -136,7 +136,8 @@ def _rank(rank, size, cases):
     """Every case with the caller's objective; the named problem's solve
     beside the Rosenbrock cases; the collectives of one evaluation; one
     case again through the functional collectives as registered for the
-    card (``_c10d_api_collectives``, here on CPU tensors)."""
+    card (``_c10d_api_collectives``, here on CPU tensors); then the job's
+    shutdown and what it leaves alive."""
     from torch.distributed.tensor.debug import CommDebugMode
 
     from tpu_lbfgs_torch.dist.mesh import local_block, pad_for_mesh
@@ -166,9 +167,54 @@ def _rank(rank, size, cases):
         counts[name] = {str(k).split(".")[-1]: n
                         for k, n in comm.get_comm_counts().items()}
     out["counts"] = counts
+    registry = getattr(torch._C._distributed_c10d,
+                       "_get_work_registry_size", None)
+    out["pending_at_registration"] = registry() if registry else None
     _c10d_api_collectives("CPU")
     out["c10d_api"] = _solve(BY_NAME["rosenbrock-261"], meshes)
+    out["after_shutdown"] = _shutdown_and_look(meshes)
     return out
+
+
+def _backend_threads():
+    """The names of this process's threads that belong to a group's
+    backend or store (Linux names them; elsewhere None)."""
+    import os
+
+    if not os.path.isdir("/proc/self/task"):
+        return None
+    names = []
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/comm") as fh:
+                names.append(fh.read().strip())
+        except OSError:
+            pass
+    return sorted(n for n in names if "gloo" in n or "tcpstore" in n)
+
+
+def _shutdown_and_look(meshes):
+    """Leave the group as every spawned rank does (``dist.shutdown``),
+    the caller's meshes dropped first, and report what still holds on:
+    the groups the meshes used that are still alive, the backend's
+    threads, and the port's registrations of the functional
+    collectives."""
+    import gc
+    import weakref
+
+    import torch.distributed as dist
+
+    from tpu_lbfgs_torch.dist import partitioned
+
+    groups = [weakref.ref(dist.group.WORLD)] + [
+        weakref.ref(m.comm.group) for m in meshes.values()
+        if m.comm is not None and m.comm.group is not None]
+    meshes.clear()
+    tdist.shutdown()
+    gc.collect()
+    return {"groups_alive": sum(g() is not None for g in groups),
+            "backend_threads": _backend_threads(),
+            "registrations": sorted(partitioned._LIBS)}
 
 
 @pytest.fixture(scope="module")
@@ -296,6 +342,28 @@ def test_collectives_of_one_evaluation(ranks):
         assert set(rosen) == {"all_gather_into_tensor"}, rosen
         assert 1 <= rosen["all_gather_into_tensor"] <= 4, rosen
         assert huber == {"all_reduce": 1}, huber
+
+
+def test_no_collective_is_pending_when_the_api_collectives_register(ranks):
+    """``_c10d_api_collectives`` makes ``wait_tensor`` the identity: a
+    native collective still in flight then would never be waited for.
+    None is (PyTorch's registry of unwaited collectives is empty)."""
+    for out in ranks:
+        assert out["pending_at_registration"] in (None, 0), out[
+            "pending_at_registration"]
+
+
+def test_shutdown_lets_go_of_the_groups(ranks):
+    """After a caller's own objective (DTensor over the port's meshes) and
+    the functional collectives registered for the card, ``dist.shutdown``
+    ends every group: none is still alive, no thread of the backend or of
+    the store runs on into interpreter exit, and the functional
+    collectives are PyTorch's own again."""
+    for out in ranks:
+        after = out["after_shutdown"]
+        assert after["groups_alive"] == 0, after
+        assert after["backend_threads"] in (None, []), after
+        assert after["registrations"] == [], after
 
 
 def test_c10d_api_collectives_give_the_same_solve(ranks):

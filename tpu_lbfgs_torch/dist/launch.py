@@ -4,19 +4,27 @@ values handed back.  The tests run their 4-rank CPU jobs through it, and
 ``chip_smoke.py`` its ranks on the card.
 
 The ranks are started with ``spawn`` (the parent may hold a CUDA context,
-which a fork would break) and joined to one group over
-``tcp://localhost:<a free port>``.  A rank that raises ends the job and
-the other ranks are terminated; a rank blocked in a collective after a
-peer died ends by the group's timeout.  Each rank that raises writes its
-error beside its result, with the time it raised, and the parent raises
-the error of the rank that raised first: the rank whose own code failed,
-not a peer whose collective broke when it went (whichever process exit
-the parent happens to see first).
+which a fork would break) and joined to one group through a ``FileStore``
+in the job's own temporary directory (``file://``): no port is chosen
+before a rank binds it, so jobs started at once on one host cannot take
+each other's rendezvous.  A rank that raises ends the job and the other
+ranks are terminated; a rank blocked in a collective after a peer died
+ends by the group's timeout.  Each rank that raises writes its error
+beside its result, with the time it raised, and the parent raises the
+error of the rank that raised first: the rank whose own code failed, not
+a peer whose collective broke when it went (whichever process exit the
+parent happens to see first).
+
+A rank also writes a marker of how far it got (``MARKS``: after
+``initialize``, after ``fn`` returned, after ``shutdown``), so that a rank
+that ends by a signal, where it can write no error, is named with the
+signal and the last point it reached.
 """
 from __future__ import annotations
 
 import os
 import pickle
+import signal
 import socket
 import tempfile
 import time
@@ -30,7 +38,26 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank: int, fn: Callable, size: int, port: int,
+#: The points a rank marks, in order.
+MARKS = ("after initialize", "after fn", "after shutdown")
+
+
+def _mark(out_dir: str, rank: int, where: str) -> None:
+    with open(os.path.join(out_dir, f"rank{rank}.at"), "w") as fh:
+        fh.write(where)
+
+
+def last_mark(out_dir: str, rank: int) -> str:
+    """The last of ``MARKS`` that ``rank`` wrote into ``out_dir``, or
+    "before initialize"."""
+    try:
+        with open(os.path.join(out_dir, f"rank{rank}.at")) as fh:
+            return fh.read()
+    except FileNotFoundError:
+        return "before initialize"
+
+
+def _rank_main(rank: int, fn: Callable, size: int, init: str,
                backend: Optional[str],
                timeout_s: float, threads: Optional[int], out_dir: str,
                args: tuple) -> None:
@@ -45,8 +72,8 @@ def _rank_main(rank: int, fn: Callable, size: int, port: int,
         # share (which nccl refuses: pass backend="gloo").
         torch.cuda.set_device(rank % torch.cuda.device_count())
     try:
-        initialize(f"localhost:{port}", size, rank, backend=backend,
-                   timeout_s=timeout_s)
+        initialize(init, size, rank, backend=backend, timeout_s=timeout_s)
+        _mark(out_dir, rank, MARKS[0])
         out = fn(rank, size, *args)
     except BaseException as e:
         err = {"rank": rank, "time": time.time(),
@@ -55,9 +82,11 @@ def _rank_main(rank: int, fn: Callable, size: int, port: int,
         with open(os.path.join(out_dir, f"rank{rank}.err"), "wb") as fh:
             pickle.dump(err, fh)
         raise
+    _mark(out_dir, rank, MARKS[1])
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
         pickle.dump(out, fh)
     shutdown()
+    _mark(out_dir, rank, MARKS[2])
 
 
 def first_error(out_dir: str) -> Optional[dict]:
@@ -71,6 +100,39 @@ def first_error(out_dir: str) -> Optional[dict]:
     return min(errs, key=lambda e: (e["time"], e["rank"])) if errs else None
 
 
+def _ending(exitcode: int) -> str:
+    if exitcode < 0:
+        try:
+            return f"terminated with signal {signal.Signals(-exitcode).name}"
+        except ValueError:
+            return f"terminated with signal {-exitcode}"
+    return f"exited with code {exitcode}"
+
+
+def _failure(processes: list, out_dir: str, error: Exception
+             ) -> Optional[str]:
+    """What ``spawn_ranks`` raises when a rank failed: each rank that
+    ended without an error of its own (by a signal, or ``os._exit``), with
+    its last mark, then the error of the rank that raised first; None
+    when neither is known.  The ranks that the parent terminated after the
+    first failure (SIGTERM) are left out."""
+    import torch.multiprocessing as mp
+
+    ended = [r for r, p in enumerate(processes)
+             if p.exitcode not in (0, -signal.SIGTERM)
+             and not os.path.exists(os.path.join(out_dir, f"rank{r}.err"))]
+    if (isinstance(error, mp.ProcessExitedException)
+            and error.error_index not in ended):
+        ended.insert(0, error.error_index)
+    lines = [f"rank {r} {_ending(processes[r].exitcode)}; its last mark: "
+             f"{last_mark(out_dir, r)}" for r in ended]
+    first = first_error(out_dir)
+    if first is not None:
+        lines.append(f"rank {first['rank']} failed first: {first['error']}\n"
+                     f"{first['traceback']}")
+    return "\n".join(lines) or None
+
+
 def spawn_ranks(fn: Callable, size: int, *args,
                 backend: Optional[str] = None, timeout_s: float = 120.0,
                 threads: Optional[int] = 1) -> list:
@@ -79,24 +141,26 @@ def spawn_ranks(fn: Callable, size: int, *args,
     a CUDA device is present, else gloo); returns the ranks' return values
     in rank order (they must pickle).  ``fn`` must be importable from the children (a
     module-level function).  ``threads`` caps each rank's intra-op threads
-    (None leaves PyTorch's default).  When a rank raises, a
-    ``RuntimeError`` names the rank that raised first and carries its
-    error and traceback (``first_error``)."""
+    (None leaves PyTorch's default).  When a rank fails, a
+    ``RuntimeError`` names each rank that ended by a signal or an exit
+    code with the last of ``MARKS`` it reached, and the rank that raised
+    first with its error and traceback (``first_error``)."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as out_dir:
+        init = "file://" + os.path.join(out_dir, "rendezvous")
+        ctx = mp.start_processes(
+            _rank_main, args=(fn, size, init, backend, timeout_s, threads,
+                              out_dir, args),
+            nprocs=size, join=False, start_method="spawn")
         try:
-            mp.spawn(_rank_main,
-                     args=(fn, size, free_port(), backend, timeout_s,
-                           threads, out_dir, args),
-                     nprocs=size, join=True)
+            while not ctx.join():
+                pass
         except Exception as e:
-            first = first_error(out_dir)
-            if first is None:
+            why = _failure(ctx.processes, out_dir, e)
+            if why is None:
                 raise
-            raise RuntimeError(
-                f"rank {first['rank']} failed first: {first['error']}\n"
-                f"{first['traceback']}") from e
+            raise RuntimeError(why) from e
         outs = []
         for rank in range(size):
             with open(os.path.join(out_dir, f"rank{rank}.pkl"), "rb") as fh:

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import sys
 from typing import Optional
 
 import torch
@@ -28,9 +29,11 @@ def initialize(coordinator_address: Optional[str] = None,
                timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
     """Join this process to the group; calling it again is a no-op.
 
-    With explicit arguments (``coordinator_address`` as "host:port") any
-    failure is real (wrong address, port clash, a count that never fills)
-    and propagates.  With none, the launcher's environment is used; on a
+    With explicit arguments (``coordinator_address`` as "host:port", or
+    as a ``torch.distributed`` init URL such as "file:///path", which
+    ``dist.launch.spawn_ranks`` gives the ranks of one host) any failure
+    is real (wrong address, port clash, a count that never fills) and
+    propagates.  With none, the launcher's environment is used; on a
     plain single process, where it is not set, nothing is initialized and
     ``dist.make_mesh()`` is a mesh of one shard.
 
@@ -52,17 +55,33 @@ def initialize(coordinator_address: Optional[str] = None,
             raise ValueError(
                 "initialize: give coordinator_address, num_processes and "
                 "process_id together, or none of them")
-        kwargs.update(init_method=f"tcp://{coordinator_address}",
+        url = (coordinator_address if "://" in coordinator_address
+               else f"tcp://{coordinator_address}")
+        kwargs.update(init_method=url,
                       world_size=num_processes, rank=process_id)
+    # torch.distributed.nn.functional binds the default group as its
+    # functions' default argument when it is imported, and DTensor's first
+    # use imports it (through torch._dynamo): imported after the group
+    # exists, it would keep the group alive past shutdown(), and its
+    # backend's threads running into interpreter exit.  Imported first, it
+    # binds None.
+    import torch.distributed.nn.functional as _  # noqa: F401
+
     dist.init_process_group(**kwargs)
 
 
 def shutdown() -> None:
     """Leave the group in step with the other ranks (a barrier, then the
     group is destroyed): a process that exits with the group still up can
-    abort in the backend's threads.  A no-op without a group."""
+    abort in the backend's threads.  What the port holds of the groups
+    (``partitioned.release``: the DeviceMeshes of a caller's own
+    objective) is let go first, so that destroying them ends them.  A
+    no-op without a group."""
     if dist.is_initialized():
         dist.barrier()
+        partitioned = sys.modules.get(__package__ + ".partitioned")
+        if partitioned is not None:
+            partitioned.release()
         dist.destroy_process_group()
 
 

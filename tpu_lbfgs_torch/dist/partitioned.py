@@ -34,7 +34,6 @@ backend has; the results are the same values.
 """
 from __future__ import annotations
 
-import functools
 from typing import Callable, Optional
 
 import torch
@@ -46,6 +45,8 @@ from .mesh import Mesh
 #: The registration that keeps ``_c10d_api_collectives`` alive, by
 #: dispatch key.
 _LIBS: dict = {}
+#: The DeviceMeshes of ``_device_mesh``, by (group, device type).
+_MESHES: dict = {}
 
 
 def _reduce(t: Tensor, op: str, group) -> Tensor:
@@ -103,18 +104,39 @@ def _c10d_api_collectives(key: str = "CUDA") -> None:
     _LIBS[key] = lib
 
 
-@functools.lru_cache(maxsize=None)
 def _device_mesh(group, device_type: str):
     """The 1-D DeviceMesh over an existing process group (None: the
-    default one); built from the port's own group, so a gloo group stays
-    gloo where ``init_device_mesh("cuda")`` would pick nccl, which refuses
-    several ranks on one card."""
-    from torch.distributed.device_mesh import DeviceMesh
+    default one), built once per group and device type; built from the
+    port's own group, so a gloo group stays gloo where
+    ``init_device_mesh("cuda")`` would pick nccl, which refuses several
+    ranks on one card."""
+    key = (group, device_type)
+    if key not in _MESHES:
+        from torch.distributed.device_mesh import DeviceMesh
 
-    group = group if group is not None else dist.group.WORLD
-    if device_type == "cuda":
-        _c10d_api_collectives("CUDA")
-    return DeviceMesh.from_group(group, device_type=device_type)
+        if device_type == "cuda":
+            _c10d_api_collectives("CUDA")
+        _MESHES[key] = DeviceMesh.from_group(
+            group if group is not None else dist.group.WORLD,
+            device_type=device_type)
+    return _MESHES[key]
+
+
+def release() -> None:
+    """Let go of every process group this module holds, before the groups
+    are destroyed (``multihost.shutdown`` calls it).  A DeviceMesh keeps
+    its groups (``_pg_registry``), and DTensor's own caches keep the meshes
+    of the specs they saw for as long as the process lives, so without
+    this ``destroy_process_group`` leaves the groups alive and their
+    backend's threads running into interpreter exit.  Also drops the
+    registrations of ``_c10d_api_collectives``, so that the functional
+    collectives are PyTorch's own again."""
+    for mesh in _MESHES.values():
+        getattr(mesh, "_pg_registry", {}).clear()
+    _MESHES.clear()
+    for lib in _LIBS.values():
+        lib._destroy()
+    _LIBS.clear()
 
 
 class Partitioner:
