@@ -157,7 +157,9 @@ After [checkpoint], six phases drive what the port added last:
   (f to 1e-10 over 40 iterations, alphas equal), and a pseudo-Huber
   objective outside the suite against its single-device solve; the
   collectives of one evaluation and the ms per iteration, which is a
-  correctness run's cost;
+  correctness run's cost; the functional collectives registered as
+  synchronous calls for CUDA alone, and no group, backend thread or
+  registration left after dist.shutdown();
 - [checkpoint-sharded], in the same job: the [dist] configuration on the
   kernel path in float32 saved at iteration 20 by save_state_sharded on
   the 4 ranks, loaded onto 4, 2 and 1 rank(s) and resumed to 40 by
@@ -5270,13 +5272,17 @@ def _own_ckpt_rank(rank, size, ck_dir):
 
     from tpu_lbfgs_torch import dist
 
+    from tpu_lbfgs_torch.dist import partitioned
+
     groups = []
     out = _own_ckpt_work(rank, size, ck_dir, groups)
+    out["registrations"] = sorted(partitioned._LIBS)
     dist.shutdown()
     gc.collect()
     out["after_shutdown"] = {
         "groups_alive": sum(g() is not None for g in groups),
-        "backend_threads": _backend_threads()}
+        "backend_threads": _backend_threads(),
+        "registrations": sorted(partitioned._LIBS)}
     return out
 
 
@@ -5404,13 +5410,20 @@ def phase_dist_own_and_ckpt(dev, card, tmp):
         f"the job with [checkpoint-sharded] in "
         f"{time.perf_counter() - t0:.1f} s with start-up")
     left = [r["after_shutdown"] for r in ranks]
-    say(f"[dist-own] after dist.shutdown(): groups alive by rank "
+    say(f"[dist-own] functional collectives registered as synchronous "
+        f"calls by rank {[r['registrations'] for r in ranks]}; after "
+        f"dist.shutdown(): groups alive by rank "
         f"{[a['groups_alive'] for a in left]}, backend threads by rank "
-        f"{[a['backend_threads'] for a in left]}")
+        f"{[a['backend_threads'] for a in left]}, registrations by rank "
+        f"{[a['registrations'] for a in left]}")
+    check(all(r["registrations"] == ["CUDA"] for r in ranks),
+          "[dist-own] a caller's own objective on CUDA tensors must go "
+          "through the synchronous functional collectives for CUDA alone")
     check(all(a["groups_alive"] == 0 and not a["backend_threads"]
-              for a in left),
+              and not a["registrations"] for a in left),
           "[dist-own] dist.shutdown() must end every group the job made, "
-          "with its backend's threads, after a caller's own objective")
+          "with its backend's threads and the registrations, after a "
+          "caller's own objective")
     own = ranks[0]["own"]
     for r in ranks[1:]:
         for label in own:

@@ -132,14 +132,127 @@ def _solve(case, meshes):
     return _result(res, mesh, case["d"])
 
 
+def _registry():
+    """The native functional collectives not yet waited for (PyTorch's
+    registry of them; -1 where this PyTorch has none)."""
+    size = getattr(torch._C._distributed_c10d, "_get_work_registry_size",
+                   None)
+    return size() if size else -1
+
+
+def _watch_mode():
+    """A dispatch mode that notes, at each functional collective that
+    DTensor issues on plain tensors, the port's registrations and the
+    unwaited native collectives just before it, and those just after it
+    (a native collective stays in the registry until waited for; the
+    synchronous ones never enter it)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from tpu_lbfgs_torch.dist import partitioned
+
+    class Watch(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            from torch.distributed.tensor import DTensor
+
+            if isinstance(func, torch._ops.HigherOrderOperator):
+                return func(*args, **(kwargs or {}))
+            if any(t is DTensor for t in types):
+                return NotImplemented       # DTensor desugars it first
+            collective = (func.namespace == "_c10d_functional"
+                          and func._opname.startswith(
+                              ("all_", "reduce_scatter")))
+            before = (sorted(partitioned._LIBS), _registry())
+            out = func(*args, **(kwargs or {}))
+            if collective:
+                self.seen.append(dict(op=func._opname,
+                                      registrations=before[0],
+                                      pending_before=before[1],
+                                      pending_after=_registry()))
+            return out
+
+    return Watch()
+
+
+#: The evaluations of a watched case that run under a ``_watch_mode``
+#: (a dispatch mode in Python slows every operation of an evaluation).
+WATCHED_EVALUATIONS = 4
+
+
+def _watched(sharded, watch):
+    """Wrap the partitioned callables that ``sharded`` builds, so that
+    each evaluation of the caller's objective leaves a record in
+    ``watch``: the unwaited native collectives after it, and for the first
+    ``WATCHED_EVALUATIONS`` its collectives under a ``_watch_mode``
+    (None after them); return a function that puts them back."""
+    saved = sharded.partitioned_value, sharded.partitioned_value_and_grad
+
+    def wrap(make):
+        def made(*args, **kwargs):
+            fn = make(*args, **kwargs)
+
+            def call(*xs):
+                if len(watch) >= WATCHED_EVALUATIONS:
+                    res, seen = fn(*xs), None
+                else:
+                    mode = _watch_mode()
+                    with mode:
+                        res = fn(*xs)
+                    seen = mode.seen
+                watch.append(dict(collectives=seen,
+                                  pending_after=_registry()))
+                return res
+            return call
+        return made
+
+    sharded.partitioned_value = wrap(saved[0])
+    sharded.partitioned_value_and_grad = wrap(saved[1])
+
+    def restore():
+        sharded.partitioned_value, sharded.partitioned_value_and_grad = saved
+    return restore
+
+
+ASYNC_GATHERS = 4
+
+
+def _async_redistribution(mesh, x_local):
+    """A caller's objective that asks DTensor for ``ASYNC_GATHERS``
+    asynchronous all-gathers of x (``redistribute(..., async_op=True)``)
+    before it reads any, evaluated once on the 1-D mesh: the native
+    collectives that are in flight once all are asked for, and its value
+    beside chained Rosenbrock's."""
+    from torch.distributed.tensor import Replicate
+
+    from tpu_lbfgs_torch.dist.partitioned import partitioned_value
+
+    seen = {}
+
+    def f(x):
+        whole = [x.redistribute(placements=[Replicate()], async_op=True)
+                 for _ in range(ASYNC_GATHERS)]
+        seen["in_flight"] = _registry()
+        return sum(torch_rosenbrock(w) for w in whole) / ASYNC_GATHERS
+
+    value = partitioned_value(f, mesh, RAGGED)(x_local)
+    want = partitioned_value(torch_rosenbrock, mesh, RAGGED)(x_local)
+    return dict(seen, value=float(value), want=float(want))
+
+
 def _rank(rank, size, cases):
-    """Every case with the caller's objective; the named problem's solve
-    beside the Rosenbrock cases; the collectives of one evaluation; one
-    case again through the functional collectives as registered for the
-    card (``_c10d_api_collectives``, here on CPU tensors); then the job's
-    shutdown and what it leaves alive."""
+    """Every case with the caller's objective, the evaluations of the
+    first case and of the bounded batch cases watched (``_watched``); the named problem's solve beside the Rosenbrock
+    cases; the collectives of one evaluation; one case again after
+    registering the synchronous functional collectives for CPU tensors a
+    second time (``_c10d_api_collectives``, which ``dist.partitioned``
+    did before the first evaluation); then the job's shutdown and what it
+    leaves alive."""
     from torch.distributed.tensor.debug import CommDebugMode
 
+    from tpu_lbfgs_torch.dist import partitioned, sharded
     from tpu_lbfgs_torch.dist.mesh import local_block, pad_for_mesh
     from tpu_lbfgs_torch.dist.partitioned import (
         _c10d_api_collectives,
@@ -147,7 +260,19 @@ def _rank(rank, size, cases):
     )
 
     meshes = {"1d": tdist.make_mesh(), "2d": tdist.make_mesh_2d(ROWS)}
-    out = {"cases": [_solve(c, meshes) for c in cases], "named": {}}
+    out = {"cases": [], "named": {}, "watched": {},
+           "registrations_at_start": sorted(partitioned._LIBS)}
+    for i, c in enumerate(cases):
+        if i == 0 or c["lockstep"] == "bounded":
+            watch = []
+            restore = _watched(sharded, watch)
+            try:
+                out["cases"].append(_solve(c, meshes))
+            finally:
+                restore()
+            out["watched"][c["name"]] = watch
+        else:
+            out["cases"].append(_solve(c, meshes))
     for c in cases:
         if c["objective"] == "rosenbrock" and not c["batch"] \
                 and not c["kw"]:
@@ -167,10 +292,12 @@ def _rank(rank, size, cases):
         counts[name] = {str(k).split(".")[-1]: n
                         for k, n in comm.get_comm_counts().items()}
     out["counts"] = counts
-    registry = getattr(torch._C._distributed_c10d,
-                       "_get_work_registry_size", None)
-    out["pending_at_registration"] = registry() if registry else None
+    out["async_redistribution"] = _async_redistribution(meshes["1d"],
+                                                        x_local)
+    out["pending_at_registration"] = _registry()
+    lib = partitioned._LIBS.get("CPU")
     _c10d_api_collectives("CPU")
+    out["registered_again"] = partitioned._LIBS.get("CPU") is lib
     out["c10d_api"] = _solve(BY_NAME["rosenbrock-261"], meshes)
     out["after_shutdown"] = _shutdown_and_look(meshes)
     return out
@@ -346,16 +473,62 @@ def test_collectives_of_one_evaluation(ranks):
 
 def test_no_collective_is_pending_when_the_api_collectives_register(ranks):
     """``_c10d_api_collectives`` makes ``wait_tensor`` the identity: a
-    native collective still in flight then would never be waited for.
-    None is (PyTorch's registry of unwaited collectives is empty)."""
+    native collective still in flight when it registers would never be
+    waited for.  ``dist.partitioned`` registers it before DTensor issues
+    its first collective, so none is (PyTorch's registry of unwaited
+    collectives is empty there), nor later, when the job registers it a
+    second time."""
     for out in ranks:
-        assert out["pending_at_registration"] in (None, 0), out[
+        first = out["watched"][NAMES[0]][0]["collectives"][0]
+        assert first["registrations"] == ["CPU"], first
+        assert first["pending_before"] in (-1, 0), first
+        assert out["pending_at_registration"] in (-1, 0), out[
             "pending_at_registration"]
 
 
+def test_the_cpu_collectives_are_registered_before_the_first_evaluation(
+        ranks):
+    """A caller's own objective on CPU tensors takes the card's route: no
+    registration before the port's first DTensor, and from the rank's
+    first evaluation on, at every functional collective of its first
+    case, the synchronous ones for CPU tensors in place, with nothing
+    left in the registry of native work after it."""
+    for out in ranks:
+        assert out["registrations_at_start"] == [], out[
+            "registrations_at_start"]
+        watch = out["watched"][NAMES[0]]
+        assert watch[0]["collectives"], watch[0]
+        for evaluation in watch:
+            for seen in evaluation["collectives"] or []:
+                assert seen["registrations"] == ["CPU"], seen
+                assert seen["pending_after"] in (-1, 0), seen
+            assert evaluation["pending_after"] in (-1, 0), evaluation
+
+
+@pytest.mark.parametrize(
+    "name", [n for n in NAMES if BY_NAME[n]["lockstep"] == "bounded"])
+def test_no_native_work_is_pending_in_a_bounded_batch(ranks, name):
+    """A bounded batch case (where a gloo worker of PyTorch's asynchronous
+    all-gather once found the heap corrupted) goes through the
+    synchronous collectives: each functional collective of its watched
+    evaluations leaves nothing in the registry of native work, and no
+    evaluation ends with a native collective pending."""
+    for out in ranks:
+        watch = out["watched"][name]
+        assert len(watch) > WATCHED_EVALUATIONS, name
+        seen = [c for w in watch for c in w["collectives"] or []]
+        assert seen, name
+        assert {c["op"] for c in seen} == {"all_gather_into_tensor"}, {
+            c["op"] for c in seen}
+        for c in seen:
+            assert c["registrations"] == ["CPU"], c
+            assert c["pending_after"] in (-1, 0), c
+        assert all(w["pending_after"] in (-1, 0) for w in watch), name
+
+
 def test_shutdown_lets_go_of_the_groups(ranks):
-    """After a caller's own objective (DTensor over the port's meshes) and
-    the functional collectives registered for the card, ``dist.shutdown``
+    """After a caller's own objective (DTensor over the port's meshes,
+    through the synchronous functional collectives), ``dist.shutdown``
     ends every group: none is still alive, no thread of the backend or of
     the store runs on into interpreter exit, and the functional
     collectives are PyTorch's own again."""
@@ -366,10 +539,25 @@ def test_shutdown_lets_go_of_the_groups(ranks):
         assert after["registrations"] == [], after
 
 
-def test_c10d_api_collectives_give_the_same_solve(ranks):
-    """The functional collectives as registered for CUDA tensors (gloo on
-    one card), here over CPU tensors: the same solve bit for bit."""
+def test_asynchronous_redistributions_run_one_at_a_time(ranks):
+    """A caller's objective may ask DTensor for several asynchronous
+    all-gathers before it reads any; through PyTorch's native functional
+    collectives they are then in flight on one gloo group at once, which
+    is where a gloo worker found the heap corrupted.  Through the
+    synchronous ones each has finished when the next is asked for: none
+    is in flight, and the value is chained Rosenbrock's."""
     for out in ranks:
+        got = out["async_redistribution"]
+        assert got["in_flight"] in (-1, 0), got
+        np.testing.assert_allclose(got["value"], got["want"], rtol=1e-15)
+
+
+def test_c10d_api_collectives_give_the_same_solve(ranks):
+    """Registering the synchronous functional collectives for CPU tensors
+    again, late in the job, keeps ``dist.partitioned``'s registration
+    (the same library) and gives the same solve bit for bit."""
+    for out in ranks:
+        assert out["registered_again"], out["registered_again"]
         want = out["cases"][NAMES.index("rosenbrock-261")]
         got = out["c10d_api"]
         np.testing.assert_array_equal(got["x"], want["x"])

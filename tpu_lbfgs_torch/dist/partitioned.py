@@ -25,12 +25,22 @@ all-gather of x, and of d for ``dir_poly``), and the rank keeps its block.
 The collectives of one evaluation are DTensor's, not ``comm.ShardComm``'s:
 ``CommDebugMode`` (``torch.distributed.tensor.debug``) counts them.
 
-gloo has CUDA tensors for ``all_reduce`` and ``all_gather_into_tensor``
-through the host, which is how several ranks share one card, but
-PyTorch's functional collectives, which DTensor calls, end the process on
-a CUDA tensor in a gloo group.  ``_c10d_api_collectives`` registers them
-for CUDA tensors as calls of the ``torch.distributed`` API, which every
-backend has; the results are the same values.
+DTensor calls PyTorch's functional collectives, whose native forms run
+asynchronously, and these fail on both of the port's devices.  gloo has
+CUDA tensors for ``all_reduce`` and ``all_gather_into_tensor`` through the
+host, which is how several ranks share one card, but the native forms end
+the process on a CUDA tensor in a gloo group.  On CPU tensors, with
+several in flight on one gloo group (an objective may ask DTensor for
+asynchronous redistributions), a gloo worker finds the heap corrupted and
+aborts the rank (``malloc(): unaligned tcache chunk detected``), and
+rarely so even one at a time, as DTensor's own redistributions run
+(``torch_records/gloo_inflight.py`` runs each route alone,
+``torch_records/spawn_steadiness.py --own`` the solves where a rank
+died).  So ``_device_mesh`` registers them, for the mesh's device
+type whatever it is, as synchronous calls of the ``torch.distributed``
+API, which every backend has (``_c10d_api_collectives``): the same values,
+the same solve bit for bit, and the same route on the CPU as on the card.
+The registration holds for the whole process until ``release``.
 """
 from __future__ import annotations
 
@@ -58,10 +68,11 @@ def _reduce(t: Tensor, op: str, group) -> Tensor:
     return t
 
 
-def _c10d_api_collectives(key: str = "CUDA") -> None:
+def _c10d_api_collectives(key: str) -> None:
     """Register the functional collectives DTensor uses for tensors of
-    dispatch key ``key`` as synchronous ``torch.distributed`` calls (see
-    the module docstring).  Once per process and key."""
+    dispatch key ``key`` ("CPU", "CUDA") as synchronous
+    ``torch.distributed`` calls (see the module docstring).  Once per
+    process and key."""
     if key in _LIBS:
         return
     from torch.distributed.distributed_c10d import _resolve_process_group
@@ -109,13 +120,13 @@ def _device_mesh(group, device_type: str):
     default one), built once per group and device type; built from the
     port's own group, so a gloo group stays gloo where
     ``init_device_mesh("cuda")`` would pick nccl, which refuses several
-    ranks on one card."""
+    ranks on one card.  The functional collectives of the device type are
+    the synchronous ones before DTensor first runs on it."""
     key = (group, device_type)
     if key not in _MESHES:
         from torch.distributed.device_mesh import DeviceMesh
 
-        if device_type == "cuda":
-            _c10d_api_collectives("CUDA")
+        _c10d_api_collectives(device_type.upper())
         _MESHES[key] = DeviceMesh.from_group(
             group if group is not None else dist.group.WORLD,
             device_type=device_type)
